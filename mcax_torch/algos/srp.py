@@ -1,0 +1,150 @@
+"""SRP-PHAT steered-power DOA over a candidate grid — counterpart of
+``mcax/algos/srp.py``.
+
+``SrpPlan`` and ``make_plan`` are the host-side (numpy) plan, identical to
+the reference's field for field.  ``DevicePlan`` holds the pieces the block
+step reads, moved to the pipeline's device once, so that no host-to-device
+copy interrupts a dispatch.  ``srp_surface`` is the fused SRP kernel
+(``kernels/srp_fused.py``): steering phases made on the fly, no CPS tensor.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from mcax_torch import geometry as geo
+from mcax_torch.kernels import cps as kcps
+from mcax_torch.kernels import srp_fused
+from mcax_torch.kernels import steer as ksteer
+
+
+@dataclasses.dataclass(frozen=True)
+class SrpPlan:
+    """Static plan: steering matrices + grid for a geometry/FFT size."""
+    n_fft: int
+    azimuths_rad: np.ndarray       # [G]
+    e_re: np.ndarray               # [P*F, G]
+    e_im: np.ndarray               # [P*F, G]
+    steer_re: np.ndarray           # [G, C, F] per-mic steering vector (cos)
+    steer_im: np.ndarray           # [G, C, F] (sin); v = e^{-j omega t_c}
+    # raw ingredients of the fused on-the-fly-steering kernel
+    tau_pg: np.ndarray = None      # [P, G] seconds
+    omega: np.ndarray = None       # [F] rad/s
+    band_mask: np.ndarray = None   # [F] float32 (None = all-pass)
+
+
+def band_bins(n_fft: int, sample_rate: float, band_hz) -> np.ndarray:
+    """Boolean bin mask [F] for a (lo, hi) Hz band; all-True when None."""
+    f = n_fft // 2 + 1
+    if band_hz is None:
+        return np.ones(f, bool)
+    freqs = sample_rate * np.arange(f) / n_fft
+    lo, hi = band_hz
+    return (freqs >= lo) & (freqs <= hi)
+
+
+def make_plan(geom: geo.ArrayGeometry, n_fft: int,
+              grid_points: int = 360, band_hz=None) -> SrpPlan:
+    az = geo.azimuth_grid(grid_points)
+    e_re, e_im = ksteer.steering_matrices(geom, az, n_fft)
+    f = n_fft // 2 + 1
+    band_mask = None
+    if band_hz is not None:
+        # zero steering rows outside the band: those bins add no power
+        mask = band_bins(n_fft, geom.sample_rate, band_hz)
+        p = geom.num_pairs
+        keep = np.tile(mask, p).astype(np.float32)[:, None]   # [P*F, 1]
+        e_re = e_re * keep
+        e_im = e_im * keep
+        band_mask = mask.astype(np.float32)
+    omega = 2.0 * np.pi * geom.sample_rate * np.arange(f) / n_fft
+    t = geom.mic_delays(az)                                # [G, C] seconds
+    phase = -omega[None, None, :] * t[:, :, None]          # [G, C, F]
+    return SrpPlan(n_fft=n_fft, azimuths_rad=az,
+                   e_re=e_re, e_im=e_im,
+                   steer_re=np.cos(phase).astype(np.float32),
+                   steer_im=np.sin(phase).astype(np.float32),
+                   tau_pg=np.ascontiguousarray(
+                       geom.pair_tdoas(az).T).astype(np.float32),
+                   omega=omega.astype(np.float32),
+                   band_mask=band_mask)
+
+
+@dataclasses.dataclass(frozen=True)
+class DevicePlan:
+    """The plan's tensors on one device (what the block step reads)."""
+    pairs: torch.Tensor            # [P, 2] int32
+    valid: torch.Tensor            # [P] int32, all ones on one card
+    tau_pg: torch.Tensor           # [P, G] float32
+    omega: torch.Tensor            # [F] float32
+    steer: torch.Tensor            # [G, C, F] complex64
+    azimuths_rad: torch.Tensor     # [G] float32
+    azimuth_step: float            # grid spacing, rounded to float32
+    band_mask: Optional[torch.Tensor] = None   # [F] float32
+
+
+def device_plan(plan: SrpPlan, pairs: np.ndarray,
+                device: torch.device) -> DevicePlan:
+    pairs = np.asarray(pairs, np.int32)
+    num_mics = plan.steer_re.shape[1]
+    if pairs.ndim != 2 or pairs.shape[1] != 2 or pairs.min() < 0 \
+            or pairs.max() >= num_mics:
+        raise ValueError(f"pairs must be [P, 2] channel indices < "
+                         f"{num_mics}")
+
+    def put(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(device, dtype)
+
+    return DevicePlan(
+        pairs=put(pairs, torch.int32),
+        valid=torch.ones(pairs.shape[0], dtype=torch.int32, device=device),
+        tau_pg=put(plan.tau_pg, torch.float32),
+        omega=put(plan.omega, torch.float32),
+        steer=torch.complex(put(plan.steer_re, torch.float32),
+                            put(plan.steer_im, torch.float32)),
+        azimuths_rad=put(plan.azimuths_rad.astype(np.float32),
+                         torch.float32),
+        azimuth_step=float(np.float32(plan.azimuths_rad[1]
+                                      - plan.azimuths_rad[0])),
+        band_mask=(None if plan.band_mask is None
+                   else put(plan.band_mask, torch.float32)))
+
+
+def srp_surface(spectra: torch.Tensor, plan: DevicePlan,
+                eps: float = kcps.DEFAULT_PHAT_EPS) -> torch.Tensor:
+    """Steered-power surface per frame: [C, M, F] -> [M, G]."""
+    if plan.band_mask is not None:
+        spectra = spectra * plan.band_mask                 # masked bins -> 0
+    return srp_fused.srp_power_fused(spectra, plan.pairs, plan.tau_pg,
+                                     plan.omega, eps, plan.valid)
+
+
+def argmax_doa(power: torch.Tensor, plan: DevicePlan,
+               interpolate: bool = False):
+    """(azimuth_rad, power_at_peak) from a power surface [..., G].
+
+    With ``interpolate`` a circular 3-point parabolic fit refines the DOA to
+    sub-grid resolution."""
+    g = power.shape[-1]
+    k = torch.argmax(power, dim=-1)
+    az = plan.azimuths_rad[k]
+    pk = torch.gather(power, -1, k[..., None])[..., 0]
+    if interpolate:
+        ym1 = torch.gather(power, -1, ((k - 1) % g)[..., None])[..., 0]
+        yp1 = torch.gather(power, -1, ((k + 1) % g)[..., None])[..., 0]
+        denom = ym1 - 2.0 * pk + yp1
+        delta = torch.where(denom.abs() > 1e-12, 0.5 * (ym1 - yp1) / denom,
+                            torch.zeros_like(denom))
+        delta = torch.clamp(delta, -0.5, 0.5)
+        az = az + delta * plan.azimuth_step
+    return az, pk
+
+
+def steering_vector(plan: DevicePlan, grid_idx: torch.Tensor) -> torch.Tensor:
+    """Gather the complex steering vector v = e^{-j omega t_c(theta_g)}:
+    grid_idx int [...] -> complex64 [..., C, F]."""
+    return plan.steer[grid_idx]

@@ -1,0 +1,61 @@
+"""Framing and short-time Fourier analysis — counterpart of
+``mcax/frames/stft.py``.
+
+A whole block of audio is framed into one batched tensor ``[..., T, L]`` and
+one fp32 matmul transforms every frame at once (``kernels/fft.py``).  The
+batched pipeline's analysis at frame = 2*hop does not go through here: the
+hand-written kernel of ``kernels/stft_fused.py`` reads the blocked input
+directly.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mcax_torch.kernels import fft as kfft
+
+
+def num_frames(block_len: int, frame_len: int, hop: int) -> int:
+    """Number of complete frames in a block (no padding; tail samples stay
+    in the streaming input carry)."""
+    if block_len < frame_len:
+        return 0
+    return (block_len - frame_len) // hop + 1
+
+
+def frame_signal(x: torch.Tensor, frame_len: int, hop: int) -> torch.Tensor:
+    """[..., N] -> [..., T, frame_len] frames.
+
+    When the hop divides the frame length (every shipped config), frames are
+    k = frame_len/hop contiguous hop-sized slabs concatenated on the last
+    axis; otherwise a strided view (``unfold``) is copied out."""
+    t = num_frames(x.shape[-1], frame_len, hop)
+    if frame_len % hop == 0 and t > 0:
+        k = frame_len // hop
+        nslab = x.shape[-1] // hop
+        slabs = x[..., : nslab * hop].reshape(*x.shape[:-1], nslab, hop)
+        return torch.cat([slabs[..., j:j + t, :] for j in range(k)], dim=-1)
+    return x.unfold(-1, frame_len, hop).contiguous()
+
+
+def stft(x: torch.Tensor, w2: torch.Tensor, hop: int) -> torch.Tensor:
+    """Windowed short-time spectra of a block.
+
+    Args:
+      x: real samples [..., N] float32.
+      w2: interleaved windowed DFT matrix [L, >= 2F]
+        (``kernels.fft.analysis_matrix``).
+      hop: frame advance.
+    Returns:
+      complex64 spectra [..., T, F], F = L//2 + 1.
+    """
+    return kfft.rfft(frame_signal(x, w2.shape[0], hop), w2)
+
+
+def istft_frames(spectra: torch.Tensor, a2: torch.Tensor) -> torch.Tensor:
+    """Inverse transform + synthesis windowing; OLA is a separate stage.
+
+    [..., T, F] complex64 -> [..., T, L] float32 with the synthesis window
+    folded into ``a2`` (``kernels.fft.synthesis_matrix``).  Overlap-add
+    (``mcax_torch.frames.ola``) completes resynthesis."""
+    return kfft.irfft(spectra, a2)

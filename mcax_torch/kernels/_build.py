@@ -1,0 +1,131 @@
+"""Build and bind the port's CUDA kernels (``mcax_torch/csrc/*.cu``).
+
+At first use, ONE ``nvcc`` call compiles every source for ``sm_90a`` into a
+shared library with a plain C interface under ``build/mcax_torch/<hash>/``
+(the hash covers the sources and the flags, so an edited kernel rebuilds and
+an unchanged one loads at once).  The library is bound with ``ctypes``:
+including PyTorch's headers would cost minutes of build time, a plain C
+interface costs seconds.
+
+Each C entry point launches its kernel on the stream it is given (PyTorch's
+current stream), allocates nothing, does not synchronise, and returns
+``cudaGetLastError()``; ``check_launch`` raises if that is not 0.  A failed
+build raises with nvcc's output.  Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Sequence
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = ("stft_fused.cu", "srp_fused.cu", "covprefix.cu", "mvdrsolve.cu")
+HEADERS = ("common.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-lineinfo")
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "mcax_torch"
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C entry points: name -> argtypes (all return int = cudaError_t)
+SIGNATURES = {
+    # samples, carry, w2, out, B, C, L, hop, F, ldw, stream
+    "mcax_stft_from_blocks": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # spec, pairs, valid, tau, omega, out, C, M, F, P, G, eps, stream
+    "mcax_srp_power_fused": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                             _P),
+    # spec, cov0 (or NULL), out, C, B, T, F, lam, decay, stream
+    "mcax_cov_prefixes": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
+    # rows, steer, w, B, S, C, F, delta, stream
+    "mcax_mvdr_solve_rows": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
+}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cands = ([str(Path(home) / "bin" / "nvcc")] if home else []) + [
+        shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and Path(c).is_file():
+            return c
+    raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, $PATH and "
+                       "/usr/local/cuda/bin): the CUDA kernels cannot be "
+                       "built")
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these sources exists."""
+    out_dir = BUILD_ROOT / source_hash()
+    lib = out_dir / "libmcax_torch_kernels.so"
+    if lib.is_file():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *[str(CSRC / s) for s in SOURCES]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    (out_dir / "nvcc.log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib)             # atomic: a reader never sees half a file
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call in the process)."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """PyTorch's current stream on the tensor's card, as a C pointer."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
+                 shape: Sequence[int]) -> None:
+    """Raise unless ``t`` has the dtype and shape a kernel takes and is
+    contiguous with a 16-byte-aligned base (the kernels' vector loads)."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {list(shape)}, got "
+                         f"{list(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: base pointer must be 16-byte aligned")
+
+
+def check_launch(kernel: str, code: int) -> None:
+    if code != 0:
+        raise RuntimeError(f"CUDA kernel {kernel} failed to launch: "
+                           f"cudaError_t {code}")

@@ -1,0 +1,108 @@
+"""Fused framing + windowing + forward DFT from the blocked input.
+
+Counterpart of ``mcax/kernels/stft_fused.py``'s ``stft_fused_from_blocks``.
+For frame = 2*hop, frame m of channel c is [slab m-1 | slab m] of the
+contiguous stream, slab -1 being the streaming carry, so the spectra follow
+from the batched input [B, C, L] without building the frame tensor.
+
+  * ``stft_fused_from_blocks`` — the wrapper: on CUDA tensors it launches
+    the hand-written kernel (``csrc/stft_fused.cu``), on CPU tensors it runs
+    the plain version.
+  * ``stft_fused_from_blocks_plain`` — the same function in plain PyTorch:
+    concatenate, cut into frames, one fp32 matmul with the same matrix.
+
+The port returns complex64 spectra [C, B*T, F] where ``mcax`` returns two
+float planes: the kernel writes (re, im) interleaved, which is complex64's
+own layout, and the SRP and covariance kernels read it as such.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from mcax_torch.kernels import _build
+from mcax_torch.kernels import dispatch
+from mcax_torch.kernels import fft as kfft
+
+# The kernel's tiles (csrc/stft_fused.cu): its W2 operand is padded to a
+# whole number of BN-column tiles, and K slices of BK samples never straddle
+# the two slabs of a frame.
+BN = 128
+BK = 16
+
+
+def analysis_matrix(n: int, window, device: torch.device) -> torch.Tensor:
+    """The windowed DFT operand W2 [n, ldw] the kernel (and plain) read."""
+    return kfft.analysis_matrix(n, window, device, col_align=BN)
+
+
+def _shape(samples: torch.Tensor, carry: torch.Tensor, w2: torch.Tensor,
+           hop: int):
+    if samples.ndim != 3:
+        raise ValueError(f"samples must be [B, C, L], got "
+                         f"{list(samples.shape)}")
+    b, c, block_len = samples.shape
+    if block_len % hop:
+        raise ValueError(f"block_len {block_len} is not a multiple of the "
+                         f"hop {hop}")
+    f = hop + 1
+    if tuple(carry.shape) != (c, hop):
+        raise ValueError(f"carry must be [{c}, {hop}], got "
+                         f"{list(carry.shape)}")
+    if w2.shape[0] != 2 * hop or w2.shape[1] < 2 * f:
+        raise ValueError(f"w2 must be [{2 * hop}, >= {2 * f}], got "
+                         f"{list(w2.shape)}")
+    return b, c, block_len, f
+
+
+def stft_fused_from_blocks_plain(samples: torch.Tensor, carry: torch.Tensor,
+                                 w2: torch.Tensor, hop: int) -> torch.Tensor:
+    """Plain PyTorch version: spectra complex64 [C, B*T, F]."""
+    b, c, block_len, _ = _shape(samples, carry, w2, hop)
+    flat = samples.permute(1, 0, 2).reshape(c, b * block_len)
+    x = torch.cat([carry, flat], dim=-1)                   # [C, hop + B*L]
+    slabs = x.view(c, -1, hop)                             # [C, B*T + 1, hop]
+    frames = torch.cat([slabs[:, :-1], slabs[:, 1:]], dim=-1)
+    return kfft.rfft(frames, w2)
+
+
+def stft_fused_from_blocks(samples: torch.Tensor, carry: torch.Tensor,
+                           w2: torch.Tensor, hop: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Spectra of B consecutive blocks straight from the batched layout.
+
+    Args:
+      samples: [B, C, L] float32, L % hop == 0.
+      carry: [C, hop] float32, the previous dispatch's last hop.
+      w2: [2*hop, ldw] float32 windowed DFT operand (``analysis_matrix``).
+      hop: frame advance; the frame is 2*hop.
+    Returns:
+      (spectra complex64 [C, B*L/hop, F], new_carry [C, hop]).
+    """
+    b, c, block_len, f = _shape(samples, carry, w2, hop)
+    # the new carry is the last block's last hop: a copy, bit-equal, that
+    # does not alias the caller's input buffer
+    new_carry = samples[-1, :, block_len - hop:].clone()
+    if not dispatch.use_kernel(samples, carry, w2):
+        return stft_fused_from_blocks_plain(samples, carry, w2, hop), new_carry
+    if hop % BK:
+        raise ValueError(f"the STFT kernel needs hop % {BK} == 0, got {hop}")
+    if w2.shape[1] % BN:
+        raise ValueError(f"w2's row length must be a multiple of {BN} "
+                         "(use stft_fused.analysis_matrix)")
+    _build.check_tensor("samples", samples, torch.float32, samples.shape)
+    _build.check_tensor("carry", carry, torch.float32, carry.shape)
+    _build.check_tensor("w2", w2, torch.float32, w2.shape)
+    m = b * (block_len // hop)
+    out = torch.empty((c, m, f), dtype=torch.complex64, device=samples.device)
+    code = _build.library().mcax_stft_from_blocks(
+        samples.data_ptr(), carry.data_ptr(), w2.data_ptr(), out.data_ptr(),
+        b, c, block_len, hop, f, w2.shape[1], _build.stream_of(samples))
+    _build.check_launch("stft_from_blocks", code)
+    stft_fused_from_blocks.LAUNCHES += 1
+    return out, new_carry
+
+
+stft_fused_from_blocks.LAUNCHES = 0

@@ -1,0 +1,23 @@
+"""Streaming pipeline state — counterpart of ``mcax/state.py``.
+
+All streaming state is one explicit object threaded through
+``process_blocks``, with the reference's field names and layouts, so a state
+converts 1:1 between the two packages (``mcax_torch.convert``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+
+@dataclasses.dataclass
+class PipelineState:
+    carry: torch.Tensor                      # [C, frame_len - hop] input carry
+    block_idx: torch.Tensor                  # scalar int32
+    ola_tail: Optional[torch.Tensor] = None  # [(S,) frame_len - hop] OLA carry
+    cov: Optional[torch.Tensor] = None       # [F, C, C, 2] float32 re/im planes
+    tracks: None = None                      # config5's tracker: not ported yet
+    particles: None = None                   # config5's particle smoother: same

@@ -1,0 +1,118 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+These tests need an NVIDIA GPU and nvcc; without a card they skip (the
+decision is made inside the fixture, never at import).  On a card:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
+
+(``--noconftest``: the suite's conftest imports JAX for the reference,
+which a machine with only the port need not have.)
+
+They cover the ragged edges the main path's shapes do not: frame rows and
+grid points that are not tile multiples, odd bin counts, other channel
+counts for the covariance prefixes, several sources, a zero seed
+covariance."""
+
+import numpy as np
+import pytest
+import torch
+
+from mcax_torch import geometry as t_geo
+from mcax_torch.algos import srp as t_srp
+from mcax_torch.frames import window as t_window
+from mcax_torch.kernels import covprefix, mvdrsolve, srp_fused, stft_fused
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the port's kernels are CUDA C++, "
+                    "which has no CPU mode)")
+    return torch.device("cuda")
+
+
+def _rng_complex(rng, shape, dev):
+    z = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+    return torch.from_numpy(z.astype(np.complex64)).to(dev)
+
+
+@pytest.mark.parametrize("b,c,hop,tprime", [
+    (3, 2, 512, 24),     # config4's frame, 144 rows: a ragged row tile
+    (5, 3, 256, 7),      # odd frames per block; frames straddle row tiles
+    (1, 1, 16, 3),       # the smallest hop the kernel takes
+])
+def test_stft_from_blocks(dev, b, c, hop, tprime):
+    rng = np.random.default_rng(0)
+    samples = torch.from_numpy(rng.standard_normal(
+        (b, c, tprime * hop)).astype(np.float32)).to(dev)
+    carry = torch.from_numpy(rng.standard_normal(
+        (c, hop)).astype(np.float32)).to(dev)
+    w2 = stft_fused.analysis_matrix(2 * hop, t_window.sqrt_hann(2 * hop), dev)
+    before = stft_fused.stft_fused_from_blocks.LAUNCHES
+    got, new_carry = stft_fused.stft_fused_from_blocks(samples, carry, w2, hop)
+    assert stft_fused.stft_fused_from_blocks.LAUNCHES == before + 1
+    want = stft_fused.stft_fused_from_blocks_plain(samples, carry, w2, hop)
+    scale = torch.view_as_real(want).abs().max()
+    torch.testing.assert_close(torch.view_as_real(got) / scale,
+                               torch.view_as_real(want) / scale,
+                               atol=3e-6, rtol=0)
+    assert torch.equal(new_carry, samples[-1, :, -hop:])
+
+
+@pytest.mark.parametrize("c,f,g_pts,m,invalid", [
+    (8, 513, 360, 200, ()),      # config4's bins and grid, ragged frames
+    (4, 129, 100, 37, (1, 4)),   # small grid; two pad pairs
+    (16, 257, 360, 129, ()),     # config5's channel count
+])
+def test_srp_fused(dev, c, f, g_pts, m, invalid):
+    geom = t_geo.ArrayGeometry(positions=t_geo.circular_positions(c, 0.05),
+                               sample_rate=48000)
+    plan = t_srp.device_plan(t_srp.make_plan(geom, (f - 1) * 2, g_pts),
+                             geom.pairs, dev)
+    spec = _rng_complex(np.random.default_rng(1), (c, m, f), dev)
+    valid = plan.valid.clone()
+    valid[list(invalid)] = 0
+    args = (spec, plan.pairs, plan.tau_pg, plan.omega, 1e-12, valid)
+    got = srp_fused.srp_power_fused(*args)
+    want = srp_fused.srp_power_fused_plain(*args)
+    scale = want.abs().max()
+    torch.testing.assert_close(got / scale, want / scale, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("c,b,t,f,seeded", [
+    (8, 5, 24, 513, True),
+    (16, 3, 16, 257, False),
+    (3, 4, 7, 33, True),
+])
+def test_cov_prefixes(dev, c, b, t, f, seeded):
+    rng = np.random.default_rng(2)
+    spec = _rng_complex(rng, (c, b * t, f), dev)
+    cov0 = None
+    if seeded:
+        a = _rng_complex(rng, (f, c, c), dev)
+        cov0 = (a + a.conj().transpose(-1, -2)).contiguous()
+    got = covprefix.block_prefixes_rows(spec, cov0, 0.9, t)
+    want = covprefix.block_prefixes_rows_plain(spec, cov0, 0.9, t)
+    torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("b,f,c,s", [(3, 513, 8, 0), (2, 257, 8, 2),
+                                     (4, 65, 8, 3), (2, 31, 8, 0)])
+def test_mvdr_solve(dev, b, f, c, s):
+    rng = np.random.default_rng(3)
+    x = _rng_complex(rng, (b, f, c, 3 * c), dev)
+    covs = x @ x.conj().transpose(-1, -2) / (3 * c)
+    rows = covprefix.complex_to_rows(covs).contiguous()
+    shape = (b, s, c, f) if s else (b, c, f)
+    steer = torch.polar(torch.ones(shape, device=dev),
+                        torch.from_numpy(rng.uniform(-np.pi, np.pi, shape)
+                                         .astype(np.float32)).to(dev))
+    got = mvdrsolve.weights_blocks_fused_rows(rows, steer, 0.01)
+    want = mvdrsolve.weights_blocks_fused_rows_plain(rows, steer, 0.01)
+    # the kernel performs the plain version's IEEE operations in its order
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-5)
+    resp = (got.conj() * steer).sum(dim=-2)
+    torch.testing.assert_close(resp, torch.ones_like(resp), atol=1e-3,
+                               rtol=0)

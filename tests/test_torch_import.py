@@ -1,0 +1,91 @@
+"""The port stands alone: no JAX, nothing of mcax, no MCAX_* knob, and its
+entry points run on the card unless the caller asks for the CPU."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+_FORBIDDEN_IMPORT = re.compile(
+    r"^\s*(?:import|from)\s+(jax|jaxlib|mcax)(?:[.\s,]|$)", re.M)
+_MCAX_KNOB = re.compile(
+    r"""(?:environ(?:\.get)?\s*[\[(]|getenv\s*\()\s*["']MCAX_""")
+
+
+def test_import_loads_no_jax_and_no_mcax():
+    """Importing every module of the port loads neither JAX nor mcax, and
+    builds no kernel (the build happens at the first launch)."""
+    code = ("import sys, mcax_torch, mcax_torch.pipeline, mcax_torch.convert\n"
+            "from mcax_torch.kernels import (_build, covprefix, mvdrsolve,\n"
+            "                                srp_fused, stft_fused)\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'mcax'))\n"
+            "built = _build.library.cache_info().currsize\n"
+            "print(bad, built)\n"
+            "sys.exit(1 if bad or built else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _port_sources():
+    files = sorted((ROOT / "mcax_torch").rglob("*.py"))
+    assert len(files) >= 15, files
+    return files + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_imports_nothing_of_jax_or_mcax(path):
+    text = path.read_text()
+    assert not _FORBIDDEN_IMPORT.findall(text), path
+    assert "import_module(" not in text, path
+    # the port reads no MCAX_* knob (tests set MCAX_BACKEND=xla for the
+    # reference, and it must not reach the port)
+    assert not _MCAX_KNOB.findall(text), path
+
+
+def test_pipeline_raises_without_a_card(monkeypatch):
+    from mcax_torch.config import get_config
+    from mcax_torch.pipeline import Pipeline
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Pipeline(get_config("config4"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Pipeline(get_config("config4"), device="cuda")
+    assert Pipeline(get_config("config4"), device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("name", ["config1", "config2", "config3", "config5"])
+def test_unported_algos_raise(name):
+    from mcax_torch.config import get_config
+    from mcax_torch.pipeline import Pipeline
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        Pipeline(get_config(name), device="cpu")
+
+
+def test_dispatch_rule():
+    from mcax_torch.kernels import dispatch
+    cpu = torch.zeros(2)
+    assert dispatch.use_kernel(cpu, cpu) is False
+    with pytest.raises(ValueError):
+        dispatch.use_kernel(torch.empty(2, device="meta"))
+    with pytest.raises(ValueError):
+        dispatch.resolve_device("meta")
+
+
+def test_every_kernel_has_a_counter_and_its_sources():
+    from mcax_torch.kernels import (_build, covprefix, mvdrsolve, srp_fused,
+                                    stft_fused)
+    for fn in (stft_fused.stft_fused_from_blocks, srp_fused.srp_power_fused,
+               covprefix.block_prefixes_rows,
+               mvdrsolve.weights_blocks_fused_rows):
+        assert isinstance(fn.LAUNCHES, int)
+    for name in _build.SOURCES + _build.HEADERS:
+        assert (_build.CSRC / name).is_file(), name
