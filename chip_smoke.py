@@ -11,21 +11,41 @@ on the first that fails:
   1. print the card's name and power limit (``nvidia-smi``);
   2. build the port's CUDA kernels from ``mcax_torch/csrc`` with ``nvcc``
      (into ``build/``) and print the build seconds;
-  3. hold each kernel against its plain PyTorch version on the card, on the
-     inputs the config4 main path gives it at B = 512 blocks per dispatch,
+  3. hold each of the seven kernels against its plain PyTorch version on the
+     card, on the inputs its path gives it (kernels 1-4: config4
+     ``process_blocks`` at B = 512; the STFT of a contiguous signal and the
+     MVDR solve from complex covariances: config4 ``process_streams`` at
+     S = 64; the PHAT cross-power: config1 ``process_blocks`` at B = 512),
      to the parity bounds below, and time kernel, plain version and (where
      one PyTorch call computes the same function) that library call with
      CUDA events;
-  4. drive the main path — ``Pipeline(get_config("config4")).process_blocks``
-     at B = 512 for a few dispatches with the state carried, on a synthetic
-     plane wave from a seeded numpy generator — with every kernel's launch
-     count set to 0 just before and read just after: each kernel must have
-     launched once per dispatch, every block's DOA must lie within 2 degrees
-     of the source and every output must be finite; print samples/s, then
-     (outside the counted run) one dispatch's device time by kernel from
-     ``torch.profiler``;
-  5. run the port on the card and on the CPU (the plain versions) on a small
-     input and hold them to the slice's parity bounds.
+  4. drive every ported path through the user's entry points, with every
+     kernel's launch count set to 0 just before each path and read just
+     after, on synthetic plane waves from seeded numpy generators:
+       a. config4 ``process_blocks`` at B = 512 (the main path), a few
+          dispatches with the state carried: each of its kernels once per
+          dispatch, every block's DOA within 2 degrees, finite outputs,
+          samples/s; then one dispatch's device time by kernel from
+          ``torch.profiler``;
+       b. config4 ``process_block`` over 64 consecutive blocks (the latency
+          path): CUDA-event and host wall latency per block, one launch of
+          each of its kernels per block, every block's DOA within 2 degrees,
+          and the 64 blocks against ``process_blocks`` on the same blocks;
+          then ``run`` once over the same signal, from the host;
+       c. config4 ``process_streams`` at S = 64 streams at distinct
+          azimuths: one launch of each kernel per call, each stream's DOA
+          within 2 degrees of its source, streams 0, 31 and 63 equal to
+          ``process_block`` on that stream alone, samples/s;
+       d. config1 ``process_blocks`` at B = 512: its two kernels once per
+          dispatch, the median TDOA within 0.25 samples of the true delay,
+          ``process_block`` on 4 blocks equal to ``process_blocks``,
+          samples/s;
+       e. config3 ``process_blocks`` at B = 512: its two kernels once per
+          dispatch, every block's median DOA within 2 degrees, samples/s;
+  5. run each path on the card and on the CPU (the plain versions) on a
+     small input and hold them to the slice's parity bounds (config4
+     ``process_blocks`` on the main path's first 4 blocks, the other paths
+     on plane waves of their own).
 
 The last lines are the card's name and power limit, one JSON object with
 every kernel's numbers, and ``{"ok": true, "device": {...}}``.  With no CUDA
@@ -45,11 +65,14 @@ from pathlib import Path
 import numpy as np
 
 CONFIG = "config4"
-BLOCKS = 512            # blocks per dispatch on the main path (bench.py's)
-DISPATCHES = 6          # main-path dispatches: 1 warm-up + 5 timed
+BLOCKS = 512            # blocks per dispatch on the batched paths (bench.py's)
+DISPATCHES = 6          # batched dispatches per path: 1 warm-up + 5 timed
 SOURCE_DEG = 40.0       # synthetic source azimuth
 SEED = 0
 REPS = 10               # timed repetitions per kernel measurement
+LATENCY_BLOCKS = 64     # config4 process_block path
+STREAMS = 64            # config4 process_streams path
+STREAM_CALLS = 4        # process_streams calls: 1 warm-up + 3 timed
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, full power limit):
 # fp32 on the CUDA cores and memory bandwidth.
@@ -87,29 +110,61 @@ def bound_ms(flops: float, nbytes: float, peaks) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def plane_wave(geom, azimuth_rad: float, n: int, seed: int, device):
-    """[C, n] float32: far-field band-limited noise source at the azimuth,
-    fractional per-mic delays applied exactly in the frequency domain, plus
-    sensor noise 40 dB down; numbers from a seeded numpy generator."""
+def plane_waves(geom, azimuths_deg, n: int, seed: int, device):
+    """[K, C, n] float32: K far-field band-limited noise sources, one per
+    azimuth, fractional per-mic delays applied exactly in the frequency
+    domain, plus sensor noise 40 dB down; numbers from a seeded numpy
+    generator."""
     import torch
     rng = np.random.default_rng(seed)
-    src = torch.from_numpy(rng.standard_normal(n)).to(device)
-    spec = torch.fft.rfft(src)
-    spec[int(spec.shape[0] * 0.9):] = 0.0
+    k = len(azimuths_deg)
+    src = torch.from_numpy(rng.standard_normal((k, n))).to(device)
+    spec = torch.fft.rfft(src)                             # [K, n/2+1]
+    spec[:, int(spec.shape[-1] * 0.9):] = 0.0
     delays = torch.from_numpy(
-        geom.mic_delays(np.asarray([azimuth_rad]))[0] * geom.sample_rate
-    ).to(device)
-    k = torch.arange(spec.shape[0], dtype=torch.float64, device=device)
-    ramp = torch.exp(-2j * np.pi * k[None, :] * delays[:, None] / n)
-    x = torch.fft.irfft(spec[None, :] * ramp, n=n)
-    x = x / x.std()
+        geom.mic_delays(np.deg2rad(np.asarray(azimuths_deg, np.float64)))
+        * geom.sample_rate).to(device)                     # [K, C]
+    f = torch.arange(spec.shape[-1], dtype=torch.float64, device=device)
+    ramp = torch.exp(-2j * np.pi * f * delays[..., None] / n)
+    x = torch.fft.irfft(spec[:, None, :] * ramp, n=n)     # [K, C, n]
+    x = x / x.std(dim=(1, 2), keepdim=True)
     noise = torch.from_numpy(rng.standard_normal(x.shape, dtype=np.float32))
     return (x.float() + 0.01 * noise.to(device)).contiguous()
 
 
+def plane_wave(geom, azimuth_deg: float, n: int, seed: int, device):
+    """[C, n] float32: one source (``plane_waves`` with K = 1)."""
+    return plane_waves(geom, [azimuth_deg], n, seed, device)[0]
+
+
+def to_blocks(x, block_len: int):
+    """[C, D*L] -> [D, C, L] contiguous blocks."""
+    c = x.shape[0]
+    return x.reshape(c, -1, block_len).permute(1, 0, 2).contiguous()
+
+
+def doa_error_deg(doa_rad, source_deg):
+    """|circular difference| in degrees, numpy."""
+    import torch
+    d = torch.rad2deg(doa_rad).cpu().numpy()
+    return np.abs((d - np.asarray(source_deg) + 180.0) % 360.0 - 180.0)
+
+
+def stft_bounds(rows: int, n: int, f: int, in_floats: int, peaks):
+    """(function bound, design bound) of an STFT of ``rows`` frames of n
+    samples: the function's byte floor (or a real FFT's 2.5 N log2 N + N
+    operations per frame, if larger), and the DFT-as-GEMM operations this
+    design does."""
+    out_bytes = 8.0 * rows * f
+    return (bound_ms(rows * (2.5 * n * np.log2(n) + n),
+                     4.0 * (in_floats + n) + out_bytes, peaks),
+            bound_ms(4.0 * rows * n * f,
+                     4.0 * (in_floats + n * 2 * f) + out_bytes, peaks))
+
+
 def check_kernels(pipe, carry0, blocks, peaks):
-    """Phase 3: every kernel against its plain version, on the inputs the
-    main path gives it.  Returns {name: record}."""
+    """Phase 3, kernels 1-4: against their plain versions on the inputs
+    the config4 main path gives them.  Returns {name: record}."""
     import torch
     from mcax_torch.kernels import covprefix, mvdrsolve, srp_fused, stft_fused
     from mcax_torch.algos import srp
@@ -125,9 +180,6 @@ def check_kernels(pipe, carry0, blocks, peaks):
     recs = {}
 
     # -- kernel 1: STFT from blocks ----------------------------------------
-    # The function's bound is its byte floor (or a real FFT's operations,
-    # 2.5 N log2 N + N per frame, if those were larger); the DFT-as-GEMM
-    # operations this design does are reported beside it as its own bound.
     spec, new_carry = stft_fused.stft_fused_from_blocks(blocks, carry0,
                                                         pipe._w2, hop)
     want = stft_fused.stft_fused_from_blocks_plain(blocks, carry0, pipe._w2,
@@ -145,6 +197,8 @@ def check_kernels(pipe, carry0, blocks, peaks):
     lib_ms = time_ms(lambda: torch.stft(
         stream, n_fft=n, hop_length=hop, window=win, center=False,
         return_complex=True))
+    bound, design = stft_bounds(c * m, n, f, blocks.numel() + carry0.numel(),
+                                peaks)
     recs["stft_from_blocks"] = dict(
         route="cuda", source="mcax_torch/csrc/stft_fused.cu",
         replaces="mcax/kernels/stft_fused.py:222", max_abs_err=err,
@@ -153,13 +207,7 @@ def check_kernels(pipe, carry0, blocks, peaks):
             blocks, carry0, pipe._w2, hop)),
         plain_ms=time_ms(lambda: stft_fused.stft_fused_from_blocks_plain(
             blocks, carry0, pipe._w2, hop)),
-        library_ms=lib_ms,
-        bound=bound_ms(c * m * (2.5 * n * np.log2(n) + n),
-                       4.0 * (blocks.numel() + carry0.numel() + n)
-                       + 8.0 * c * m * f, peaks),
-        design_bound=bound_ms(4.0 * c * m * n * f,
-                              4.0 * (blocks.numel() + carry0.numel()
-                                     + n * 2 * f) + 8.0 * c * m * f, peaks))
+        library_ms=lib_ms, bound=bound, design_bound=design)
 
     # -- kernel 2: fused SRP -------------------------------------------------
     eps = cfg.algo.phat_eps
@@ -210,7 +258,7 @@ def check_kernels(pipe, carry0, blocks, peaks):
                        8.0 * c * m * f + 8.0 * f * c * c + 4.0 * rows.numel(),
                        peaks))
 
-    # -- kernel 4: MVDR solve ------------------------------------------------
+    # -- kernel 4: MVDR solve from rows --------------------------------------
     # The solve reads the lower triangle only: C(C+1)/2 real and C(C-1)/2
     # imaginary rows (C^2 in all) of the 2C^2 per (block, bin).
     gidx = torch.argmax(power.view(b, t, -1).mean(dim=1), dim=-1)
@@ -219,74 +267,324 @@ def check_kernels(pipe, carry0, blocks, peaks):
     w = mvdrsolve.weights_blocks_fused_rows(rows, steer, delta)
     want = mvdrsolve.weights_blocks_fused_rows_plain(rows, steer, delta)
     torch.cuda.synchronize()
-    err = (w - want).abs().max().item()
-    if not torch.allclose(w, want, atol=2e-4, rtol=2e-3):
-        raise AssertionError(f"mvdr_solve_rows: error {err:.3e} beyond "
-                             "atol 2e-4, rtol 2e-3")
-    resp = (torch.conj(w) * steer).sum(dim=-2)
-    dist = (resp - 1).abs().max().item()
-    if not dist <= 1e-3:
-        raise AssertionError(f"mvdr_solve_rows: |w^H d - 1| = {dist:.3e} > "
-                             "1e-3")
+    check_mvdr("mvdr_solve_rows", w, want, steer)
     recs["mvdr_solve_rows"] = dict(
         route="cuda", source="mcax_torch/csrc/mvdrsolve.cu",
-        replaces="mcax/kernels/mvdrsolve.py:150", max_abs_err=err,
+        replaces="mcax/kernels/mvdrsolve.py:150",
+        max_abs_err=(w - want).abs().max().item(),
         ms=time_ms(lambda: mvdrsolve.weights_blocks_fused_rows(
             rows, steer, delta)),
         plain_ms=time_ms(lambda: mvdrsolve.weights_blocks_fused_rows_plain(
             rows, steer, delta), reps=3),
         library_ms=None,
-        bound=bound_ms(b * f * (4.0 * c ** 3 + 16.0 * c * c),
-                       4.0 * b * c * c * f + 16.0 * steer.numel(), peaks))
+        bound=mvdr_bound(b, f, c, steer.numel(), peaks))
     return recs
 
 
-def drive_main_path(pipe, stream_blocks, counters):
-    """Phase 4: the main path through the user's entry points, with every
-    kernel's launch count read around it.  Returns (launches, ms per timed
-    dispatch, ms of the whole timed window, outputs and DOAs of every
-    dispatch, the last state)."""
+def check_mvdr(name, w, want, steer):
     import torch
-    state = pipe.init_state()
-    n_disp = stream_blocks.shape[0] // BLOCKS
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(n_disp + 1)]
-    doas, outs = [], []
+    err = (w - want).abs().max().item()
+    if not torch.allclose(w, want, atol=2e-4, rtol=2e-3):
+        raise AssertionError(f"{name}: error {err:.3e} beyond atol 2e-4, "
+                             "rtol 2e-3")
+    dist = ((torch.conj(w) * steer).sum(dim=-2) - 1).abs().max().item()
+    if not dist <= 1e-3:
+        raise AssertionError(f"{name}: |w^H d - 1| = {dist:.3e} > 1e-3")
+
+
+def mvdr_bound(b, f, c, steer_elems, peaks):
+    """The solve's bound: C^2 floats of each (block, bin)'s covariance (the
+    lower triangle, diagonal real), the steering read and the weights
+    written once, against its Cholesky and substitution operations."""
+    return bound_ms(b * f * (4.0 * c ** 3 + 16.0 * c * c),
+                    4.0 * b * c * c * f + 16.0 * steer_elems, peaks)
+
+
+def check_new_kernels(pipe4, x_streams, pipe1, blocks1, peaks):
+    """Phase 3, kernels 5, 6 and 9: against their plain versions on the
+    inputs their paths give them.  Returns {name: record}."""
+    import torch
+    from mcax_torch.algos import covariance as cov_mod
+    from mcax_torch.algos import srp
+    from mcax_torch.kernels import cps, mvdrsolve, stft_fused
+    recs = {}
+
+    # -- kernel 5: STFT of contiguous signals, config4 process_streams -----
+    # The streaming step's analysis input: [C, S, hop + L], each stream's
+    # carry (its previous block's last hop) then its block.
+    cfg = pipe4.cfg
+    hop, n, f = cfg.stft.hop, cfg.stft.frame_len, cfg.stft.num_bins
+    bl = cfg.block_len
+    x = torch.cat([x_streams[:, :, bl - hop:bl], x_streams[:, :, bl:2 * bl]],
+                  dim=-1).transpose(0, 1).contiguous()     # [C, S, N]
+    c, s_, nn = x.shape
+    spec = stft_fused.stft_fused_planes(x, pipe4._w2, hop)
+    want = stft_fused.stft_fused_planes_plain(x, pipe4._w2, hop)
+    torch.cuda.synchronize()
+    scale = torch.view_as_real(want).abs().max().item()
+    err = torch.view_as_real(spec - want).abs().max().item()
+    if not err / scale <= 3e-6:
+        raise AssertionError(f"stft_planes: scaled error {err / scale:.3e} "
+                             "> 3e-6")
+    win = torch.from_numpy(pipe4.win_a).to(x.device)
+    x2 = x.view(-1, nn)
+    t = spec.shape[-2]
+    bound, design = stft_bounds(c * s_ * t, n, f, x.numel(), peaks)
+    recs["stft_planes"] = dict(
+        route="cuda", source="mcax_torch/csrc/stft_fused.cu",
+        replaces="mcax/kernels/stft_fused.py:154", max_abs_err=err,
+        scaled_err=err / scale,
+        ms=time_ms(lambda: stft_fused.stft_fused_planes(x, pipe4._w2, hop)),
+        plain_ms=time_ms(lambda: stft_fused.stft_fused_planes_plain(
+            x, pipe4._w2, hop)),
+        library_ms=time_ms(lambda: torch.stft(
+            x2, n_fft=n, hop_length=hop, window=win, center=False,
+            return_complex=True)),
+        bound=bound, design_bound=design)
+
+    # -- kernel 6: MVDR solve from complex covariances, S = 64 streams -----
+    spectra = spec.transpose(0, 1)                         # [S, C, T, F]
+    power = pipe4._srp_power(spec).view(s_, t, -1)
+    steer = srp.steering_vector(pipe4.plan,
+                                torch.argmax(power.mean(dim=1), dim=-1))
+    cov0 = cov_mod.from_planes(pipe4.init_states(s_).cov)
+    covs = cov_mod.update(cov0, spectra, cfg.algo.cov_forget).contiguous()
+    delta = cfg.algo.diag_load
+    w = mvdrsolve.weights_blocks_fused(covs, steer, delta)
+    want = mvdrsolve.weights_blocks_fused_plain(covs, steer, delta)
+    torch.cuda.synchronize()
+    check_mvdr("mvdr_solve_complex", w, want, steer)
+    loaded = cov_mod.loaded(covs, delta)
+    d = steer.transpose(-1, -2)[..., None]                 # [S, F, C, 1]
+    recs["mvdr_solve_complex"] = dict(
+        route="cuda", source="mcax_torch/csrc/mvdrsolve.cu",
+        replaces="mcax/kernels/mvdrsolve.py:202",
+        max_abs_err=(w - want).abs().max().item(),
+        ms=time_ms(lambda: mvdrsolve.weights_blocks_fused(covs, steer,
+                                                          delta)),
+        plain_ms=time_ms(lambda: mvdrsolve.weights_blocks_fused_plain(
+            covs, steer, delta), reps=3),
+        # the solve alone, R^{-1} d of the loaded systems (no loading, no
+        # normalisation): torch.linalg.solve (cuSOLVER/MAGMA batched LU)
+        library_ms=time_ms(lambda: torch.linalg.solve(loaded, d)),
+        library_call="torch.linalg.solve of the loaded systems (solve alone)",
+        bound=mvdr_bound(s_, f, c, steer.numel(), peaks))
+
+    # -- kernel 9: PHAT cross-power, config1 B = 512 -----------------------
+    hop1 = pipe1.cfg.stft.hop
+    spec1, _ = stft_fused.stft_fused_from_blocks(
+        blocks1, torch.zeros((blocks1.shape[1], hop1), device=blocks1.device),
+        pipe1._w2, hop1)
+    pi, pj = pipe1.gplan.pairs[:, 0], pipe1.gplan.pairs[:, 1]
+    xi = torch.index_select(spec1, -3, pi)                 # [P, B*T, F]
+    xj = torch.index_select(spec1, -3, pj)
+    eps = pipe1.cfg.algo.phat_eps
+    g = cps.cps_phat_pairs(xi, xj, eps)
+    want = cps.cps_phat_pairs_plain(xi, xj, eps)
+    torch.cuda.synchronize()
+    err = (g - want).abs().max().item()
+    if not err <= 2e-6:
+        raise AssertionError(f"cps_phat: error {err:.3e} > 2e-6")
+    unit = (g.abs() - 1).abs().max().item()
+    if not unit <= 1e-4:
+        raise AssertionError(f"cps_phat: ||g| - 1| = {unit:.3e} > 1e-4")
+    ne = xi.numel()
+    recs["cps_phat"] = dict(
+        route="cuda", source="mcax_torch/csrc/cps.cu",
+        replaces="mcax/kernels/cps.py:61", max_abs_err=err,
+        ms=time_ms(lambda: cps.cps_phat_pairs(xi, xj, eps)),
+        plain_ms=time_ms(lambda: cps.cps_phat_pairs_plain(xi, xj, eps)),
+        library_ms=None,
+        # per element: 6 products, 3 sums, sqrt, + eps, divide, 2 products
+        bound=bound_ms(14.0 * ne, 24.0 * ne, peaks))
+    return recs
+
+
+def reset(counters):
     for fn in counters:
         fn.LAUNCHES = 0
+
+
+def read(counters):
+    return {fn.__name__: fn.LAUNCHES for fn in counters}
+
+
+def expect_launches(path, launches, want):
+    """Each kernel of ``want`` launched exactly its count, every other
+    kernel never."""
+    bad = {k: v for k, v in launches.items() if v != want.get(k, 0)}
+    if bad:
+        raise AssertionError(f"{path}: launches {launches}, expected "
+                             f"{want} (others 0)")
+
+
+def check_every_kernel_launched(kernels):
+    for k in kernels:
+        if not k["launches"]:
+            raise AssertionError(f"kernel {k['name']} never launched on its "
+                                 "path")
+
+
+def check_finite(path, outs, state):
+    import torch
+    for o in outs:
+        for k, v in o.items():
+            if not torch.isfinite(v).all():
+                raise AssertionError(f"{path}: output {k} is not finite")
+    for k in ("carry", "ola_tail", "cov"):
+        v = getattr(state, k)
+        if v is not None and not torch.isfinite(v).all():
+            raise AssertionError(f"{path}: state {k} is not finite")
+
+
+def drive_batched(pipe, blocks, counters):
+    """A batched path: DISPATCHES chained ``process_blocks`` calls of
+    BLOCKS blocks, counted.  Returns (launches, ms per timed dispatch, ms
+    of the whole timed window, outputs, state)."""
+    import torch
+    state = pipe.init_state()
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(DISPATCHES + 1)]
+    outs = []
+    reset(counters)
     events[0].record()
-    for d in range(n_disp):
+    for d in range(DISPATCHES):
         state, out = pipe.process_blocks(
-            state, stream_blocks[d * BLOCKS:(d + 1) * BLOCKS])
+            state, blocks[d * BLOCKS:(d + 1) * BLOCKS])
         events[d + 1].record()
-        doas.append(out["doa"])
         outs.append(out)
     torch.cuda.synchronize()
-    launches = {fn.__name__: fn.LAUNCHES for fn in counters}
-    ms = [events[d].elapsed_time(events[d + 1]) for d in range(1, n_disp)]
-    window_ms = events[1].elapsed_time(events[-1])
-    return launches, ms, window_ms, outs, doas, state
+    launches = read(counters)
+    ms = [events[d].elapsed_time(events[d + 1])
+          for d in range(1, DISPATCHES)]
+    return launches, ms, events[1].elapsed_time(events[-1]), outs, state
 
 
-def profile_dispatch(pipe, blocks):
-    """One main-path dispatch under torch.profiler: device milliseconds by
-    kernel name, largest first (empty if the profiler saw no device)."""
+def rate_line(name, ms, window_ms, per_disp):
+    rates = [per_disp / (t * 1e-3) for t in ms]
+    return (f"{name}, {len(ms)} timed dispatches: samples/s "
+            f"{per_disp * len(ms) / (window_ms * 1e-3):.6g} over the whole "
+            f"timed window of {window_ms:.3f} ms; per dispatch ms "
+            f"{[round(t, 3) for t in ms]}, samples/s median "
+            f"{statistics.median(rates):.6g} (min {min(rates):.6g}, max "
+            f"{max(rates):.6g})")
+
+
+def profile(fn):
+    """``fn()`` once under torch.profiler (after one call outside it):
+    (device milliseconds by kernel name largest first, device kernel
+    count); empty if the profiler saw no device."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    state = pipe.init_state()
-    pipe.process_blocks(state, blocks)
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        pipe.process_blocks(state, blocks)
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        fn()
         torch.cuda.synchronize()
-    by_name = {}
+    by_name, count = {}, 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
+            count += 1
             name = (e.name.removeprefix("void ")
                     .replace("(anonymous namespace)::", "")[:60])
             by_name[name] = (by_name.get(name, 0.0)
                              + e.time_range.elapsed_us() / 1e3)
-    return sorted(by_name.items(), key=lambda kv: -kv[1])
+    return sorted(by_name.items(), key=lambda kv: -kv[1]), count
+
+
+def print_profile(what, prof, ref_ms):
+    by_name, count = prof
+    if not by_name:
+        print(f"profile of {what}: not measured (the profiler recorded no "
+              "device activity)")
+        return
+    total = sum(ms_ for _, ms_ in by_name)
+    print(f"profile of {what}: {count} device kernels, device busy "
+          f"{total:.3f} ms = {100 * total / ref_ms:.1f} % of the median "
+          "timed call; by kernel: " + "; ".join(
+              f"{name} {ms_:.3f} ms" for name, ms_ in by_name[:10]))
+
+
+def compare_outs(what, got, want, atol, exact=()):
+    """Outputs of one call: ``exact`` keys equal, the rest within ``atol``
+    (absolute and relative; a number, or a dict by key)."""
+    import torch
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: outputs {sorted(got)} vs "
+                             f"{sorted(want)}")
+    for k in got:
+        a, b = got[k].cpu(), want[k].cpu()
+        if a.shape != b.shape:
+            raise AssertionError(f"{what}: {k} shape {list(a.shape)} vs "
+                                 f"{list(b.shape)}")
+        if k in exact:
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: {k} differs")
+            continue
+        tol = atol[k] if isinstance(atol, dict) else atol
+        if not torch.allclose(a, b, atol=tol, rtol=tol):
+            raise AssertionError(f"{what}: {k} beyond {tol:g} (max abs "
+                                 f"err {(a - b).abs().max().item():.3e})")
+
+
+def compare_states(what, got, want, cov_scaled=False):
+    """Carry and block index equal, OLA tail within 5e-4, covariance within
+    1e-4 element-wise or, with ``cov_scaled``, within 1e-6 of its largest
+    entry: fp32 rounding of the 24 per-block outer products is ~2e-7 of the
+    matrix's scale (against float64), so two fp32 orders (the card's
+    complex GEMM, the CPU's einsum) can carry the small off-diagonal
+    entries past an element-wise 1e-4."""
+    import torch
+    if not torch.equal(got.carry.cpu(), want.carry.cpu()):
+        raise AssertionError(f"{what}: carry is not bit-equal")
+    if not torch.equal(got.block_idx.cpu(), want.block_idx.cpu()):
+        raise AssertionError(f"{what}: block_idx differs")
+    for k, tol in (("cov", 1e-4), ("ola_tail", 5e-4)):
+        a, b = getattr(got, k), getattr(want, k)
+        if (a is None) != (b is None):
+            raise AssertionError(f"{what}: state {k} present in one only")
+        if a is None:
+            continue
+        a, b = a.cpu(), b.cpu()
+        err = (a - b).abs().max().item()
+        if k == "cov" and cov_scaled:
+            scale = b.abs().max().item()
+            if not err <= 1e-6 * scale:
+                raise AssertionError(f"{what}: state cov error {err:.3e} "
+                                     f"beyond 1e-6 of its scale {scale:.3e}")
+        elif not torch.allclose(a, b, atol=tol, rtol=tol):
+            raise AssertionError(f"{what}: state {k} beyond {tol:g} (max "
+                                 f"abs err {err:.3e})")
+
+
+def latency_path(pipe, blocks, counters):
+    """Phase 4b: config4 process_block over consecutive blocks [N, C, L]
+    with the state carried, each block synchronised.  Returns (launches,
+    CUDA-event ms per block, host wall ms per block, outputs, state)."""
+    import torch
+    st = pipe.init_state()
+    pipe.process_block(st, blocks[0])                      # warm-up
+    torch.cuda.synchronize()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in blocks]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in blocks]
+    wall, outs = [], []
+    reset(counters)
+    for i in range(blocks.shape[0]):
+        t0 = time.perf_counter()
+        starts[i].record()
+        st, out = pipe.process_block(st, blocks[i])
+        ends[i].record()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        outs.append(out)
+    launches = read(counters)
+    ev = [s.elapsed_time(e) for s, e in zip(starts, ends)]
+    return launches, ev, wall, outs, st
+
+
+def pct(v, q):
+    return float(np.percentile(np.asarray(v), q))
 
 
 def small_reference(cfg, x_small):
@@ -324,6 +622,57 @@ def small_reference(cfg, x_small):
                for d in range(2))
 
 
+def small_new_paths(x_small):
+    """Phase 5, the streaming paths and the GCC and SRP chains: each on the
+    card against the same calls on the CPU (the kernels' plain versions):
+    ``process_block`` over 2 blocks and ``process_streams`` of 2 streams
+    over 2 blocks for config4, config1 and config3, and config1's and
+    config3's ``process_blocks`` over two carried dispatches of 2 blocks.
+    ``x_small`` maps a config name to [2, C, 4*L] host inputs (two streams
+    of four blocks)."""
+    import torch
+    from mcax_torch.config import get_config
+    from mcax_torch.pipeline import Pipeline
+    report = {}
+    for name, x in x_small.items():
+        cfg = get_config(name)
+        bl = cfg.block_len
+        res = {}
+        for dev in ("cuda", "cpu"):
+            pipe = Pipeline(cfg, device=dev)
+            on = pipe.device
+            outs, states = [], []
+            if name != "config4":      # small_reference checks config4's
+                st = pipe.init_state()
+                for d in range(2):
+                    st, o = pipe.process_blocks(
+                        st, to_blocks(x[0, :, 2 * d * bl:2 * (d + 1) * bl],
+                                      bl).to(on))
+                    outs.append(o)
+                states.append(("process_blocks", st))
+            st1 = pipe.init_state()
+            sts = pipe.init_states(2)
+            for b in range(2):
+                st1, o = pipe.process_block(st1,
+                                            x[0, :, b * bl:(b + 1) * bl].to(on))
+                outs.append(o)
+                sts, o = pipe.process_streams(
+                    sts, x[:, :, b * bl:(b + 1) * bl].to(on))
+                outs.append(o)
+            states += [("process_block", st1), ("process_streams", sts)]
+            res[dev] = ([{k: v.cpu() for k, v in o.items()} for o in outs],
+                        states)
+        (g_outs, g_st), (c_outs, c_st) = res["cuda"], res["cpu"]
+        exact = ("doa", "doa_frame") if name != "config1" else ()
+        for i, (a, b) in enumerate(zip(g_outs, c_outs)):
+            compare_outs(f"small {name} call {i}", a, b, 5e-4, exact)
+        for (mode, a), (_, b) in zip(g_st, c_st):
+            compare_states(f"small {name} {mode}", a, b, cov_scaled=True)
+        report[name] = max((a[k] - b[k]).abs().max().item()
+                           for a, b in zip(g_outs, c_outs) for k in a)
+    return report
+
+
 def main() -> int:
     try:
         import torch
@@ -341,8 +690,8 @@ def main() -> int:
     sys.path.insert(0, str(repo))
 
     from mcax_torch.config import get_config
-    from mcax_torch.kernels import _build, covprefix, mvdrsolve, srp_fused
-    from mcax_torch.kernels import stft_fused
+    from mcax_torch.kernels import (_build, covprefix, cps, mvdrsolve,
+                                    srp_fused, stft_fused)
     from mcax_torch.pipeline import Pipeline
 
     # -- phase 1: the card ---------------------------------------------------
@@ -358,91 +707,281 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"(build/mcax_torch/{_build.source_hash()})")
 
-    # -- input: a plane wave, continuous over every dispatch ---------------
+    # -- inputs: plane waves, continuous over every dispatch ---------------
     cfg = get_config(CONFIG)
     pipe = Pipeline(cfg)
     dev = pipe.device
     hop, block_len, c = cfg.stft.hop, cfg.block_len, pipe.geom.num_mics
     n = DISPATCHES * BLOCKS * block_len
-    x = plane_wave(pipe.geom, np.deg2rad(SOURCE_DEG), hop + n, SEED, dev)
+    x = plane_wave(pipe.geom, SOURCE_DEG, hop + n, SEED, dev)
     carry0 = x[:, :hop].contiguous()
-    stream_blocks = (x[:, hop:].reshape(c, DISPATCHES * BLOCKS, block_len)
-                     .permute(1, 0, 2).contiguous())       # [D*B, C, L]
+    stream_blocks = to_blocks(x[:, hop:], block_len)       # [D*B, C, L]
     del x
+    stream_az = [-177.0 + 5.625 * i for i in range(STREAMS)]
+    x_streams = plane_waves(pipe.geom, stream_az, STREAM_CALLS * block_len,
+                            SEED + 1, dev)                 # [S, C, calls*L]
+    cfg1 = get_config("config1")
+    pipe1 = Pipeline(cfg1)
+    x1 = plane_wave(pipe1.geom, SOURCE_DEG, DISPATCHES * BLOCKS
+                    * cfg1.block_len, SEED + 2, dev)
+    blocks1 = to_blocks(x1, cfg1.block_len)
+    del x1
+    cfg3 = get_config("config3")
+    pipe3 = Pipeline(cfg3)
+    src3 = 20.0
+    blocks3 = to_blocks(plane_wave(pipe3.geom, src3, DISPATCHES * BLOCKS
+                                   * cfg3.block_len, SEED + 3, dev),
+                        cfg3.block_len)
 
     # -- phase 3: kernels against their plain versions ---------------------
     recs = check_kernels(pipe, carry0, stream_blocks[:BLOCKS], PEAKS)
+    recs.update(check_new_kernels(pipe, x_streams, pipe1,
+                                  blocks1[:BLOCKS], PEAKS))
     for name, r in recs.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.3f}"
         print(f"kernel {name}: max_abs_err {r['max_abs_err']:.3e}"
               + (f" (scaled {r['scaled_err']:.3e})" if "scaled_err" in r
                  else "")
               + f", kernel_ms {r['ms']:.3f}, plain_ms {r['plain_ms']:.3f}, "
-              f"library_ms {lib}, bound_ms {r['bound'][0]:.3f} "
-              f"({r['bound'][1]})"
+              f"library_ms {lib}"
+              + (f" ({r['library_call']})" if "library_call" in r else "")
+              + f", bound_ms {r['bound'][0]:.4f} ({r['bound'][1]})"
               + (f", design_bound_ms {r['design_bound'][0]:.3f} "
                  f"({r['design_bound'][1]})" if "design_bound" in r else ""))
     print("kernels checked: " + ", ".join(recs))
 
-    # -- phase 4: the main path, counted -----------------------------------
     counters = (stft_fused.stft_fused_from_blocks, srp_fused.srp_power_fused,
                 covprefix.block_prefixes_rows,
-                mvdrsolve.weights_blocks_fused_rows)
+                mvdrsolve.weights_blocks_fused_rows,
+                stft_fused.stft_fused_planes, mvdrsolve.weights_blocks_fused,
+                cps.cps_phat_pairs)
+    kernel_of = dict(zip(recs, (fn.__name__ for fn in counters)))
+    by_path = {}
+
+    # -- phase 4a: config4 process_blocks, the main path -------------------
     torch.cuda.reset_peak_memory_stats()
-    launches, ms, window_ms, outs, doas, state = drive_main_path(
+    launches, ms, window_ms, outs, state = drive_batched(
         pipe, stream_blocks, counters)
-    print(f"main path launches over {DISPATCHES} dispatches: {launches}")
-    if any(v != DISPATCHES for v in launches.values()):
-        raise AssertionError(f"a kernel did not launch once per dispatch: "
-                             f"{launches}")
-    doa = torch.rad2deg(torch.cat(doas)).cpu().numpy()
-    off = np.abs((doa - SOURCE_DEG + 180.0) % 360.0 - 180.0)
+    by_path["config4 process_blocks"] = launches
+    print(f"config4 process_blocks launches over {DISPATCHES} dispatches: "
+          f"{launches}")
+    expect_launches("config4 process_blocks", launches, {
+        k: DISPATCHES for k in ("stft_fused_from_blocks", "srp_power_fused",
+                                "block_prefixes_rows",
+                                "weights_blocks_fused_rows")})
+    off = doa_error_deg(torch.cat([o["doa"] for o in outs]), SOURCE_DEG)
     if not np.all(off <= 2.0):
         raise AssertionError(f"block DOA off the source by up to "
                              f"{off.max():.2f} deg")
-    for o in outs:
-        for k, v in o.items():
-            if not torch.isfinite(v).all():
-                raise AssertionError(f"output {k} is not finite")
-    for k in ("carry", "ola_tail", "cov"):
-        if not torch.isfinite(getattr(state, k)).all():
-            raise AssertionError(f"state {k} is not finite")
-    per_disp = BLOCKS * block_len
-    rates = [per_disp / (t * 1e-3) for t in ms]
-    print(f"main path: {CONFIG} process_blocks, B = {BLOCKS}, "
-          f"{len(ms)} timed dispatches: samples/s "
-          f"{per_disp * len(ms) / (window_ms * 1e-3):.6g} over the whole "
-          f"timed window of {window_ms:.3f} ms; per dispatch ms "
-          f"{[round(t, 3) for t in ms]}, samples/s median "
-          f"{statistics.median(rates):.6g} (min {min(rates):.6g}, max "
-          f"{max(rates):.6g}); block DOA max error {off.max():.2f} deg; "
-          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check_finite("config4 process_blocks", outs, state)
+    print(rate_line(f"main path: {CONFIG} process_blocks, B = {BLOCKS}", ms,
+                    window_ms, BLOCKS * block_len)
+          + f"; block DOA max error {off.max():.2f} deg; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del outs
+    print_profile("one config4 process_blocks dispatch (B = 512)",
+                  profile(lambda: pipe.process_blocks(
+                      pipe.init_state(), stream_blocks[:BLOCKS])),
+                  statistics.median(ms))
 
-    # -- where one dispatch's device time goes (outside the counted run) ---
-    prof = profile_dispatch(pipe, stream_blocks[:BLOCKS])
-    if prof:
-        total = sum(ms_ for _, ms_ in prof)
-        print(f"profile of one dispatch: device busy {total:.3f} ms = "
-              f"{100 * total / statistics.median(ms):.1f} % of the median "
-              "timed dispatch; by kernel: " + "; ".join(
-                  f"{name} {ms_:.3f} ms" for name, ms_ in prof[:10]))
-    else:
-        print("profile of one dispatch: not measured (the profiler "
-              "recorded no device activity)")
+    # -- phase 4b: config4 process_block, the latency path -----------------
+    lat_blocks = stream_blocks[:LATENCY_BLOCKS]
+    launches, ev, wall, outs, st_loop = latency_path(pipe, lat_blocks,
+                                                     counters)
+    by_path["config4 process_block"] = launches
+    expect_launches("config4 process_block", launches, {
+        k: LATENCY_BLOCKS for k in ("stft_fused_planes", "srp_power_fused",
+                                    "weights_blocks_fused")})
+    off = doa_error_deg(torch.stack([o["doa"] for o in outs]), SOURCE_DEG)
+    if not np.all(off <= 2.0):
+        raise AssertionError(f"process_block DOA off the source by up to "
+                             f"{off.max():.2f} deg")
+    check_finite("config4 process_block", outs, st_loop)
+    st_b, out_b = pipe.process_blocks(pipe.init_state(), lat_blocks)
+    stacked = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+    compare_outs("process_block vs process_blocks", stacked, out_b, 5e-4,
+                 exact=("doa",))
+    compare_states("process_block vs process_blocks", st_loop, st_b)
+    print(f"config4 process_block, {LATENCY_BLOCKS} blocks with the state "
+          f"carried: launches {launches}; latency per block (CUDA events) "
+          f"ms median {statistics.median(ev):.4f}, p90 {pct(ev, 90):.4f}, "
+          f"max {max(ev):.4f}; host wall per block after synchronize ms "
+          f"median {statistics.median(wall):.4f}, p90 {pct(wall, 90):.4f}, "
+          f"max {max(wall):.4f}; samples/s at the median event latency "
+          f"{block_len / (statistics.median(ev) * 1e-3):.6g}; block DOA max "
+          f"error {off.max():.2f} deg; equal to process_blocks on the same "
+          "blocks (audio 5e-4, doa equal, carry bit-equal, cov 1e-4)")
+    print_profile("one config4 process_block",
+                  profile(lambda: pipe.process_block(pipe.init_state(),
+                                                     lat_blocks[0])),
+                  statistics.median(ev))
+    host_x = lat_blocks.permute(1, 0, 2).reshape(c, -1).cpu().numpy()
+    reset(counters)
+    t0 = time.perf_counter()
+    st_run, out_run = pipe.run(host_x)
+    run_s = time.perf_counter() - t0
+    by_path["config4 run"] = read(counters)
+    expect_launches("config4 run", by_path["config4 run"], {
+        k: LATENCY_BLOCKS for k in ("stft_fused_planes", "srp_power_fused",
+                                    "weights_blocks_fused")})
+    compare_outs("run vs process_block",
+                 {k: torch.from_numpy(v) for k, v in out_run.items()},
+                 stacked, 1e-6, exact=("doa", "doa_frame"))
+    compare_states("run vs process_block", st_run, st_loop)
+    print(f"config4 run over {LATENCY_BLOCKS} blocks from host numpy: "
+          f"{run_s:.3f} s wall ({host_x.shape[1] / run_s:.6g} samples/s), "
+          "equal to the process_block loop")
+    del outs, stacked, out_b
 
-    # -- phase 5: the card against the CPU on a small input ----------------
+    # -- phase 4c: config4 process_streams, S = 64 -------------------------
+    states = pipe.init_states(STREAMS)
+    states, _ = pipe.process_streams(states, x_streams[:, :, :block_len])
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(STREAM_CALLS)]
+    outs = []
+    reset(counters)
+    events[0].record()
+    for k in range(1, STREAM_CALLS):
+        states, o = pipe.process_streams(
+            states, x_streams[:, :, k * block_len:(k + 1) * block_len])
+        events[k].record()
+        outs.append(o)
+    torch.cuda.synchronize()
+    launches = read(counters)
+    by_path["config4 process_streams"] = launches
+    calls = STREAM_CALLS - 1
+    expect_launches("config4 process_streams", launches, {
+        k: calls for k in ("stft_fused_planes", "srp_power_fused",
+                           "weights_blocks_fused")})
+    sms = [events[k].elapsed_time(events[k + 1]) for k in range(calls)]
+    off = np.stack([doa_error_deg(o["doa"], stream_az) for o in outs])
+    if not np.all(off <= 2.0):
+        raise AssertionError(f"process_streams DOA off its stream's source "
+                             f"by up to {off.max():.2f} deg")
+    check_finite("config4 process_streams", outs, states)
+    for i in (0, STREAMS // 2 - 1, STREAMS - 1):
+        st1 = pipe.init_state()
+        for k in range(STREAM_CALLS):
+            st1, o1 = pipe.process_block(
+                st1, x_streams[i, :, k * block_len:(k + 1) * block_len])
+        compare_outs(f"stream {i} vs process_block",
+                     {k: v[i] for k, v in outs[-1].items()}, o1, 5e-4,
+                     exact=("doa",))
+        compare_states(f"stream {i} vs process_block",
+                       type(st1)(**{k: None if getattr(states, k) is None
+                                    else getattr(states, k)[i]
+                                    for k in ("carry", "block_idx",
+                                              "ola_tail", "cov")}), st1)
+    print(f"config4 process_streams, S = {STREAMS} streams at distinct "
+          f"azimuths, {calls} timed calls: launches {launches}; ms per call "
+          f"{[round(t, 3) for t in sms]}; samples/s (all streams) "
+          f"{STREAMS * block_len * calls / (sum(sms) * 1e-3):.6g}; stream "
+          f"DOA max error {off.max():.2f} deg; streams 0, 31, 63 equal to "
+          "process_block alone")
+    print_profile(f"one config4 process_streams call (S = {STREAMS})",
+                  profile(lambda: pipe.process_streams(
+                      pipe.init_states(STREAMS), x_streams[:, :, :block_len])),
+                  statistics.median(sms))
+    del outs, states
+
+    # -- phase 4d: config1 process_blocks, B = 512 -------------------------
+    launches, ms1, win1, outs, st1 = drive_batched(pipe1, blocks1, counters)
+    by_path["config1 process_blocks"] = launches
+    expect_launches("config1 process_blocks", launches, {
+        "stft_fused_from_blocks": DISPATCHES, "cps_phat_pairs": DISPATCHES})
+    true_s = float(pipe1.geom.pair_tdoas(np.deg2rad([SOURCE_DEG]))[0, 0])
+    fs1 = cfg1.sample_rate
+    med = [float(torch.median(o["tdoa"])) for o in outs]
+    tdoa_err = max(abs(m_ - true_s) * fs1 for m_ in med)
+    if not tdoa_err <= 0.25:
+        raise AssertionError(f"config1 median TDOA off the true delay by "
+                             f"{tdoa_err:.3f} samples (> 0.25)")
+    check_finite("config1 process_blocks", outs, st1)
+    st_a, o_a = pipe1.process_blocks(pipe1.init_state(), blocks1[:4])
+    reset(counters)
+    st_b, o_b = pipe1.init_state(), []
+    for i in range(4):
+        st_b, o = pipe1.process_block(st_b, blocks1[i])
+        o_b.append(o)
+    by_path["config1 process_block"] = read(counters)
+    expect_launches("config1 process_block", by_path["config1 process_block"],
+                    {"stft_fused_planes": 4, "cps_phat_pairs": 4})
+    # TDOA to the reference's own 1e-6; the DOA's arccos amplifies a TDOA
+    # difference ~5000-fold at this baseline, and the peak is a sum of 257
+    # products whose order may differ with the matmul's row count
+    compare_outs("config1 process_block vs process_blocks",
+                 {k: torch.stack([o[k] for o in o_b]) for k in o_b[0]}, o_a,
+                 {"tdoa": 1e-6, "doa": 1e-4, "peak": 1e-5})
+    compare_states("config1 process_block vs process_blocks", st_b, st_a)
+    print(rate_line(f"config1 process_blocks, B = {BLOCKS}", ms1, win1,
+                    BLOCKS * cfg1.block_len)
+          + f"; launches {launches}; median TDOA off the true "
+          f"{true_s * 1e6:.3f} us by at most {tdoa_err:.4f} samples; "
+          "process_block on 4 blocks equal to process_blocks (TDOA 1e-6)")
+    print_profile("one config1 process_blocks dispatch (B = 512)",
+                  profile(lambda: pipe1.process_blocks(
+                      pipe1.init_state(), blocks1[:BLOCKS])),
+                  statistics.median(ms1))
+    del outs
+
+    # -- phase 4e: config3 process_blocks, B = 512 -------------------------
+    launches, ms3, win3, outs, st3 = drive_batched(pipe3, blocks3, counters)
+    by_path["config3 process_blocks"] = launches
+    expect_launches("config3 process_blocks", launches, {
+        "stft_fused_from_blocks": DISPATCHES,
+        "srp_power_fused": DISPATCHES})
+    doa3 = torch.cat([o["doa"] for o in outs])             # [D*B, T]
+    frame_off = doa_error_deg(doa3, src3)
+    block_off = doa_error_deg(torch.median(doa3, dim=-1).values, src3)
+    if not np.all(block_off <= 2.0):
+        raise AssertionError(f"config3 block DOA off the source by up to "
+                             f"{block_off.max():.2f} deg")
+    check_finite("config3 process_blocks", outs, st3)
+    print(rate_line(f"config3 process_blocks, B = {BLOCKS}", ms3, win3,
+                    BLOCKS * cfg3.block_len)
+          + f"; launches {launches}; block median DOA max error "
+          f"{block_off.max():.2f} deg; frames within 2 deg "
+          f"{100 * np.mean(frame_off <= 2.0):.2f} %")
+    print_profile("one config3 process_blocks dispatch (B = 512)",
+                  profile(lambda: pipe3.process_blocks(
+                      pipe3.init_state(), blocks3[:BLOCKS])),
+                  statistics.median(ms3))
+    del outs
+
+    # -- phase 5: the card against the CPU on small inputs -----------------
+    x_small = {
+        "config4": plane_waves(pipe.geom, [SOURCE_DEG, -100.0],
+                               4 * block_len, SEED + 4, "cpu"),
+        "config1": plane_waves(pipe1.geom, [SOURCE_DEG, 75.0],
+                               4 * cfg1.block_len, SEED + 5, "cpu"),
+        "config3": plane_waves(pipe3.geom, [src3, -60.0],
+                               4 * cfg3.block_len, SEED + 6, "cpu"),
+    }
     err = small_reference(cfg, stream_blocks[:4].cpu())
     print(f"small input (2 dispatches x 2 blocks): cuda vs cpu audio max "
           f"abs err {err:.3e}; doa, doa_frame, carry, block_idx equal")
+    errs = small_new_paths(x_small)
+    print("small inputs (process_block and process_streams S = 2 over 2 "
+          "blocks; config1/3 process_blocks 2 x 2 blocks): cuda vs cpu max "
+          "abs err " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + "; doa, carry, block_idx equal")
 
-    kernels = [dict(name=name, route=r["route"], source=r["source"],
-                    replaces=r["replaces"], launches=launches[fn.__name__],
-                    max_abs_err=r["max_abs_err"], ms=r["ms"],
-                    plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
-                    bound_by=r["bound"][1], library_ms=r["library_ms"],
-                    **({"design_bound_ms": r["design_bound"][0]}
-                       if "design_bound" in r else {}))
-               for (name, r), fn in zip(recs.items(), counters)]
+    kernels = []
+    for name, r in recs.items():
+        per_path = {p: l[kernel_of[name]] for p, l in by_path.items()
+                    if l[kernel_of[name]]}
+        kernels.append(dict(
+            name=name, route=r["route"], source=r["source"],
+            replaces=r["replaces"], launches=sum(per_path.values()),
+            launches_by_path=per_path,
+            max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
+            bound_by=r["bound"][1], library_ms=r["library_ms"],
+            **({"design_bound_ms": r["design_bound"][0]}
+               if "design_bound" in r else {}),
+            **({"library_call": r["library_call"]}
+               if "library_call" in r else {})))
+    check_every_kernel_launched(kernels)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,7 @@ where every kernel's plain PyTorch version runs instead.
 Layer map (as in mcax):
   kernels/   the CUDA kernels' wrappers, each beside its plain version.
   frames/    windowing, framing, STFT/iSTFT, overlap-add.
-  algos/     SRP-PHAT, covariance, MVDR.
+  algos/     GCC-PHAT, SRP-PHAT, covariance, MVDR.
   pipeline   the config-driven streaming block processor.
 """
 

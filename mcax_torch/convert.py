@@ -4,7 +4,10 @@ This system has no model weights: what a run carries is its streaming state
 (input carry, OLA tail, covariance planes, block index), and the plan
 constants, which each package rebuilds from the config.  A state taken from
 ``mcax`` mid-stream, as the numpy arrays of its ``PipelineState`` leaves,
-resumes in the port, and back.
+resumes in the port, and back.  Fields an algo does not use are None in
+both packages (``gcc`` and ``srp`` carry no OLA tail and no covariance),
+and the states of ``init_states(S)`` carry a leading S axis on every leaf,
+``block_idx`` included.
 """
 
 from __future__ import annotations
@@ -14,9 +17,7 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from mcax_torch.state import PipelineState
-
-FIELDS = ("carry", "block_idx", "ola_tail", "cov")
+from mcax_torch.state import FIELDS, PipelineState
 
 
 def state_from_numpy(d: Mapping[str, Optional[np.ndarray]],
@@ -36,8 +37,8 @@ def state_from_numpy(d: Mapping[str, Optional[np.ndarray]],
 
     return PipelineState(
         carry=put("carry"),
-        block_idx=torch.tensor(int(np.asarray(d["block_idx"])),
-                               dtype=torch.int32, device=device),
+        block_idx=torch.tensor(np.asarray(d["block_idx"], np.int32),
+                               device=device),
         ola_tail=put("ola_tail"),
         cov=put("cov"))
 

@@ -1,33 +1,43 @@
-// MVDR weight solve per (block, bin), reading the covariance-prefix rows.
+// MVDR weight solve per (block, bin), from either covariance layout.
 //
 // Replaces: mcax/kernels/mvdrsolve.py, weights_blocks_fused_rows (the
-// Pallas kernels _kernel_rows and _solve_math).
+// Pallas kernel _kernel_rows: covariance-prefix rows, the batched path) and
+// weights_blocks_fused (the Pallas kernel _kernel: complex [B, F, C, C]
+// covariances, the block step and the multi-stream step), both around the
+// one solve _solve_math.
 //
-// What it computes.  For each (block b, bin f): R = the prefix covariance
-// from rows [B, 2C^2, F]; diagonal loading R += delta*tr(R)/C * I; a complex
-// Cholesky R = L L^H with a real pivot sqrt(max(., 1e-30)); for each of the
-// S sources, forward (L y = d) and adjoint (L^H z = y) substitution and
+// What it computes.  For each (block b, bin f): R = the covariance; diagonal
+// loading R += delta*tr(R)/C * I; a complex Cholesky R = L L^H with a real
+// pivot sqrt(max(., 1e-30)); for each of the S sources, forward (L y = d)
+// and adjoint (L^H z = y) substitution and
 //     w = z / (d^H z),
 // where a denominator with |d^H z| <= 1e-12 is replaced by 1e-12 + 0j.  One
 // factorisation is shared by all sources.  The arithmetic follows the
-// reference's _solve_math operation for operation, in fp32.
+// reference's _solve_math operation for operation, in fp32.  The two entry
+// points differ only in how the lower triangle of R is loaded:
+//   * rows [B, 2C^2, F] (row i*C+j = Re R[i,j], C^2+i*C+j = Im R[i,j]);
+//   * complex64 [B, F, C, C], interleaved re/im.
 //
-// What bounds it on this card.  The solve reads only the lower triangle:
-// C(C+1)/2 real rows and C(C-1)/2 imaginary rows of the 2C^2 per (block,
-// bin), each a contiguous run over F, so the skipped rows cost no bytes.
-// With the steering read and the weights written that is ~0.10 GB at
-// config4, B = 512 (~0.03 ms at 3.35 TB/s), against ~0.1 GFLOP per source
-// of solve arithmetic: memory-bound.
+// What bounds it on this card.  The solve reads only the lower triangle.
+// In the rows layout that is C(C+1)/2 real rows and C(C-1)/2 imaginary rows
+// of the 2C^2 per (block, bin), each a contiguous run over F, so the
+// skipped rows cost no bytes; with the steering read and the weights
+// written that is ~0.10 GB at config4, B = 512 (~0.03 ms at 3.35 TB/s),
+// against ~0.1 GFLOP per source of solve arithmetic: memory-bound.  The
+// complex layout is read as C(C+1)/2 float2 elements per (block, bin); at
+// the block step's B = 1 (513 bins) the call is bound by its launch.
 //
 // Design.  One thread per (block, bin), consecutive threads on consecutive
-// bins so every row read and weight write is coalesced.  C is a template
-// parameter (only 8, config4's, is instantiated), so the loops unroll
-// fully and the Cholesky factor lives in registers.  Every multiply, add
-// and subtract is an explicitly rounded intrinsic that the compiler never
-// contracts into an FMA: the loaded covariance of a near-rank-1 scene has a
-// condition number in the thousands, which amplifies a one-ulp difference
-// per operation into ~1e-3 of the weights, so the kernel performs exactly
-// the IEEE operations of the plain version, in the same order.
+// bins so every rows read and weight write is coalesced (a complex-layout
+// thread reads its own 512-byte matrix: uncoalesced, but each 32-byte
+// sector it touches is used).  C is a template parameter (only 8,
+// config4's, is instantiated), so the loops unroll fully and the Cholesky
+// factor lives in registers.  Every multiply, add and subtract is an
+// explicitly rounded intrinsic that the compiler never contracts into an
+// FMA: the loaded covariance of a near-rank-1 scene has a condition number
+// in the thousands, which amplifies a one-ulp difference per operation into
+// ~1e-3 of the weights, so the kernel performs exactly the IEEE operations
+// of the plain version, in the same order.
 #include "common.cuh"
 
 namespace {
@@ -36,25 +46,47 @@ __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b);
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
 
+// The lower triangle (j <= i) of R for (block b, bin f), as (re, im); the
+// imaginary part of the diagonal is never used and reads as 0.
 template <int C>
-__global__ void __launch_bounds__(128) mvdr_solve_rows_kernel(
-    const float* __restrict__ rows, const float2* __restrict__ steer,
-    float2* __restrict__ w, int B, int S, int F, float load_scale) {
+struct RowsLayout {
+  const float* rows;  // [B, 2C^2, F]
+  int F;
+  __device__ float2 operator()(int b, int f, int i, int j) const {
+    const float* R = rows + (long long)b * 2 * C * C * F + f;
+    return make_float2(R[(long long)(i * C + j) * F],
+                       j < i ? R[(long long)(C * C + i * C + j) * F] : 0.0f);
+  }
+};
+
+template <int C>
+struct ComplexLayout {
+  const float2* covs;  // [B, F, C, C]
+  int F;
+  __device__ float2 operator()(int b, int f, int i, int j) const {
+    const float2 v = covs[(((long long)b * F + f) * C + i) * C + j];
+    return make_float2(v.x, j < i ? v.y : 0.0f);
+  }
+};
+
+template <int C, class Layout>
+__global__ void __launch_bounds__(128) mvdr_solve_kernel(
+    Layout cov, const float2* __restrict__ steer, float2* __restrict__ w,
+    int B, int S, int F, float load_scale) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (long long)B * F) return;
   const int b = (int)(idx / F);
   const int f = (int)(idx % F);
-  const float* R = rows + (long long)b * 2 * C * C * F + f;
 
-  // Lower triangle of R (j <= i), factorised in place into L.  The
-  // imaginary part of the diagonal is never used, so it is not read.
+  // Lower triangle of R (j <= i), factorised in place into L.
   float lr[C][C], li[C][C];
 #pragma unroll
   for (int i = 0; i < C; ++i)
 #pragma unroll
     for (int j = 0; j <= i; ++j) {
-      lr[i][j] = R[(long long)(i * C + j) * F];
-      li[i][j] = j < i ? R[(long long)(C * C + i * C + j) * F] : 0.0f;
+      const float2 v = cov(b, f, i, j);
+      lr[i][j] = v.x;
+      li[i][j] = v.y;
     }
 
   float tr = lr[0][0];
@@ -142,13 +174,13 @@ __global__ void __launch_bounds__(128) mvdr_solve_rows_kernel(
   }
 }
 
-template <int C>
-int launch(const float* rows, const void* steer, void* w, int B, int S,
-           int F, float load_scale, cudaStream_t stream) {
+template <int C, class Layout>
+int launch(const Layout& cov, const void* steer, void* w, int B, int S, int F,
+           float load_scale, cudaStream_t stream) {
   const int threads = 128;
   const unsigned blocks = (unsigned)mcax::ceil_div((long long)B * F, threads);
-  mvdr_solve_rows_kernel<C><<<blocks, threads, 0, stream>>>(
-      rows, static_cast<const float2*>(steer), static_cast<float2*>(w), B, S,
+  mvdr_solve_kernel<C, Layout><<<blocks, threads, 0, stream>>>(
+      cov, static_cast<const float2*>(steer), static_cast<float2*>(w), B, S,
       F, load_scale);
   return (int)cudaGetLastError();
 }
@@ -162,7 +194,23 @@ MCAX_API int mcax_mvdr_solve_rows(const float* rows, const void* steer,
                                   float load_scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   switch (C) {
-    case 8: return launch<8>(rows, steer, w, B, S, F, load_scale, st);
+    case 8:
+      return launch<8>(RowsLayout<8>{rows, F}, steer, w, B, S, F, load_scale,
+                       st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// covs complex64 [B, F, C, C], steer and w as above.  C must be 8.
+MCAX_API int mcax_mvdr_solve_complex(const void* covs, const void* steer,
+                                     void* w, int B, int S, int C, int F,
+                                     float load_scale, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (C) {
+    case 8:
+      return launch<8>(
+          ComplexLayout<8>{static_cast<const float2*>(covs), F}, steer, w, B,
+          S, F, load_scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,33 +1,40 @@
-// Windowed real DFT of frames read straight from the blocked input.
+// Windowed real DFT of frame = 2*hop, the frames gathered on the fly.
 //
 // Replaces: mcax/kernels/stft_fused.py, stft_fused_from_blocks (the Pallas
-// kernel _kern): the batched pipeline's analysis for frame = 2*hop.
+// kernel _kern: the batched pipeline's analysis) and stft_fused_planes (the
+// Pallas kernel _kernel: the block step's analysis of a contiguous signal).
 //
-// What it computes.  samples [B, C, L] hold B consecutive blocks of C
-// channels, L = T*hop.  Slab j of channel c is samples[j / T, c, (j % T)*hop
-// : +hop] for j >= 0 and the streaming carry[c] for j = -1.  Frame (c, m),
-// m in [0, B*T), is [slab m-1 | slab m], and its spectrum is
-//     X[c, m, :] = frame @ (Wr + j Wi)
+// What it computes.  Every frame is two hop-sized slabs [lo | hi] of a
+// signal, and its spectrum is
+//     X[row, :] = [lo | hi] @ (Wr + j Wi)
 // with the analysis window folded into the DFT matrices.  The matrices
 // arrive interleaved as w2 [2*hop, ldw]: column 2f is Re, 2f+1 is Im, zero
-// past 2F, so the product's rows ARE the complex64 output rows [C, M, F].
+// past 2F, so the product's rows ARE complex64 output rows.  The two entry
+// points differ only in where a row's slabs lie:
+//   * from blocks: samples [B, C, L] hold B consecutive blocks of C
+//     channels, L = T*hop.  Slab j of channel c is samples[j / T, c,
+//     (j % T)*hop : +hop] for j >= 0 and the streaming carry[c] for j = -1.
+//     Row (c, m), m in [0, B*T), is [slab m-1 | slab m]; out [C, B*T, F].
+//   * planes: x [R, N] holds R contiguous signals, N % hop == 0.  Row
+//     (r, t), t in [0, N/hop - 1), is [slab t | slab t+1] of signal r;
+//     out [R, T, F].
 //
-// What bounds it on this card.  The function itself needs only its ~0.6 GB
-// of traffic (~0.18 ms at 3.35 TB/s): a real FFT's operations are far
-// fewer.  This design, a DFT as a GEMM, does 4*(C*B*T)*N*F fp32 operations
-// (~207 GFLOP at config4, B = 512: ~3.1 ms at 67 TFLOP/s on the CUDA
-// cores), so the design is compute-bound, at ~17x the function's floor,
-// while fp32 stays off the tensor cores.
+// What bounds it on this card.  The function itself needs only its bytes
+// (config4, B = 512: ~0.6 GB, ~0.18 ms at 3.35 TB/s): a real FFT's
+// operations are far fewer.  This design, a DFT as a GEMM, does
+// 4*rows*N*F fp32 operations (~207 GFLOP at config4, B = 512: ~3.1 ms at
+// 67 TFLOP/s on the CUDA cores), so the design is compute-bound, at ~17x
+// the function's floor, while fp32 stays off the tensor cores.  A config4
+// block (8 x 24 rows) fills 2 x 9 of the card's 132 SMs: that call is
+// bound by its launch, not by either.
 //
 // Design.  A classic register-tiled SGEMM whose A operand is gathered on
 // the fly: a 128x128 output tile per block of 256 threads, 8x8 fp32 FMA
 // accumulators per thread, K = 2*hop walked in 16-deep slices through
-// shared memory.  Each thread resolves its A row's two slab pointers once
-// (the carry for the dispatch's first frame, the previous block's last slab
-// for a frame that straddles a block boundary), so the [C, M, 2*hop] frame
-// tensor never exists.  No TF32: every product is an fp32 FMA, which holds
-// the 3e-6 (scaled) parity bound.  Tensor-core (3xTF32) tiles are later
-// work.
+// shared memory.  Each thread resolves its A row's two slab pointers once,
+// through the entry point's row functor, so the [rows, 2*hop] frame tensor
+// never exists.  No TF32: every product is an fp32 FMA, which holds the
+// 3e-6 (scaled) parity bound.  Tensor-core (3xTF32) tiles are later work.
 #include "common.cuh"
 
 namespace {
@@ -37,17 +44,46 @@ constexpr int BN = 128;  // output float columns per block (64 complex bins)
 constexpr int BK = 16;   // K slice held in shared memory
 constexpr int THREADS = 256;
 
-__global__ void __launch_bounds__(THREADS, 2) stft_from_blocks_kernel(
-    const float* __restrict__ samples, const float* __restrict__ carry,
-    const float* __restrict__ w2, float* __restrict__ out, int B, int C,
-    int L, int hop, int F, int ldw) {
+// Row m of channel c from the blocked input: [slab m-1 | slab m].
+struct BlocksRows {
+  const float* samples;  // [B, C, L]
+  const float* carry;    // [C, hop]
+  int C, L, hop, T;
+  long long M;           // B*T frames per channel
+  __device__ void operator()(long long r, const float*& lo,
+                             const float*& hi) const {
+    const int c = (int)(r / M);
+    const long long m = r % M;
+    hi = samples + ((m / T) * C + c) * (long long)L + (m % T) * hop;
+    if (m == 0) {
+      lo = carry + (long long)c * hop;
+    } else {
+      const long long mp = m - 1;
+      lo = samples + ((mp / T) * C + c) * (long long)L + (mp % T) * hop;
+    }
+  }
+};
+
+// Row t of signal r of a contiguous [R, N] input: [slab t | slab t+1].
+struct PlanesRows {
+  const float* x;
+  int N, hop, T;
+  __device__ void operator()(long long r, const float*& lo,
+                             const float*& hi) const {
+    const long long s = r / T;
+    lo = x + s * N + (r - s * T) * hop;
+    hi = lo + hop;
+  }
+};
+
+template <class Rows>
+__global__ void __launch_bounds__(THREADS, 2) stft_gemm_kernel(
+    Rows rows_of, long long rows, const float* __restrict__ w2,
+    float* __restrict__ out, int hop, int F, int ldw) {
   __shared__ __align__(16) float As[BK][BM];
   __shared__ __align__(16) float Bs[BK][BN];
 
   const int tid = threadIdx.x;
-  const int T = L / hop;
-  const long long M = (long long)B * T;
-  const long long rows = (long long)C * M;
   const int ncol = 2 * F;
   const long long row0 = (long long)blockIdx.y * BM;
   const int col0 = blockIdx.x * BN;
@@ -57,19 +93,9 @@ __global__ void __launch_bounds__(THREADS, 2) stft_from_blocks_kernel(
   const int a_k = (tid & 1) * 8;
   const long long r = row0 + a_row;
   const bool row_ok = r < rows;
-  const float* lo_ptr = carry;
-  const float* hi_ptr = carry;
-  if (row_ok) {
-    const int c = (int)(r / M);
-    const long long m = r % M;
-    hi_ptr = samples + ((m / T) * C + c) * (long long)L + (m % T) * hop;
-    if (m == 0) {
-      lo_ptr = carry + (long long)c * hop;
-    } else {
-      const long long mp = m - 1;
-      lo_ptr = samples + ((mp / T) * C + c) * (long long)L + (mp % T) * hop;
-    }
-  }
+  const float* lo_ptr = w2;
+  const float* hi_ptr = w2;
+  if (row_ok) rows_of(r, lo_ptr, hi_ptr);
   // B loader: thread -> (k row tid/16, 8 columns at 8*(tid&15)).
   const int b_k = tid >> 4;
   const int b_c = (tid & 15) * 8;
@@ -145,6 +171,16 @@ __global__ void __launch_bounds__(THREADS, 2) stft_from_blocks_kernel(
   }
 }
 
+template <class Rows>
+int launch(const Rows& rows_of, long long rows, const float* w2, float* out,
+           int hop, int F, int ldw, void* stream) {
+  const dim3 grid((unsigned)mcax::ceil_div(2 * F, BN),
+                  (unsigned)mcax::ceil_div(rows, BM));
+  stft_gemm_kernel<Rows><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      rows_of, rows, w2, out, hop, F, ldw);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // samples [B, C, L], carry [C, hop], w2 [2*hop, ldw] (ldw a multiple of BN,
@@ -154,10 +190,19 @@ MCAX_API int mcax_stft_from_blocks(const float* samples, const float* carry,
                                    const float* w2, float* out, int B, int C,
                                    int L, int hop, int F, int ldw,
                                    void* stream) {
-  const long long rows = (long long)C * B * (L / hop);
-  const dim3 grid((unsigned)mcax::ceil_div(2 * F, BN),
-                  (unsigned)mcax::ceil_div(rows, BM));
-  stft_from_blocks_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      samples, carry, w2, out, B, C, L, hop, F, ldw);
-  return (int)cudaGetLastError();
+  const int T = L / hop;
+  const long long M = (long long)B * T;
+  const BlocksRows rows_of{samples, carry, C, L, hop, T, M};
+  return launch(rows_of, (long long)C * M, w2, out, hop, F, ldw, stream);
+}
+
+// x [R, N], w2 as above, out [R, N/hop - 1, 2F] (complex64 [R, T, F]).  The
+// wrapper guarantees hop % BK == 0, N % hop == 0, N >= 2*hop and a
+// 16-byte-aligned base.
+MCAX_API int mcax_stft_planes(const float* x, const float* w2, float* out,
+                              long long R, int N, int hop, int F, int ldw,
+                              void* stream) {
+  const int T = N / hop - 1;
+  const PlanesRows rows_of{x, N, hop, T};
+  return launch(rows_of, R * T, w2, out, hop, F, ldw, stream);
 }

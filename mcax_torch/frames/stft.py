@@ -1,11 +1,13 @@
 """Framing and short-time Fourier analysis — counterpart of
 ``mcax/frames/stft.py``.
 
-A whole block of audio is framed into one batched tensor ``[..., T, L]`` and
-one fp32 matmul transforms every frame at once (``kernels/fft.py``).  The
-batched pipeline's analysis at frame = 2*hop does not go through here: the
-hand-written kernel of ``kernels/stft_fused.py`` reads the blocked input
-directly.
+At the ratio-2 overlap (frame = 2*hop, every shipped config) ``stft`` is
+the fused analysis kernel of ``kernels/stft_fused.py`` (``stft_fused_planes``:
+frames gathered on the fly, never materialised), under the reference's own
+condition; otherwise a whole block of audio is framed into one batched
+tensor ``[..., T, L]`` and one fp32 matmul transforms every frame at once
+(``kernels/fft.py``).  The batched pipeline's analysis reads the blocked
+input directly (``stft_fused_from_blocks``) and does not go through here.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from mcax_torch.kernels import fft as kfft
+from mcax_torch.kernels import stft_fused
 
 
 def num_frames(block_len: int, frame_len: int, hop: int) -> int:
@@ -44,12 +47,17 @@ def stft(x: torch.Tensor, w2: torch.Tensor, hop: int) -> torch.Tensor:
     Args:
       x: real samples [..., N] float32.
       w2: interleaved windowed DFT matrix [L, >= 2F]
-        (``kernels.fft.analysis_matrix``).
+        (``kernels.fft.analysis_matrix``; the kernel's operand,
+        ``stft_fused.analysis_matrix``, on a CUDA device).
       hop: frame advance.
     Returns:
       complex64 spectra [..., T, F], F = L//2 + 1.
     """
-    return kfft.rfft(frame_signal(x, w2.shape[0], hop), w2)
+    n = w2.shape[0]
+    if (n == 2 * hop and num_frames(x.shape[-1], n, hop) > 0
+            and x.shape[-1] % hop == 0):
+        return stft_fused.stft_fused_planes(x, w2, hop)
+    return kfft.rfft(frame_signal(x, n, hop), w2)
 
 
 def istft_frames(spectra: torch.Tensor, a2: torch.Tensor) -> torch.Tensor:

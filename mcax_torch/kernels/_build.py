@@ -28,7 +28,8 @@ from typing import Sequence
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("stft_fused.cu", "srp_fused.cu", "covprefix.cu", "mvdrsolve.cu")
+SOURCES = ("stft_fused.cu", "srp_fused.cu", "covprefix.cu", "mvdrsolve.cu",
+           "cps.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -37,11 +38,14 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "mcax_torch"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 # C entry points: name -> argtypes (all return int = cudaError_t)
 SIGNATURES = {
     # samples, carry, w2, out, B, C, L, hop, F, ldw, stream
     "mcax_stft_from_blocks": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, w2, out, R, N, hop, F, ldw, stream
+    "mcax_stft_planes": (_P, _P, _P, _L, _I, _I, _I, _I, _P),
     # spec, pairs, valid, tau, omega, out, C, M, F, P, G, eps, stream
     "mcax_srp_power_fused": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                              _P),
@@ -49,6 +53,10 @@ SIGNATURES = {
     "mcax_cov_prefixes": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
     # rows, steer, w, B, S, C, F, delta, stream
     "mcax_mvdr_solve_rows": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # covs, steer, w, B, S, C, F, delta, stream
+    "mcax_mvdr_solve_complex": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # a, b, g, n, eps, stream
+    "mcax_cps_phat": (_P, _P, _P, _L, _F, _P),
 }
 
 

@@ -1,17 +1,21 @@
-"""MVDR weight solve from covariance rows — counterpart of
-``mcax/kernels/mvdrsolve.py``'s ``weights_blocks_fused_rows``.
+"""MVDR weight solve — counterpart of ``mcax/kernels/mvdrsolve.py``'s
+``weights_blocks_fused_rows`` and ``weights_blocks_fused``.
 
 ``w = R^{-1} d / (d^H R^{-1} d)`` per (block, bin), with diagonal loading
 delta*tr(R)/C before a complex Cholesky (real pivot, 1e-30 floor), forward
 and adjoint substitution per source sharing one factorisation, and the
-denominator guard |d^H z| > 1e-12 (else 1e-12 + 0j).
+denominator guard |d^H z| > 1e-12 (else 1e-12 + 0j).  Two layouts of R:
 
-  * ``weights_blocks_fused_rows`` — the wrapper: on CUDA tensors it launches
-    the hand-written kernel (``csrc/mvdrsolve.cu``), one thread per (block,
-    bin); on CPU tensors it runs the plain version.
-  * ``weights_blocks_fused_rows_plain`` — the same function in plain
-    PyTorch: ``_solve_math`` (the reference's unrolled solve, operation for
-    operation) on [B, F] tensors.
+  * ``weights_blocks_fused_rows`` — the covariance-prefix rows [B, 2C^2, F]
+    (the batched path);
+  * ``weights_blocks_fused`` — complex64 [B, F, C, C] (the block step, and
+    the multi-stream step with B = S).
+
+Each wrapper launches the hand-written kernel (``csrc/mvdrsolve.cu``, one
+thread per (block, bin), one solve body for both layouts) on CUDA tensors
+and runs its plain version on CPU tensors: ``*_plain`` is ``_solve_math``
+(the reference's unrolled solve, operation for operation) on [B, F]
+tensors.
 """
 
 from __future__ import annotations
@@ -103,14 +107,7 @@ def _solve_math(c: int, s: int, delta: float, re, im, dget, wset):
             wset(src, k, (zr * nr + zi * ni) * sc, (zi * nr - zr * ni) * sc)
 
 
-def _shape(cov_rows: torch.Tensor, steer: torch.Tensor):
-    if cov_rows.ndim != 3 or cov_rows.dtype != torch.float32:
-        raise ValueError(f"cov_rows must be float32 [B, 2C^2, F], got "
-                         f"{cov_rows.dtype} {list(cov_rows.shape)}")
-    b, rows, f = cov_rows.shape
-    c = math.isqrt(rows // 2)
-    if 2 * c * c != rows:
-        raise ValueError(f"cov_rows has {rows} rows, not 2*C^2")
+def _steer_shape(steer: torch.Tensor, b: int, c: int, f: int):
     if (steer.dtype != torch.complex64 or steer.ndim < 3
             or steer.shape[0] != b or tuple(steer.shape[-2:]) != (c, f)):
         raise ValueError(f"steer must be complex64 [{b}, (S,) {c}, {f}], "
@@ -119,11 +116,10 @@ def _shape(cov_rows: torch.Tensor, steer: torch.Tensor):
     return b, c, f, extra, int(np.prod(extra)) if extra else 1
 
 
-def weights_blocks_fused_rows_plain(cov_rows: torch.Tensor,
-                                    steer: torch.Tensor,
-                                    diag_load: float) -> torch.Tensor:
-    """Plain PyTorch version: w complex64 [B, (S,) C, F]."""
-    b, c, f, extra, s = _shape(cov_rows, steer)
+def _plain(c: int, s: int, delta: float, re, im, steer: torch.Tensor,
+           b: int, f: int) -> torch.Tensor:
+    """``_solve_math`` on [B, F] tensors, steering [B, S, C, F] ->
+    w complex64 [B, S, C, F]."""
     st = steer.reshape(b, s, c, f)
     sr, si = st.real, st.imag
     wr = torch.empty((b, s, c, f), dtype=torch.float32, device=steer.device)
@@ -133,11 +129,29 @@ def weights_blocks_fused_rows_plain(cov_rows: torch.Tensor,
         wr[:, src, k] = vr
         wi[:, src, k] = vi
 
-    _solve_math(c, s, float(diag_load),
-                lambda i, j: cov_rows[:, i * c + j],
-                lambda i, j: cov_rows[:, c * c + i * c + j],
+    _solve_math(c, s, float(delta), re, im,
                 lambda src, k: (sr[:, src, k], si[:, src, k]), wset)
     return torch.complex(wr, wi).reshape(steer.shape)
+
+
+def _shape(cov_rows: torch.Tensor, steer: torch.Tensor):
+    if cov_rows.ndim != 3 or cov_rows.dtype != torch.float32:
+        raise ValueError(f"cov_rows must be float32 [B, 2C^2, F], got "
+                         f"{cov_rows.dtype} {list(cov_rows.shape)}")
+    b, rows, f = cov_rows.shape
+    c = math.isqrt(rows // 2)
+    if 2 * c * c != rows:
+        raise ValueError(f"cov_rows has {rows} rows, not 2*C^2")
+    return _steer_shape(steer, b, c, f)
+
+
+def weights_blocks_fused_rows_plain(cov_rows: torch.Tensor,
+                                    steer: torch.Tensor,
+                                    diag_load: float) -> torch.Tensor:
+    """Plain PyTorch version: w complex64 [B, (S,) C, F]."""
+    b, c, f, extra, s = _shape(cov_rows, steer)
+    return _plain(c, s, diag_load, lambda i, j: cov_rows[:, i * c + j],
+                  lambda i, j: cov_rows[:, c * c + i * c + j], steer, b, f)
 
 
 def weights_blocks_fused_rows(cov_rows: torch.Tensor, steer: torch.Tensor,
@@ -171,3 +185,54 @@ def weights_blocks_fused_rows(cov_rows: torch.Tensor, steer: torch.Tensor,
 
 
 weights_blocks_fused_rows.LAUNCHES = 0
+
+
+def _complex_shape(covs: torch.Tensor, steer: torch.Tensor):
+    if (covs.ndim != 4 or covs.dtype != torch.complex64
+            or covs.shape[-1] != covs.shape[-2]):
+        raise ValueError(f"covs must be complex64 [B, F, C, C], got "
+                         f"{covs.dtype} {list(covs.shape)}")
+    b, f, c, _ = covs.shape
+    return _steer_shape(steer, b, c, f)
+
+
+def weights_blocks_fused_plain(covs: torch.Tensor, steer: torch.Tensor,
+                               diag_load: float) -> torch.Tensor:
+    """Plain PyTorch version: w complex64 [B, (S,) C, F]."""
+    b, c, f, extra, s = _complex_shape(covs, steer)
+    return _plain(c, s, diag_load, lambda i, j: covs[:, :, i, j].real,
+                  lambda i, j: covs[:, :, i, j].imag, steer, b, f)
+
+
+def weights_blocks_fused(covs: torch.Tensor, steer: torch.Tensor,
+                         diag_load: float) -> torch.Tensor:
+    """MVDR weights from complex covariances.
+
+    Args:
+      covs: complex64 [B, F, C, C] (Hermitian; the lower triangle is read).
+      steer: complex64 [B, (S...,) C, F] steering vectors; any number of
+        source axes, all sharing one factorisation per (block, bin).
+      diag_load: delta of the loading delta*tr(R)/C.
+    Returns:
+      w complex64 with steer's shape.
+    """
+    b, c, f, extra, s = _complex_shape(covs, steer)
+    if not dispatch.use_kernel(covs, steer):
+        return weights_blocks_fused_plain(covs, steer, diag_load)
+    if c not in KERNEL_CHANNELS:
+        raise ValueError(f"the MVDR kernel is built for C in "
+                         f"{KERNEL_CHANNELS}, got {c}")
+    covs = covs.contiguous()
+    st = steer.reshape(b, s, c, f).contiguous()
+    _build.check_tensor("covs", covs, torch.complex64, (b, f, c, c))
+    _build.check_tensor("steer", st, torch.complex64, (b, s, c, f))
+    w = torch.empty((b, s, c, f), dtype=torch.complex64, device=steer.device)
+    code = _build.library().mcax_mvdr_solve_complex(
+        covs.data_ptr(), st.data_ptr(), w.data_ptr(), b, s, c, f,
+        float(np.float32(diag_load / c)), _build.stream_of(covs))
+    _build.check_launch("mvdr_solve_complex", code)
+    weights_blocks_fused.LAUNCHES += 1
+    return w.reshape(steer.shape)
+
+
+weights_blocks_fused.LAUNCHES = 0

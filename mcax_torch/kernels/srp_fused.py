@@ -8,7 +8,7 @@
     steering phasors in shared memory and never materialises either; on
     CPU tensors it runs the plain version.
   * ``srp_power_fused_plain`` — the same function in plain PyTorch: the
-    materialised CPS (``cps.cps_phat_pairs``), the steering matrices made
+    materialised CPS (``cps.cps_phat_pairs_plain``), the steering matrices made
     from the same fp32 phases with the same range reduction, and
     ``steer.srp_power_flat``.
 """
@@ -62,7 +62,7 @@ def srp_power_fused_plain(spectra: torch.Tensor, pairs: torch.Tensor,
     c, m, f, p, g = _shape(spectra, pairs, tau, omega, valid)
     st = spectra.transpose(0, 1)                           # [M, C, F]
     pl = pairs.long()
-    cps = kcps.cps_phat_pairs(st[:, pl[:, 0]], st[:, pl[:, 1]], eps)
+    cps = kcps.cps_phat_pairs_plain(st[:, pl[:, 0]], st[:, pl[:, 1]], eps)
     cps = cps * valid.to(torch.float32)[:, None]           # [M, P, F]
     er, ei = steering_planes(tau, omega)                   # [P, F, G]
     return ksteer.srp_power_flat(cps.real.reshape(m, p * f),

@@ -1,15 +1,19 @@
-"""Fused framing + windowing + forward DFT from the blocked input.
+"""Fused framing + windowing + forward DFT for frame = 2*hop.
 
-Counterpart of ``mcax/kernels/stft_fused.py``'s ``stft_fused_from_blocks``.
-For frame = 2*hop, frame m of channel c is [slab m-1 | slab m] of the
-contiguous stream, slab -1 being the streaming carry, so the spectra follow
-from the batched input [B, C, L] without building the frame tensor.
+Counterpart of ``mcax/kernels/stft_fused.py``'s ``stft_fused_from_blocks``
+and ``stft_fused_planes``.  Every frame is two hop-sized slabs of a signal,
+so the spectra follow without building the frame tensor:
 
-  * ``stft_fused_from_blocks`` — the wrapper: on CUDA tensors it launches
-    the hand-written kernel (``csrc/stft_fused.cu``), on CPU tensors it runs
-    the plain version.
-  * ``stft_fused_from_blocks_plain`` — the same function in plain PyTorch:
-    concatenate, cut into frames, one fp32 matmul with the same matrix.
+  * ``stft_fused_from_blocks`` — the batched input [B, C, L]: frame m of
+    channel c is [slab m-1 | slab m] of the contiguous stream, slab -1 being
+    the streaming carry.
+  * ``stft_fused_planes`` — a contiguous signal [..., N] (the block step's
+    carry + block): frame t is [slab t | slab t+1].
+
+Each wrapper launches the hand-written kernel (``csrc/stft_fused.cu``, one
+GEMM body for both) on CUDA tensors and runs its plain version on CPU
+tensors: ``*_plain`` cuts the frames and does one fp32 matmul with the same
+matrix.
 
 The port returns complex64 spectra [C, B*T, F] where ``mcax`` returns two
 float planes: the kernel writes (re, im) interleaved, which is complex64's
@@ -106,3 +110,62 @@ def stft_fused_from_blocks(samples: torch.Tensor, carry: torch.Tensor,
 
 
 stft_fused_from_blocks.LAUNCHES = 0
+
+
+def _planes_shape(x: torch.Tensor, w2: torch.Tensor, hop: int):
+    n = x.shape[-1] if x.ndim else 0
+    if x.ndim < 1 or n % hop or n < 2 * hop:
+        raise ValueError(f"x must be [..., N] with N % {hop} == 0 and N >= "
+                         f"{2 * hop}, got {list(x.shape)}")
+    f = hop + 1
+    if w2.shape[0] != 2 * hop or w2.shape[1] < 2 * f:
+        raise ValueError(f"w2 must be [{2 * hop}, >= {2 * f}], got "
+                         f"{list(w2.shape)}")
+    return n, n // hop - 1, f
+
+
+def stft_fused_planes_plain(x: torch.Tensor, w2: torch.Tensor,
+                            hop: int) -> torch.Tensor:
+    """Plain PyTorch version: spectra complex64 [..., T, F]."""
+    n, _, _ = _planes_shape(x, w2, hop)
+    slabs = x.reshape(*x.shape[:-1], n // hop, hop)
+    frames = torch.cat([slabs[..., :-1, :], slabs[..., 1:, :]], dim=-1)
+    return kfft.rfft(frames, w2)
+
+
+def stft_fused_planes(x: torch.Tensor, w2: torch.Tensor,
+                      hop: int) -> torch.Tensor:
+    """Spectra of a contiguous signal, frame = 2*hop, no padding.
+
+    Args:
+      x: [..., N] float32, N % hop == 0.
+      w2: [2*hop, ldw] float32 windowed DFT operand (``analysis_matrix``).
+      hop: frame advance.
+    Returns:
+      complex64 [..., N/hop - 1, F].
+    """
+    n, t, f = _planes_shape(x, w2, hop)
+    if not dispatch.use_kernel(x, w2):
+        return stft_fused_planes_plain(x, w2, hop)
+    if hop % BK:
+        raise ValueError(f"the STFT kernel needs hop % {BK} == 0, got {hop}")
+    if w2.shape[1] % BN:
+        raise ValueError(f"w2's row length must be a multiple of {BN} "
+                         "(use stft_fused.analysis_matrix)")
+    x = x.contiguous()
+    _build.check_tensor("x", x, torch.float32, x.shape)
+    _build.check_tensor("w2", w2, torch.float32, w2.shape)
+    lead = x.shape[:-1]
+    rows = x.numel() // n
+    out = torch.empty((*lead, t, f), dtype=torch.complex64, device=x.device)
+    if rows == 0:
+        return out
+    code = _build.library().mcax_stft_planes(
+        x.data_ptr(), w2.data_ptr(), out.data_ptr(), rows, n, hop, f,
+        w2.shape[1], _build.stream_of(x))
+    _build.check_launch("stft_planes", code)
+    stft_fused_planes.LAUNCHES += 1
+    return out
+
+
+stft_fused_planes.LAUNCHES = 0

@@ -5,26 +5,30 @@ One ``Pipeline`` object per config, stateless, with all streaming state
 
     pipe = Pipeline(get_config("config4"))        # runs on the CUDA card
     state = pipe.init_state()
-    state, out = pipe.process_blocks(state, samples)   # [B, C, block_len]
+    state, out = pipe.process_block(state, block)      # [C, block_len]
+    state, out = pipe.process_blocks(state, blocks)    # [B, C, block_len]
+    states, outs = pipe.process_streams(pipe.init_states(S), streams)
+    state, outs = pipe.run(signal)                     # [C, N] host loop
 
-So far the port runs the throughput mode (``process_blocks``) of the
-``srp_mvdr`` chain (config4): analysis, SRP surface, per-block argmax and
-steering gather, covariance prefixes and MVDR weights, beamform, inverse DFT
-and streaming overlap-add.  Its four kernels (STFT from blocks, fused SRP,
-covariance prefixes, MVDR solve) are hand-written CUDA on a CUDA device; on
-``device="cpu"`` their plain PyTorch versions run.  The other algorithms,
-``process_block`` (the latency path) and the multi-stream mode are queued in
+The port runs the ``gcc`` (config1), ``srp`` (config3) and ``srp_mvdr``
+(config4) chains through all four entry points.  Its kernels (STFT from
+blocks and from a contiguous signal, fused SRP, covariance prefixes, MVDR
+solve from rows and from complex covariances, PHAT cross-power) are
+hand-written CUDA on a CUDA device; on ``device="cpu"`` their plain PyTorch
+versions run.  The other algorithms and the scan mode are queued in
 ROADMAP.md.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import dataclasses
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from mcax_torch import config as cfg_mod
 from mcax_torch.algos import covariance as cov_mod
+from mcax_torch.algos import gcc
 from mcax_torch.algos import mvdr
 from mcax_torch.algos import srp
 from mcax_torch.frames import stft as stft_mod
@@ -33,11 +37,20 @@ from mcax_torch.frames.window import make_windows
 from mcax_torch.kernels import dispatch
 from mcax_torch.kernels import fft as kfft
 from mcax_torch.kernels import stft_fused
-from mcax_torch.state import PipelineState
+from mcax_torch.state import FIELDS, PipelineState
 
 _SYNTH_ALGOS = ("delaysum", "srp_delaysum", "mvdr", "srp_mvdr", "track_mvdr",
                 "mask")
-_PORTED_ALGOS = ("srp_mvdr",)
+_COV_ALGOS = ("mvdr", "srp_mvdr", "track_mvdr")
+_SRP_ALGOS = ("srp", "srp_delaysum", "srp_mvdr", "track_mvdr")
+_PORTED_ALGOS = ("gcc", "srp", "srp_mvdr")
+
+
+def _map_state(fn, state: PipelineState) -> PipelineState:
+    """Apply ``fn`` to every tensor leaf of a state (None stays None)."""
+    return dataclasses.replace(state, **{
+        k: None if getattr(state, k) is None else fn(getattr(state, k))
+        for k in FIELDS})
 
 
 class Pipeline:
@@ -55,32 +68,169 @@ class Pipeline:
         self.pairs = self.geom.pairs
         s = cfg.stft
         self.win_a, self.win_s = make_windows(s.frame_len, s.hop, s.synthesis)
-        self.srp_plan = srp.make_plan(self.geom, s.frame_len,
-                                      cfg.algo.grid_points,
-                                      band_hz=cfg.algo.band_hz)
-        self.plan = srp.device_plan(self.srp_plan, self.pairs, self.device)
-        # the blocks-native analysis (frame = 2*hop) reads its DFT operand
-        # padded to the kernel's column tile; the generic path reads the
-        # same matrix
+        self.gcc_plan = self.srp_plan = self.gplan = self.plan = None
+        if algo == "gcc":
+            self.gcc_plan = gcc.make_plan(self.geom, s.frame_len,
+                                          band_hz=cfg.algo.band_hz)
+            bands = (gcc.multiband_masks(s.frame_len, cfg.sample_rate,
+                                         cfg.algo.gcc_bands)
+                     if cfg.algo.gcc_bands else None)
+            self.gplan = gcc.device_plan(self.gcc_plan, self.pairs,
+                                         self.device, bands)
+        if algo in _SRP_ALGOS:
+            self.srp_plan = srp.make_plan(self.geom, s.frame_len,
+                                          cfg.algo.grid_points,
+                                          band_hz=cfg.algo.band_hz)
+            self.plan = srp.device_plan(self.srp_plan, self.pairs,
+                                        self.device)
+        # the analysis kernels (frame = 2*hop) read their DFT operand padded
+        # to the kernel's column tile; the generic path reads the same matrix
         self._w2 = stft_fused.analysis_matrix(s.frame_len, self.win_a,
                                               self.device)
-        self._a2 = kfft.synthesis_matrix(s.frame_len, self.win_s, self.device)
+        self._a2 = (kfft.synthesis_matrix(s.frame_len, self.win_s,
+                                          self.device)
+                    if algo in _SYNTH_ALGOS else None)
 
     @property
     def frames_per_block(self) -> int:
         return self.cfg.frames_per_block
 
     def init_state(self) -> PipelineState:
+        """A fresh state holding only the fields this algo uses."""
         cfg = self.cfg
         c = self.geom.num_mics
         lh = cfg.stft.frame_len - cfg.stft.hop
+        algo = cfg.algo.name
         dev = self.device
         return PipelineState(
             carry=torch.zeros((c, lh), dtype=torch.float32, device=dev),
             block_idx=torch.zeros((), dtype=torch.int32, device=dev),
-            ola_tail=torch.zeros((lh,), dtype=torch.float32, device=dev),
-            cov=cov_mod.init_planes(cfg.stft.num_bins, c, device=dev))
+            ola_tail=(torch.zeros((lh,), dtype=torch.float32, device=dev)
+                      if algo in _SYNTH_ALGOS else None),
+            cov=(cov_mod.init_planes(cfg.stft.num_bins, c, device=dev)
+                 if algo in _COV_ALGOS else None))
 
+    def init_states(self, num_streams: int) -> PipelineState:
+        """States of ``num_streams`` independent streams: every leaf of
+        ``init_state()`` with a leading S axis."""
+        return _map_state(
+            lambda x: x.expand(num_streams, *x.shape).clone(),
+            self.init_state())
+
+    def _check_samples(self, samples, lead: str) -> torch.Tensor:
+        samples = torch.as_tensor(samples, dtype=torch.float32,
+                                  device=self.device)
+        expect = (self.geom.num_mics, self.cfg.block_len)
+        if samples.ndim != 3 or tuple(samples.shape[1:]) != expect:
+            raise ValueError(f"expected samples [{lead}, {expect[0]}, "
+                             f"{expect[1]}], got {list(samples.shape)}")
+        return samples
+
+    # ------------------------------------------------------------------
+    # Latency and multi-stream modes: one block per stream, one step.
+    # ------------------------------------------------------------------
+    def process_block(self, state: PipelineState, samples) -> Tuple[
+            PipelineState, Dict[str, torch.Tensor]]:
+        """One block: samples [C, block_len] -> (state, out), outputs as in
+        ``mcax`` (``doa`` [T] for srp, ``audio`` [T*hop] for srp_mvdr,
+        ``tdoa`` [P, T] for gcc, ...).  The multi-stream step at S = 1."""
+        samples = torch.as_tensor(samples, dtype=torch.float32,
+                                  device=self.device)
+        expect = (self.geom.num_mics, self.cfg.block_len)
+        if tuple(samples.shape) != expect:
+            raise ValueError(f"expected samples {list(expect)}, got "
+                             f"{list(samples.shape)} (mis-sized blocks "
+                             "would shift the stream)")
+        states = _map_state(lambda x: x[None], state)
+        new, out = self._block_step(states, samples[None])
+        return (_map_state(lambda x: x[0], new),
+                {k: v[0] for k, v in out.items()})
+
+    def process_streams(self, states: PipelineState, samples) -> Tuple[
+            PipelineState, Dict[str, torch.Tensor]]:
+        """One block for S independent streams: samples [S, C, block_len],
+        states from ``init_states(S)``.  Every output gains a leading S
+        axis; the per-stream math is ``process_block``'s, batched: one launch
+        of each kernel serves all S streams."""
+        return self._block_step(states, self._check_samples(samples, "S"))
+
+    def _block_step(self, state: PipelineState, samples: torch.Tensor):
+        """The block step over a leading stream axis: state leaves [S, ...],
+        samples [S, C, L]."""
+        cfg = self.cfg
+        hop = cfg.stft.hop
+        s_, c, _ = samples.shape
+        t = cfg.frames_per_block
+        # channel-major [C, S, N]: the concatenation is the one copy, and
+        # the spectra come out [C, S, T, F], which the SRP kernel reads as
+        # [C, S*T, F] without a transpose
+        x = torch.cat([state.carry.transpose(0, 1),
+                       samples.transpose(0, 1)], dim=-1)
+        new_carry = x[..., t * hop:].transpose(0, 1).contiguous()
+        spectra_cs = stft_mod.stft(x, self._w2, hop)       # [C, S, T, F]
+        spectra = spectra_cs.transpose(0, 1)               # [S, C, T, F]
+
+        algo = cfg.algo.name
+        new_tail, new_cov = state.ola_tail, state.cov
+        if algo == "gcc":
+            out = self._gcc(spectra, lambda a: a)
+        elif algo == "srp":
+            power = self._srp_power(spectra_cs).view(s_, t, -1)   # [S, T, G]
+            az, pk = srp.argmax_doa(power, self.plan,
+                                    interpolate=cfg.algo.srp_interpolate)
+            out = {"doa": az, "power": pk}
+        elif algo == "srp_mvdr":
+            power = self._srp_power(spectra_cs).view(s_, t, -1)
+            gidx = torch.argmax(power.mean(dim=1), dim=-1)        # [S]
+            steer = srp.steering_vector(self.plan, gidx)          # [S, C, F]
+            cov = cov_mod.update(cov_mod.from_planes(state.cov), spectra,
+                                 cfg.algo.cov_forget)             # [S, F, C, C]
+            # mcax's weights per stream; the solve kernel with B = S
+            w = mvdr.weights_blocks(cov, steer, cfg.algo.diag_load)
+            y = mvdr.beamform(spectra, w)                         # [S, T, F]
+            frames = stft_mod.istft_frames(y, self._a2)           # [S, T, L]
+            audio, new_tail = streaming_overlap_add(frames, hop,
+                                                    state.ola_tail)
+            az_f, _ = srp.argmax_doa(power, self.plan,
+                                     interpolate=cfg.algo.srp_interpolate)
+            out = {"audio": audio, "doa": self.plan.azimuths_rad[gidx],
+                   "doa_frame": az_f}
+            new_cov = cov_mod.to_planes(cov)
+        else:
+            raise ValueError(f"unknown algo {algo!r}")
+        new_state = PipelineState(carry=new_carry,
+                                  block_idx=state.block_idx + 1,
+                                  ola_tail=new_tail, cov=new_cov)
+        return new_state, out
+
+    def _srp_power(self, spectra_cs: torch.Tensor) -> torch.Tensor:
+        """[C, ..., F] channel-major spectra -> power [M, G] (M frames)."""
+        c, f = spectra_cs.shape[0], spectra_cs.shape[-1]
+        return srp.srp_surface(spectra_cs.reshape(c, -1, f), self.plan,
+                               eps=self.cfg.algo.phat_eps)
+
+    def _gcc(self, spectra: torch.Tensor, per_block) -> Dict[str, torch.Tensor]:
+        """GCC outputs from spectra [..., C, M, F], each passed through
+        ``per_block`` ([..., M] -> the mode's layout)."""
+        a = self.cfg.algo
+        if a.gcc_bands:
+            res = gcc.gcc_phat_multiband(spectra, self.gplan, eps=a.phat_eps,
+                                         interpolate=a.interpolate,
+                                         weighting=a.gcc_weighting)
+            # "peak" stays [..., P, T] like the full-band path's
+            return {"tdoa": per_block(res["tdoa_fused"]),
+                    "doa": per_block(res["doa_fused"]),
+                    "tdoa_band": per_block(res["tdoa"]),
+                    "peak_band": per_block(res["peak"]),
+                    "peak": per_block(res["peak"].amax(dim=-3))}
+        res = gcc.gcc_phat_block(spectra, self.gplan, eps=a.phat_eps,
+                                 interpolate=a.interpolate,
+                                 weighting=a.gcc_weighting)
+        return {k: per_block(res[k]) for k in ("tdoa", "doa", "peak")}
+
+    # ------------------------------------------------------------------
+    # Throughput mode: one batched step over B consecutive blocks.
+    # ------------------------------------------------------------------
     def process_blocks(self, state: PipelineState, samples
                        ) -> Tuple[PipelineState, Dict[str, torch.Tensor]]:
         """Throughput mode: B consecutive blocks in one dispatch.
@@ -89,17 +239,11 @@ class Pipeline:
           samples: [B, C, block_len] float32 (a tensor on the pipeline's
             device, or anything ``torch.as_tensor`` takes).
         Returns:
-          (state, out): ``out["audio"]`` [B, T*hop] beamformed audio,
-          ``out["doa"]`` [B] the grid azimuth of each block's mean-surface
-          argmax, ``out["doa_frame"]`` [B, T] the per-frame DOA.
+          (state, out): every output of ``process_block`` with a leading B
+          axis (srp_mvdr: ``audio`` [B, T*hop], ``doa`` [B], ``doa_frame``
+          [B, T]).
         """
-        samples = torch.as_tensor(samples, dtype=torch.float32,
-                                  device=self.device)
-        expect = (self.geom.num_mics, self.cfg.block_len)
-        if samples.ndim != 3 or tuple(samples.shape[1:]) != expect:
-            raise ValueError(f"expected samples [B, {expect[0]}, {expect[1]}]"
-                             f", got {list(samples.shape)}")
-        samples = samples.contiguous()
+        samples = self._check_samples(samples, "B").contiguous()
         cfg = self.cfg
         hop = cfg.stft.hop
         b, c, block_len = samples.shape
@@ -117,25 +261,70 @@ class Pipeline:
             new_carry = x[:, bt * hop:].clone()
             spectra = stft_mod.stft(x, self._w2, hop)      # [C, B*T, F]
 
-        power = srp.srp_surface(spectra, self.plan,
-                                eps=cfg.algo.phat_eps)     # [B*T, G]
-        pmean = power.view(b, t, -1).mean(dim=1)           # [B, G]
-        gidx = torch.argmax(pmean, dim=-1)                 # [B]
-        steer = srp.steering_vector(self.plan, gidx)       # [B, C, F]
-        w, new_cov = mvdr.weights_and_cov_from_spectra(
-            spectra, cov_mod.from_planes(state.cov), cfg.algo.cov_forget, t,
-            steer, cfg.algo.diag_load)                     # [B, C, F]
-        blocks = spectra.view(c, b, t, -1).permute(1, 0, 2, 3)
-        y = mvdr.beamform(blocks, w)                       # [B, T, F]
-        frames = stft_mod.istft_frames(y.reshape(bt, -1), self._a2)
-        full, new_tail = streaming_overlap_add(frames, hop, state.ola_tail)
-        az_f, _ = srp.argmax_doa(power, self.plan,
-                                 interpolate=cfg.algo.srp_interpolate)
-        out = {"audio": full.view(b, t * hop),
-               "doa": self.plan.azimuths_rad[gidx],
-               "doa_frame": az_f.view(b, t)}
+        def per_block(a):
+            """[..., B*T] -> [B, ..., T] (split the frame axis into blocks)."""
+            return a.reshape(*a.shape[:-1], b, t).movedim(-2, 0)
+
+        algo = cfg.algo.name
+        new_tail, new_cov = state.ola_tail, state.cov
+        if algo == "gcc":
+            out = self._gcc(spectra, per_block)
+        elif algo == "srp":
+            power = self._srp_power(spectra)               # [B*T, G]
+            az, pk = srp.argmax_doa(power, self.plan,
+                                    interpolate=cfg.algo.srp_interpolate)
+            out = {"doa": per_block(az), "power": per_block(pk)}
+        elif algo == "srp_mvdr":
+            power = self._srp_power(spectra)               # [B*T, G]
+            pmean = power.view(b, t, -1).mean(dim=1)       # [B, G]
+            gidx = torch.argmax(pmean, dim=-1)             # [B]
+            steer = srp.steering_vector(self.plan, gidx)   # [B, C, F]
+            w, cov = mvdr.weights_and_cov_from_spectra(
+                spectra, cov_mod.from_planes(state.cov), cfg.algo.cov_forget,
+                t, steer, cfg.algo.diag_load)              # [B, C, F]
+            blocks = spectra.view(c, b, t, -1).permute(1, 0, 2, 3)
+            y = mvdr.beamform(blocks, w)                   # [B, T, F]
+            frames = stft_mod.istft_frames(y.reshape(bt, -1), self._a2)
+            full, new_tail = streaming_overlap_add(frames, hop,
+                                                   state.ola_tail)
+            az_f, _ = srp.argmax_doa(power, self.plan,
+                                     interpolate=cfg.algo.srp_interpolate)
+            out = {"audio": full.view(b, t * hop),
+                   "doa": self.plan.azimuths_rad[gidx],
+                   "doa_frame": per_block(az_f)}
+            new_cov = cov_mod.to_planes(cov)
+        else:
+            raise ValueError(f"unknown algo {algo!r}")
         new_state = PipelineState(carry=new_carry,
                                   block_idx=state.block_idx + b,
-                                  ola_tail=new_tail,
-                                  cov=cov_mod.to_planes(new_cov))
+                                  ola_tail=new_tail, cov=new_cov)
         return new_state, out
+
+    # ------------------------------------------------------------------
+    def run(self, samples, state: Optional[PipelineState] = None):
+        """Host loop: stream a whole [C, N] signal through process_block.
+
+        Pads the tail to a whole number of blocks (zeros) and returns
+        (final_state, outputs) with the per-block outputs stacked on a
+        leading axis, as host numpy.  The signal goes to the device once;
+        the outputs come back once, after the last block.
+        """
+        x = torch.as_tensor(samples, dtype=torch.float32)
+        c, n = x.shape
+        if c != self.geom.num_mics:
+            raise ValueError(f"expected {self.geom.num_mics} channels, got {c}")
+        b = self.cfg.block_len
+        nblocks = -(-n // b)
+        padded = torch.zeros((c, nblocks * b), dtype=torch.float32,
+                             device=self.device)
+        padded[:, :n] = x.to(self.device)
+        if state is None:
+            state = self.init_state()
+        outs = []
+        for i in range(nblocks):
+            state, out = self.process_block(state,
+                                            padded[:, i * b:(i + 1) * b])
+            outs.append(out)
+        stacked = ({k: torch.stack([o[k] for o in outs]).cpu().numpy()
+                    for k in outs[0]} if outs else {})
+        return state, stacked

@@ -12,6 +12,9 @@ from typing import Optional
 
 import torch
 
+# the fields the port carries (config5's tracks and particles are not ported)
+FIELDS = ("carry", "block_idx", "ola_tail", "cov")
+
 
 @dataclasses.dataclass
 class PipelineState:

@@ -11,7 +11,9 @@ which a machine with only the port need not have.)
 They cover the ragged edges the main path's shapes do not: frame rows and
 grid points that are not tile multiples, odd bin counts, other channel
 counts for the covariance prefixes, several sources, a zero seed
-covariance."""
+covariance, signals of one or many rows, element counts that are not a
+multiple of the block; and each streaming entry point on the card against
+the CPU."""
 
 import numpy as np
 import pytest
@@ -20,7 +22,8 @@ import torch
 from mcax_torch import geometry as t_geo
 from mcax_torch.algos import srp as t_srp
 from mcax_torch.frames import window as t_window
-from mcax_torch.kernels import covprefix, mvdrsolve, srp_fused, stft_fused
+from mcax_torch.kernels import (covprefix, cps, mvdrsolve, srp_fused,
+                                stft_fused)
 
 pytestmark = pytest.mark.cuda
 
@@ -31,6 +34,20 @@ def dev():
         pytest.skip("needs a CUDA device (the port's kernels are CUDA C++, "
                     "which has no CPU mode)")
     return torch.device("cuda")
+
+
+def _plane_wave(geom, azimuth_rad, n, seed):
+    """[C, n] float32: a band-limited noise source at the azimuth, exact
+    fractional per-mic delays, sensor noise 40 dB down (numpy only)."""
+    rng = np.random.default_rng(seed)
+    spec = np.fft.rfft(rng.standard_normal(n))
+    spec[int(len(spec) * 0.9):] = 0.0
+    delays = geom.mic_delays(np.asarray([azimuth_rad]))[0] * geom.sample_rate
+    k = np.arange(len(spec))
+    x = np.fft.irfft(spec[None] * np.exp(-2j * np.pi * k[None] *
+                                         delays[:, None] / n), n=n)
+    x /= x.std()
+    return (x + 0.01 * rng.standard_normal(x.shape)).astype(np.float32)
 
 
 def _rng_complex(rng, shape, dev):
@@ -116,3 +133,93 @@ def test_mvdr_solve(dev, b, f, c, s):
     resp = (got.conj() * steer).sum(dim=-2)
     torch.testing.assert_close(resp, torch.ones_like(resp), atol=1e-3,
                                rtol=0)
+
+
+@pytest.mark.parametrize("lead,hop,nslab", [
+    ((8,), 512, 25),     # a config4 block: carry + 24 slabs
+    ((3, 2), 256, 17),   # config1/3's frame, two leading axes
+    ((), 16, 2),         # one frame of the smallest hop
+])
+def test_stft_planes(dev, lead, hop, nslab):
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal(
+        (*lead, nslab * hop)).astype(np.float32)).to(dev)
+    w2 = stft_fused.analysis_matrix(2 * hop, t_window.hann(2 * hop), dev)
+    before = stft_fused.stft_fused_planes.LAUNCHES
+    got = stft_fused.stft_fused_planes(x, w2, hop)
+    assert stft_fused.stft_fused_planes.LAUNCHES == before + 1
+    want = stft_fused.stft_fused_planes_plain(x, w2, hop)
+    scale = torch.view_as_real(want).abs().max()
+    torch.testing.assert_close(torch.view_as_real(got) / scale,
+                               torch.view_as_real(want) / scale,
+                               atol=3e-6, rtol=0)
+
+
+@pytest.mark.parametrize("b,f,c,s", [(1, 513, 8, 0), (64, 513, 8, 0),
+                                     (3, 65, 8, 2), (2, 31, 8, 0)])
+def test_mvdr_solve_complex(dev, b, f, c, s):
+    rng = np.random.default_rng(5)
+    x = _rng_complex(rng, (b, f, c, 3 * c), dev)
+    covs = (x @ x.conj().transpose(-1, -2) / (3 * c)).contiguous()
+    shape = (b, s, c, f) if s else (b, c, f)
+    steer = torch.polar(torch.ones(shape, device=dev),
+                        torch.from_numpy(rng.uniform(-np.pi, np.pi, shape)
+                                         .astype(np.float32)).to(dev))
+    before = mvdrsolve.weights_blocks_fused.LAUNCHES
+    got = mvdrsolve.weights_blocks_fused(covs, steer, 0.01)
+    assert mvdrsolve.weights_blocks_fused.LAUNCHES == before + 1
+    want = mvdrsolve.weights_blocks_fused_plain(covs, steer, 0.01)
+    # the kernel performs the plain version's IEEE operations in its order
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-5)
+    # one solve body: the rows layout gives the same weights
+    rows = covprefix.complex_to_rows(covs).contiguous()
+    torch.testing.assert_close(
+        got, mvdrsolve.weights_blocks_fused_rows(rows, steer, 0.01),
+        atol=0, rtol=0)
+    resp = (got.conj() * steer).sum(dim=-2)
+    torch.testing.assert_close(resp, torch.ones_like(resp), atol=1e-3,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("shape", [(8192, 257), (3, 5, 33), (1, 1)])
+def test_cps_phat(dev, shape):
+    rng = np.random.default_rng(6)
+    xi = _rng_complex(rng, shape, dev)
+    xj = _rng_complex(rng, shape, dev)
+    before = cps.cps_phat_pairs.LAUNCHES
+    got = cps.cps_phat_pairs(xi, xj)
+    assert cps.cps_phat_pairs.LAUNCHES == before + 1
+    want = cps.cps_phat_pairs_plain(xi, xj)
+    torch.testing.assert_close(got, want, atol=2e-6, rtol=0)
+    torch.testing.assert_close(got.abs(), torch.ones(shape, device=dev),
+                               atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["config1", "config3", "config4"])
+def test_streaming_entry_points_card_vs_cpu(dev, name):
+    """process_block over 2 blocks and process_streams of 2 streams on the
+    card against the same calls on the CPU (the plain versions)."""
+    from mcax_torch.config import get_config
+    from mcax_torch.pipeline import Pipeline
+    cfg = get_config(name)
+    geom = cfg.geometry()
+    c, bl = geom.num_mics, cfg.block_len
+    x = np.stack([_plane_wave(geom, np.deg2rad(a), 2 * bl, seed=i)
+                  for i, a in enumerate((35.0, -120.0))])
+    res = {}
+    for d in ("cuda", "cpu"):
+        pipe = Pipeline(cfg, device=d)
+        st, sts = pipe.init_state(), pipe.init_states(2)
+        outs = []
+        for b in range(2):
+            st, o = pipe.process_block(st, x[0, :, b * bl:(b + 1) * bl])
+            sts, os_ = pipe.process_streams(sts, x[:, :, b * bl:(b + 1) * bl])
+            outs.append({**{k: v.cpu() for k, v in o.items()},
+                         **{"s_" + k: v.cpu() for k, v in os_.items()}})
+        res[d] = (outs, st.carry.cpu())
+    for og, oc in zip(res["cuda"][0], res["cpu"][0]):
+        for k in og:
+            if og[k].is_floating_point() or og[k].is_complex():
+                torch.testing.assert_close(og[k], oc[k], atol=5e-4,
+                                           rtol=5e-4)
+    assert torch.equal(res["cuda"][1], res["cpu"][1])

@@ -10,12 +10,14 @@ import pytest
 import torch
 
 from mcax.algos import covariance as m_cov
+from mcax.algos import mvdr as m_mvdr
 from mcax.algos import srp as m_srp
 from mcax.frames import ola as m_ola
 from mcax.frames import stft as m_stft
 from mcax.kernels import fft as m_fft
 from mcax_torch import geometry as t_geo
 from mcax_torch.algos import covariance as t_cov
+from mcax_torch.algos import mvdr as t_mvdr
 from mcax_torch.algos import srp as t_srp
 from mcax_torch.frames import ola as t_ola
 from mcax_torch.frames import stft as t_stft
@@ -129,3 +131,65 @@ def test_argmax_doa_and_steering_match_mcax(interpolate):
     v_m = np.asarray(m_srp.steering_vector(plan, gidx))
     v_t = t_srp.steering_vector(dplan, torch.from_numpy(gidx)).numpy()
     np.testing.assert_array_equal(v_t, v_m)
+
+
+@pytest.mark.parametrize("lead", [(), (3,)])
+def test_covariance_update_matches_mcax(lead):
+    """block_stats / update on one block, with a leading stream axis
+    broadcast (process_streams' [S, C, T, F])."""
+    rng = np.random.default_rng(6)
+    c, t, f = 8, 24, 33
+    spec = (rng.standard_normal((*lead, c, t, f))
+            + 1j * rng.standard_normal((*lead, c, t, f))).astype(np.complex64)
+    cov0 = np.array(m_cov.init(f, c))
+    np.testing.assert_array_equal(t_cov.init(f, c).numpy(), cov0)
+    decay, partial = t_cov.block_stats(torch.from_numpy(spec), 0.95)
+    got = t_cov.update(torch.from_numpy(np.broadcast_to(cov0, (*lead, f, c, c))
+                                        .copy()), torch.from_numpy(spec), 0.95)
+    for i in np.ndindex(*lead):
+        w_decay, w_partial = m_cov.block_stats(spec[i], 0.95)
+        np.testing.assert_allclose(decay, float(w_decay), rtol=1e-6)
+        np.testing.assert_allclose(partial[i].numpy(), np.asarray(w_partial),
+                                   atol=1e-4, rtol=1e-4)
+        want = np.asarray(m_cov.update(cov0, spec[i], 0.95))
+        np.testing.assert_allclose(got[i].numpy(), want, atol=1e-4,
+                                   rtol=1e-4)
+    assert got.shape == (*lead, f, c, c)
+
+
+def _hermitian(rng, b, f, c):
+    x = (rng.standard_normal((b, f, c, 3 * c))
+         + 1j * rng.standard_normal((b, f, c, 3 * c)))
+    return (x @ np.conj(np.swapaxes(x, -1, -2)) / (3 * c)).astype(np.complex64)
+
+
+@pytest.mark.parametrize("sources", [(), (2,)])
+def test_mvdr_weights_match_mcax(sources):
+    """weights(cov [F, C, C], steer [..., C, F]): the solve kernel's plain
+    version at B = 1 against mcax's unrolled XLA form."""
+    rng = np.random.default_rng(7)
+    c, f = 8, 65
+    cov = _hermitian(rng, 1, f, c)[0]
+    steer = np.exp(1j * rng.uniform(-np.pi, np.pi, (*sources, c, f))
+                   ).astype(np.complex64)
+    want = np.asarray(m_mvdr.weights(cov, steer, 1e-3))
+    got = t_mvdr.weights(torch.from_numpy(cov), torch.from_numpy(steer),
+                         1e-3).numpy()
+    assert got.shape == want.shape == steer.shape
+    np.testing.assert_allclose(got, want, atol=2e-4, rtol=2e-3)
+    resp = np.sum(np.conj(got) * steer, axis=-2)
+    np.testing.assert_allclose(resp, np.ones_like(resp), atol=1e-3)
+
+
+def test_hermitian_solve_matches_mcax():
+    rng = np.random.default_rng(8)
+    r = np.array(m_cov.loaded(_hermitian(rng, 2, 9, 4), 1e-2))
+    d = (rng.standard_normal((3, 2, 9, 4))
+         + 1j * rng.standard_normal((3, 2, 9, 4))).astype(np.complex64)
+    want = np.asarray(m_mvdr.hermitian_solve(r, d))
+    got = t_mvdr.hermitian_solve(torch.from_numpy(r),
+                                 torch.from_numpy(d)).numpy()
+    assert got.shape == want.shape == d.shape
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-4)
+    np.testing.assert_allclose(np.einsum("...ij,...j->...i", r, got), d,
+                               atol=1e-3)

@@ -22,8 +22,11 @@ def test_import_loads_no_jax_and_no_mcax():
     """Importing every module of the port loads neither JAX nor mcax, and
     builds no kernel (the build happens at the first launch)."""
     code = ("import sys, mcax_torch, mcax_torch.pipeline, mcax_torch.convert\n"
-            "from mcax_torch.kernels import (_build, covprefix, mvdrsolve,\n"
-            "                                srp_fused, stft_fused)\n"
+            "from mcax_torch.kernels import (_build, covprefix, cps, fft,\n"
+            "                                mvdrsolve, srp_fused, steer,\n"
+            "                                stft_fused)\n"
+            "from mcax_torch.algos import covariance, gcc, mvdr, srp\n"
+            "from mcax_torch.frames import ola, stft, window\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'mcax'))\n"
             "built = _build.library.cache_info().currsize\n"
@@ -36,7 +39,7 @@ def test_import_loads_no_jax_and_no_mcax():
 
 def _port_sources():
     files = sorted((ROOT / "mcax_torch").rglob("*.py"))
-    assert len(files) >= 15, files
+    assert len(files) >= 16, files
     return files + [ROOT / "chip_smoke.py"]
 
 
@@ -62,12 +65,25 @@ def test_pipeline_raises_without_a_card(monkeypatch):
     assert Pipeline(get_config("config4"), device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("name", ["config1", "config2", "config3", "config5"])
+@pytest.mark.parametrize("name", ["config2", "config5"])
 def test_unported_algos_raise(name):
     from mcax_torch.config import get_config
     from mcax_torch.pipeline import Pipeline
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         Pipeline(get_config(name), device="cpu")
+
+
+@pytest.mark.parametrize("name", ["config1", "config3", "config4"])
+def test_ported_configs_build_on_the_cpu_only_when_asked(name, monkeypatch):
+    from mcax_torch.config import get_config
+    from mcax_torch.pipeline import Pipeline
+    pipe = Pipeline(get_config(name), device="cpu")
+    for entry in ("process_block", "process_blocks", "process_streams",
+                  "init_states", "run"):
+        assert callable(getattr(pipe, entry))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Pipeline(get_config(name))
 
 
 def test_dispatch_rule():
@@ -81,11 +97,17 @@ def test_dispatch_rule():
 
 
 def test_every_kernel_has_a_counter_and_its_sources():
-    from mcax_torch.kernels import (_build, covprefix, mvdrsolve, srp_fused,
-                                    stft_fused)
+    from mcax_torch.kernels import (_build, covprefix, cps, mvdrsolve,
+                                    srp_fused, stft_fused)
     for fn in (stft_fused.stft_fused_from_blocks, srp_fused.srp_power_fused,
                covprefix.block_prefixes_rows,
-               mvdrsolve.weights_blocks_fused_rows):
+               mvdrsolve.weights_blocks_fused_rows,
+               stft_fused.stft_fused_planes, mvdrsolve.weights_blocks_fused,
+               cps.cps_phat_pairs):
         assert isinstance(fn.LAUNCHES, int)
     for name in _build.SOURCES + _build.HEADERS:
         assert (_build.CSRC / name).is_file(), name
+    # every C entry point the wrappers bind is defined in a source
+    text = "".join((_build.CSRC / n).read_text() for n in _build.SOURCES)
+    for name in _build.SIGNATURES:
+        assert f"MCAX_API int {name}(" in text, name

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from mcax.kernels import covprefix as m_cov
+from mcax.kernels import cps as m_cps
 from mcax.kernels import mvdrsolve as m_mvdr
 from mcax.kernels import srp_fused as m_srp
 from mcax.kernels import stft_fused as m_stft
@@ -19,6 +20,7 @@ from mcax_torch import geometry as t_geo
 from mcax_torch.algos import srp as t_srp
 from mcax_torch.frames import window as t_window
 from mcax_torch.kernels import covprefix as t_cov
+from mcax_torch.kernels import cps as t_cps
 from mcax_torch.kernels import mvdrsolve as t_mvdr
 from mcax_torch.kernels import srp_fused as t_srp_fused
 from mcax_torch.kernels import stft_fused as t_stft
@@ -234,3 +236,133 @@ def test_mvdr_weights_blocks_is_the_rows_solve():
     want = t_mvdr.weights_blocks_fused_rows(
         t_cov.complex_to_rows(covs_t).contiguous(), steer_t, 0.01)
     torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+# -- kernel 5: STFT from a contiguous signal ---------------------------------
+
+@pytest.mark.parametrize("lead,hop,nslab", [((2, 3), 64, 6), ((4,), 32, 9),
+                                             ((), 64, 2)])
+def test_stft_planes_matches_mcax(lead, hop, nslab):
+    n = 2 * hop
+    win = t_window.sqrt_hann(n)
+    x = np.random.default_rng(11).standard_normal(
+        (*lead, nslab * hop)).astype(np.float32)
+    re, im = jax.jit(lambda v: m_stft.stft_fused_planes(v, win, hop))(x)
+    re, im = np.asarray(re), np.asarray(im)
+    got = t_stft.stft_fused_planes(torch.from_numpy(x),
+                                   t_stft.analysis_matrix(n, win, CPU), hop)
+    assert got.shape == re.shape == (*lead, nslab - 1, hop + 1)
+    assert got.dtype == torch.complex64
+    scale = max(np.abs(re).max(), np.abs(im).max())
+    np.testing.assert_allclose(got.real.numpy() / scale, re / scale,
+                               atol=3e-6)
+    np.testing.assert_allclose(got.imag.numpy() / scale, im / scale,
+                               atol=3e-6)
+    assert t_stft.stft_fused_planes.LAUNCHES == 0
+
+
+def test_stft_routes_ratio_two_to_the_planes_kernel():
+    """frames.stft takes the planes function under the reference's own
+    condition (frame = 2*hop, N % hop == 0, T > 0) and equals the generic
+    framing chain; other overlaps keep the generic chain."""
+    from mcax_torch.frames import stft as t_stft_mod
+    from mcax_torch.kernels import fft as t_fft
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal((3, 640)).astype(np.float32))
+    w2 = t_stft.analysis_matrix(128, t_window.hann(128), CPU)
+    got = t_stft_mod.stft(x, w2, 64)
+    want = t_fft.rfft(t_stft_mod.frame_signal(x, 128, 64), w2)
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(got, t_stft.stft_fused_planes(x, w2, 64),
+                               atol=0, rtol=0)
+    w3 = t_fft.analysis_matrix(192, t_window.hann(192), CPU)
+    assert t_stft_mod.stft(x, w3, 64).shape == (3, 8, 97)
+    with pytest.raises(ValueError):
+        t_stft.stft_fused_planes(x[:, :-1], w2, 64)
+
+
+# -- kernel 6: MVDR solve from complex covariances ---------------------------
+
+@pytest.mark.parametrize("b,f,c,s", [
+    (1, 65, 8, 0),       # the block step's B = 1, config4's channels
+    (4, 33, 8, 0),       # B = S streams
+    (2, 17, 4, 2),       # 2 sources sharing one factorisation
+])
+def test_mvdr_solve_complex_matches_mcax(b, f, c, s):
+    covs, steer = _cov_steer(b, f, c, s, seed=10 + b)
+
+    @jax.jit
+    def ref(cr, ci, sr, si):
+        w = m_mvdr.weights_blocks_fused(jax.lax.complex(cr, ci),
+                                        jax.lax.complex(sr, si), 0.01)
+        return jnp.real(w), jnp.imag(w)
+
+    wr, wi = ref(covs.real, covs.imag, steer.real, steer.imag)
+    want = np.asarray(wr) + 1j * np.asarray(wi)
+    got = t_mvdr.weights_blocks_fused(torch.from_numpy(covs),
+                                      torch.from_numpy(steer), 0.01).numpy()
+    assert got.shape == want.shape == steer.shape
+    np.testing.assert_allclose(got, want, atol=2e-4, rtol=2e-3)
+    resp = np.sum(np.conj(got) * steer, axis=-2)
+    np.testing.assert_allclose(resp, np.ones_like(resp), atol=1e-3)
+    assert t_mvdr.weights_blocks_fused.LAUNCHES == 0
+
+
+def test_mvdr_solve_layouts_agree():
+    """The two layouts' plain versions are one solve: bit-equal."""
+    covs, steer = _cov_steer(3, 40, 8, 2, seed=21)
+    covs_t, steer_t = torch.from_numpy(covs), torch.from_numpy(steer)
+    got = t_mvdr.weights_blocks_fused(covs_t, steer_t, 1e-3)
+    want = t_mvdr.weights_blocks_fused_rows(
+        t_cov.complex_to_rows(covs_t).contiguous(), steer_t, 1e-3)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    with pytest.raises(ValueError, match="steer"):
+        t_mvdr.weights_blocks_fused(covs_t, steer_t[:2], 1e-3)
+
+
+# -- kernel 9: PHAT cross-power ----------------------------------------------
+
+@pytest.mark.parametrize("shape", [(8, 65), (3, 5, 33), (1, 257)])
+def test_cps_phat_matches_mcax(shape):
+    rng = np.random.default_rng(13)
+    xi = _complex_np(rng, shape)
+    xj = _complex_np(rng, shape)
+    xj.flat[0] = 0.0                                  # |g| = 0: eps guards it
+    r = int(np.prod(shape[:-1]))
+    f = shape[-1]
+    gr, gi = jax.jit(lambda *a: m_cps._cps_phat_pallas(*a, 1e-12))(
+        *(np.ascontiguousarray(p).reshape(r, f)
+          for p in (xi.real, xi.imag, xj.real, xj.imag)))
+    want = (np.asarray(gr) + 1j * np.asarray(gi)).reshape(shape)
+    got = t_cps.cps_phat_pairs(torch.from_numpy(xi),
+                               torch.from_numpy(xj)).numpy()
+    assert got.shape == shape and got.dtype == np.complex64
+    np.testing.assert_allclose(got, want, atol=2e-6)
+    mag = np.abs(got).reshape(-1)[1:]
+    np.testing.assert_allclose(mag, np.ones_like(mag), atol=1e-4)
+    assert t_cps.cps_phat_pairs.LAUNCHES == 0
+
+
+def test_cps_weightings_match_mcax():
+    """cps_phat / cps_weighted on [..., C, T, F] spectra, pair gather
+    included (the reference on its Pallas backend for phat)."""
+    geom = t_geo.ArrayGeometry(positions=t_geo.circular_positions(4, 0.05),
+                               sample_rate=16000)
+    spec = _complex_np(np.random.default_rng(14), (2, 4, 5, 33))
+    for weighting in ("phat", "scot", "roth", "cc"):
+        want = np.asarray(jax.jit(lambda sr, si: m_cps.cps_weighted(
+            jax.lax.complex(sr, si), geom.pairs, weighting))(
+                spec.real, spec.imag))
+        got = t_cps.cps_weighted(torch.from_numpy(spec), geom.pairs,
+                                 weighting).numpy()
+        assert got.shape == want.shape == (2, 6, 5, 33)
+        np.testing.assert_allclose(got, want, atol=2e-6, rtol=2e-6)
+    g = np.array(m_cps.cross_power(spec, geom.pairs))
+    np.testing.assert_allclose(
+        t_cps.cross_power(torch.from_numpy(spec), geom.pairs).numpy(), g,
+        atol=1e-6)
+    np.testing.assert_allclose(
+        t_cps.phat_weight(torch.from_numpy(g)).numpy(),
+        np.asarray(m_cps.phat_weight(g)), atol=2e-6)
+    with pytest.raises(ValueError, match="weighting"):
+        t_cps.cps_weighted(torch.from_numpy(spec), geom.pairs, "bogus")
