@@ -8,10 +8,11 @@ pair baseline.  ``GccPlan`` and ``make_plan`` are the host-side (numpy)
 plan, identical to the reference's field for field; ``DevicePlan`` holds
 what the block step reads, moved to the pipeline's device once.
 
-The inverse DFT is one fp32 ``torch.matmul`` with the unwindowed synthesis
-matrix, as the reference's TPU default leaves it to an XLA matmul.  Only
-the gathered lags are needed, so the lag gather is folded into the matrix's
-columns: the same dot products, W = 2*max_lag + 3 columns instead of N.
+The inverse DFT is the inverse-DFT kernel (``kfft.irfft``, the reference's
+``_irdft_pallas``) with the unwindowed synthesis matrix.  Only the gathered
+lags are needed, so the lag gather is folded into the matrix's columns: the
+same dot products, W = 2*max_lag + 3 columns instead of N (the matrix is
+padded to the kernel's tiles beyond that view).
 """
 
 from __future__ import annotations
@@ -125,7 +126,8 @@ def device_plan(plan: GccPlan, pairs: np.ndarray, device: torch.device,
     idx = torch.as_tensor(plan.gather_idx, device=device).long()
     return DevicePlan(
         pairs=put(pairs, torch.int64),
-        a2_lags=a2[:, idx].contiguous(),
+        # the inverse-DFT kernel reads its matrix in whole tiles
+        a2_lags=kfft.pad_to_tiles(a2[:, idx], device),
         pair_mask=put(plan.pair_mask, torch.bool),
         lag_offsets=put(plan.lag_offsets, torch.float32),
         pair_distance=put(plan.pair_distance, torch.float32),

@@ -123,8 +123,11 @@ def beamform(spectra: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
     Args:
       spectra: complex64 [..., C, T, F].
-      w: complex64 [..., C, F], leading axes broadcast against spectra's.
+      w: complex64 [..., C, F], leading axes broadcast against spectra's;
+        or [..., S, C, F] with a source axis more than spectra has.
     Returns:
-      complex64 [..., T, F].
+      complex64 [..., T, F], or [..., S, T, F] per source.
     """
+    if w.ndim == spectra.ndim:                      # a source axis
+        return torch.einsum("...scf,...ctf->...stf", torch.conj(w), spectra)
     return torch.einsum("...cf,...ctf->...tf", torch.conj(w), spectra)

@@ -146,5 +146,6 @@ def argmax_doa(power: torch.Tensor, plan: DevicePlan,
 
 def steering_vector(plan: DevicePlan, grid_idx: torch.Tensor) -> torch.Tensor:
     """Gather the complex steering vector v = e^{-j omega t_c(theta_g)}:
-    grid_idx int [...] -> complex64 [..., C, F]."""
+    grid_idx int [...] -> complex64 [..., C, F]; any leading axes, e.g.
+    blocks and sources, [B, S] -> [B, S, C, F]."""
     return plan.steer[grid_idx]

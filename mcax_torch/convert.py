@@ -1,13 +1,17 @@
 """Carry streaming state across the two packages.
 
 This system has no model weights: what a run carries is its streaming state
-(input carry, OLA tail, covariance planes, block index), and the plan
-constants, which each package rebuilds from the config.  A state taken from
-``mcax`` mid-stream, as the numpy arrays of its ``PipelineState`` leaves,
-resumes in the port, and back.  Fields an algo does not use are None in
-both packages (``gcc`` and ``srp`` carry no OLA tail and no covariance),
-and the states of ``init_states(S)`` carry a leading S axis on every leaf,
-``block_idx`` included.
+(input carry, OLA tail, covariance planes, block index, config5's tracks),
+and the plan constants, which each package rebuilds from the config.  A
+state taken from ``mcax`` mid-stream, as the numpy arrays of its
+``PipelineState`` leaves, resumes in the port, and back.  Fields an algo
+does not use are None in both packages (``gcc`` and ``srp`` carry no OLA
+tail and no covariance; only ``track_mvdr`` carries tracks), and the
+states of ``init_states(S)`` carry a leading S axis on every leaf,
+``block_idx`` included.  The ``tracks`` entry is a ``TrackState`` (angles,
+confidence, initialized: the reference's NamedTuple order), present in
+``state_to_numpy``'s dict only when the state has tracks; ``initialized``
+stays bool.
 """
 
 from __future__ import annotations
@@ -17,17 +21,17 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from mcax_torch.algos.tracking import TrackState
 from mcax_torch.state import FIELDS, PipelineState
 
 
 def state_from_numpy(d: Mapping[str, Optional[np.ndarray]],
                      device) -> PipelineState:
     """The port's state from numpy leaves (keys as ``PipelineState``)."""
-    for name in ("tracks", "particles"):
-        if d.get(name) is not None:
-            raise NotImplementedError(
-                f"state field {name!r} belongs to config5, which is not "
-                "ported yet (ROADMAP.md)")
+    if d.get("particles") is not None:
+        raise NotImplementedError(
+            "state field 'particles' belongs to config5's particle smoother, "
+            "which is not ported yet (ROADMAP.md)")
 
     def put(name):
         a = d.get(name)
@@ -35,12 +39,23 @@ def state_from_numpy(d: Mapping[str, Optional[np.ndarray]],
             return None
         return torch.tensor(np.asarray(a, np.float32), device=device)
 
+    tracks = d.get("tracks")
+    if tracks is not None:
+        if len(tracks) != 3:
+            raise ValueError("tracks must hold (angles_rad, confidence, "
+                             f"initialized), got {len(tracks)} leaves")
+        angles, conf, inited = (np.asarray(a) for a in tracks)
+        tracks = TrackState(
+            angles_rad=torch.tensor(angles.astype(np.float32), device=device),
+            confidence=torch.tensor(conf.astype(np.float32), device=device),
+            initialized=torch.tensor(inited.astype(bool), device=device))
     return PipelineState(
         carry=put("carry"),
         block_idx=torch.tensor(np.asarray(d["block_idx"], np.int32),
                                device=device),
         ola_tail=put("ola_tail"),
-        cov=put("cov"))
+        cov=put("cov"),
+        tracks=tracks)
 
 
 def state_to_numpy(state: PipelineState) -> Dict[str, Optional[np.ndarray]]:
@@ -50,4 +65,7 @@ def state_to_numpy(state: PipelineState) -> Dict[str, Optional[np.ndarray]]:
         t = getattr(state, name)
         out[name] = None if t is None else t.detach().cpu().numpy()
     out["block_idx"] = out["block_idx"].astype(np.int32)
+    if state.tracks is not None:
+        out["tracks"] = TrackState(*(t.detach().cpu().numpy()
+                                     for t in state.tracks))
     return out

@@ -1,0 +1,128 @@
+// Matmul-form real DFT and inverse real DFT of rows, windows folded in.
+//
+// Replaces: mcax/kernels/fft.py, _rdft_pallas (the Pallas kernel
+// _rdft_kernel: kfft.rfft, the analysis of any overlap other than frame =
+// 2*hop) and _irdft_pallas (the Pallas kernel _irdft_kernel: kfft.irfft,
+// every synthesis chain's inverse DFT and GCC's lag correlation).
+//
+// What it computes.
+//   * rdft_rows: frame row r of a real signal starts at
+//         x + (r / T)*N + (r % T)*hop
+//     and holds L samples (T frames of hop per signal of N samples; a
+//     materialised [rows, L] frame tensor is T = 1, N = L).  Its spectrum is
+//         X[r, :] = frame_r @ (Wr + j Wi)
+//     with the analysis window folded into w2 [L, ldw] (column 2f = Re, 2f+1
+//     = Im, zero past 2F), so the product's rows are complex64 [rows, F].
+//   * irdft_rows: spectra y complex64 [rows, F], read as 2F floats per row,
+//     times a2 [2F, N] (row 2k = Ar[k], 2k+1 = Ai[k], synthesis window
+//     folded into the columns) gives the frames x float32 [rows, N].
+//
+// What bounds it on this card.  Both functions need only their bytes (a
+// real FFT's operations are fewer): kernel 7 at config4, B = 512 (12 288
+// rows, F = 513, N = 1024) moves ~0.1 GB, ~0.03 ms at 3.35 TB/s.  This
+// design, a DFT as a GEMM, does 4*rows*F*N fp32 operations (25.8 GFLOP
+// there: ~0.39 ms at 67 TFLOP/s on the CUDA cores), so it is compute-bound,
+// as the TPU kernel it replaces was on the MXU.
+//
+// Design.  The SGEMM body of gemm_rows.cuh with two row loaders.  Neither
+// operand is padded at run time: the DFT matrices are padded at plan time to
+// whole 16-row x 128-column tiles (kfft.analysis_matrix,
+// kfft.synthesis_matrix), and the loaders zero-fill the K tail (L may be any
+// length, 2F is 1026 or 514).  Spectra rows are 2F floats long, so only
+// 8-byte aligned: kernel 7 reads them as float2.  Kernel 8 reads float4
+// where every row start is 16-byte aligned (hop and N multiples of 4) and
+// scalars otherwise.  Kernel 7's output may have an odd width (GCC's
+// lag-folded W = 13): its epilogue stores scalars unless N is even.
+#include "gemm_rows.cuh"
+
+namespace {
+
+// Frame rows of a signal: row r at x + (r / T)*N + (r % T)*hop, K = L.
+struct StridedRows {
+  using Row = const float*;
+  const float* x;
+  long long N;
+  int hop, T, L;
+  bool vec;  // every row start 16-byte aligned
+  __device__ Row row(long long r) const {
+    const long long s = r / T;
+    return x + s * N + (r - s * T) * (long long)hop;
+  }
+  __device__ void load8(const Row& p, int k0, int ak, float (&v)[8]) const {
+    const int k = k0 + ak;
+    if (vec && k + 8 <= L) {
+      const float4 a0 = *reinterpret_cast<const float4*>(p + k);
+      const float4 a1 = *reinterpret_cast<const float4*>(p + k + 4);
+      v[0] = a0.x; v[1] = a0.y; v[2] = a0.z; v[3] = a0.w;
+      v[4] = a1.x; v[5] = a1.y; v[6] = a1.z; v[7] = a1.w;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] = k + i < L ? p[k + i] : 0.0f;
+    }
+  }
+};
+
+// Spectra rows: row r is 2F floats (re, im interleaved), K = 2F.
+struct SpectraRows {
+  using Row = const float*;
+  const float* y;
+  int K;
+  __device__ Row row(long long r) const { return y + r * K; }
+  __device__ void load8(const Row& p, int k0, int ak, float (&v)[8]) const {
+    const int k = k0 + ak;  // even, like K: a pair never straddles the tail
+    if (k + 8 <= K) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 a = *reinterpret_cast<const float2*>(p + k + 2 * i);
+        v[2 * i] = a.x;
+        v[2 * i + 1] = a.y;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] = k + i < K ? p[k + i] : 0.0f;
+    }
+  }
+};
+
+// Real rows [rows, ncol]: float2 stores when ncol is even (every pair then
+// lies wholly in range and 8-byte aligned), guarded scalars otherwise.
+struct RealRowsOut {
+  float* out;
+  long long rows;
+  int ncol;
+  __device__ void operator()(long long row, int col, float v0,
+                             float v1) const {
+    if (row >= rows || col >= ncol) return;
+    float* o = out + row * ncol + col;
+    if ((ncol & 1) == 0) {
+      *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+    } else {
+      o[0] = v0;
+      if (col + 1 < ncol) o[1] = v1;
+    }
+  }
+};
+
+}  // namespace
+
+// x: the signals' base, out complex64 [rows, F] (as [rows, 2F] floats),
+// w2 [>= ceil(L/16)*16 readable rows, ldw] (ldw a multiple of 128, zero
+// past 2F).  vec != 0 asserts that x, N and hop keep every row start
+// 16-byte aligned.
+MCAX_API int mcax_rdft_rows(const float* x, const float* w2, float* out,
+                            long long rows, long long N, int hop, int T,
+                            int L, int F, int ldw, int vec, void* stream) {
+  return mcax::gemm::launch_gemm_rows(
+      StridedRows{x, N, hop, T, L, vec != 0}, rows, L, w2, ldw, 2 * F,
+      mcax::gemm::ComplexRowsOut{out, rows, 2 * F}, stream);
+}
+
+// y complex64 [rows, F], a2 [>= ceil(2F/16)*16 readable rows, lda] (lda a
+// multiple of 128, covering N), out float32 [rows, N].
+MCAX_API int mcax_irdft_rows(const void* y, const float* a2, float* out,
+                             long long rows, int F, int N, int lda,
+                             void* stream) {
+  return mcax::gemm::launch_gemm_rows(
+      SpectraRows{static_cast<const float*>(y), 2 * F}, rows, 2 * F, a2, lda,
+      N, RealRowsOut{out, rows, N}, stream);
+}

@@ -29,15 +29,21 @@
 //
 // Design.  One thread per (block, bin), consecutive threads on consecutive
 // bins so every rows read and weight write is coalesced (a complex-layout
-// thread reads its own 512-byte matrix: uncoalesced, but each 32-byte
-// sector it touches is used).  C is a template parameter (only 8,
-// config4's, is instantiated), so the loops unroll fully and the Cholesky
-// factor lives in registers.  Every multiply, add and subtract is an
-// explicitly rounded intrinsic that the compiler never contracts into an
-// FMA: the loaded covariance of a near-rank-1 scene has a condition number
-// in the thousands, which amplifies a one-ulp difference per operation into
-// ~1e-3 of the weights, so the kernel performs exactly the IEEE operations
-// of the plain version, in the same order.
+// thread reads its own C*C*8-byte matrix: uncoalesced, but each 32-byte
+// sector it touches is used).  C is a template parameter.  At C = 8
+// (config4) a thread's working set (factor, pivots, steering and
+// substitution vectors) lives in registers and the loops unroll fully, 128
+// threads a block.  At C = 16 (config5) it does not fit (SolveShape below):
+// it lives in shared memory laid out [element][thread], the loops stay
+// rolled, 32 threads a block.
+// Every multiply, add and subtract is an explicitly rounded intrinsic that
+// the compiler never contracts into an FMA: the loaded covariance of a
+// near-rank-1 scene has a condition number in the thousands, which
+// amplifies a one-ulp difference per operation into ~1e-3 of the weights,
+// so the kernel performs exactly the IEEE operations of the plain version,
+// in the same order, wherever the factor is stored.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -69,126 +75,194 @@ struct ComplexLayout {
   }
 };
 
+// A thread's working set: the lower triangle (j <= i) of the factor, the
+// reciprocal pivots, the steering vector d and the substitution vector,
+// which holds y and then, in place, z (z[k] is written after y[k]'s last
+// read).  In registers: every index must be a compile-time constant, so
+// the loops unroll fully.
+template <int C>
+struct RegisterStore {
+  float lr[C][C], li[C][C], inv[C], d_r[C], d_i[C], v_r[C], v_i[C];
+  __device__ float& re(int i, int j) { return lr[i][j]; }
+  __device__ float& im(int i, int j) { return li[i][j]; }
+  __device__ float& linv(int j) { return inv[j]; }
+  __device__ float& dr(int k) { return d_r[k]; }
+  __device__ float& di(int k) { return d_i[k]; }
+  __device__ float& yr(int k) { return v_r[k]; }
+  __device__ float& yi(int k) { return v_i[k]; }
+};
+
+// The same in shared memory, laid out [element][thread] (element e of
+// thread t at smem[e * blockDim.x + t], so each access is one
+// conflict-free row of the block): any index may be a run-time value.
+template <int C>
+struct SharedStore {
+  static constexpr int kTri = C * (C + 1) / 2;
+  static constexpr int kFloats = 2 * kTri + 5 * C;  // per thread
+  float* base;                                      // smem + threadIdx.x
+  int stride;                                       // blockDim.x
+  __device__ float& at(int e) { return base[e * stride]; }
+  __device__ float& re(int i, int j) { return at(2 * (i * (i + 1) / 2 + j)); }
+  __device__ float& im(int i, int j) {
+    return at(2 * (i * (i + 1) / 2 + j) + 1);
+  }
+  __device__ float& linv(int j) { return at(2 * kTri + j); }
+  __device__ float& dr(int k) { return at(2 * kTri + C + k); }
+  __device__ float& di(int k) { return at(2 * kTri + 2 * C + k); }
+  __device__ float& yr(int k) { return at(2 * kTri + 3 * C + k); }
+  __device__ float& yi(int k) { return at(2 * kTri + 4 * C + k); }
+};
+
+// Where the C-channel solve keeps its working set, its threads a block and
+// dynamic shared memory.  At C = 16 the working set (1408 bytes a thread)
+// does not fit the 255 registers a thread may hold (fully unrolled, with
+// only the factor in shared memory, ptxas reported 255 registers and ~1 KB
+// of spill stores), so there it all lives in shared memory and the loops
+// stay rolled: 32 threads, 45 056 bytes, under the 48 KB a launch gets
+// without opting in.
+template <int C>
+struct SolveShape {
+  static constexpr bool kShared = C > 8;
+  static constexpr int kThreads = kShared ? 32 : 128;
+  static constexpr int kSmemBytes =
+      kShared ? SharedStore<C>::kFloats * kThreads * (int)sizeof(float) : 0;
+  using Store =
+      std::conditional_t<kShared, SharedStore<C>, RegisterStore<C>>;
+};
+
 template <int C, class Layout>
-__global__ void __launch_bounds__(128) mvdr_solve_kernel(
+__global__ void __launch_bounds__(SolveShape<C>::kThreads)
+mvdr_solve_kernel(
     Layout cov, const float2* __restrict__ steer, float2* __restrict__ w,
-    int B, int S, int F, float load_scale) {
+    int B, int S, int F, float load_scale, int c_runtime) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (long long)B * F) return;
   const int b = (int)(idx / F);
   const int f = (int)(idx % F);
+  // The loops' count: the constant C unrolls them fully (registers); the
+  // same value passed at run time keeps them rolled (shared memory).
+  const int nc = SolveShape<C>::kShared ? c_runtime : C;
 
   // Lower triangle of R (j <= i), factorised in place into L.
-  float lr[C][C], li[C][C];
+  extern __shared__ float smem[];
+  typename SolveShape<C>::Store L;
+  if constexpr (SolveShape<C>::kShared) {
+    L.base = smem + threadIdx.x;
+    L.stride = blockDim.x;
+  }
 #pragma unroll
-  for (int i = 0; i < C; ++i)
+  for (int i = 0; i < nc; ++i)
 #pragma unroll
     for (int j = 0; j <= i; ++j) {
       const float2 v = cov(b, f, i, j);
-      lr[i][j] = v.x;
-      li[i][j] = v.y;
+      L.re(i, j) = v.x;
+      L.im(i, j) = v.y;
     }
 
-  float tr = lr[0][0];
+  float tr = L.re(0, 0);
 #pragma unroll
-  for (int j = 1; j < C; ++j) tr = add(tr, lr[j][j]);
+  for (int j = 1; j < nc; ++j) tr = add(tr, L.re(j, j));
   const float load = mul(load_scale, tr);
 #pragma unroll
-  for (int j = 0; j < C; ++j) lr[j][j] = add(lr[j][j], load);
+  for (int j = 0; j < nc; ++j) L.re(j, j) = add(L.re(j, j), load);
 
-  float linv[C];
 #pragma unroll
-  for (int j = 0; j < C; ++j) {
-    const float piv = __fsqrt_rn(fmaxf(lr[j][j], 1e-30f));
+  for (int j = 0; j < nc; ++j) {
+    const float piv = __fsqrt_rn(fmaxf(L.re(j, j), 1e-30f));
     const float inv = __fdiv_rn(1.0f, piv);
-    linv[j] = inv;
+    L.linv(j) = inv;
 #pragma unroll
-    for (int i = j + 1; i < C; ++i) {
-      lr[i][j] = mul(lr[i][j], inv);
-      li[i][j] = mul(li[i][j], inv);
+    for (int i = j + 1; i < nc; ++i) {
+      L.re(i, j) = mul(L.re(i, j), inv);
+      L.im(i, j) = mul(L.im(i, j), inv);
     }
 #pragma unroll
-    for (int i = j + 1; i < C; ++i)
+    for (int i = j + 1; i < nc; ++i)
 #pragma unroll
       for (int k = j + 1; k <= i; ++k) {
         // R[i,k] -= L[i,j] * conj(L[k,j])
-        const float br = lr[i][j], bi = li[i][j];
-        const float cr = lr[k][j], ci = li[k][j];
-        lr[i][k] = sub(lr[i][k], add(mul(br, cr), mul(bi, ci)));
-        li[i][k] = sub(li[i][k], sub(mul(bi, cr), mul(br, ci)));
+        const float br = L.re(i, j), bi = L.im(i, j);
+        const float cr = L.re(k, j), ci = L.im(k, j);
+        L.re(i, k) = sub(L.re(i, k), add(mul(br, cr), mul(bi, ci)));
+        L.im(i, k) = sub(L.im(i, k), sub(mul(bi, cr), mul(br, ci)));
       }
   }
 
   for (int s = 0; s < S; ++s) {
     const long long off = ((long long)b * S + s) * C * F + f;
-    float dr[C], di[C], yr[C], yi[C], zr[C], zi[C];
 #pragma unroll
-    for (int k = 0; k < C; ++k) {
+    for (int k = 0; k < nc; ++k) {
       const float2 v = steer[off + (long long)k * F];
-      dr[k] = v.x;
-      di[k] = v.y;
+      L.dr(k) = v.x;
+      L.di(k) = v.y;
     }
     // forward: L y = d
 #pragma unroll
-    for (int k = 0; k < C; ++k) {
-      float ar = dr[k], ai = di[k];
+    for (int k = 0; k < nc; ++k) {
+      float ar = L.dr(k), ai = L.di(k);
 #pragma unroll
       for (int j = 0; j < k; ++j) {
-        const float br = lr[k][j], bi = li[k][j];
-        ar = sub(ar, sub(mul(br, yr[j]), mul(bi, yi[j])));
-        ai = sub(ai, add(mul(br, yi[j]), mul(bi, yr[j])));
+        const float br = L.re(k, j), bi = L.im(k, j);
+        const float yr = L.yr(j), yi = L.yi(j);
+        ar = sub(ar, sub(mul(br, yr), mul(bi, yi)));
+        ai = sub(ai, add(mul(br, yi), mul(bi, yr)));
       }
-      yr[k] = mul(ar, linv[k]);
-      yi[k] = mul(ai, linv[k]);
+      L.yr(k) = mul(ar, L.linv(k));
+      L.yi(k) = mul(ai, L.linv(k));
     }
-    // adjoint: L^H z = y
+    // adjoint: L^H z = y, z overwriting y from the last entry down
 #pragma unroll
-    for (int k = C - 1; k >= 0; --k) {
-      float ar = yr[k], ai = yi[k];
+    for (int k = nc - 1; k >= 0; --k) {
+      float ar = L.yr(k), ai = L.yi(k);
 #pragma unroll
-      for (int j = k + 1; j < C; ++j) {
+      for (int j = k + 1; j < nc; ++j) {
         // conj(L[j,k]) * z[j]
-        const float br = lr[j][k], bi = li[j][k];
-        ar = sub(ar, add(mul(br, zr[j]), mul(bi, zi[j])));
-        ai = sub(ai, sub(mul(br, zi[j]), mul(bi, zr[j])));
+        const float br = L.re(j, k), bi = L.im(j, k);
+        const float zr = L.yr(j), zi = L.yi(j);
+        ar = sub(ar, add(mul(br, zr), mul(bi, zi)));
+        ai = sub(ai, sub(mul(br, zi), mul(bi, zr)));
       }
-      zr[k] = mul(ar, linv[k]);
-      zi[k] = mul(ai, linv[k]);
+      L.yr(k) = mul(ar, L.linv(k));
+      L.yi(k) = mul(ai, L.linv(k));
     }
     // denom = d^H z, guarded; w = z / denom
     float nr = 0.0f, ni = 0.0f;
 #pragma unroll
-    for (int k = 0; k < C; ++k) {
-      nr = add(nr, add(mul(dr[k], zr[k]), mul(di[k], zi[k])));
-      ni = add(ni, sub(mul(dr[k], zi[k]), mul(di[k], zr[k])));
+    for (int k = 0; k < nc; ++k) {
+      const float dr = L.dr(k), di = L.di(k), zr = L.yr(k), zi = L.yi(k);
+      nr = add(nr, add(mul(dr, zr), mul(di, zi)));
+      ni = add(ni, sub(mul(dr, zi), mul(di, zr)));
     }
     const bool ok = __fsqrt_rn(add(mul(nr, nr), mul(ni, ni))) > 1e-12f;
     nr = ok ? nr : 1e-12f;
     ni = ok ? ni : 0.0f;
     const float sc = __fdiv_rn(1.0f, add(mul(nr, nr), mul(ni, ni)));
 #pragma unroll
-    for (int k = 0; k < C; ++k)
+    for (int k = 0; k < nc; ++k) {
+      const float zr = L.yr(k), zi = L.yi(k);
       w[off + (long long)k * F] =
-          make_float2(mul(add(mul(zr[k], nr), mul(zi[k], ni)), sc),
-                      mul(sub(mul(zi[k], nr), mul(zr[k], ni)), sc));
+          make_float2(mul(add(mul(zr, nr), mul(zi, ni)), sc),
+                      mul(sub(mul(zi, nr), mul(zr, ni)), sc));
+    }
   }
 }
 
 template <int C, class Layout>
 int launch(const Layout& cov, const void* steer, void* w, int B, int S, int F,
            float load_scale, cudaStream_t stream) {
-  const int threads = 128;
+  const int threads = SolveShape<C>::kThreads;
   const unsigned blocks = (unsigned)mcax::ceil_div((long long)B * F, threads);
-  mvdr_solve_kernel<C, Layout><<<blocks, threads, 0, stream>>>(
+  mvdr_solve_kernel<C, Layout>
+      <<<blocks, threads, SolveShape<C>::kSmemBytes, stream>>>(
       cov, static_cast<const float2*>(steer), static_cast<float2*>(w), B, S,
-      F, load_scale);
+      F, load_scale, C);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // rows [B, 2C^2, F], steer complex64 [B, S, C, F], w complex64 [B, S, C, F];
-// load_scale = float32(delta / C).  C must be 8.
+// load_scale = float32(delta / C).  C must be 8 or 16.
 MCAX_API int mcax_mvdr_solve_rows(const float* rows, const void* steer,
                                   void* w, int B, int S, int C, int F,
                                   float load_scale, void* stream) {
@@ -197,11 +271,14 @@ MCAX_API int mcax_mvdr_solve_rows(const float* rows, const void* steer,
     case 8:
       return launch<8>(RowsLayout<8>{rows, F}, steer, w, B, S, F, load_scale,
                        st);
+    case 16:
+      return launch<16>(RowsLayout<16>{rows, F}, steer, w, B, S, F,
+                        load_scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// covs complex64 [B, F, C, C], steer and w as above.  C must be 8.
+// covs complex64 [B, F, C, C], steer and w as above.  C must be 8 or 16.
 MCAX_API int mcax_mvdr_solve_complex(const void* covs, const void* steer,
                                      void* w, int B, int S, int C, int F,
                                      float load_scale, void* stream) {
@@ -211,6 +288,10 @@ MCAX_API int mcax_mvdr_solve_complex(const void* covs, const void* steer,
       return launch<8>(
           ComplexLayout<8>{static_cast<const float2*>(covs), F}, steer, w, B,
           S, F, load_scale, st);
+    case 16:
+      return launch<16>(
+          ComplexLayout<16>{static_cast<const float2*>(covs), F}, steer, w,
+          B, S, F, load_scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

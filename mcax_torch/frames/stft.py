@@ -4,10 +4,11 @@
 At the ratio-2 overlap (frame = 2*hop, every shipped config) ``stft`` is
 the fused analysis kernel of ``kernels/stft_fused.py`` (``stft_fused_planes``:
 frames gathered on the fly, never materialised), under the reference's own
-condition; otherwise a whole block of audio is framed into one batched
-tensor ``[..., T, L]`` and one fp32 matmul transforms every frame at once
-(``kernels/fft.py``).  The batched pipeline's analysis reads the blocked
-input directly (``stft_fused_from_blocks``) and does not go through here.
+condition; at any other overlap it is the real-DFT kernel of
+``kernels/fft.py`` (``rdft_rows``), which cuts the frames from the signal on
+the fly too.  The batched pipeline's analysis at frame = 2*hop reads the
+blocked input directly (``stft_fused_from_blocks``) and does not go through
+here.  ``istft_frames`` is the inverse-DFT kernel (``irdft_rows``).
 """
 
 from __future__ import annotations
@@ -57,7 +58,7 @@ def stft(x: torch.Tensor, w2: torch.Tensor, hop: int) -> torch.Tensor:
     if (n == 2 * hop and num_frames(x.shape[-1], n, hop) > 0
             and x.shape[-1] % hop == 0):
         return stft_fused.stft_fused_planes(x, w2, hop)
-    return kfft.rfft(frame_signal(x, n, hop), w2)
+    return kfft.rdft_rows(x, w2, hop)
 
 
 def istft_frames(spectra: torch.Tensor, a2: torch.Tensor) -> torch.Tensor:

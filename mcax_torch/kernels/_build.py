@@ -29,8 +29,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("stft_fused.cu", "srp_fused.cu", "covprefix.cu", "mvdrsolve.cu",
-           "cps.cu")
-HEADERS = ("common.cuh",)
+           "cps.cu", "dft.cu")
+HEADERS = ("common.cuh", "gemm_rows.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")
@@ -57,6 +57,10 @@ SIGNATURES = {
     "mcax_mvdr_solve_complex": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
     # a, b, g, n, eps, stream
     "mcax_cps_phat": (_P, _P, _P, _L, _F, _P),
+    # x, w2, out, rows, N, hop, T, L, F, ldw, vec, stream
+    "mcax_rdft_rows": (_P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I, _P),
+    # y, a2, out, rows, F, N, lda, stream
+    "mcax_irdft_rows": (_P, _P, _P, _L, _I, _I, _I, _P),
 }
 
 

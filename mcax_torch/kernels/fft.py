@@ -3,24 +3,44 @@
 The DFT-matrix builders are the port's own copies of ``_fwd_matrices`` and
 ``_inv_matrices`` (host numpy, float64 then float32, any window folded in).
 On top of them the port keeps the complex pair interleaved in one matrix, so
-each transform is ONE fp32 ``torch.matmul`` whose float output is already
+each transform is ONE fp32 matrix product whose float output is already
 complex64 (forward) or whose complex64 input is read as floats (inverse):
 
   * analysis  W2 [N, 2F]: column 2f = Re, 2f+1 = Im of bin f;
   * synthesis A2 [2F, N]: row 2k = Ar[k], row 2k+1 = Ai[k].
 
-The inverse DFT on the main path is this plain matrix product (``mcax``
-leaves it to XLA there too), so it stays ``torch.matmul``; the forward
-transform of the batched path is the hand-written kernel of
-``kernels/stft_fused.py``, which reads W2 directly.
+Two kernels carry them (``csrc/dft.cu``, on the GEMM body the STFT kernels
+share), the counterparts of the reference's Pallas ``_rdft_pallas`` and
+``_irdft_pallas``:
+
+  * ``rdft_rows`` — the windowed real DFT of frame rows cut from a signal
+    on the fly (or of a materialised frame tensor): ``rfft`` and the STFT
+    of any overlap other than frame = 2*hop;
+  * ``irdft_rows`` — the inverse real DFT with the synthesis window: every
+    synthesis chain's ``istft_frames`` and GCC's lag correlation.
+
+Each wrapper launches its kernel on CUDA tensors and runs its plain version
+(one fp32 ``torch.matmul`` on the same matrix) on CPU tensors.  The kernels
+read their matrix in whole 16-row x 128-column tiles, so the builders pad
+it to them at plan time and return it as a view of the zero-padded buffer,
+of the shape the plain versions read.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
 import torch
+
+from mcax_torch.kernels import _build
+from mcax_torch.kernels import dispatch
+
+# The GEMM body's tiles (csrc/gemm_rows.cuh): output columns per block and
+# the K slice.  A kernel's matrix operand is readable in whole tiles.
+BN = 128
+BK = 16
 
 
 def _fwd_matrices(n: int, f_pad: int, window: Optional[np.ndarray] = None):
@@ -64,44 +84,174 @@ def _inv_matrices(n: int, f_pad: int, window: Optional[np.ndarray] = None):
     return ar.astype(np.float32), ai.astype(np.float32)
 
 
+def _round_up(v: int, align: int) -> int:
+    return -(-v // align) * align
+
+
+def pad_to_tiles(m, device: torch.device) -> torch.Tensor:
+    """``m`` [K, N] (numpy or a tensor) on ``device``, as the [K, N] view of
+    a zero buffer of whole BK x BN tiles: a kernel may read whole tiles past
+    the view's edge."""
+    m = torch.as_tensor(m, dtype=torch.float32)
+    k, n = m.shape
+    buf = torch.zeros((_round_up(k, BK), _round_up(n, BN)),
+                      dtype=torch.float32, device=device)
+    buf[:k, :n] = m.to(device)
+    return buf[:k, :n]
+
+
 def analysis_matrix(n: int, window: Optional[np.ndarray],
                     device: torch.device, col_align: int = 1) -> torch.Tensor:
     """Interleaved forward matrix W2 [N, ldw] on ``device``: columns
     (2f, 2f+1) = (Wr[:, f], Wi[:, f]), zero columns from 2F up to ldw, the
-    next multiple of ``col_align`` (the STFT kernel's column tile)."""
+    next multiple of ``col_align`` (the kernels' column tile); stored in
+    whole BK x BN tiles (``pad_to_tiles``)."""
     f = n // 2 + 1
     wr, wi = _fwd_matrices(n, f, window)
-    ldw = -(-2 * f // col_align) * col_align
-    w2 = np.zeros((n, ldw), np.float32)
+    w2 = np.zeros((n, _round_up(2 * f, col_align)), np.float32)
     w2[:, 0:2 * f:2] = wr
     w2[:, 1:2 * f:2] = wi
-    return torch.from_numpy(w2).to(device)
+    return pad_to_tiles(w2, device)
 
 
 def synthesis_matrix(n: int, window: Optional[np.ndarray],
                      device: torch.device) -> torch.Tensor:
     """Interleaved inverse matrix A2 [2F, N] on ``device``: rows
-    (2k, 2k+1) = (Ar[k], Ai[k])."""
+    (2k, 2k+1) = (Ar[k], Ai[k]); stored in whole BK x BN tiles
+    (``pad_to_tiles``)."""
     f = n // 2 + 1
     ar, ai = _inv_matrices(n, f, window)
     a2 = np.empty((2 * f, n), np.float32)
     a2[0::2] = ar
     a2[1::2] = ai
-    return torch.from_numpy(a2).to(device)
+    return pad_to_tiles(a2, device)
+
+
+def _check_operand(name: str, m: torch.Tensor, k: int, ncol: int) -> None:
+    """Raise unless the kernels may read ``m`` [k, ncol] in whole BK x BN
+    tiles: float32, unit column stride, a row stride that is a multiple of
+    BN, storage for ceil(k/BK)*BK rows, a 16-byte-aligned base."""
+    if m.dtype != torch.float32 or m.ndim != 2 or m.shape[0] != k \
+            or m.shape[1] < ncol:
+        raise ValueError(f"{name} must be float32 [{k}, >= {ncol}], got "
+                         f"{m.dtype} {list(m.shape)}")
+    ld = m.stride(0)
+    need = m.storage_offset() + _round_up(k, BK) * ld
+    if (m.stride(1) != 1 or ld % BN or ld < ncol
+            or m.untyped_storage().nbytes() < 4 * need
+            or m.data_ptr() % 16):
+        raise ValueError(f"{name} is not padded to whole {BK} x {BN} tiles "
+                         "(build it with pad_to_tiles)")
+
+
+def rdft_rows_plain(x: torch.Tensor, w2: torch.Tensor,
+                    hop: int) -> torch.Tensor:
+    """Plain PyTorch version: the frames cut out, one fp32 matmul."""
+    n = w2.shape[0]
+    f = n // 2 + 1
+    if x.shape[-1] < n:
+        return torch.empty((*x.shape[:-1], 0, f), dtype=torch.complex64,
+                           device=x.device)
+    frames = x.unfold(-1, n, hop).contiguous()             # [..., T, L]
+    y = torch.matmul(frames, w2[:, :2 * f])                # [..., T, 2F]
+    return torch.view_as_complex(y.view(*y.shape[:-1], f, 2))
+
+
+def rdft_rows(x: torch.Tensor, w2: torch.Tensor, hop: int) -> torch.Tensor:
+    """Windowed real DFT of the frames of a signal, cut on the fly.
+
+    Args:
+      x: float32 [..., N].
+      w2: interleaved windowed DFT matrix [L, >= 2F] (``analysis_matrix``);
+        L is the frame length and may be any length.
+      hop: frame advance; hop = L with N = L is a plain row-wise DFT.
+    Returns:
+      complex64 [..., T, F], T = (N - L) // hop + 1 complete frames.
+    """
+    n = w2.shape[0]
+    f = n // 2 + 1
+    if w2.ndim != 2 or w2.shape[1] < 2 * f or x.ndim < 1 or hop < 1:
+        raise ValueError(f"expected x [..., N], w2 [L, >= 2F] and hop >= 1, "
+                         f"got {list(x.shape)}, {list(w2.shape)}, {hop}")
+    if not dispatch.use_kernel(x, w2):
+        return rdft_rows_plain(x, w2, hop)
+    if x.dtype != torch.float32:
+        raise TypeError(f"x: expected torch.float32, got {x.dtype}")
+    _check_operand("w2", w2, n, 2 * f)
+    x = x.contiguous()
+    big_n = x.shape[-1]
+    t = (big_n - n) // hop + 1 if big_n >= n else 0
+    lead = x.shape[:-1]
+    out = torch.empty((*lead, t, f), dtype=torch.complex64, device=x.device)
+    rows = math.prod(lead) * t
+    if rows == 0:
+        return out
+    vec = x.data_ptr() % 16 == 0 and big_n % 4 == 0 and hop % 4 == 0
+    code = _build.library().mcax_rdft_rows(
+        x.data_ptr(), w2.data_ptr(), out.data_ptr(), rows, big_n, hop, t, n,
+        f, w2.stride(0), int(vec), _build.stream_of(x))
+    _build.check_launch("rdft_rows", code)
+    rdft_rows.LAUNCHES += 1
+    return out
+
+
+rdft_rows.LAUNCHES = 0
+
+
+def irdft_rows_plain(y: torch.Tensor, a2: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: one fp32 matmul of the spectra's floats."""
+    f = y.shape[-1]
+    yr = torch.view_as_real(y).reshape(*y.shape[:-1], 2 * f)
+    return torch.matmul(yr, a2)
+
+
+def irdft_rows(y: torch.Tensor, a2: torch.Tensor) -> torch.Tensor:
+    """Inverse real DFT of spectra rows with the synthesis window.
+
+    Args:
+      y: complex64 [..., F].
+      a2: interleaved inverse matrix [2F, N] (``synthesis_matrix``, or a
+        column selection of it padded with ``pad_to_tiles``); N may be any
+        width.
+    Returns:
+      float32 [..., N].
+    """
+    f = y.shape[-1] if y.ndim else 0
+    if y.dtype != torch.complex64 or y.ndim < 1 or a2.ndim != 2 \
+            or a2.shape[0] != 2 * f:
+        raise ValueError(f"expected y complex64 [..., F] and a2 [2F, N], got "
+                         f"{y.dtype} {list(y.shape)} and {list(a2.shape)}")
+    if not dispatch.use_kernel(y, a2):
+        return irdft_rows_plain(y, a2)
+    n = a2.shape[1]
+    _check_operand("a2", a2, 2 * f, n)
+    y = y.contiguous()
+    out = torch.empty((*y.shape[:-1], n), dtype=torch.float32,
+                      device=y.device)
+    rows = y.numel() // f if f else 0
+    if rows == 0 or n == 0:
+        return out
+    code = _build.library().mcax_irdft_rows(
+        y.data_ptr(), a2.data_ptr(), out.data_ptr(), rows, f, n,
+        a2.stride(0), _build.stream_of(y))
+    _build.check_launch("irdft_rows", code)
+    irdft_rows.LAUNCHES += 1
+    return out
+
+
+irdft_rows.LAUNCHES = 0
 
 
 def rfft(x: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
     """Real DFT over the last axis: [..., N] float32 -> [..., F] complex64,
     with the window folded into ``w2`` (``analysis_matrix``)."""
     n = x.shape[-1]
-    f = n // 2 + 1
-    y = torch.matmul(x, w2[:, :2 * f])                     # [..., 2F] fp32
-    return torch.view_as_complex(y.view(*y.shape[:-1], f, 2))
+    if w2.shape[0] != n:
+        raise ValueError(f"w2 has {w2.shape[0]} rows for frames of {n}")
+    return rdft_rows(x, w2, n)[..., 0, :]
 
 
 def irfft(y: torch.Tensor, a2: torch.Tensor) -> torch.Tensor:
     """Inverse real DFT over the last axis: [..., F] complex64 ->
     [..., N] float32, with the synthesis window folded into ``a2``."""
-    f = y.shape[-1]
-    yr = torch.view_as_real(y).reshape(*y.shape[:-1], 2 * f)
-    return torch.matmul(yr, a2)
+    return irdft_rows(y, a2)

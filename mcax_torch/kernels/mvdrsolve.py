@@ -12,7 +12,8 @@ denominator guard |d^H z| > 1e-12 (else 1e-12 + 0j).  Two layouts of R:
     the multi-stream step with B = S).
 
 Each wrapper launches the hand-written kernel (``csrc/mvdrsolve.cu``, one
-thread per (block, bin), one solve body for both layouts) on CUDA tensors
+thread per (block, bin), one solve body for both layouts, built for C = 8
+and C = 16) on CUDA tensors
 and runs its plain version on CPU tensors: ``*_plain`` is ``_solve_math``
 (the reference's unrolled solve, operation for operation) on [B, F]
 tensors.
@@ -28,8 +29,9 @@ import torch
 from mcax_torch.kernels import _build
 from mcax_torch.kernels import dispatch
 
-# C values the kernel is instantiated for (csrc/mvdrsolve.cu): config4's.
-KERNEL_CHANNELS = (8,)
+# C values the kernel is instantiated for (csrc/mvdrsolve.cu): config4's,
+# with the factor in registers, and config5's, with it in shared memory.
+KERNEL_CHANNELS = (8, 16)
 
 
 def _solve_math(c: int, s: int, delta: float, re, im, dget, wset):

@@ -10,10 +10,10 @@ so the spectra follow without building the frame tensor:
   * ``stft_fused_planes`` — a contiguous signal [..., N] (the block step's
     carry + block): frame t is [slab t | slab t+1].
 
-Each wrapper launches the hand-written kernel (``csrc/stft_fused.cu``, one
-GEMM body for both) on CUDA tensors and runs its plain version on CPU
-tensors: ``*_plain`` cuts the frames and does one fp32 matmul with the same
-matrix.
+Each wrapper launches the hand-written kernel (``csrc/stft_fused.cu``, on
+the GEMM body of ``csrc/gemm_rows.cuh``) on CUDA tensors and runs its plain
+version on CPU tensors: ``*_plain`` cuts the frames and does one fp32 matmul
+with the same matrix (``kfft.rdft_rows_plain``).
 
 The port returns complex64 spectra [C, B*T, F] where ``mcax`` returns two
 float planes: the kernel writes (re, im) interleaved, which is complex64's
@@ -30,15 +30,16 @@ from mcax_torch.kernels import _build
 from mcax_torch.kernels import dispatch
 from mcax_torch.kernels import fft as kfft
 
-# The kernel's tiles (csrc/stft_fused.cu): its W2 operand is padded to a
+# The GEMM body's tiles (csrc/gemm_rows.cuh): its W2 operand is padded to a
 # whole number of BN-column tiles, and K slices of BK samples never straddle
 # the two slabs of a frame.
-BN = 128
-BK = 16
+BN = kfft.BN
+BK = kfft.BK
 
 
 def analysis_matrix(n: int, window, device: torch.device) -> torch.Tensor:
-    """The windowed DFT operand W2 [n, ldw] the kernel (and plain) read."""
+    """The windowed DFT operand W2 [n, ldw] the kernels (and plain) read,
+    ldw a multiple of BN."""
     return kfft.analysis_matrix(n, window, device, col_align=BN)
 
 
@@ -67,9 +68,7 @@ def stft_fused_from_blocks_plain(samples: torch.Tensor, carry: torch.Tensor,
     b, c, block_len, _ = _shape(samples, carry, w2, hop)
     flat = samples.permute(1, 0, 2).reshape(c, b * block_len)
     x = torch.cat([carry, flat], dim=-1)                   # [C, hop + B*L]
-    slabs = x.view(c, -1, hop)                             # [C, B*T + 1, hop]
-    frames = torch.cat([slabs[:, :-1], slabs[:, 1:]], dim=-1)
-    return kfft.rfft(frames, w2)
+    return kfft.rdft_rows_plain(x, w2, hop)
 
 
 def stft_fused_from_blocks(samples: torch.Tensor, carry: torch.Tensor,
@@ -127,10 +126,8 @@ def _planes_shape(x: torch.Tensor, w2: torch.Tensor, hop: int):
 def stft_fused_planes_plain(x: torch.Tensor, w2: torch.Tensor,
                             hop: int) -> torch.Tensor:
     """Plain PyTorch version: spectra complex64 [..., T, F]."""
-    n, _, _ = _planes_shape(x, w2, hop)
-    slabs = x.reshape(*x.shape[:-1], n // hop, hop)
-    frames = torch.cat([slabs[..., :-1, :], slabs[..., 1:, :]], dim=-1)
-    return kfft.rfft(frames, w2)
+    _planes_shape(x, w2, hop)
+    return kfft.rdft_rows_plain(x, w2, hop)
 
 
 def stft_fused_planes(x: torch.Tensor, w2: torch.Tensor,

@@ -10,12 +10,14 @@ One ``Pipeline`` object per config, stateless, with all streaming state
     states, outs = pipe.process_streams(pipe.init_states(S), streams)
     state, outs = pipe.run(signal)                     # [C, N] host loop
 
-The port runs the ``gcc`` (config1), ``srp`` (config3) and ``srp_mvdr``
-(config4) chains through all four entry points.  Its kernels (STFT from
-blocks and from a contiguous signal, fused SRP, covariance prefixes, MVDR
-solve from rows and from complex covariances, PHAT cross-power) are
-hand-written CUDA on a CUDA device; on ``device="cpu"`` their plain PyTorch
-versions run.  The other algorithms and the scan mode are queued in
+The port runs the ``gcc`` (config1), ``delaysum`` (config2), ``srp``
+(config3), ``srp_mvdr`` (config4) and ``track_mvdr`` with the EMA tracker
+(config5) chains through all four entry points.  Its kernels (STFT from
+blocks and from a contiguous signal, real DFT and inverse real DFT of rows,
+fused SRP, covariance prefixes, MVDR solve from rows and from complex
+covariances, PHAT cross-power) are hand-written CUDA on a CUDA device; on
+``device="cpu"`` their plain PyTorch versions run.  ``srp_delaysum``,
+``mvdr``, ``mask``, the particle smoother and the scan mode are queued in
 ROADMAP.md.
 """
 
@@ -28,9 +30,11 @@ import torch
 
 from mcax_torch import config as cfg_mod
 from mcax_torch.algos import covariance as cov_mod
+from mcax_torch.algos import delaysum
 from mcax_torch.algos import gcc
 from mcax_torch.algos import mvdr
 from mcax_torch.algos import srp
+from mcax_torch.algos import tracking
 from mcax_torch.frames import stft as stft_mod
 from mcax_torch.frames.ola import streaming_overlap_add
 from mcax_torch.frames.window import make_windows
@@ -43,14 +47,17 @@ _SYNTH_ALGOS = ("delaysum", "srp_delaysum", "mvdr", "srp_mvdr", "track_mvdr",
                 "mask")
 _COV_ALGOS = ("mvdr", "srp_mvdr", "track_mvdr")
 _SRP_ALGOS = ("srp", "srp_delaysum", "srp_mvdr", "track_mvdr")
-_PORTED_ALGOS = ("gcc", "srp", "srp_mvdr")
+_PORTED_ALGOS = ("gcc", "delaysum", "srp", "srp_mvdr", "track_mvdr")
 
 
 def _map_state(fn, state: PipelineState) -> PipelineState:
-    """Apply ``fn`` to every tensor leaf of a state (None stays None)."""
-    return dataclasses.replace(state, **{
-        k: None if getattr(state, k) is None else fn(getattr(state, k))
-        for k in FIELDS})
+    """Apply ``fn`` to every tensor leaf of a state, the tracks' three
+    included (None stays None)."""
+    new = {k: None if getattr(state, k) is None else fn(getattr(state, k))
+           for k in FIELDS}
+    if state.tracks is not None:
+        new["tracks"] = tracking.TrackState(*map(fn, state.tracks))
+    return dataclasses.replace(state, **new)
 
 
 class Pipeline:
@@ -63,6 +70,11 @@ class Pipeline:
             raise NotImplementedError(
                 f"mcax_torch runs algo {'|'.join(_PORTED_ALGOS)} so far; "
                 f"{algo!r} ({cfg.name}) is queued in ROADMAP.md, Queue 1")
+        if algo == "track_mvdr" and cfg.algo.smoother != "ema":
+            raise NotImplementedError(
+                f"mcax_torch tracks with the EMA smoother so far; smoother="
+                f"{cfg.algo.smoother!r} is queued in ROADMAP.md, Queue 1 "
+                "(the reference's particle smoother draws from jax.random)")
         self.device = dispatch.resolve_device(device)
         self.geom = cfg.geometry()
         self.pairs = self.geom.pairs
@@ -83,8 +95,13 @@ class Pipeline:
                                           band_hz=cfg.algo.band_hz)
             self.plan = srp.device_plan(self.srp_plan, self.pairs,
                                         self.device)
-        # the analysis kernels (frame = 2*hop) read their DFT operand padded
-        # to the kernel's column tile; the generic path reads the same matrix
+            deg_per_bin = 360.0 / cfg.algo.grid_points
+            self.suppress_bins = max(1, int(round(
+                cfg.algo.peak_suppression_deg / deg_per_bin)))
+        self.fixed_steer = (torch.from_numpy(delaysum.steering_vector(
+            self.geom, cfg.algo.steer_azimuth_rad, s.frame_len)).to(
+                self.device) if algo == "delaysum" else None)
+        # the DFT kernels read their matrices padded to whole tiles
         self._w2 = stft_fused.analysis_matrix(s.frame_len, self.win_a,
                                               self.device)
         self._a2 = (kfft.synthesis_matrix(s.frame_len, self.win_s,
@@ -102,13 +119,18 @@ class Pipeline:
         lh = cfg.stft.frame_len - cfg.stft.hop
         algo = cfg.algo.name
         dev = self.device
+        tracked = algo == "track_mvdr"
+        # track_mvdr resynthesises one signal per source
+        tail = (cfg.algo.num_sources, lh) if tracked else (lh,)
         return PipelineState(
             carry=torch.zeros((c, lh), dtype=torch.float32, device=dev),
             block_idx=torch.zeros((), dtype=torch.int32, device=dev),
-            ola_tail=(torch.zeros((lh,), dtype=torch.float32, device=dev)
+            ola_tail=(torch.zeros(tail, dtype=torch.float32, device=dev)
                       if algo in _SYNTH_ALGOS else None),
             cov=(cov_mod.init_planes(cfg.stft.num_bins, c, device=dev)
-                 if algo in _COV_ALGOS else None))
+                 if algo in _COV_ALGOS else None),
+            tracks=(tracking.init_tracks(cfg.algo.num_sources, dev)
+                    if tracked else None))
 
     def init_states(self, num_streams: int) -> PipelineState:
         """States of ``num_streams`` independent streams: every leaf of
@@ -132,8 +154,10 @@ class Pipeline:
     def process_block(self, state: PipelineState, samples) -> Tuple[
             PipelineState, Dict[str, torch.Tensor]]:
         """One block: samples [C, block_len] -> (state, out), outputs as in
-        ``mcax`` (``doa`` [T] for srp, ``audio`` [T*hop] for srp_mvdr,
-        ``tdoa`` [P, T] for gcc, ...).  The multi-stream step at S = 1."""
+        ``mcax`` (``doa`` [T] for srp, ``audio`` [T*hop] for srp_mvdr and
+        delaysum, [S, T*hop] and ``doa``/``confidence`` [S] per source for
+        track_mvdr, ``tdoa`` [P, T] for gcc, ...).  The multi-stream step at
+        S = 1."""
         samples = torch.as_tensor(samples, dtype=torch.float32,
                                   device=self.device)
         expect = (self.geom.num_mics, self.cfg.block_len)
@@ -171,9 +195,15 @@ class Pipeline:
         spectra = spectra_cs.transpose(0, 1)               # [S, C, T, F]
 
         algo = cfg.algo.name
-        new_tail, new_cov = state.ola_tail, state.cov
+        new_tail, new_cov, new_tracks = state.ola_tail, state.cov, state.tracks
         if algo == "gcc":
             out = self._gcc(spectra, lambda a: a)
+        elif algo == "delaysum":
+            y = delaysum.beamform(spectra, self.fixed_steer)      # [S, T, F]
+            frames = stft_mod.istft_frames(y, self._a2)           # [S, T, L]
+            audio, new_tail = streaming_overlap_add(frames, hop,
+                                                    state.ola_tail)
+            out = {"audio": audio}
         elif algo == "srp":
             power = self._srp_power(spectra_cs).view(s_, t, -1)   # [S, T, G]
             az, pk = srp.argmax_doa(power, self.plan,
@@ -196,11 +226,28 @@ class Pipeline:
             out = {"audio": audio, "doa": self.plan.azimuths_rad[gidx],
                    "doa_frame": az_f}
             new_cov = cov_mod.to_planes(cov)
+        elif algo == "track_mvdr":
+            power = self._srp_power(spectra_cs).view(s_, t, -1)
+            new_tracks, gidx = tracking.track_block(
+                state.tracks, power.mean(dim=1), self.plan.azimuths_rad,
+                self.suppress_bins, cfg.algo.track_smooth)   # gidx [S, Src]
+            steer = srp.steering_vector(self.plan, gidx)     # [S, Src, C, F]
+            cov = cov_mod.update(cov_mod.from_planes(state.cov), spectra,
+                                 cfg.algo.cov_forget)        # [S, F, C, C]
+            w = mvdr.weights_blocks(cov, steer, cfg.algo.diag_load)
+            y = mvdr.beamform(spectra, w)                    # [S, Src, T, F]
+            frames = stft_mod.istft_frames(y, self._a2)
+            audio, new_tail = streaming_overlap_add(frames, hop,
+                                                    state.ola_tail)
+            out = {"audio": audio, "doa": new_tracks.angles_rad,
+                   "confidence": new_tracks.confidence}
+            new_cov = cov_mod.to_planes(cov)
         else:
             raise ValueError(f"unknown algo {algo!r}")
         new_state = PipelineState(carry=new_carry,
                                   block_idx=state.block_idx + 1,
-                                  ola_tail=new_tail, cov=new_cov)
+                                  ola_tail=new_tail, cov=new_cov,
+                                  tracks=new_tracks)
         return new_state, out
 
     def _srp_power(self, spectra_cs: torch.Tensor) -> torch.Tensor:
@@ -241,7 +288,8 @@ class Pipeline:
         Returns:
           (state, out): every output of ``process_block`` with a leading B
           axis (srp_mvdr: ``audio`` [B, T*hop], ``doa`` [B], ``doa_frame``
-          [B, T]).
+          [B, T]; track_mvdr: ``audio`` [B, S, T*hop], ``doa`` and
+          ``confidence`` [B, S]).
         """
         samples = self._check_samples(samples, "B").contiguous()
         cfg = self.cfg
@@ -265,10 +313,21 @@ class Pipeline:
             """[..., B*T] -> [B, ..., T] (split the frame axis into blocks)."""
             return a.reshape(*a.shape[:-1], b, t).movedim(-2, 0)
 
+        def resynth(y):
+            """y [..., B*T, F] -> (audio [B, ..., T*hop], new OLA tail):
+            OLA over the whole contiguous frame stream, split per block."""
+            frames = stft_mod.istft_frames(y, self._a2)    # [..., B*T, L]
+            full, tail = streaming_overlap_add(frames, hop, state.ola_tail)
+            return full.view(*full.shape[:-1], b, t * hop).movedim(-2, 0), tail
+
         algo = cfg.algo.name
-        new_tail, new_cov = state.ola_tail, state.cov
+        new_tail, new_cov, new_tracks = state.ola_tail, state.cov, state.tracks
         if algo == "gcc":
             out = self._gcc(spectra, per_block)
+        elif algo == "delaysum":
+            y = delaysum.beamform(spectra, self.fixed_steer)   # [B*T, F]
+            audio, new_tail = resynth(y)
+            out = {"audio": audio}
         elif algo == "srp":
             power = self._srp_power(spectra)               # [B*T, G]
             az, pk = srp.argmax_doa(power, self.plan,
@@ -284,20 +343,35 @@ class Pipeline:
                 t, steer, cfg.algo.diag_load)              # [B, C, F]
             blocks = spectra.view(c, b, t, -1).permute(1, 0, 2, 3)
             y = mvdr.beamform(blocks, w)                   # [B, T, F]
-            frames = stft_mod.istft_frames(y.reshape(bt, -1), self._a2)
-            full, new_tail = streaming_overlap_add(frames, hop,
-                                                   state.ola_tail)
+            audio, new_tail = resynth(y.reshape(bt, -1))
             az_f, _ = srp.argmax_doa(power, self.plan,
                                      interpolate=cfg.algo.srp_interpolate)
-            out = {"audio": full.view(b, t * hop),
-                   "doa": self.plan.azimuths_rad[gidx],
+            out = {"audio": audio, "doa": self.plan.azimuths_rad[gidx],
                    "doa_frame": per_block(az_f)}
+            new_cov = cov_mod.to_planes(cov)
+        elif algo == "track_mvdr":
+            power = self._srp_power(spectra)               # [B*T, G]
+            pmean = power.view(b, t, -1).mean(dim=1)       # [B, G]
+            new_tracks, gidx, angles, conf = tracking.track_blocks(
+                state.tracks, pmean, self.plan.azimuths_rad,
+                self.suppress_bins, cfg.algo.track_smooth)  # [B, S] each
+            steer = srp.steering_vector(self.plan, gidx)   # [B, S, C, F]
+            w, cov = mvdr.weights_and_cov_from_spectra(
+                spectra, cov_mod.from_planes(state.cov), cfg.algo.cov_forget,
+                t, steer, cfg.algo.diag_load)              # [B, S, C, F]
+            blocks = spectra.view(c, b, t, -1).permute(1, 0, 2, 3)
+            y = mvdr.beamform(blocks, w)                   # [B, S, T, F]
+            # per-source contiguous frame streams [S, B*T, F]
+            y_s = y.transpose(0, 1).reshape(y.shape[1], bt, -1)
+            audio, new_tail = resynth(y_s)                 # [B, S, T*hop]
+            out = {"audio": audio, "doa": angles, "confidence": conf}
             new_cov = cov_mod.to_planes(cov)
         else:
             raise ValueError(f"unknown algo {algo!r}")
         new_state = PipelineState(carry=new_carry,
                                   block_idx=state.block_idx + b,
-                                  ola_tail=new_tail, cov=new_cov)
+                                  ola_tail=new_tail, cov=new_cov,
+                                  tracks=new_tracks)
         return new_state, out
 
     # ------------------------------------------------------------------

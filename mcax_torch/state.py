@@ -12,7 +12,10 @@ from typing import Optional
 
 import torch
 
-# the fields the port carries (config5's tracks and particles are not ported)
+from mcax_torch.algos.tracking import TrackState
+
+# the tensor fields; ``tracks`` holds three more leaves (a TrackState), and
+# config5's particle smoother is not ported
 FIELDS = ("carry", "block_idx", "ola_tail", "cov")
 
 
@@ -22,5 +25,5 @@ class PipelineState:
     block_idx: torch.Tensor                  # scalar int32
     ola_tail: Optional[torch.Tensor] = None  # [(S,) frame_len - hop] OLA carry
     cov: Optional[torch.Tensor] = None       # [F, C, C, 2] float32 re/im planes
-    tracks: None = None                      # config5's tracker: not ported yet
-    particles: None = None                   # config5's particle smoother: same
+    tracks: Optional[TrackState] = None      # config5's EMA tracks, [S] each
+    particles: None = None                   # the particle smoother: not ported

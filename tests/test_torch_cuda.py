@@ -12,8 +12,9 @@ They cover the ragged edges the main path's shapes do not: frame rows and
 grid points that are not tile multiples, odd bin counts, other channel
 counts for the covariance prefixes, several sources, a zero seed
 covariance, signals of one or many rows, element counts that are not a
-multiple of the block; and each streaming entry point on the card against
-the CPU."""
+multiple of the block, frame lengths and hops that break the DFT kernel's
+vector loads, an odd inverse-DFT width; the MVDR solve at C = 16; and each
+streaming entry point on the card against the CPU."""
 
 import numpy as np
 import pytest
@@ -22,7 +23,7 @@ import torch
 from mcax_torch import geometry as t_geo
 from mcax_torch.algos import srp as t_srp
 from mcax_torch.frames import window as t_window
-from mcax_torch.kernels import (covprefix, cps, mvdrsolve, srp_fused,
+from mcax_torch.kernels import (covprefix, cps, fft, mvdrsolve, srp_fused,
                                 stft_fused)
 
 pytestmark = pytest.mark.cuda
@@ -195,7 +196,79 @@ def test_cps_phat(dev, shape):
                                atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("name", ["config1", "config3", "config4"])
+@pytest.mark.parametrize("lead,n,hop,nsig", [
+    ((8,), 512, 128, 4480),    # config3 at hop 128: a block step's signal
+    ((37,), 1536, 1536, 1536), # materialised frames (hop = L), 37 rows
+    ((2, 3), 300, 100, 2500),  # L not a multiple of 16: the K tail
+    ((3,), 512, 130, 4099),    # unaligned row starts: scalar loads
+])
+def test_rdft_rows(dev, lead, n, hop, nsig):
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal(
+        (*lead, nsig)).astype(np.float32)).to(dev)
+    w2 = fft.analysis_matrix(n, t_window.sqrt_hann(n), dev)
+    before = fft.rdft_rows.LAUNCHES
+    got = fft.rdft_rows(x, w2, hop)
+    assert fft.rdft_rows.LAUNCHES == before + 1
+    want = fft.rdft_rows_plain(x, w2, hop)
+    assert got.shape == want.shape
+    scale = torch.view_as_real(want).abs().max()
+    torch.testing.assert_close(torch.view_as_real(got) / scale,
+                               torch.view_as_real(want) / scale,
+                               atol=3e-6, rtol=0)
+
+
+@pytest.mark.parametrize("rows,n,cols", [
+    (12288, 1024, None),       # config4 B = 512's synthesis
+    (300, 512, None),          # config5's frame, ragged rows
+    (77, 512, (5, 18)),        # GCC's lag-folded matrix: 13 columns
+])
+def test_irdft_rows(dev, rows, n, cols):
+    rng = np.random.default_rng(8)
+    f = n // 2 + 1
+    y = _rng_complex(rng, (rows, f), dev)
+    if cols is None:
+        a2 = fft.synthesis_matrix(n, t_window.sqrt_hann(n), dev)
+    else:
+        a2 = fft.pad_to_tiles(
+            fft.synthesis_matrix(n, None, dev)[:, cols[0]:cols[1]], dev)
+    before = fft.irdft_rows.LAUNCHES
+    got = fft.irdft_rows(y, a2)
+    assert fft.irdft_rows.LAUNCHES == before + 1
+    want = fft.irdft_rows_plain(y, a2)
+    scale = want.abs().max()
+    torch.testing.assert_close(got / scale, want / scale, atol=3e-6, rtol=0)
+    with pytest.raises(ValueError, match="whole"):
+        fft.irdft_rows(y, a2.clone())      # the same matrix, unpadded
+
+
+@pytest.mark.parametrize("layout", ["rows", "complex"])
+def test_mvdr_solve_c16_bit_equal(dev, layout):
+    """config5's C = 16 solve (factor in shared memory), two sources: the
+    plain version's IEEE operations in its order, so bit-equal."""
+    rng = np.random.default_rng(9)
+    b, f, c, s = 3, 257, 16, 2
+    x = _rng_complex(rng, (b, f, c, 3 * c), dev)
+    covs = (x @ x.conj().transpose(-1, -2) / (3 * c)).contiguous()
+    shape = (b, s, c, f)
+    steer = torch.polar(torch.ones(shape, device=dev),
+                        torch.from_numpy(rng.uniform(-np.pi, np.pi, shape)
+                                         .astype(np.float32)).to(dev))
+    if layout == "rows":
+        rows = covprefix.complex_to_rows(covs).contiguous()
+        got = mvdrsolve.weights_blocks_fused_rows(rows, steer, 1e-3)
+        want = mvdrsolve.weights_blocks_fused_rows_plain(rows, steer, 1e-3)
+    else:
+        got = mvdrsolve.weights_blocks_fused(covs, steer, 1e-3)
+        want = mvdrsolve.weights_blocks_fused_plain(covs, steer, 1e-3)
+    assert torch.equal(got, want)
+    resp = (got.conj() * steer).sum(dim=-2)
+    torch.testing.assert_close(resp, torch.ones_like(resp), atol=1e-3,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("name", ["config1", "config2", "config3", "config4",
+                                  "config5"])
 def test_streaming_entry_points_card_vs_cpu(dev, name):
     """process_block over 2 blocks and process_streams of 2 streams on the
     card against the same calls on the CPU (the plain versions)."""

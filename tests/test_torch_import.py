@@ -25,7 +25,8 @@ def test_import_loads_no_jax_and_no_mcax():
             "from mcax_torch.kernels import (_build, covprefix, cps, fft,\n"
             "                                mvdrsolve, srp_fused, steer,\n"
             "                                stft_fused)\n"
-            "from mcax_torch.algos import covariance, gcc, mvdr, srp\n"
+            "from mcax_torch.algos import (covariance, delaysum, gcc, mvdr,\n"
+            "                              srp, tracking)\n"
             "from mcax_torch.frames import ola, stft, window\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'mcax'))\n"
@@ -65,15 +66,24 @@ def test_pipeline_raises_without_a_card(monkeypatch):
     assert Pipeline(get_config("config4"), device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("name", ["config2", "config5"])
+@pytest.mark.parametrize("name", ["srp_delaysum", "mvdr", "mask",
+                                  "config5 particle"])
 def test_unported_algos_raise(name):
+    import dataclasses
     from mcax_torch.config import get_config
     from mcax_torch.pipeline import Pipeline
+    if name == "config5 particle":
+        cfg = get_config("config5")
+        algo = dataclasses.replace(cfg.algo, smoother="particle")
+    else:
+        cfg = get_config("config4")
+        algo = dataclasses.replace(cfg.algo, name=name)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Pipeline(get_config(name), device="cpu")
+        Pipeline(dataclasses.replace(cfg, algo=algo), device="cpu")
 
 
-@pytest.mark.parametrize("name", ["config1", "config3", "config4"])
+@pytest.mark.parametrize("name", ["config1", "config2", "config3", "config4",
+                                  "config5"])
 def test_ported_configs_build_on_the_cpu_only_when_asked(name, monkeypatch):
     from mcax_torch.config import get_config
     from mcax_torch.pipeline import Pipeline
@@ -97,13 +107,13 @@ def test_dispatch_rule():
 
 
 def test_every_kernel_has_a_counter_and_its_sources():
-    from mcax_torch.kernels import (_build, covprefix, cps, mvdrsolve,
+    from mcax_torch.kernels import (_build, covprefix, cps, fft, mvdrsolve,
                                     srp_fused, stft_fused)
     for fn in (stft_fused.stft_fused_from_blocks, srp_fused.srp_power_fused,
                covprefix.block_prefixes_rows,
                mvdrsolve.weights_blocks_fused_rows,
                stft_fused.stft_fused_planes, mvdrsolve.weights_blocks_fused,
-               cps.cps_phat_pairs):
+               fft.irdft_rows, fft.rdft_rows, cps.cps_phat_pairs):
         assert isinstance(fn.LAUNCHES, int)
     for name in _build.SOURCES + _build.HEADERS:
         assert (_build.CSRC / name).is_file(), name

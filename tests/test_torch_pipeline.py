@@ -157,4 +157,4 @@ def test_state_conversion_round_trip():
     for k in FIELDS:
         np.testing.assert_array_equal(back[k], leaves[k])
     with pytest.raises(NotImplementedError):
-        state_from_numpy(dict(leaves, tracks=np.zeros(2)), "cpu")
+        state_from_numpy(dict(leaves, particles=np.zeros(2)), "cpu")
