@@ -11,16 +11,17 @@ on the first that fails:
   1. print the card's name and power limit (``nvidia-smi``);
   2. build the port's CUDA kernels from ``mcax_torch/csrc`` with ``nvcc``
      (into ``build/``) and print the build seconds;
-  3. hold each of the nine kernels against its plain PyTorch version on the
+  3. hold each of the ten kernels against its plain PyTorch version on the
      card, on the inputs its path gives it (kernels 1-4: config4
      ``process_blocks`` at B = 512; the STFT of a contiguous signal and the
      MVDR solve from complex covariances: config4 ``process_streams`` at
      S = 64; the PHAT cross-power: config1 ``process_blocks`` at B = 512;
      the inverse real DFT: config4's synthesis at B = 512; the real DFT:
-     config3 at stft.hop=128, B = 512; both MVDR solve layouts again at
-     C = 16 on config5's shapes, bit-equal), to the parity bounds below, and
-     time kernel, plain version and (where one PyTorch call computes the
-     same function) that library call with CUDA events;
+     config3 at stft.hop=128, B = 512; the materialised-CPS SRP: config4's
+     CPS at B = 512 and at one block, M = 24; both MVDR solve layouts again
+     at C = 16 on config5's shapes, bit-equal), to the parity bounds below,
+     and time kernel, plain version and (where one PyTorch call computes
+     the same function) that library call with CUDA events;
   4. drive every ported path through the user's entry points, with every
      kernel's launch count set to 0 just before each path and read just
      after, on synthetic plane waves from seeded numpy generators:
@@ -55,10 +56,26 @@ on the first that fails:
           blocks equal to it;
        i. config3 at stft.hop=128 ``process_blocks`` at B = 512: the real
           DFT once per dispatch, every block's median DOA within 2 degrees;
+       j. config4 ``Pipeline(srp="matmul").process_blocks`` at B = 512: the
+          PHAT cross-power and the materialised-CPS SRP once per dispatch
+          (the fused SRP never), every block's DOA within 2 degrees, audio
+          within 5e-4 of phase a's fused path on the same blocks and the
+          block DOA equal, frame DOAs within a grid step; samples/s beside
+          the fused path's, a profile, peak memory;
+       k. the same configuration's ``process_block`` over 64 blocks:
+          latency beside phase b's, launches, equal to its
+          ``process_blocks``;
+       l. ``ShardedPipeline(config4, make_mesh(1, 1), srp="matmul")`` in a
+          one-rank NCCL group joined by ``multihost.initialize`` (a
+          ``FileStore`` in a temporary directory): ``process_blocks`` over
+          phase j's dispatches and ``process_block`` over 4 blocks, counted
+          and held to phases j and k on the same blocks; the group is
+          destroyed after;
   5. run each path on the card and on the CPU (the plain versions) on a
      small input and hold them to the slice's parity bounds (config4
      ``process_blocks`` on the main path's first 4 blocks, the other paths
-     on plane waves of their own).
+     on plane waves of their own), and configs 3, 4 and 5 again with
+     ``srp="matmul"``.
 
 The last lines are the card's name and power limit, one JSON object with
 every kernel's numbers, and ``{"ok": true, "device": {...}}``.  With no CUDA
@@ -487,6 +504,68 @@ def check_dft_kernels(pipe4, spec4, pipe3h, blocks3h, peaks):
     return recs
 
 
+def check_steer_kernel(pipe_m, spec4, peaks):
+    """Phase 3, kernel 10: the materialised-CPS SRP on config4's CPS at
+    B = 512 (M = 12 288 frames) and at one block (M = 24), against its
+    plain version within 1e-4 of the largest power, with the argmax-loss
+    check of kernel 2.  Returns {name: record}, the M = 24 numbers under
+    ``at_m24``."""
+    import torch
+    from mcax_torch.kernels import cps, steer
+    plan = pipe_m.plan
+    st = spec4.transpose(0, 1)                             # [M, C, F]
+    g = cps.cps_phat_pairs(torch.index_select(st, 1, plan.pairs[:, 0]),
+                           torch.index_select(st, 1, plan.pairs[:, 1]),
+                           pipe_m.cfg.algo.phat_eps)       # [M, P, F]
+    cps_all = g.view(g.shape[0], -1)                       # [M, K]
+    del g, st
+    b2 = plan.b2
+    k, gp = cps_all.shape[1], b2.shape[1]
+
+    def measure(cps_m):
+        m = cps_m.shape[0]
+        power = steer.srp_power_cps(cps_m, b2)
+        want = steer.srp_power_cps_plain(cps_m, b2)
+        torch.cuda.synchronize()
+        scale = want.abs().max().item()
+        err = (power - want).abs().max().item()
+        if not err / scale <= 1e-4:
+            raise AssertionError(f"srp_power_cps at M = {m}: scaled error "
+                                 f"{err / scale:.3e} > 1e-4")
+        rows_i = torch.arange(m, device=power.device)
+        loss = (want[rows_i, want.argmax(-1)]
+                - want[rows_i, power.argmax(-1)]).max().item()
+        if not loss <= 1e-4 * scale:
+            raise AssertionError(f"srp_power_cps at M = {m}: argmax loses "
+                                 f"{loss:.3e} of peak power")
+        # cuBLAS on the same interleaved operands: [M, 2K] x [2K, G]
+        a = torch.view_as_real(cps_m).view(m, 2 * k)
+        del power, want
+        return dict(
+            max_abs_err=err, scaled_err=err / scale,
+            ms=time_ms(lambda: steer.srp_power_cps(cps_m, b2)),
+            plain_ms=time_ms(lambda: steer.srp_power_cps_plain(cps_m, b2),
+                             reps=3),
+            library_ms=time_ms(lambda: torch.matmul(a, b2)),
+            bound=bound_ms(4.0 * m * k * gp,
+                           8.0 * m * k + 4.0 * 2 * k * gp + 4.0 * m * gp,
+                           peaks))
+
+    rec = measure(cps_all)
+    small = measure(cps_all[:pipe_m.cfg.frames_per_block])
+    rec.update(
+        route="cuda", source="mcax_torch/csrc/steer.cu",
+        replaces="mcax/kernels/steer.py:80",
+        library_call="torch.matmul of the interleaved CPS and B' (cuBLAS "
+                     "SGEMM, TF32 off)",
+        at_m24=dict(shape=[pipe_m.cfg.frames_per_block, k, gp],
+                    max_abs_err=small["max_abs_err"], ms=small["ms"],
+                    plain_ms=small["plain_ms"],
+                    library_ms=small["library_ms"],
+                    bound_ms=small["bound"][0], bound_by=small["bound"][1]))
+    return {"srp_power_cps": rec}
+
+
 def check_mvdr_c16(pipe5, blocks5, x5_streams, recs, peaks):
     """Phase 3, kernels 4 and 6 at C = 16 on config5's shapes (the rows
     layout from config5's covariance prefixes at B = 512, the complex
@@ -795,14 +874,15 @@ def small_reference(cfg, x_small):
                for d in range(2))
 
 
-def small_new_paths(x_small):
+def small_new_paths(x_small, srp="fused", skip_blocks=("config4",)):
     """Phase 5, the streaming paths and the GCC and SRP chains: each on the
-    card against the same calls on the CPU (the kernels' plain versions):
-    ``process_block`` over 2 blocks and ``process_streams`` of 2 streams
-    over 2 blocks for config4, config1 and config3, and config1's and
-    config3's ``process_blocks`` over two carried dispatches of 2 blocks.
-    ``x_small`` maps a path's name to (its configuration, [2, C, 4*L] host
-    inputs: two streams of four blocks)."""
+    card against the same calls on the CPU (the kernels' plain versions),
+    with the SRP kernel ``srp``: ``process_block`` over 2 blocks and
+    ``process_streams`` of 2 streams over 2 blocks, and ``process_blocks``
+    over two carried dispatches of 2 blocks except for ``skip_blocks``
+    (``small_reference`` checks config4's fused one).  ``x_small`` maps a
+    path's name to (its configuration, [2, C, 4*L] host inputs: two
+    streams of four blocks)."""
     import torch
     from mcax_torch.pipeline import Pipeline
     report = {}
@@ -810,10 +890,10 @@ def small_new_paths(x_small):
         bl = cfg.block_len
         res = {}
         for dev in ("cuda", "cpu"):
-            pipe = Pipeline(cfg, device=dev)
+            pipe = Pipeline(cfg, device=dev, srp=srp)
             on = pipe.device
             outs, states = [], []
-            if name != "config4":      # small_reference checks config4's
+            if name not in skip_blocks:
                 st = pipe.init_state()
                 for d in range(2):
                     st, o = pipe.process_blocks(
@@ -850,6 +930,106 @@ def small_new_paths(x_small):
     return report
 
 
+def frame_doas_within_a_step(what, outs_a, outs_b, plan):
+    """Per-frame DOAs of two runs over the same blocks within one grid
+    step of each other (two SRP surfaces that agree to ~1e-5 may break a
+    near tie apart): (max degrees apart, frames that moved)."""
+    import torch
+    step = float(np.rad2deg(plan.azimuth_step))
+    off, moved = 0.0, 0
+    for a, b in zip(outs_a, outs_b):
+        d = torch.rad2deg(a["doa_frame"] - b["doa_frame"])
+        d = ((d + 180.0) % 360.0 - 180.0).abs()
+        off = max(off, d.max().item())
+        moved += int((d > 0).sum())
+    if not off <= step + 1e-3:
+        raise AssertionError(f"{what}: frame DOAs {off:.3f} deg apart (> one "
+                             "grid step)")
+    return off, moved
+
+
+def sharded_path(cfg, stream_blocks, lat_blocks, outs_m, outs_k, counters,
+                 by_path):
+    """Phase 4l: ``ShardedPipeline(cfg, make_mesh(1, 1), srp="matmul")`` in
+    a one-rank NCCL group joined through ``multihost.initialize`` (a
+    ``FileStore`` in a temporary directory): ``process_blocks`` over the
+    main path's dispatches and ``process_block`` over 4 blocks, counted and
+    held to ``Pipeline(srp="matmul")``'s outputs on the same blocks
+    (``outs_m``, ``outs_k``); the group is destroyed afterwards."""
+    import os
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from mcax_torch.dist import mesh as mesh_mod
+    from mcax_torch.dist import multihost
+    from mcax_torch.dist.sharded import ShardedPipeline
+    with tempfile.TemporaryDirectory() as tmp:
+        store = dist.FileStore(os.path.join(tmp, "store"), 1)
+        if not multihost.initialize(store=store, world_size=1, rank=0):
+            raise AssertionError("multihost.initialize joined no group")
+        try:
+            backend = dist.get_backend()
+            if backend != "nccl":
+                raise AssertionError(f"process group backend {backend}")
+            sp = ShardedPipeline(cfg, mesh_mod.make_mesh(1, 1), srp="matmul")
+            launches, ms, win, outs, st = drive_batched(sp, stream_blocks,
+                                                        counters)
+            by_path["config4 sharded 1x1 process_blocks"] = launches
+            expect_launches("sharded 1x1 process_blocks", launches, {
+                k: DISPATCHES for k in (
+                    "stft_fused_planes", "cps_phat_pairs", "srp_power_cps",
+                    "block_prefixes_rows", "weights_blocks_fused",
+                    "irdft_rows")})
+            check_finite("sharded 1x1 process_blocks", outs, st)
+            outs = [sp.gather_outputs(o) for o in outs]
+            for d, (o, om) in enumerate(zip(outs, outs_m)):
+                compare_outs(f"sharded 1x1 vs Pipeline, dispatch {d}",
+                             {k: o[k] for k in ("audio", "doa")},
+                             {k: om[k] for k in ("audio", "doa")}, 5e-4,
+                             exact=("doa",))
+            frame_off, moved = frame_doas_within_a_step(
+                "sharded 1x1 vs Pipeline", outs, outs_m, sp._pipe.plan)
+            one = torch.ones(1, device=sp.device)
+            dist.all_reduce(one)
+            if one.item() != 1.0:
+                raise AssertionError(f"one-rank all_reduce gave {one}")
+            print(rate_line(f"{cfg.name} ShardedPipeline 1x1 (NCCL, one "
+                            f"rank) srp=matmul process_blocks, B = {BLOCKS}",
+                            ms, win, BLOCKS * cfg.block_len)
+                  + f"; launches {launches}; equal to Pipeline(srp=matmul) "
+                  "on the same blocks (audio 5e-4, doa equal, frame DOAs "
+                  f"moved {moved} by at most {frame_off:.3f} deg); a "
+                  "one-rank NCCL all_reduce")
+            print_profile(f"one {cfg.name} ShardedPipeline 1x1 srp=matmul "
+                          "process_blocks dispatch (B = 512)",
+                          profile(lambda: sp.process_blocks(
+                              sp.init_state(), stream_blocks[:BLOCKS])),
+                          statistics.median(ms))
+            nb = 4
+            st = sp.init_state()
+            reset(counters)
+            outs = []
+            for i in range(nb):
+                st, o = sp.process_block(st, lat_blocks[i])
+                outs.append(sp.gather_outputs(o))
+            torch.cuda.synchronize()
+            launches = read(counters)
+            by_path["config4 sharded 1x1 process_block"] = launches
+            expect_launches("sharded 1x1 process_block", launches, {
+                k: nb for k in ("stft_fused_planes", "cps_phat_pairs",
+                                "srp_power_cps", "weights_blocks_fused",
+                                "irdft_rows")})
+            for i in range(nb):
+                compare_outs(f"sharded 1x1 process_block {i} vs Pipeline",
+                             outs[i], outs_k[i], 5e-4, exact=("doa",))
+            print(f"{cfg.name} ShardedPipeline 1x1 process_block over {nb} "
+                  f"blocks: launches {launches}; equal to "
+                  "Pipeline(srp=matmul).process_block (audio 5e-4, doa "
+                  "equal)")
+        finally:
+            dist.destroy_process_group()
+
+
 def main() -> int:
     try:
         import torch
@@ -868,7 +1048,7 @@ def main() -> int:
 
     from mcax_torch.config import apply_overrides, get_config
     from mcax_torch.kernels import (_build, covprefix, cps, fft, mvdrsolve,
-                                    srp_fused, stft_fused)
+                                    srp_fused, steer, stft_fused)
     from mcax_torch.pipeline import Pipeline
 
     # -- phase 1: the card ---------------------------------------------------
@@ -887,6 +1067,8 @@ def main() -> int:
     # -- inputs: plane waves, continuous over every dispatch ---------------
     cfg = get_config(CONFIG)
     pipe = Pipeline(cfg)
+    # the materialised-CPS SRP (kernel 10) on the same configuration
+    pipe_m = Pipeline(cfg, srp="matmul")
     dev = pipe.device
     hop, block_len, c = cfg.stft.hop, cfg.block_len, pipe.geom.num_mics
     n = DISPATCHES * BLOCKS * block_len
@@ -940,6 +1122,7 @@ def main() -> int:
         stream_blocks[:BLOCKS], carry0, pipe._w2, hop)
     recs.update(check_dft_kernels(pipe, spec4, pipe3h, blocks3[:BLOCKS],
                                   PEAKS))
+    recs.update(check_steer_kernel(pipe_m, spec4, PEAKS))
     del spec4
     check_mvdr_c16(pipe5, blocks5[:BLOCKS], x5_streams, recs, PEAKS)
     for name, r in recs.items():
@@ -953,13 +1136,13 @@ def main() -> int:
               + f", bound_ms {r['bound'][0]:.4f} ({r['bound'][1]})"
               + (f", design_bound_ms {r['design_bound'][0]:.3f} "
                  f"({r['design_bound'][1]})" if "design_bound" in r else ""))
-        if "at_c16" in r:
-            q = r["at_c16"]
+        for at in (a for a in r if a.startswith("at_")):
+            q = r[at]
             lib = ("n/a" if q["library_ms"] is None
                    else f"{q['library_ms']:.3f}")
-            print(f"kernel {name} at C = 16 {q['shape']}: bit-equal to its "
-                  f"plain version, kernel_ms {q['ms']:.3f}, plain_ms "
-                  f"{q['plain_ms']:.3f}, library_ms {lib}, bound_ms "
+            print(f"kernel {name} {at} {q['shape']}: max_abs_err "
+                  f"{q['max_abs_err']:.3e}, kernel_ms {q['ms']:.4f}, plain_ms "
+                  f"{q['plain_ms']:.4f}, library_ms {lib}, bound_ms "
                   f"{q['bound_ms']:.4f} ({q['bound_by']})")
     print("kernels checked: " + ", ".join(recs))
 
@@ -967,7 +1150,8 @@ def main() -> int:
                 covprefix.block_prefixes_rows,
                 mvdrsolve.weights_blocks_fused_rows,
                 stft_fused.stft_fused_planes, mvdrsolve.weights_blocks_fused,
-                fft.irdft_rows, fft.rdft_rows, cps.cps_phat_pairs)
+                fft.irdft_rows, fft.rdft_rows, cps.cps_phat_pairs,
+                steer.srp_power_cps)
     kernel_of = {"stft_from_blocks": "stft_fused_from_blocks",
                  "srp_fused": "srp_power_fused",
                  "cov_prefixes": "block_prefixes_rows",
@@ -975,7 +1159,8 @@ def main() -> int:
                  "stft_planes": "stft_fused_planes",
                  "mvdr_solve_complex": "weights_blocks_fused",
                  "irdft_rows": "irdft_rows", "rdft_rows": "rdft_rows",
-                 "cps_phat": "cps_phat_pairs"}
+                 "cps_phat": "cps_phat_pairs",
+                 "srp_power_cps": "srp_power_cps"}
     by_path = {}
 
     # -- phase 4a: config4 process_blocks, the main path -------------------
@@ -998,7 +1183,7 @@ def main() -> int:
                     window_ms, BLOCKS * block_len)
           + f"; block DOA max error {off.max():.2f} deg; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    del outs
+    outs4a = outs                  # held against the matmul SRP in 4j
     print_profile("one config4 process_blocks dispatch (B = 512)",
                   profile(lambda: pipe.process_blocks(
                       pipe.init_state(), stream_blocks[:BLOCKS])),
@@ -1341,6 +1526,83 @@ def main() -> int:
                   statistics.median(ms3h))
     del outs
 
+    # -- phase 4j: config4 process_blocks with srp="matmul", B = 512 -------
+    torch.cuda.reset_peak_memory_stats()
+    launches, msm, winm, outs_m, stm = drive_batched(pipe_m, stream_blocks,
+                                                     counters)
+    peak_m = torch.cuda.max_memory_allocated() / 2**30
+    by_path["config4 matmul process_blocks"] = launches
+    expect_launches("config4 matmul process_blocks", launches, {
+        k: DISPATCHES for k in ("stft_fused_from_blocks", "cps_phat_pairs",
+                                "srp_power_cps", "block_prefixes_rows",
+                                "weights_blocks_fused_rows", "irdft_rows")})
+    off = doa_error_deg(torch.cat([o["doa"] for o in outs_m]), SOURCE_DEG)
+    if not np.all(off <= 2.0):
+        raise AssertionError(f"srp=matmul block DOA off the source by up to "
+                             f"{off.max():.2f} deg")
+    check_finite("config4 matmul process_blocks", outs_m, stm)
+    # the two SRP kernels on the same blocks: the block DOA (and so the
+    # steering and the audio) equal; a frame's DOA within one grid step
+    for d, (om, of) in enumerate(zip(outs_m, outs4a)):
+        compare_outs(f"srp=matmul vs fused, dispatch {d}",
+                     {k: om[k] for k in ("audio", "doa")},
+                     {k: of[k] for k in ("audio", "doa")}, 5e-4,
+                     exact=("doa",))
+    frame_off, frames_moved = frame_doas_within_a_step(
+        "srp=matmul vs fused", outs_m, outs4a, pipe.plan)
+    fused_rate = BLOCKS * block_len * len(ms) / (window_ms * 1e-3)
+    print(rate_line(f"config4 srp=matmul process_blocks, B = {BLOCKS}", msm,
+                    winm, BLOCKS * block_len)
+          + f"; launches {launches}; block DOA max error {off.max():.2f} "
+          f"deg; audio within 5e-4 of the fused path's and doa equal on the "
+          f"same blocks; frame DOAs moved {frames_moved} of "
+          f"{DISPATCHES * BLOCKS * cfg.frames_per_block} by at most "
+          f"{frame_off:.3f} deg; peak memory {peak_m:.2f} GiB; the fused "
+          f"path in this run: samples/s {fused_rate:.6g}, median dispatch "
+          f"{statistics.median(ms):.3f} ms")
+    print_profile("one config4 srp=matmul process_blocks dispatch (B = 512)",
+                  profile(lambda: pipe_m.process_blocks(
+                      pipe_m.init_state(), stream_blocks[:BLOCKS])),
+                  statistics.median(msm))
+    del outs4a
+
+    # -- phase 4k: config4 process_block with srp="matmul", 64 blocks -----
+    launches, evm, wallm, outs4k, st_km = latency_path(pipe_m, lat_blocks,
+                                                       counters)
+    by_path["config4 matmul process_block"] = launches
+    expect_launches("config4 matmul process_block", launches, {
+        k: LATENCY_BLOCKS for k in ("stft_fused_planes", "cps_phat_pairs",
+                                    "srp_power_cps", "weights_blocks_fused",
+                                    "irdft_rows")})
+    off = doa_error_deg(torch.stack([o["doa"] for o in outs4k]), SOURCE_DEG)
+    if not np.all(off <= 2.0):
+        raise AssertionError(f"srp=matmul process_block DOA off the source "
+                             f"by up to {off.max():.2f} deg")
+    check_finite("config4 matmul process_block", outs4k, st_km)
+    st_b, out_b = pipe_m.process_blocks(pipe_m.init_state(), lat_blocks)
+    stacked = {k: torch.stack([o[k] for o in outs4k]) for k in outs4k[0]}
+    compare_outs("srp=matmul process_block vs process_blocks", stacked, out_b,
+                 5e-4, exact=("doa",))
+    compare_states("srp=matmul process_block vs process_blocks", st_km, st_b)
+    print(f"config4 srp=matmul process_block, {LATENCY_BLOCKS} blocks with "
+          f"the state carried: launches {launches}; latency per block (CUDA "
+          f"events) ms median {statistics.median(evm):.4f}, p90 "
+          f"{pct(evm, 90):.4f}, max {max(evm):.4f}; host wall per block "
+          f"after synchronize ms median {statistics.median(wallm):.4f}; "
+          f"block DOA max error {off.max():.2f} deg; equal to process_blocks "
+          "on the same blocks; the fused path in this run: median "
+          f"{statistics.median(ev):.4f} ms")
+    print_profile("one config4 srp=matmul process_block",
+                  profile(lambda: pipe_m.process_block(pipe_m.init_state(),
+                                                       lat_blocks[0])),
+                  statistics.median(evm))
+    del stacked, out_b
+
+    # -- phase 4l: ShardedPipeline on a one-rank NCCL group ----------------
+    sharded_path(cfg, stream_blocks, lat_blocks, outs_m, outs4k, counters,
+                 by_path)
+    del outs_m, outs4k
+
     # -- phase 5: the card against the CPU on small inputs -----------------
     x_small = {
         "config4": (cfg, plane_waves(pipe.geom, [SOURCE_DEG, -100.0],
@@ -1363,10 +1625,17 @@ def main() -> int:
     print(f"small input (2 dispatches x 2 blocks): cuda vs cpu audio max "
           f"abs err {err:.3e}; doa, doa_frame, carry, block_idx equal")
     errs = small_new_paths(x_small)
+    errs_m = small_new_paths({k: x_small[k] for k in ("config3", "config4",
+                                                      "config5")},
+                             srp="matmul", skip_blocks=())
     print("small inputs (process_block and process_streams S = 2 over 2 "
           "blocks; the others' process_blocks 2 x 2 blocks): cuda vs cpu max "
           "abs err " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
           + "; grid doa, carry, block_idx equal; config5 tracks within 1e-5")
+    print("small inputs, srp=matmul (process_blocks 2 x 2 blocks, "
+          "process_block and process_streams S = 2 over 2 blocks): cuda vs "
+          "cpu max abs err " + ", ".join(f"{k} {v:.3e}"
+                                         for k, v in errs_m.items()))
 
     kernels = []
     for name, r in recs.items():
@@ -1383,7 +1652,7 @@ def main() -> int:
                if "design_bound" in r else {}),
             **({"library_call": r["library_call"]}
                if "library_call" in r else {}),
-            **({"at_c16": r["at_c16"]} if "at_c16" in r else {})))
+            **{a: q for a, q in r.items() if a.startswith("at_")}))
     check_every_kernel_launched(kernels)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -4,8 +4,18 @@
 ``SrpPlan`` and ``make_plan`` are the host-side (numpy) plan, identical to
 the reference's field for field.  ``DevicePlan`` holds the pieces the block
 step reads, moved to the pipeline's device once, so that no host-to-device
-copy interrupts a dispatch.  ``srp_surface`` is the fused SRP kernel
-(``kernels/srp_fused.py``): steering phases made on the fly, no CPS tensor.
+copy interrupts a dispatch.  ``srp_surface`` runs one of the reference's two
+SRP kernels, chosen by the caller (``mcax`` chooses by ``MCAX_SRP``):
+
+  * ``"fused"`` — ``kernels/srp_fused.py``: steering phases made on the fly,
+    no CPS tensor;
+  * ``"matmul"`` — the materialised branch: the PHAT CPS written out in full
+    (``kernels/cps.py``) and one product with the stacked steering operand
+    (``kernels/steer.py``), which ``DevicePlan`` then holds (config4: 44 MB,
+    config5: 95 MB), built only when asked for.
+
+``pair_shard`` cuts a plan to one channel shard's slice of the pair axis
+(``ShardedPipeline``).
 """
 
 from __future__ import annotations
@@ -85,10 +95,20 @@ class DevicePlan:
     azimuths_rad: torch.Tensor     # [G] float32
     azimuth_step: float            # grid spacing, rounded to float32
     band_mask: Optional[torch.Tensor] = None   # [F] float32
+    b2: Optional[torch.Tensor] = None          # [2*P*F, G] "matmul" only
 
 
-def device_plan(plan: SrpPlan, pairs: np.ndarray,
-                device: torch.device) -> DevicePlan:
+METHODS = ("fused", "matmul")
+
+
+def check_method(method: str) -> str:
+    if method not in METHODS:
+        raise ValueError(f"srp must be one of {METHODS}, got {method!r}")
+    return method
+
+
+def device_plan(plan: SrpPlan, pairs: np.ndarray, device: torch.device,
+                method: str = "fused") -> DevicePlan:
     pairs = np.asarray(pairs, np.int32)
     num_mics = plan.steer_re.shape[1]
     if pairs.ndim != 2 or pairs.shape[1] != 2 or pairs.min() < 0 \
@@ -111,12 +131,58 @@ def device_plan(plan: SrpPlan, pairs: np.ndarray,
         azimuth_step=float(np.float32(plan.azimuths_rad[1]
                                       - plan.azimuths_rad[0])),
         band_mask=(None if plan.band_mask is None
-                   else put(plan.band_mask, torch.float32)))
+                   else put(plan.band_mask, torch.float32)),
+        b2=(ksteer.stacked_steering(plan.e_re, plan.e_im, device)
+            if check_method(method) == "matmul" else None))
+
+
+def pair_shard(dplan: DevicePlan, plan: SrpPlan, method: str, shards: int,
+               index: int) -> DevicePlan:
+    """Shard ``index`` of ``shards``' slice of the pair axis: the pairs are
+    padded to a multiple of ``shards`` with pairs (0, 0) that carry zero
+    steering (``valid`` 0, zero TDOA and zero B' rows), so their power is
+    0 under either kernel.  One shard holds every pair, unpadded."""
+    p, g = plan.tau_pg.shape
+    f = plan.omega.shape[0]
+    pl = -(-p // shards)
+    sl = slice(index * pl, (index + 1) * pl)
+    dev = dplan.pairs.device
+
+    def padded(a):
+        out = np.zeros((shards * pl, *a.shape[1:]), a.dtype)
+        out[:p] = a
+        return out[sl]
+
+    pairs = padded(dplan.pairs.cpu().numpy())
+    b2 = None
+    if check_method(method) == "matmul":
+        e_re = padded(plan.e_re.reshape(p, f, g)).reshape(pl * f, g)
+        e_im = padded(plan.e_im.reshape(p, f, g)).reshape(pl * f, g)
+        b2 = ksteer.stacked_steering(e_re, e_im, dev)
+    return dataclasses.replace(
+        dplan, pairs=torch.from_numpy(pairs).to(dev),
+        valid=torch.from_numpy(padded(np.ones(p, np.int32))).to(dev),
+        tau_pg=torch.from_numpy(padded(plan.tau_pg)).to(dev), b2=b2)
 
 
 def srp_surface(spectra: torch.Tensor, plan: DevicePlan,
-                eps: float = kcps.DEFAULT_PHAT_EPS) -> torch.Tensor:
-    """Steered-power surface per frame: [C, M, F] -> [M, G]."""
+                eps: float = kcps.DEFAULT_PHAT_EPS,
+                method: str = "fused") -> torch.Tensor:
+    """Steered-power surface per frame: [C, M, F] -> [M, G].
+
+    ``method="matmul"`` is the reference's materialised branch: the spectra
+    go frames-major [M, C, F] before the pair gather, so the PHAT CPS lands
+    as [M, P, F], which the steering kernel reads as [M, P*F] with no copy.
+    The band mask lives in its steering rows (``make_plan``)."""
+    if check_method(method) == "matmul":
+        if plan.b2 is None:
+            raise ValueError("this plan holds no steering operand: build it "
+                             "with device_plan(..., method='matmul')")
+        st = spectra.transpose(0, 1)                       # [M, C, F]
+        xi = torch.index_select(st, 1, plan.pairs[:, 0])   # [M, P, F]
+        xj = torch.index_select(st, 1, plan.pairs[:, 1])
+        g = kcps.cps_phat_pairs(xi, xj, eps)
+        return ksteer.srp_power_cps(g.view(g.shape[0], -1), plan.b2)
     if plan.band_mask is not None:
         spectra = spectra * plan.band_mask                 # masked bins -> 0
     return srp_fused.srp_power_fused(spectra, plan.pairs, plan.tau_pg,

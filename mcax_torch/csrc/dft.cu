@@ -24,8 +24,10 @@
 // there: ~0.39 ms at 67 TFLOP/s on the CUDA cores), so it is compute-bound,
 // as the TPU kernel it replaces was on the MXU.
 //
-// Design.  The SGEMM body of gemm_rows.cuh with two row loaders.  Neither
-// operand is padded at run time: the DFT matrices are padded at plan time to
+// Design.  The SGEMM body of gemm_rows.cuh with two row loaders (kernel 7's,
+// ComplexRows, and its real-rows epilogue are in the header, shared with
+// kernel 10 in steer.cu).  Neither operand is padded at run time: the DFT
+// matrices are padded at plan time to
 // whole 16-row x 128-column tiles (kfft.analysis_matrix,
 // kfft.synthesis_matrix), and the loaders zero-fill the K tail (L may be any
 // length, 2F is 1026 or 514).  Spectra rows are 2F floats long, so only
@@ -62,47 +64,6 @@ struct StridedRows {
   }
 };
 
-// Spectra rows: row r is 2F floats (re, im interleaved), K = 2F.
-struct SpectraRows {
-  using Row = const float*;
-  const float* y;
-  int K;
-  __device__ Row row(long long r) const { return y + r * K; }
-  __device__ void load8(const Row& p, int k0, int ak, float (&v)[8]) const {
-    const int k = k0 + ak;  // even, like K: a pair never straddles the tail
-    if (k + 8 <= K) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 a = *reinterpret_cast<const float2*>(p + k + 2 * i);
-        v[2 * i] = a.x;
-        v[2 * i + 1] = a.y;
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] = k + i < K ? p[k + i] : 0.0f;
-    }
-  }
-};
-
-// Real rows [rows, ncol]: float2 stores when ncol is even (every pair then
-// lies wholly in range and 8-byte aligned), guarded scalars otherwise.
-struct RealRowsOut {
-  float* out;
-  long long rows;
-  int ncol;
-  __device__ void operator()(long long row, int col, float v0,
-                             float v1) const {
-    if (row >= rows || col >= ncol) return;
-    float* o = out + row * ncol + col;
-    if ((ncol & 1) == 0) {
-      *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
-    } else {
-      o[0] = v0;
-      if (col + 1 < ncol) o[1] = v1;
-    }
-  }
-};
-
 }  // namespace
 
 // x: the signals' base, out complex64 [rows, F] (as [rows, 2F] floats),
@@ -123,6 +84,6 @@ MCAX_API int mcax_irdft_rows(const void* y, const float* a2, float* out,
                              long long rows, int F, int N, int lda,
                              void* stream) {
   return mcax::gemm::launch_gemm_rows(
-      SpectraRows{static_cast<const float*>(y), 2 * F}, rows, 2 * F, a2, lda,
-      N, RealRowsOut{out, rows, N}, stream);
+      mcax::gemm::ComplexRows{static_cast<const float*>(y), 2 * F}, rows,
+      2 * F, a2, lda, N, mcax::gemm::RealRowsOut{out, rows, N}, stream);
 }

@@ -116,6 +116,50 @@ __global__ void __launch_bounds__(THREADS, 2) gemm_rows_kernel(
   }
 }
 
+// Row loader: dense complex64 rows read as K = 2 * (complex count) floats
+// (re, im interleaved), row r at y + r*K; rows only 8-byte aligned, so
+// float2 loads.  K is even: a pair never straddles the K tail.
+struct ComplexRows {
+  using Row = const float*;
+  const float* y;
+  int K;
+  __device__ Row row(long long r) const { return y + r * K; }
+  __device__ void load8(const Row& p, int k0, int ak, float (&v)[8]) const {
+    const int k = k0 + ak;
+    if (k + 8 <= K) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 a = *reinterpret_cast<const float2*>(p + k + 2 * i);
+        v[2 * i] = a.x;
+        v[2 * i + 1] = a.y;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] = k + i < K ? p[k + i] : 0.0f;
+    }
+  }
+};
+
+// Epilogue: real rows [rows, ncol]: float2 stores when ncol is even (every
+// pair then lies wholly in range and 8-byte aligned), guarded scalars
+// otherwise.
+struct RealRowsOut {
+  float* out;
+  long long rows;
+  int ncol;
+  __device__ void operator()(long long row, int col, float v0,
+                             float v1) const {
+    if (row >= rows || col >= ncol) return;
+    float* o = out + row * ncol + col;
+    if ((ncol & 1) == 0) {
+      *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+    } else {
+      o[0] = v0;
+      if (col + 1 < ncol) o[1] = v1;
+    }
+  }
+};
+
 // Epilogue: complex64 rows [rows, ncol / 2].  Column pairs (2f, 2f+1) are
 // one bin -> float2 stores; ncol is even and every column pair starts even,
 // so col < ncol covers the pair (the ragged F edge).

@@ -29,7 +29,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("stft_fused.cu", "srp_fused.cu", "covprefix.cu", "mvdrsolve.cu",
-           "cps.cu", "dft.cu")
+           "cps.cu", "dft.cu", "steer.cu")
 HEADERS = ("common.cuh", "gemm_rows.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -61,6 +61,8 @@ SIGNATURES = {
     "mcax_rdft_rows": (_P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I, _P),
     # y, a2, out, rows, F, N, lda, stream
     "mcax_irdft_rows": (_P, _P, _P, _L, _I, _I, _I, _P),
+    # cps, b2, out, M, K, G, ldb, stream
+    "mcax_srp_power_cps": (_P, _P, _P, _L, _I, _I, _I, _P),
 }
 
 

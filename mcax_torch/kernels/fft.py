@@ -127,7 +127,7 @@ def synthesis_matrix(n: int, window: Optional[np.ndarray],
     return pad_to_tiles(a2, device)
 
 
-def _check_operand(name: str, m: torch.Tensor, k: int, ncol: int) -> None:
+def check_operand(name: str, m: torch.Tensor, k: int, ncol: int) -> None:
     """Raise unless the kernels may read ``m`` [k, ncol] in whole BK x BN
     tiles: float32, unit column stride, a row stride that is a multiple of
     BN, storage for ceil(k/BK)*BK rows, a 16-byte-aligned base."""
@@ -177,7 +177,7 @@ def rdft_rows(x: torch.Tensor, w2: torch.Tensor, hop: int) -> torch.Tensor:
         return rdft_rows_plain(x, w2, hop)
     if x.dtype != torch.float32:
         raise TypeError(f"x: expected torch.float32, got {x.dtype}")
-    _check_operand("w2", w2, n, 2 * f)
+    check_operand("w2", w2, n, 2 * f)
     x = x.contiguous()
     big_n = x.shape[-1]
     t = (big_n - n) // hop + 1 if big_n >= n else 0
@@ -224,7 +224,7 @@ def irdft_rows(y: torch.Tensor, a2: torch.Tensor) -> torch.Tensor:
     if not dispatch.use_kernel(y, a2):
         return irdft_rows_plain(y, a2)
     n = a2.shape[1]
-    _check_operand("a2", a2, 2 * f, n)
+    check_operand("a2", a2, 2 * f, n)
     y = y.contiguous()
     out = torch.empty((*y.shape[:-1], n), dtype=torch.float32,
                       device=y.device)

@@ -4,6 +4,7 @@ One ``Pipeline`` object per config, stateless, with all streaming state
 (input carry, OLA tail, covariance) in an explicit ``PipelineState``:
 
     pipe = Pipeline(get_config("config4"))        # runs on the CUDA card
+    pipe = Pipeline(cfg, srp="matmul")            # the materialised SRP
     state = pipe.init_state()
     state, out = pipe.process_block(state, block)      # [C, block_len]
     state, out = pipe.process_blocks(state, blocks)    # [B, C, block_len]
@@ -14,11 +15,11 @@ The port runs the ``gcc`` (config1), ``delaysum`` (config2), ``srp``
 (config3), ``srp_mvdr`` (config4) and ``track_mvdr`` with the EMA tracker
 (config5) chains through all four entry points.  Its kernels (STFT from
 blocks and from a contiguous signal, real DFT and inverse real DFT of rows,
-fused SRP, covariance prefixes, MVDR solve from rows and from complex
-covariances, PHAT cross-power) are hand-written CUDA on a CUDA device; on
-``device="cpu"`` their plain PyTorch versions run.  ``srp_delaysum``,
-``mvdr``, ``mask``, the particle smoother and the scan mode are queued in
-ROADMAP.md.
+fused SRP, materialised-CPS SRP, covariance prefixes, MVDR solve from rows
+and from complex covariances, PHAT cross-power) are hand-written CUDA on a
+CUDA device; on ``device="cpu"`` their plain PyTorch versions run.
+``srp_delaysum``, ``mvdr``, ``mask``, the particle smoother and the scan
+mode are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from mcax_torch.algos import covariance as cov_mod
 from mcax_torch.algos import delaysum
 from mcax_torch.algos import gcc
 from mcax_torch.algos import mvdr
-from mcax_torch.algos import srp
+from mcax_torch.algos import srp as srp_mod
 from mcax_torch.algos import tracking
 from mcax_torch.frames import stft as stft_mod
 from mcax_torch.frames.ola import streaming_overlap_add
@@ -63,7 +64,14 @@ def _map_state(fn, state: PipelineState) -> PipelineState:
 class Pipeline:
     """A streaming block processor for one PipelineConfig on one device."""
 
-    def __init__(self, cfg: cfg_mod.PipelineConfig, device=None):
+    def __init__(self, cfg: cfg_mod.PipelineConfig, device=None,
+                 srp: str = "fused"):
+        """``srp`` picks the SRP kernel of every SRP algorithm on all four
+        entry points: ``"fused"`` (steering made on the fly, no CPS tensor)
+        or ``"matmul"`` (the CPS materialised, then one product with the
+        stacked steering matrices) — the two the reference selects with
+        ``MCAX_SRP``.  There is no choice by shape and no fallback."""
+        self.srp = srp_mod.check_method(srp)
         self.cfg = cfg.validate()
         algo = cfg.algo.name
         if algo not in _PORTED_ALGOS:
@@ -90,11 +98,11 @@ class Pipeline:
             self.gplan = gcc.device_plan(self.gcc_plan, self.pairs,
                                          self.device, bands)
         if algo in _SRP_ALGOS:
-            self.srp_plan = srp.make_plan(self.geom, s.frame_len,
-                                          cfg.algo.grid_points,
-                                          band_hz=cfg.algo.band_hz)
-            self.plan = srp.device_plan(self.srp_plan, self.pairs,
-                                        self.device)
+            self.srp_plan = srp_mod.make_plan(self.geom, s.frame_len,
+                                              cfg.algo.grid_points,
+                                              band_hz=cfg.algo.band_hz)
+            self.plan = srp_mod.device_plan(self.srp_plan, self.pairs,
+                                            self.device, self.srp)
             deg_per_bin = 360.0 / cfg.algo.grid_points
             self.suppress_bins = max(1, int(round(
                 cfg.algo.peak_suppression_deg / deg_per_bin)))
@@ -206,13 +214,13 @@ class Pipeline:
             out = {"audio": audio}
         elif algo == "srp":
             power = self._srp_power(spectra_cs).view(s_, t, -1)   # [S, T, G]
-            az, pk = srp.argmax_doa(power, self.plan,
-                                    interpolate=cfg.algo.srp_interpolate)
+            az, pk = srp_mod.argmax_doa(power, self.plan,
+                                        interpolate=cfg.algo.srp_interpolate)
             out = {"doa": az, "power": pk}
         elif algo == "srp_mvdr":
             power = self._srp_power(spectra_cs).view(s_, t, -1)
             gidx = torch.argmax(power.mean(dim=1), dim=-1)        # [S]
-            steer = srp.steering_vector(self.plan, gidx)          # [S, C, F]
+            steer = srp_mod.steering_vector(self.plan, gidx)      # [S, C, F]
             cov = cov_mod.update(cov_mod.from_planes(state.cov), spectra,
                                  cfg.algo.cov_forget)             # [S, F, C, C]
             # mcax's weights per stream; the solve kernel with B = S
@@ -221,8 +229,8 @@ class Pipeline:
             frames = stft_mod.istft_frames(y, self._a2)           # [S, T, L]
             audio, new_tail = streaming_overlap_add(frames, hop,
                                                     state.ola_tail)
-            az_f, _ = srp.argmax_doa(power, self.plan,
-                                     interpolate=cfg.algo.srp_interpolate)
+            az_f, _ = srp_mod.argmax_doa(
+                power, self.plan, interpolate=cfg.algo.srp_interpolate)
             out = {"audio": audio, "doa": self.plan.azimuths_rad[gidx],
                    "doa_frame": az_f}
             new_cov = cov_mod.to_planes(cov)
@@ -231,7 +239,7 @@ class Pipeline:
             new_tracks, gidx = tracking.track_block(
                 state.tracks, power.mean(dim=1), self.plan.azimuths_rad,
                 self.suppress_bins, cfg.algo.track_smooth)   # gidx [S, Src]
-            steer = srp.steering_vector(self.plan, gidx)     # [S, Src, C, F]
+            steer = srp_mod.steering_vector(self.plan, gidx)  # [S, Src, C, F]
             cov = cov_mod.update(cov_mod.from_planes(state.cov), spectra,
                                  cfg.algo.cov_forget)        # [S, F, C, C]
             w = mvdr.weights_blocks(cov, steer, cfg.algo.diag_load)
@@ -253,8 +261,9 @@ class Pipeline:
     def _srp_power(self, spectra_cs: torch.Tensor) -> torch.Tensor:
         """[C, ..., F] channel-major spectra -> power [M, G] (M frames)."""
         c, f = spectra_cs.shape[0], spectra_cs.shape[-1]
-        return srp.srp_surface(spectra_cs.reshape(c, -1, f), self.plan,
-                               eps=self.cfg.algo.phat_eps)
+        return srp_mod.srp_surface(spectra_cs.reshape(c, -1, f), self.plan,
+                                   eps=self.cfg.algo.phat_eps,
+                                   method=self.srp)
 
     def _gcc(self, spectra: torch.Tensor, per_block) -> Dict[str, torch.Tensor]:
         """GCC outputs from spectra [..., C, M, F], each passed through
@@ -330,22 +339,22 @@ class Pipeline:
             out = {"audio": audio}
         elif algo == "srp":
             power = self._srp_power(spectra)               # [B*T, G]
-            az, pk = srp.argmax_doa(power, self.plan,
-                                    interpolate=cfg.algo.srp_interpolate)
+            az, pk = srp_mod.argmax_doa(power, self.plan,
+                                        interpolate=cfg.algo.srp_interpolate)
             out = {"doa": per_block(az), "power": per_block(pk)}
         elif algo == "srp_mvdr":
             power = self._srp_power(spectra)               # [B*T, G]
             pmean = power.view(b, t, -1).mean(dim=1)       # [B, G]
             gidx = torch.argmax(pmean, dim=-1)             # [B]
-            steer = srp.steering_vector(self.plan, gidx)   # [B, C, F]
+            steer = srp_mod.steering_vector(self.plan, gidx)  # [B, C, F]
             w, cov = mvdr.weights_and_cov_from_spectra(
                 spectra, cov_mod.from_planes(state.cov), cfg.algo.cov_forget,
                 t, steer, cfg.algo.diag_load)              # [B, C, F]
             blocks = spectra.view(c, b, t, -1).permute(1, 0, 2, 3)
             y = mvdr.beamform(blocks, w)                   # [B, T, F]
             audio, new_tail = resynth(y.reshape(bt, -1))
-            az_f, _ = srp.argmax_doa(power, self.plan,
-                                     interpolate=cfg.algo.srp_interpolate)
+            az_f, _ = srp_mod.argmax_doa(
+                power, self.plan, interpolate=cfg.algo.srp_interpolate)
             out = {"audio": audio, "doa": self.plan.azimuths_rad[gidx],
                    "doa_frame": per_block(az_f)}
             new_cov = cov_mod.to_planes(cov)
@@ -355,7 +364,7 @@ class Pipeline:
             new_tracks, gidx, angles, conf = tracking.track_blocks(
                 state.tracks, pmean, self.plan.azimuths_rad,
                 self.suppress_bins, cfg.algo.track_smooth)  # [B, S] each
-            steer = srp.steering_vector(self.plan, gidx)   # [B, S, C, F]
+            steer = srp_mod.steering_vector(self.plan, gidx)  # [B, S, C, F]
             w, cov = mvdr.weights_and_cov_from_spectra(
                 spectra, cov_mod.from_planes(state.cov), cfg.algo.cov_forget,
                 t, steer, cfg.algo.diag_load)              # [B, S, C, F]

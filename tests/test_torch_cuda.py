@@ -13,8 +13,14 @@ grid points that are not tile multiples, odd bin counts, other channel
 counts for the covariance prefixes, several sources, a zero seed
 covariance, signals of one or many rows, element counts that are not a
 multiple of the block, frame lengths and hops that break the DFT kernel's
-vector loads, an odd inverse-DFT width; the MVDR solve at C = 16; and each
-streaming entry point on the card against the CPU."""
+vector loads, an odd inverse-DFT width; the MVDR solve at C = 16; the
+materialised-CPS SRP (kernel 10) at ragged sizes and at config4's (B = 512
+and one block); each streaming entry point on the card against the CPU;
+ShardedPipeline on a 1 x 1 mesh against Pipeline; and, on a machine with
+four cards (it skips on fewer), ShardedPipeline 2 x 2 over NCCL, one
+process a card, against Pipeline on one card."""
+
+import time
 
 import numpy as np
 import pytest
@@ -24,7 +30,7 @@ from mcax_torch import geometry as t_geo
 from mcax_torch.algos import srp as t_srp
 from mcax_torch.frames import window as t_window
 from mcax_torch.kernels import (covprefix, cps, fft, mvdrsolve, srp_fused,
-                                stft_fused)
+                                steer, stft_fused)
 
 pytestmark = pytest.mark.cuda
 
@@ -296,3 +302,166 @@ def test_streaming_entry_points_card_vs_cpu(dev, name):
                 torch.testing.assert_close(og[k], oc[k], atol=5e-4,
                                            rtol=5e-4)
     assert torch.equal(res["cuda"][1], res["cpu"][1])
+
+
+@pytest.mark.parametrize("m,k,g", [
+    (5, 300, 90),          # ragged everything
+    (37, 129, 7),          # odd K: rows only 8-byte aligned
+    (24, 28 * 513, 360),   # config4, one block (M = 24)
+    (12288, 28 * 513, 360),  # config4, B = 512
+    (300, 120 * 257, 360),   # config5's K, ragged rows
+])
+def test_srp_power_cps(dev, m, k, g):
+    rng = np.random.default_rng(10)
+    cps_ = _rng_complex(rng, (m, k), dev)
+    e = rng.uniform(-np.pi, np.pi, (k, g))
+    b2 = steer.stacked_steering(np.cos(e).astype(np.float32),
+                                np.sin(e).astype(np.float32), dev)
+    before = steer.srp_power_cps.LAUNCHES
+    got = steer.srp_power_cps(cps_, b2)
+    assert steer.srp_power_cps.LAUNCHES == before + 1
+    want = steer.srp_power_cps_plain(cps_, b2)
+    scale = want.abs().max()
+    torch.testing.assert_close(got / scale, want / scale, atol=1e-4, rtol=0)
+    with pytest.raises(ValueError, match="whole"):
+        steer.srp_power_cps(cps_, b2.clone())  # the same operand, unpadded
+
+
+@pytest.mark.parametrize("name", ["config3", "config4", "config5"])
+def test_sharded_one_by_one_equals_pipeline(dev, name):
+    """ShardedPipeline on a 1 x 1 mesh (no process group) against Pipeline,
+    both srp="matmul" on the card: process_block over 2 blocks, then
+    process_blocks over 2."""
+    from mcax_torch.config import get_config
+    from mcax_torch.dist import mesh
+    from mcax_torch.dist.sharded import ShardedPipeline
+    from mcax_torch.pipeline import Pipeline
+    cfg = get_config(name)
+    geom = cfg.geometry()
+    bl = cfg.block_len
+    x = torch.from_numpy(_plane_wave(geom, np.deg2rad(35.0), 4 * bl,
+                                     11)).to(dev)
+    pipe = Pipeline(cfg, srp="matmul")
+    sp = ShardedPipeline(cfg, mesh.make_mesh(1, 1), srp="matmul")
+    s1, s2 = pipe.init_state(), sp.init_state()
+    before = steer.srp_power_cps.LAUNCHES
+    for b in range(2):
+        s1, o1 = pipe.process_block(s1, x[:, b * bl:(b + 1) * bl])
+        s2, o2 = sp.process_block(s2, x[:, b * bl:(b + 1) * bl])
+        o2 = sp.gather_outputs(o2)
+        for k in o1:
+            torch.testing.assert_close(o2[k], o1[k], atol=5e-4, rtol=5e-4)
+    blocks = x[:, 2 * bl:].reshape(-1, 2, bl).transpose(0, 1)
+    s1, o1 = pipe.process_blocks(s1, blocks)
+    s2, o2 = sp.process_blocks(s2, blocks)
+    assert steer.srp_power_cps.LAUNCHES == before + 6
+    o2 = sp.gather_outputs(o2)
+    for k in o1:
+        torch.testing.assert_close(o2[k], o1[k], atol=5e-4, rtol=5e-4)
+    assert torch.equal(s1.carry, s2.carry)
+
+
+# ---------------------------------------------------------------------------
+# Four cards: ShardedPipeline 2 x 2 over NCCL, one process a card.
+# ---------------------------------------------------------------------------
+FOUR_CARD_CASES = (("config4", "fused"), ("config4", "matmul"),
+                   ("config5", "fused"))
+
+
+def _four_card_signal(name):
+    from mcax_torch.config import get_config
+    cfg = get_config(name)
+    geom = cfg.geometry()
+    x = _plane_wave(geom, np.deg2rad(-60.0), 7 * cfg.block_len, 12)
+    if name == "config5":                    # two sources
+        x = x + _plane_wave(geom, np.deg2rad(60.0), 7 * cfg.block_len, 13)
+    return cfg, x
+
+
+def _four_card_worker(rank, store_path, out_dir):
+    import torch.distributed as dist
+    from mcax_torch.convert import state_to_numpy
+    from mcax_torch.dist import mesh, multihost
+    from mcax_torch.dist.sharded import ShardedPipeline
+    store = dist.FileStore(store_path, 4)
+    if not multihost.initialize(store=store, world_size=4, rank=rank):
+        raise RuntimeError("no process group")
+    try:
+        m = mesh.make_mesh(2, 2)
+        res = {}
+        for name, srp in FOUR_CARD_CASES:
+            cfg, x = _four_card_signal(name)
+            bl = cfg.block_len
+            sp = ShardedPipeline(cfg, m, srp=srp)
+            st = sp.init_state()
+            for b in range(3):
+                st, o = sp.process_block(st, x[:, b * bl:(b + 1) * bl])
+                for k, v in sp.gather_outputs(o).items():
+                    res[f"{name}/{srp}/b{b}/{k}"] = v.cpu().numpy()
+            blocks = x[:, 3 * bl:].reshape(x.shape[0], 4, bl).transpose(1, 0, 2)
+            st, o = sp.process_blocks(st, blocks)
+            for k, v in sp.gather_outputs(o).items():
+                res[f"{name}/{srp}/B/{k}"] = v.cpu().numpy()
+            for k, v in state_to_numpy(st).items():
+                if k != "tracks" and v is not None:
+                    res[f"{name}/{srp}/s/{k}"] = v
+        np.savez(f"{out_dir}/rank{rank}.npz", **res)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_two_by_two_on_four_cards(dev, tmp_path):
+    """ShardedPipeline 2 x 2 (config4 under both SRP kernels, config5) on
+    four cards against Pipeline on one: the NCCL halo and spill pushes, the
+    channel gathers, the pair all_reduce and the covariance monoid.  Bounds:
+    the card's 5e-4 plus the reference's sharded-vs-single atol (config4
+    1e-4, config5 5e-4); carry and block index equal; every rank's
+    gathered outputs equal."""
+    import torch.multiprocessing as tmp
+    from mcax_torch.pipeline import Pipeline
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 cards (one process a card)")
+    ctx = tmp.start_processes(_four_card_worker,
+                              args=(str(tmp_path / "store"), str(tmp_path)),
+                              nprocs=4, join=False, start_method="spawn")
+    deadline = time.monotonic() + 600
+    try:
+        # join returns False while any rank still runs (after each exit)
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0)):
+            assert time.monotonic() < deadline, "the ranks ran past 600 s"
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+    ranks = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(4)]
+    for r in range(1, 4):
+        for k, v in ranks[0].items():
+            np.testing.assert_array_equal(ranks[r][k], v, err_msg=k)
+    got = ranks[0]
+    for name, srp in FOUR_CARD_CASES:
+        cfg, x = _four_card_signal(name)
+        bl = cfg.block_len
+        atol = 5e-4 + (1e-4 if name == "config4" else 5e-4)
+        pipe = Pipeline(cfg, srp=srp)
+        st = pipe.init_state()
+        want = {}
+        for b in range(3):
+            st, o = pipe.process_block(st, torch.from_numpy(
+                x[:, b * bl:(b + 1) * bl]).to(dev))
+            want.update({f"b{b}/{k}": v for k, v in o.items()})
+        blocks = x[:, 3 * bl:].reshape(x.shape[0], 4, bl).transpose(1, 0, 2)
+        st, o = pipe.process_blocks(st, torch.from_numpy(
+            np.ascontiguousarray(blocks)).to(dev))
+        want.update({f"B/{k}": v for k, v in o.items()})
+        for k, v in want.items():
+            g = got[f"{name}/{srp}/{k}"]
+            w = v.cpu().numpy()
+            if k.endswith("/doa") and name == "config4":
+                np.testing.assert_array_equal(g, w, err_msg=k)
+            else:
+                np.testing.assert_allclose(g, w, atol=atol, rtol=atol,
+                                           err_msg=f"{name} {srp} {k}")
+        for k in ("carry", "block_idx"):
+            np.testing.assert_array_equal(
+                got[f"{name}/{srp}/s/{k}"],
+                getattr(st, k).cpu().numpy(), err_msg=k)

@@ -96,15 +96,15 @@ def test_padded_matrices_and_the_kernels_operand_check():
     assert a2.stride() == (1024, 1)
     base = torch.as_strided(a2, (1040, 1024), a2.stride())
     assert not base[1026:].any()
-    t_fft._check_operand("a2", a2, 1026, n)
+    t_fft.check_operand("a2", a2, 1026, n)
     with pytest.raises(ValueError, match="whole"):
-        t_fft._check_operand("a2", plain, 1026, n)
+        t_fft.check_operand("a2", plain, 1026, n)
     w2 = t_fft.analysis_matrix(300, None, CPU, col_align=t_fft.BN)
     assert w2.shape == (300, 384)
-    t_fft._check_operand("w2", w2, 300, 302)
+    t_fft.check_operand("w2", w2, 300, 302)
     with pytest.raises(ValueError, match="whole"):
-        t_fft._check_operand("w2", w2.clone(), 300, 302)
+        t_fft.check_operand("w2", w2.clone(), 300, 302)
     lags = t_fft.pad_to_tiles(plain[:, 5:18], CPU)
     assert lags.shape == (1026, 13) and lags.stride() == (128, 1)
-    t_fft._check_operand("a2_lags", lags, 1026, 13)
+    t_fft.check_operand("a2_lags", lags, 1026, 13)
     torch.testing.assert_close(lags, plain[:, 5:18], atol=0, rtol=0)

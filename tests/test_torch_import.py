@@ -28,6 +28,9 @@ def test_import_loads_no_jax_and_no_mcax():
             "from mcax_torch.algos import (covariance, delaysum, gcc, mvdr,\n"
             "                              srp, tracking)\n"
             "from mcax_torch.frames import ola, stft, window\n"
+            "import mcax_torch.dist\n"
+            "from mcax_torch.dist import (collectives, halo, mesh,\n"
+            "                             multihost, scan, sharded)\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'mcax'))\n"
             "built = _build.library.cache_info().currsize\n"
@@ -108,12 +111,13 @@ def test_dispatch_rule():
 
 def test_every_kernel_has_a_counter_and_its_sources():
     from mcax_torch.kernels import (_build, covprefix, cps, fft, mvdrsolve,
-                                    srp_fused, stft_fused)
+                                    srp_fused, steer, stft_fused)
     for fn in (stft_fused.stft_fused_from_blocks, srp_fused.srp_power_fused,
                covprefix.block_prefixes_rows,
                mvdrsolve.weights_blocks_fused_rows,
                stft_fused.stft_fused_planes, mvdrsolve.weights_blocks_fused,
-               fft.irdft_rows, fft.rdft_rows, cps.cps_phat_pairs):
+               fft.irdft_rows, fft.rdft_rows, cps.cps_phat_pairs,
+               steer.srp_power_cps):
         assert isinstance(fn.LAUNCHES, int)
     for name in _build.SOURCES + _build.HEADERS:
         assert (_build.CSRC / name).is_file(), name
@@ -121,3 +125,39 @@ def test_every_kernel_has_a_counter_and_its_sources():
     text = "".join((_build.CSRC / n).read_text() for n in _build.SOURCES)
     for name in _build.SIGNATURES:
         assert f"MCAX_API int {name}(" in text, name
+
+
+def test_dist_entry_points_raise_without_a_card(monkeypatch):
+    """ShardedPipeline and multihost.initialize run on the card unless the
+    caller passes device="cpu"."""
+    from mcax_torch.config import get_config
+    from mcax_torch.dist import mesh
+    from mcax_torch.dist import multihost
+    from mcax_torch.dist.sharded import ShardedPipeline
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    m = mesh.make_mesh(1, 1)
+    for srp in ("fused", "matmul"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ShardedPipeline(get_config("config4"), m, srp=srp)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ShardedPipeline(get_config("config4"), m, device="cuda", srp=srp)
+        sp = ShardedPipeline(get_config("config4"), m, device="cpu", srp=srp)
+        assert sp.device.type == "cpu" and sp.srp == srp
+        for entry in ("process_block", "process_blocks", "gather_outputs",
+                      "init_state"):
+            assert callable(getattr(sp, entry))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        multihost.initialize(world_size=1, rank=0)
+
+
+@pytest.mark.parametrize("bad", ["xla", "pallas", "auto", "Matmul", None])
+def test_bad_srp_raises(bad):
+    from mcax_torch.config import get_config
+    from mcax_torch.dist import mesh
+    from mcax_torch.dist.sharded import ShardedPipeline
+    from mcax_torch.pipeline import Pipeline
+    with pytest.raises(ValueError, match="srp must be one of"):
+        Pipeline(get_config("config3"), device="cpu", srp=bad)
+    with pytest.raises(ValueError, match="srp must be one of"):
+        ShardedPipeline(get_config("config3"), mesh.make_mesh(1, 1),
+                        device="cpu", srp=bad)
