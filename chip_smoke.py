@@ -11,8 +11,8 @@ on the first that fails:
   1. print the card's name and power limit (``nvidia-smi``);
   2. build the port's CUDA kernels from ``mcax_torch/csrc`` with ``nvcc``
      (into ``build/``) and print the build seconds;
-  3. hold each of the ten kernels against its plain PyTorch version on the
-     card, on the inputs its path gives it (kernels 1-4: config4
+  3. hold each of the eleven kernels against its plain PyTorch version on
+     the card, on the inputs its path gives it (kernels 1-4: config4
      ``process_blocks`` at B = 512; the STFT of a contiguous signal and the
      MVDR solve from complex covariances: config4 ``process_streams`` at
      S = 64; the PHAT cross-power: config1 ``process_blocks`` at B = 512;
@@ -21,7 +21,20 @@ on the first that fails:
      CPS at B = 512 and at one block, M = 24; both MVDR solve layouts again
      at C = 16 on config5's shapes, bit-equal), to the parity bounds below,
      and time kernel, plain version and (where one PyTorch call computes
-     the same function) that library call with CUDA events;
+     the same function) that library call with CUDA events; the halo ring
+     (kernel 11) in 2 x 1 and 2 x 2 meshes of processes that all share the
+     one card (spawned, joined over gloo on a FileStore, each mapping its
+     neighbours' buffers through CUDA IPC): 16 pushes a rank of config4
+     2 x 2's halo and spill payloads, mixed, with no host synchronisation
+     between them, each bit-equal to the plain ring over gloo, one counted
+     launch a push, and one push's time (the processes' contexts
+     time-slice the card, so it is the scheduler's time, not the
+     kernel's); then, on the 2 x 1 mesh, the ring's own path: config4
+     ``ShardedPipeline(halo="rdma")`` (collectives over gloo on CUDA
+     tensors), two ``process_block`` calls and a batched and a scan-mode
+     ``process_blocks`` of 4 blocks, each counted (the ring: 2 a block
+     step or batched dispatch, 8 a scan dispatch) and held to
+     ``Pipeline``; a failure in any child fails the phase;
   4. drive every ported path through the user's entry points, with every
      kernel's launch count set to 0 just before each path and read just
      after, on synthetic plane waves from seeded numpy generators:
@@ -69,13 +82,25 @@ on the first that fails:
           one-rank NCCL group joined by ``multihost.initialize`` (a
           ``FileStore`` in a temporary directory): ``process_blocks`` over
           phase j's dispatches and ``process_block`` over 4 blocks, counted
-          and held to phases j and k on the same blocks; the group is
-          destroyed after;
+          and held to phases j and k on the same blocks; the same with
+          halo="rdma" (a ring of one: no launch, bit-equal to
+          halo="ppermute") and with scan_mode="scan" (equal to phase k);
+          the group is destroyed after;
+       m. config4 ``Pipeline(scan_mode="scan").process_blocks`` at B = 64
+          over a few dispatches: one launch of each block-step kernel per
+          block, the first dispatch equal to phase b on the same blocks
+          (audio 5e-4, doa equal, carry bit-equal), samples/s beside phase
+          a's;
+       n. the ``srp_delaysum`` (config3's array), ``mvdr`` (config4's,
+          looking at the source) and ``mask`` (config1's, broadside) chains:
+          ``process_blocks`` at B = 512, counted, samples/s, the output's
+          look-direction gain and srp_delaysum's block DOA; ``process_block``
+          on 4 blocks equal to ``process_blocks``;
   5. run each path on the card and on the CPU (the plain versions) on a
      small input and hold them to the slice's parity bounds (config4
      ``process_blocks`` on the main path's first 4 blocks, the other paths
-     on plane waves of their own), and configs 3, 4 and 5 again with
-     ``srp="matmul"``.
+     and the three chains of phase n on plane waves of their own), and
+     configs 3, 4 and 5 again with ``srp="matmul"``.
 
 The last lines are the card's name and power limit, one JSON object with
 every kernel's numbers, and ``{"ok": true, "device": {...}}``.  With no CUDA
@@ -107,6 +132,15 @@ DISPATCHES5 = 4         # config5 batched dispatches: 1 warm-up + 3 timed
 SOURCES5_DEG = (-60.0, 60.0)   # config5's two static sources
 BLOCKS5 = 16            # config5 process_block path
 STREAMS5 = 16           # config5 process_streams path
+
+RING_MESHES = ((2, 1), (2, 2))   # kernel 11: processes sharing the card
+RING_SHAPES = ((4, 512), (512,))  # config4 2 x 2's halo and OLA spill
+RING_EPOCHS = 16        # counted pushes a rank, sizes mixed
+RING_TIMED = 32         # timed pushes a rank, each alone
+RING_PIPE_BLOCKS = 4    # the ring's path on the 2 x 1 mesh: blocks a dispatch
+SCAN_BLOCKS = 64        # config4 scan-mode process_blocks
+MASK_DEG = 90.0         # the mask chain's look and source (broadside)
+SCAN_DISPATCHES = 4     # 1 warm-up + 3 timed
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, full power limit):
 # fp32 on the CUDA cores and memory bandwidth.
@@ -640,6 +674,19 @@ def track_error_deg(doa_rad, sources_deg):
     return np.minimum(one, two)[..., 0]
 
 
+def launch_counters():
+    """Every kernel wrapper of the port, each with its ``LAUNCHES`` count."""
+    from mcax_torch.dist import halo_rdma
+    from mcax_torch.kernels import (covprefix, cps, fft, mvdrsolve,
+                                    srp_fused, steer, stft_fused)
+    return (stft_fused.stft_fused_from_blocks, srp_fused.srp_power_fused,
+            covprefix.block_prefixes_rows,
+            mvdrsolve.weights_blocks_fused_rows,
+            stft_fused.stft_fused_planes, mvdrsolve.weights_blocks_fused,
+            fft.irdft_rows, fft.rdft_rows, cps.cps_phat_pairs,
+            steer.srp_power_cps, halo_rdma.ring_push_right)
+
+
 def reset(counters):
     for fn in counters:
         fn.LAUNCHES = 0
@@ -677,12 +724,14 @@ def check_finite(path, outs, state):
             raise AssertionError(f"{path}: state {k} is not finite")
 
 
-def drive_batched(pipe, blocks, counters, dispatches=None):
+def drive_batched(pipe, blocks, counters, dispatches=None, per=None):
     """A batched path: ``dispatches`` (default DISPATCHES) chained
-    ``process_blocks`` calls of BLOCKS blocks, counted.  Returns (launches,
-    ms per timed dispatch, ms of the whole timed window, outputs, state)."""
+    ``process_blocks`` calls of ``per`` (default BLOCKS) blocks, counted.
+    Returns (launches, ms per timed dispatch, ms of the whole timed window,
+    outputs, state)."""
     import torch
     dispatches = dispatches or DISPATCHES
+    per = per or BLOCKS
     state = pipe.init_state()
     events = [torch.cuda.Event(enable_timing=True)
               for _ in range(dispatches + 1)]
@@ -691,7 +740,7 @@ def drive_batched(pipe, blocks, counters, dispatches=None):
     events[0].record()
     for d in range(dispatches):
         state, out = pipe.process_blocks(
-            state, blocks[d * BLOCKS:(d + 1) * BLOCKS])
+            state, blocks[d * per:(d + 1) * per])
         events[d + 1].record()
         outs.append(out)
     torch.cuda.synchronize()
@@ -1026,8 +1075,336 @@ def sharded_path(cfg, stream_blocks, lat_blocks, outs_m, outs_k, counters,
                   f"blocks: launches {launches}; equal to "
                   "Pipeline(srp=matmul).process_block (audio 5e-4, doa "
                   "equal)")
+            # halo="rdma" on a ring of one pushes nothing and equals the
+            # open chain; then the scan mode, held to Pipeline's
+            # process_block on the same blocks
+            runs = {}
+            for impl in ("rdma", "ppermute"):
+                spx = ShardedPipeline(cfg, mesh_mod.make_mesh(1, 1),
+                                      srp="matmul", halo=impl)
+                reset(counters)
+                st, outs = spx.init_state(), []
+                for i in range(nb):
+                    st, o = spx.process_block(st, lat_blocks[i])
+                    outs.append(spx.gather_outputs(o))
+                st, o = spx.process_blocks(st, lat_blocks[nb:2 * nb])
+                outs.append(spx.gather_outputs(o))
+                torch.cuda.synchronize()
+                runs[impl] = (read(counters), outs, st)
+            launches = runs["rdma"][0]
+            by_path["config4 sharded 1x1 halo=rdma"] = launches
+            if launches != runs["ppermute"][0] or launches["ring_push_right"]:
+                raise AssertionError(f"sharded 1x1 halo=rdma: launches "
+                                     f"{launches}, halo=ppermute "
+                                     f"{runs['ppermute'][0]}")
+            for i, (a, b) in enumerate(zip(runs["rdma"][1],
+                                           runs["ppermute"][1])):
+                compare_outs(f"sharded 1x1 halo=rdma vs ppermute, call {i}",
+                             a, b, 0.0, exact=tuple(a))
+            if not torch.equal(runs["rdma"][2].carry,
+                               runs["ppermute"][2].carry):
+                raise AssertionError("sharded 1x1 halo=rdma: carry differs")
+            sps = ShardedPipeline(cfg, mesh_mod.make_mesh(1, 1), srp="matmul",
+                                  scan_mode="scan", halo="rdma")
+            reset(counters)
+            st, o = sps.process_blocks(sps.init_state(), lat_blocks[:nb])
+            torch.cuda.synchronize()
+            launches = read(counters)
+            by_path["config4 sharded 1x1 scan process_blocks"] = launches
+            expect_launches("sharded 1x1 scan process_blocks", launches, {
+                k: nb for k in ("stft_fused_planes", "cps_phat_pairs",
+                                "srp_power_cps", "weights_blocks_fused",
+                                "irdft_rows")})
+            compare_outs("sharded 1x1 scan vs Pipeline process_block",
+                         sps.gather_outputs(o),
+                         {k: torch.stack([outs_k[i][k] for i in range(nb)])
+                          for k in outs_k[0]}, 5e-4, exact=("doa",))
+            print(f"{cfg.name} ShardedPipeline 1x1 halo=rdma: {nb} "
+                  f"process_block calls and one {nb}-block process_blocks, "
+                  f"launches {runs['rdma'][0]} (none of the ring: a ring of "
+                  "one returns its input), bit-equal to halo=ppermute; "
+                  f"scan_mode=scan process_blocks over {nb} blocks: launches "
+                  f"{launches}, equal to Pipeline(srp=matmul).process_block "
+                  "(audio 5e-4, doa equal)")
         finally:
             dist.destroy_process_group()
+
+
+def ring_payload(rank: int, epoch: int):
+    """Kernel 11's payload of one rank and push: distinct exact floats, of
+    config4 2 x 2's halo shape [4, 512] or, every third push, its spill's
+    [512] (the two sizes interleave, each on its own ring)."""
+    import torch
+    shape = RING_SHAPES[int(epoch % 3 == 2)]
+    n = int(np.prod(shape))
+    return (torch.arange(n, dtype=torch.float32) + 1e4 * epoch
+            + 1e6 * rank).view(shape)
+
+
+def ring_pipeline(m, dev):
+    """Phase 3, kernel 11 on its path: config4 ``ShardedPipeline(halo=
+    "rdma")`` on this rank's 2 x 1 mesh of processes sharing the card, its
+    collectives over gloo on CUDA tensors.  Two ``process_block`` calls,
+    then ``process_blocks`` over RING_PIPE_BLOCKS blocks in the batched and
+    in the scan mode, every count set to 0 just before each call and read
+    just after (the ring: 2 a block step or batched dispatch, 2 a block in
+    the scan mode); each call's gathered outputs held to ``Pipeline`` on
+    the same blocks (6e-4: the card's 5e-4 plus the reference's
+    sharded-vs-single 1e-4; block DOA equal).  Returns {call: launches}."""
+    import torch
+    from mcax_torch.config import get_config
+    from mcax_torch.dist.sharded import ShardedPipeline
+    from mcax_torch.pipeline import Pipeline
+    counters = launch_counters()
+    cfg = get_config(CONFIG)
+    pipe = Pipeline(cfg, device=dev)
+    k = RING_PIPE_BLOCKS
+    blocks = to_blocks(plane_wave(pipe.geom, SOURCE_DEG, (2 + k)
+                                  * cfg.block_len, SEED + 16, dev),
+                       cfg.block_len)
+    want, st = [], pipe.init_state()
+    for i in range(2 + k):
+        st, o = pipe.process_block(st, blocks[i])
+        want.append(o)
+        if i == 1:
+            _, ob = pipe.process_blocks(st, blocks[2:])
+    want_scan = {key: torch.stack([o[key] for o in want[2:]])
+                 for key in want[0]}
+    want = want[:2] + [ob]
+    sp = ShardedPipeline(cfg, m, device=dev, halo="rdma")
+    sps = ShardedPipeline(cfg, m, device=dev, halo="rdma", scan_mode="scan")
+    launches, st = {}, sp.init_state()
+    for call, (fn, x, ref) in {
+            "process_block 0": (sp.process_block, blocks[0], want[0]),
+            "process_block 1": (sp.process_block, blocks[1], want[1]),
+            f"batched process_blocks B = {k}": (sp.process_blocks,
+                                                blocks[2:], want[2]),
+            f"scan process_blocks B = {k}": (sps.process_blocks, blocks[2:],
+                                             want_scan)}.items():
+        reset(counters)
+        st_next, o = fn(st, x)
+        torch.cuda.synchronize()
+        launches[call] = read(counters)
+        if call.startswith("process_block "):
+            st = st_next
+        want_ring = 2 * k if call.startswith("scan") else 2
+        if launches[call]["ring_push_right"] != want_ring:
+            raise AssertionError(f"sharded 2x1 halo=rdma {call}: launches "
+                                 f"{launches[call]}, expected {want_ring} "
+                                 "of the ring")
+        compare_outs(f"sharded 2x1 halo=rdma {call} vs Pipeline",
+                     sp.gather_outputs(o), ref, 6e-4, exact=("doa",))
+    return launches
+
+
+def ring_worker(rank, world, ts, repo, store_path, out_path):
+    """Phase 3, kernel 11: one rank of a ts x (world/ts) mesh of processes
+    that share card 0 (joined over gloo on a FileStore).  RING_EPOCHS
+    counted pushes with no host synchronisation between them, each held
+    bit-equal to the plain ring on CPU copies; then RING_TIMED pushes, each
+    alone (the halo's size), timed with CUDA events after a barrier; the
+    plain ring's host time on the halo's pushes; on the 2 x 1 mesh, the
+    ring's pipeline (``ring_pipeline``).
+    Writes a JSON record to ``out_path % rank``."""
+    sys.path.insert(0, repo)
+    import torch
+    import torch.distributed as dist
+    from mcax_torch.dist import halo_rdma
+    from mcax_torch.dist import mesh as mesh_mod
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            world_size=world, rank=rank)
+    try:
+        m = mesh_mod.make_mesh(ts, world // ts)
+        xs = [ring_payload(rank, e).cuda() for e in range(RING_EPOCHS)]
+        halo_rdma.ring_push_right.LAUNCHES = 0
+        got = [halo_rdma.ring_push_right(x, m) for x in xs]
+        halo_rdma.check_errors()
+        launches = halo_rdma.ring_push_right.LAUNCHES
+        err, unequal, plain_ms = 0.0, [], []
+        for e, (g, x) in enumerate(zip(got, xs)):
+            xc = x.cpu()
+            t0 = time.perf_counter()
+            want = halo_rdma.ring_push_right_plain(xc, m)
+            if x.shape == RING_SHAPES[0]:          # the halo's pushes
+                plain_ms.append((time.perf_counter() - t0) * 1e3)
+            g = g.cpu()
+            if not torch.equal(g, want):
+                unequal.append(e)
+            err = max(err, (g - want).abs().max().item())
+        ms = []
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        for e in range(RING_TIMED):
+            dist.barrier()
+            start.record()
+            halo_rdma.ring_push_right(xs[e % 2], m)
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        pipeline = (ring_pipeline(m, torch.device("cuda", 0))
+                    if (ts, world) == (2, 2) else {})
+        halo_rdma.check_errors()
+        halo_rdma.release()
+        with open(out_path % rank, "w") as f:
+            json.dump(dict(launches=launches, unequal=unequal,
+                           max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           pipeline=pipeline), f)
+    finally:
+        dist.destroy_process_group()
+
+
+def check_ring_kernel(repo, peaks):
+    """Phase 3, kernel 11: the halo ring in 2 x 1 and 2 x 2 meshes of
+    processes on the one card (``ring_worker``), a spawned child's failure
+    failing the phase.  Returns ({name: record}, {path: launches})."""
+    import tempfile
+    import torch.multiprocessing as tmp
+    recs, by_path, ms, plain, err = {}, {}, [], [], 0.0
+    for ts, cs in RING_MESHES:
+        world = ts * cs
+        with tempfile.TemporaryDirectory() as d:
+            ctx = tmp.start_processes(
+                ring_worker, args=(world, ts, str(repo), f"{d}/store",
+                                   f"{d}/rank%d.json"),
+                nprocs=world, join=False, start_method="spawn")
+            deadline = time.monotonic() + 300
+            try:
+                # join returns False after each child's exit: loop
+                while not ctx.join(timeout=max(deadline - time.monotonic(),
+                                               0)):
+                    if time.monotonic() >= deadline:
+                        raise AssertionError(f"ring {ts}x{cs}: the ranks ran "
+                                             "past 300 s")
+            finally:
+                for proc in ctx.processes:
+                    if proc.is_alive():
+                        proc.terminate()
+                    proc.join(timeout=10)
+            res = [json.loads(Path(f"{d}/rank{r}.json").read_text())
+                   for r in range(world)]
+        for r, q in enumerate(res):
+            if q["unequal"]:
+                raise AssertionError(f"ring {ts}x{cs} rank {r}: pushes "
+                                     f"{q['unequal']} differ from the plain "
+                                     "ring")
+            if q["launches"] != RING_EPOCHS:
+                raise AssertionError(f"ring {ts}x{cs} rank {r}: "
+                                     f"{q['launches']} launches counted for "
+                                     f"{RING_EPOCHS} pushes")
+            ms += q["ms"]
+            plain += q["plain_ms"]
+            err = max(err, q["max_abs_err"])
+        by_path[f"ring {ts}x{cs}, {world} processes on one card"] = {
+            "ring_push_right": sum(q["launches"] for q in res)}
+        for call in res[0]["pipeline"]:
+            # a kernel's launches on the ring's path, over both ranks
+            by_path[f"config4 sharded {ts}x{cs} halo=rdma {call}, {world} "
+                    "processes on one card"] = {
+                name: sum(q["pipeline"][call][name] for q in res)
+                for name in res[0]["pipeline"][call]}
+        if res[0]["pipeline"]:
+            print(f"config4 ShardedPipeline {ts}x{cs} halo=rdma ({world} "
+                  "processes on one card, gloo on CUDA tensors): launches "
+                  "on rank 0 " + "; ".join(
+                      f"{call} {launches}" for call, launches
+                      in res[0]["pipeline"].items())
+                  + "; every call's gathered outputs equal to Pipeline "
+                  "(6e-4, doa equal)")
+        mesh_ms = [t for q in res for t in q["ms"]]
+        print(f"kernel halo_ring {ts}x{cs} ({world} processes sharing the "
+              f"card, their contexts time-sliced): {RING_EPOCHS} pushes a "
+              "rank bit-equal to the plain ring; one push alone (CUDA "
+              "events, including the wait for the peers' time slices) ms "
+              f"median {statistics.median(mesh_ms):.4f}, max "
+              f"{max(mesh_ms):.4f}; plain ring over gloo ms median "
+              f"{statistics.median([t for q in res for t in q['plain_ms']]):.4f}")
+    nbytes = 4.0 * int(np.prod(RING_SHAPES[0]))
+    recs["halo_ring"] = dict(
+        route="cuda", source="mcax_torch/csrc/halo_rdma.cu",
+        replaces="mcax/dist/halo_rdma.py:55", max_abs_err=err,
+        ms=statistics.median(ms), plain_ms=statistics.median(plain),
+        library_ms=None,
+        library_call="none on one card: NCCL refuses two ranks on one GPU "
+                     "(tests/test_torch_cuda.py::test_rdma_halo_on_four_cards "
+                     "times NCCL's batch_isend_irecv ring on four cards)",
+        timing="median over both meshes' ranks of one push alone, with the "
+               "processes' contexts time-sliced on the one card; the plain "
+               "version: batch_isend_irecv over gloo on CPU copies",
+        bound=bound_ms(0.0, 2.0 * nbytes, peaks),
+        shape=list(RING_SHAPES[0]))
+    return recs, by_path
+
+
+def chain_config(base, algo, look_deg=None):
+    """``base`` with synthesis on, running ``algo`` (looking at
+    ``look_deg`` when given), as the reference's tests build these chains."""
+    import dataclasses
+    over = ({} if look_deg is None
+            else {"steer_azimuth_rad": float(np.deg2rad(look_deg))})
+    return dataclasses.replace(
+        base, stft=dataclasses.replace(base.stft, synthesis=True),
+        algo=dataclasses.replace(base.algo, name=algo, **over))
+
+
+CHAIN_KERNELS = {   # algo -> (batched path's kernels, block step's)
+    "srp_delaysum": (("stft_fused_from_blocks", "srp_power_fused",
+                      "irdft_rows"),
+                     ("stft_fused_planes", "srp_power_fused", "irdft_rows")),
+    "mvdr": (("stft_fused_from_blocks", "block_prefixes_rows",
+              "weights_blocks_fused_rows", "irdft_rows"),
+             ("stft_fused_planes", "weights_blocks_fused", "irdft_rows")),
+    "mask": (("stft_fused_from_blocks", "irdft_rows"),
+             ("stft_fused_planes", "irdft_rows")),
+}
+
+
+def chain_path(name, pipe, blocks, src_deg, counters, by_path):
+    """Phase 4n: one chain's ``process_blocks`` at B = BLOCKS over a few
+    dispatches (counted, samples/s) and ``process_block`` over 4 blocks
+    (counted, equal to ``process_blocks`` on them), on a source in the look
+    direction (for srp_delaysum, the one it finds): the output's level
+    follows one mic's (gain 0.9-1.1; the mask's sigmoid passes 0.98 of a
+    bin on target, 0.8-1.1), and srp_delaysum's every block DOA within 2
+    degrees."""
+    import torch
+    cfg = pipe.cfg
+    batched, step = CHAIN_KERNELS[name]
+    launches, ms_, win, outs, st = drive_batched(pipe, blocks, counters)
+    by_path[f"{name} process_blocks"] = launches
+    expect_launches(f"{name} process_blocks", launches,
+                    {k: DISPATCHES for k in batched})
+    check_finite(f"{name} process_blocks", outs, st)
+    audio = torch.cat([o["audio"] for o in outs])
+    gain = (audio[1:].std() / blocks[1:DISPATCHES * BLOCKS, 0].std()).item()
+    low = 0.8 if name == "mask" else 0.9
+    if not low <= gain <= 1.1:
+        raise AssertionError(f"{name}: look-direction gain {gain:.3f}")
+    extra = ""
+    if "doa" in outs[0]:
+        off = doa_error_deg(torch.cat([o["doa"] for o in outs]), src_deg)
+        if not np.all(off <= 2.0):
+            raise AssertionError(f"{name} block DOA off the source by up to "
+                                 f"{off.max():.2f} deg")
+        extra = f"; block DOA max error {off.max():.2f} deg"
+    st_a, o_a = pipe.process_blocks(pipe.init_state(), blocks[:4])
+    reset(counters)
+    st_b, o_b = pipe.init_state(), []
+    for i in range(4):
+        st_b, o = pipe.process_block(st_b, blocks[i])
+        o_b.append(o)
+    by_path[f"{name} process_block"] = read(counters)
+    expect_launches(f"{name} process_block", by_path[f"{name} process_block"],
+                    {k: 4 for k in step})
+    compare_outs(f"{name} process_block vs process_blocks",
+                 {k: torch.stack([o[k] for o in o_b]) for k in o_b[0]}, o_a,
+                 5e-4, exact=("doa",))
+    compare_states(f"{name} process_block vs process_blocks", st_b, st_a)
+    print(rate_line(f"{name} ({cfg.name}'s array) process_blocks, B = "
+                    f"{BLOCKS}", ms_, win, BLOCKS * cfg.block_len)
+          + f"; launches {launches}; look-direction gain {gain:.4f}{extra}; "
+          "process_block on 4 blocks equal to process_blocks (audio 5e-4"
+          + (", doa equal" if extra else "") + ")")
 
 
 def main() -> int:
@@ -1047,8 +1424,7 @@ def main() -> int:
     sys.path.insert(0, str(repo))
 
     from mcax_torch.config import apply_overrides, get_config
-    from mcax_torch.kernels import (_build, covprefix, cps, fft, mvdrsolve,
-                                    srp_fused, steer, stft_fused)
+    from mcax_torch.kernels import _build, stft_fused
     from mcax_torch.pipeline import Pipeline
 
     # -- phase 1: the card ---------------------------------------------------
@@ -1125,6 +1501,8 @@ def main() -> int:
     recs.update(check_steer_kernel(pipe_m, spec4, PEAKS))
     del spec4
     check_mvdr_c16(pipe5, blocks5[:BLOCKS], x5_streams, recs, PEAKS)
+    ring_recs, ring_paths = check_ring_kernel(repo, PEAKS)
+    recs.update(ring_recs)
     for name, r in recs.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.3f}"
         print(f"kernel {name}: max_abs_err {r['max_abs_err']:.3e}"
@@ -1146,12 +1524,7 @@ def main() -> int:
                   f"{q['bound_ms']:.4f} ({q['bound_by']})")
     print("kernels checked: " + ", ".join(recs))
 
-    counters = (stft_fused.stft_fused_from_blocks, srp_fused.srp_power_fused,
-                covprefix.block_prefixes_rows,
-                mvdrsolve.weights_blocks_fused_rows,
-                stft_fused.stft_fused_planes, mvdrsolve.weights_blocks_fused,
-                fft.irdft_rows, fft.rdft_rows, cps.cps_phat_pairs,
-                steer.srp_power_cps)
+    counters = launch_counters()
     kernel_of = {"stft_from_blocks": "stft_fused_from_blocks",
                  "srp_fused": "srp_power_fused",
                  "cov_prefixes": "block_prefixes_rows",
@@ -1160,8 +1533,9 @@ def main() -> int:
                  "mvdr_solve_complex": "weights_blocks_fused",
                  "irdft_rows": "irdft_rows", "rdft_rows": "rdft_rows",
                  "cps_phat": "cps_phat_pairs",
-                 "srp_power_cps": "srp_power_cps"}
-    by_path = {}
+                 "srp_power_cps": "srp_power_cps",
+                 "halo_ring": "ring_push_right"}
+    by_path = dict(ring_paths)
 
     # -- phase 4a: config4 process_blocks, the main path -------------------
     torch.cuda.reset_peak_memory_stats()
@@ -1236,7 +1610,8 @@ def main() -> int:
     print(f"config4 run over {LATENCY_BLOCKS} blocks from host numpy: "
           f"{run_s:.3f} s wall ({host_x.shape[1] / run_s:.6g} samples/s), "
           "equal to the process_block loop")
-    del outs, stacked, out_b
+    scan_ref = (stacked, st_loop)             # phase 4m's reference
+    del outs, out_b
 
     # -- phase 4c: config4 process_streams, S = 64 -------------------------
     states = pipe.init_states(STREAMS)
@@ -1603,6 +1978,45 @@ def main() -> int:
                  by_path)
     del outs_m, outs4k
 
+    # -- phase 4m: config4 Pipeline(scan_mode="scan").process_blocks -----
+    pipe_s = Pipeline(cfg, scan_mode="scan")
+    launches, mss, wins, outs, sts = drive_batched(
+        pipe_s, stream_blocks, counters, SCAN_DISPATCHES, SCAN_BLOCKS)
+    by_path["config4 scan process_blocks"] = launches
+    expect_launches("config4 scan process_blocks", launches, {
+        k: SCAN_DISPATCHES * SCAN_BLOCKS
+        for k in ("stft_fused_planes", "srp_power_fused",
+                  "weights_blocks_fused", "irdft_rows")})
+    check_finite("config4 scan process_blocks", outs, sts)
+    # the first dispatch's blocks are phase 4b's, from the same state
+    compare_outs("scan process_blocks vs process_block", outs[0],
+                 scan_ref[0], 5e-4, exact=("doa",))
+    st_first, _ = pipe_s.process_blocks(pipe_s.init_state(),
+                                        stream_blocks[:SCAN_BLOCKS])
+    compare_states("scan process_blocks vs process_block", st_first,
+                   scan_ref[1])
+    print(rate_line(f"config4 Pipeline(scan_mode=scan) process_blocks, B = "
+                    f"{SCAN_BLOCKS}", mss, wins, SCAN_BLOCKS * block_len)
+          + f"; launches {launches}; equal to process_block on the same "
+          "blocks (audio 5e-4, doa equal, carry bit-equal); the batched "
+          f"main path in this run (phase 4a, B = {BLOCKS}): samples/s "
+          f"{fused_rate:.6g}")
+    del outs, scan_ref
+
+    # -- phase 4n: the srp_delaysum, mvdr and mask chains -----------------
+    chains = {
+        "srp_delaysum": (chain_config(cfg3, "srp_delaysum"), blocks3, src3),
+        "mvdr": (chain_config(cfg, "mvdr", SOURCE_DEG), stream_blocks,
+                 SOURCE_DEG),
+        # broadside, as the reference's own test of its mask: its target
+        # phase has the observed phase's opposite sign (ROADMAP, Queue 3),
+        # so only a look along the axis of symmetry passes a source
+        "mask": (chain_config(cfg1, "mask", MASK_DEG), to_blocks(plane_wave(
+            pipe1.geom, MASK_DEG, DISPATCHES * BLOCKS * cfg1.block_len,
+            SEED + 16, dev), cfg1.block_len), MASK_DEG)}
+    for name, (cfg_c, blocks_c, src_c) in chains.items():
+        chain_path(name, Pipeline(cfg_c), blocks_c, src_c, counters, by_path)
+
     # -- phase 5: the card against the CPU on small inputs -----------------
     x_small = {
         "config4": (cfg, plane_waves(pipe.geom, [SOURCE_DEG, -100.0],
@@ -1620,6 +2034,15 @@ def main() -> int:
         "config5": (cfg5, plane_waves(pipe5.geom, [-60.0, 60.0, -120.0, 20.0],
                                       4 * bl5, SEED + 12, "cpu")
                     .view(2, 2, pipe5.geom.num_mics, -1).sum(1)),
+        "srp_delaysum": (chains["srp_delaysum"][0], plane_waves(
+            pipe3.geom, [src3, -60.0], 4 * cfg3.block_len, SEED + 13,
+            "cpu")),
+        "mvdr": (chains["mvdr"][0], plane_waves(
+            pipe.geom, [SOURCE_DEG, -100.0], 4 * block_len, SEED + 14,
+            "cpu")),
+        "mask": (chains["mask"][0], plane_waves(
+            pipe1.geom, [MASK_DEG, 30.0], 4 * cfg1.block_len, SEED + 15,
+            "cpu")),
     }
     err = small_reference(cfg, stream_blocks[:4].cpu())
     print(f"small input (2 dispatches x 2 blocks): cuda vs cpu audio max "
@@ -1640,7 +2063,7 @@ def main() -> int:
     kernels = []
     for name, r in recs.items():
         per_path = {p: l[kernel_of[name]] for p, l in by_path.items()
-                    if l[kernel_of[name]]}
+                    if l.get(kernel_of[name])}
         kernels.append(dict(
             name=name, route=r["route"], source=r["source"],
             replaces=r["replaces"], launches=sum(per_path.values()),
@@ -1648,10 +2071,8 @@ def main() -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=r["library_ms"],
-            **({"design_bound_ms": r["design_bound"][0]}
-               if "design_bound" in r else {}),
-            **({"library_call": r["library_call"]}
-               if "library_call" in r else {}),
+            **{k: r[k] for k in ("library_call", "timing", "shape")
+               if k in r},
             **{a: q for a, q in r.items() if a.startswith("at_")}))
     check_every_kernel_launched(kernels)
     print(smi)

@@ -53,6 +53,25 @@ def psum(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     return y
 
 
+def shift_right(x: torch.Tensor, mesh: Mesh, axis: str,
+                wrap: bool = False) -> torch.Tensor:
+    """The left neighbour's ``x`` along ``axis``, by one
+    ``batch_isend_irecv`` (``lax.ppermute`` by one): shard 0 gets zeros
+    (the open chain) or, when ``wrap``, shard n-1's (the ring)."""
+    n, i = mesh.size(axis), mesh.index(axis)
+    x = x.contiguous()
+    recv = torch.zeros_like(x)
+    ops = []
+    if wrap or i + 1 < n:
+        ops.append(dist.P2POp(dist.isend, x, mesh.neighbour(axis, 1, wrap)))
+    if wrap or i > 0:
+        ops.append(dist.P2POp(dist.irecv, recv,
+                              mesh.neighbour(axis, -1, wrap)))
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return recv
+
+
 def broadcast(x: torch.Tensor, mesh: Mesh, axis: str,
               index: int) -> torch.Tensor:
     """Shard ``index``'s ``x`` on every shard of ``axis`` (bit-exact: the

@@ -6,9 +6,14 @@ left neighbour (the streaming carry for shard 0); the synthesis side sends
 each shard's overlap-add spill to its right neighbour, so hop-aligned output
 shards stay exact.  Both are one push along the reference's default open
 chain (``_shift_right_perm``): rank (ti, ci) sends to (ti+1, ci) and receives
-from (ti-1, ci) in one ``dist.batch_isend_irecv``; shard 0 receives nothing
-and takes the carry instead.  The reference's remote-DMA ring
-(``halo_rdma.ring_push_right``, TPU kernel 11) is not ported (ROADMAP.md).
+from (ti-1, ci) in one ``dist.batch_isend_irecv``
+(``collectives.shift_right``); shard 0 receives nothing and takes the carry
+instead.  ``impl="rdma"`` pushes through the remote-store
+ring instead (``halo_rdma.ring_push_right``: a hand-written CUDA store into
+the right neighbour's memory on the card, its plain ``batch_isend_irecv``
+ring on the CPU); the ring wraps, and shard 0 overwrites what it brings, so
+the two agree.  The reference picks the same two with ``MCAX_HALO``; here
+the caller passes ``impl`` (``ShardedPipeline(halo=...)``).
 
 ``stft_left_halo`` transforms the halo-extended signal in one call; the
 reference splits off the interior frames so XLA can overlap them with the
@@ -18,62 +23,65 @@ exchange, which gives the same frames (they are row-wise independent).
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 
 from mcax_torch.dist import collectives as coll
+from mcax_torch.dist import halo_rdma
 from mcax_torch.dist.mesh import TIME_AXIS, Mesh
 from mcax_torch.frames import stft as stft_mod
 
+IMPLS = ("ppermute", "rdma")
 
-def push_right(payload: torch.Tensor, mesh: Mesh,
-               axis: str = TIME_AXIS) -> torch.Tensor:
+
+def check_impl(impl: str) -> str:
+    if impl not in IMPLS:
+        raise ValueError(f"halo must be ppermute|rdma, got {impl!r}")
+    return impl
+
+
+def push_right(payload: torch.Tensor, mesh: Mesh, axis: str = TIME_AXIS,
+               impl: str = "ppermute") -> torch.Tensor:
     """Send ``payload`` one shard rightward along ``axis``; returns the left
-    neighbour's (zeros on shard 0, which every caller replaces)."""
-    n, i = mesh.size(axis), mesh.index(axis)
-    payload = payload.contiguous()
-    recv = torch.zeros_like(payload)
-    ops = []
-    if i + 1 < n:
-        ops.append(dist.P2POp(dist.isend, payload,
-                              mesh.neighbour(axis, 1)))
-    if i > 0:
-        ops.append(dist.P2POp(dist.irecv, recv, mesh.neighbour(axis, -1)))
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    return recv
+    neighbour's.  Shard 0 gets zeros (``"ppermute"``, the open chain) or
+    shard n-1's payload (``"rdma"``, the ring); every caller replaces it."""
+    if check_impl(impl) == "rdma":
+        return halo_rdma.ring_push_right(payload, mesh, axis)
+    return coll.shift_right(payload, mesh, axis)
 
 
 def _recv_left(samples_local: torch.Tensor, halo_len: int,
-               carry: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+               carry: torch.Tensor, mesh: Mesh, axis: str,
+               impl: str) -> torch.Tensor:
     """Push this shard's tail rightward, take the left neighbour's; shard 0
     takes the streaming carry."""
-    recv = push_right(samples_local[..., -halo_len:], mesh, axis)
+    recv = push_right(samples_local[..., -halo_len:], mesh, axis, impl)
     return carry if mesh.index(axis) == 0 else recv
 
 
 def left_halo(samples_local: torch.Tensor, halo_len: int, carry: torch.Tensor,
-              mesh: Mesh, axis: str = TIME_AXIS) -> torch.Tensor:
+              mesh: Mesh, axis: str = TIME_AXIS,
+              impl: str = "ppermute") -> torch.Tensor:
     """[..., N_local] -> [..., halo_len + N_local]: each time shard's samples
     behind its left halo (the carry [..., halo_len] on shard 0)."""
     if mesh.size(axis) == 1:
         return torch.cat([carry, samples_local], dim=-1)
-    left = _recv_left(samples_local, halo_len, carry, mesh, axis)
+    left = _recv_left(samples_local, halo_len, carry, mesh, axis, impl)
     return torch.cat([left, samples_local], dim=-1)
 
 
 def stft_left_halo(samples_local: torch.Tensor, halo_len: int,
                    carry: torch.Tensor, w2: torch.Tensor, hop: int,
-                   mesh: Mesh, axis: str = TIME_AXIS) -> torch.Tensor:
+                   mesh: Mesh, axis: str = TIME_AXIS,
+                   impl: str = "ppermute") -> torch.Tensor:
     """Halo exchange + STFT: complex64 spectra [..., T, F] of the
     halo-extended signal (``frames.stft.stft`` with the analysis operand
     ``w2``)."""
     return stft_mod.stft(left_halo(samples_local, halo_len, carry, mesh,
-                                   axis), w2, hop)
+                                   axis, impl), w2, hop)
 
 
 def ola_tail_exchange(full_local: torch.Tensor, out_len: int,
                       state_tail: torch.Tensor, mesh: Mesh,
-                      axis: str = TIME_AXIS):
+                      axis: str = TIME_AXIS, impl: str = "ppermute"):
     """Cross-shard overlap-add spill exchange (synthesis side).
 
     Args:
@@ -92,7 +100,7 @@ def ola_tail_exchange(full_local: torch.Tensor, out_len: int,
     if mesh.size(axis) == 1:
         incoming = state_tail
     else:
-        recv = push_right(tail_out, mesh, axis)
+        recv = push_right(tail_out, mesh, axis, impl)
         incoming = state_tail if mesh.index(axis) == 0 else recv
     out = full_local[..., :out_len].clone()
     out[..., :spill] += incoming

@@ -64,11 +64,15 @@ class Mesh:
         """The rank at (ti, ci)."""
         return ti * self.channel_shards + ci
 
-    def neighbour(self, axis: str, offset: int) -> int:
-        """The rank ``offset`` shards away along ``axis`` (no wrap)."""
+    def neighbour(self, axis: str, offset: int, wrap: bool = False) -> int:
+        """The rank ``offset`` shards away along ``axis`` (round the ring
+        when ``wrap``)."""
+        i = self.index(axis) + offset
+        if wrap:
+            i %= self.size(axis)
         if axis == TIME_AXIS:
-            return self.global_rank(self.ti + offset, self.ci)
-        return self.global_rank(self.ti, self.ci + offset)
+            return self.global_rank(i, self.ci)
+        return self.global_rank(self.ti, i)
 
 
 def make_mesh(time_shards: int = 1, channel_shards: int = 1) -> Mesh:

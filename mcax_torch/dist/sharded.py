@@ -19,6 +19,11 @@ The collectives are the reference's:
   all_gather     covariance (decay, partial) monoid elements over 'time'
   push right     overlap-add spill to the right time neighbour
 
+Both pushes go through the halo implementation the caller picks
+(``halo``): the open chain of ``batch_isend_irecv`` (``"ppermute"``, the
+default) or the remote-store ring (``"rdma"``, ``halo_rdma.py``: a CUDA
+store into the neighbour's memory on the card).
+
 The SRP is pair-sharded: each channel shard takes its slice of the mic
 pairs, padded to a whole number of slices with pairs whose steering is
 zero, under either of the reference's SRP kernels (``srp``): ``"fused"``
@@ -27,6 +32,9 @@ zero, under either of the reference's SRP kernels (``srp``): ``"fused"``
 the slice's stacked steering rows).  In the batched mode the MVDR chain is
 frequency-sharded when there are channel shards, with its cross-shard
 pieces merged into two gathers (one over 'time', one over 'channel').
+``scan_mode="scan"`` runs the per-block step once per block instead (the
+reference's ``lax.scan`` of its shard_map step), each block cut over time
+within itself, so the halo and the spill are pushed once per block.
 """
 
 from __future__ import annotations
@@ -38,21 +46,23 @@ import torch
 from mcax_torch import config as cfg_mod
 from mcax_torch.algos import covariance as cov_mod
 from mcax_torch.algos import delaysum
+from mcax_torch.algos import masking
 from mcax_torch.algos import mvdr
 from mcax_torch.algos import srp as srp_mod
 from mcax_torch.algos import tracking
 from mcax_torch.dist import collectives as coll
 from mcax_torch.dist import halo as halo_mod
+from mcax_torch.dist import halo_rdma
 from mcax_torch.dist import multihost
 from mcax_torch.dist import scan as dscan
 from mcax_torch.dist.mesh import CHANNEL_AXIS, TIME_AXIS, Mesh
 from mcax_torch.frames import stft as stft_mod
 from mcax_torch.frames.ola import overlap_add
 from mcax_torch.kernels import dispatch
-from mcax_torch.pipeline import Pipeline
+from mcax_torch.pipeline import Pipeline, check_scan_mode
 from mcax_torch.state import PipelineState
 
-_MVDR_FAMILY = ("srp_mvdr", "track_mvdr")
+_MVDR_FAMILY = ("mvdr", "srp_mvdr", "track_mvdr")
 
 
 class Shards(dict):
@@ -82,14 +92,15 @@ class ShardedPipeline:
     run over a ('time', 'channel') mesh of processes."""
 
     def __init__(self, cfg: cfg_mod.PipelineConfig, mesh: Mesh, device=None,
-                 srp: str = "fused", scan_mode: str = "batched"):
-        if scan_mode not in ("batched", "scan"):
-            raise ValueError(f"scan_mode must be batched|scan, got "
-                             f"{scan_mode!r}")
-        if scan_mode == "scan":
-            raise NotImplementedError(
-                "mcax_torch's ShardedPipeline runs scan_mode='batched' so "
-                "far; the scan mode is queued in ROADMAP.md, Queue 1")
+                 srp: str = "fused", scan_mode: str = "batched",
+                 halo: str = "ppermute"):
+        """``srp`` as ``Pipeline``'s; ``scan_mode`` is ``process_blocks``'s
+        mode (``"batched"``: the B blocks cut over 'time'; ``"scan"``: the
+        block step once per block); ``halo`` the push of the halo and the
+        spill (``"ppermute"`` | ``"rdma"``, the reference's ``MCAX_HALO``).
+        Any other value raises."""
+        self.scan_mode = check_scan_mode(scan_mode)
+        self.halo = halo_mod.check_impl(halo)
         self.srp = srp_mod.check_method(srp)
         self.cfg = cfg.validate()
         self.mesh = mesh
@@ -147,15 +158,25 @@ class ShardedPipeline:
     def process_blocks(self, state: PipelineState, samples
                        ) -> Tuple[PipelineState, Shards]:
         """Throughput mode: B consecutive blocks [B, C, block_len] in one
-        dispatch, the B blocks cut over 'time' (B % time_shards == 0); each
-        time shard runs the batched math on its B/time_shards blocks, and
-        per-block outputs are cut over 'time' along their leading axis."""
+        dispatch.  ``scan_mode="batched"``: the B blocks cut over 'time'
+        (B % time_shards == 0); each time shard runs the batched math on its
+        B/time_shards blocks, and per-block outputs are cut over 'time'
+        along their leading axis.  ``scan_mode="scan"``: ``process_block``
+        on each block in turn, its outputs stacked on a leading B axis (cut
+        over 'time' along their last axis, as the block step's)."""
         samples = torch.as_tensor(samples, dtype=torch.float32,
                                   device=self.device)
         expect = (self.geom.num_mics, self.cfg.block_len)
         if samples.ndim != 3 or tuple(samples.shape[1:]) != expect:
             raise ValueError(f"expected samples [B, {expect[0]}, "
                              f"{expect[1]}], got {list(samples.shape)}")
+        if self.scan_mode == "scan":
+            outs = []
+            for blk in samples:
+                state, out = self.process_block(state, blk)
+                outs.append(out)
+            return state, Shards({k: torch.stack([o[k] for o in outs])
+                                  for k in outs[0]}, outs[0].time_dims)
         if samples.shape[0] % self.st:
             raise ValueError(f"batched mode needs block count divisible by "
                              f"the {self.st} time shards, got "
@@ -169,10 +190,15 @@ class ShardedPipeline:
 
     def gather_outputs(self, out: Shards) -> Dict[str, torch.Tensor]:
         """The global outputs, on every rank (a collective: every rank
-        calls it)."""
-        return {k: v if out.time_dims[k] is None else
-                coll.gather(v, self.mesh, TIME_AXIS, dim=out.time_dims[k])
-                for k, v in out.items()}
+        calls it).  Under ``halo="rdma"`` it raises, on every rank, if a
+        ring push of any rank has timed out (its payload is NaN, or, on
+        shard 0, dropped unseen)."""
+        got = {k: v if out.time_dims[k] is None else
+               coll.gather(v, self.mesh, TIME_AXIS, dim=out.time_dims[k])
+               for k, v in out.items()}
+        if self.halo == "rdma":
+            halo_rdma.check_errors(self.mesh, self.device)
+        return got
 
     # ------------------------------------------------------------------
     # Collective helpers.
@@ -187,7 +213,7 @@ class ShardedPipeline:
         hop = self.cfg.stft.hop
         lh = self.cfg.stft.frame_len - hop
         local = halo_mod.stft_left_halo(flat, lh, carry_local, self._pipe._w2,
-                                        hop, self.mesh)
+                                        hop, self.mesh, impl=self.halo)
         return coll.gather(local, self.mesh, CHANNEL_AXIS, dim=0)
 
     def _srp_power(self, spectra: torch.Tensor) -> torch.Tensor:
@@ -204,7 +230,7 @@ class ShardedPipeline:
         frames = stft_mod.istft_frames(y, self._pipe._a2)       # [..., Tl, L]
         return halo_mod.ola_tail_exchange(overlap_add(frames, hop),
                                           frames.shape[-2] * hop, tail,
-                                          self.mesh)
+                                          self.mesh, impl=self.halo)
 
     def _cov_update(self, cov: torch.Tensor, spectra: torch.Tensor
                     ) -> torch.Tensor:
@@ -233,11 +259,31 @@ class ShardedPipeline:
             y = delaysum.beamform(spectra, self._pipe.fixed_steer)
             audio, new_tail = self._resynth(y, state.ola_tail)
             out = {"audio": audio}
+        elif algo == "mask":
+            y = masking.mask_block(spectra, self._pipe.mask_phase,
+                                   a.mask_threshold_rad, a.mask_sharpness)
+            audio, new_tail = self._resynth(y, state.ola_tail)
+            out = {"audio": audio}
         elif algo == "srp":
             power = self._srp_power(spectra)               # [Tl, G]
             az, pk = srp_mod.argmax_doa(power, plan,
                                         interpolate=a.srp_interpolate)
             out = {"doa": az, "power": pk}
+        elif algo == "srp_delaysum":
+            power = self._srp_power(spectra)
+            gidx = torch.argmax(dscan.psum_mean(power, self.mesh), dim=-1)
+            steer = srp_mod.steering_vector(plan, gidx)    # [C, F]
+            audio, new_tail = self._resynth(
+                delaysum.beamform(spectra, steer), state.ola_tail)
+            out = {"audio": audio, "doa": plan.azimuths_rad[gidx]}
+            replicated = ("doa",)
+        elif algo == "mvdr":
+            cov = self._cov_update(cov_mod.from_planes(state.cov), spectra)
+            w = mvdr.weights(cov, self._pipe.fixed_steer, a.diag_load)
+            audio, new_tail = self._resynth(mvdr.beamform(spectra, w),
+                                            state.ola_tail)
+            out = {"audio": audio}
+            new_cov = cov_mod.to_planes(cov)
         elif algo == "srp_mvdr":
             power = self._srp_power(spectra)
             gidx = torch.argmax(dscan.psum_mean(power, self.mesh), dim=-1)
@@ -417,7 +463,8 @@ class ShardedPipeline:
             the spill pushed to the right time shard."""
             frames = stft_mod.istft_frames(y, self._pipe._a2)
             o, tail = halo_mod.ola_tail_exchange(
-                overlap_add(frames, hop), bt * hop, state.ola_tail, mesh)
+                overlap_add(frames, hop), bt * hop, state.ola_tail, mesh,
+                impl=self.halo)
             return o.reshape(*o.shape[:-1], bl, t * hop).movedim(-2, 0), tail
 
         new_tail, new_cov, new_tracks = state.ola_tail, state.cov, state.tracks
@@ -428,11 +475,33 @@ class ShardedPipeline:
             audio, new_tail = resynth_stream(
                 delaysum.beamform(spectra, self._pipe.fixed_steer))
             out = {"audio": audio}
+        elif algo == "mask":
+            audio, new_tail = resynth_stream(masking.mask_block(
+                spectra, self._pipe.mask_phase, a.mask_threshold_rad,
+                a.mask_sharpness))
+            out = {"audio": audio}
         elif algo == "srp":
             power = self._srp_power(spectra)               # [Bl*T, G]
             az, pk = srp_mod.argmax_doa(power, plan,
                                         interpolate=a.srp_interpolate)
             out = {"doa": per_block(az), "power": per_block(pk)}
+        elif algo == "srp_delaysum":
+            power = self._srp_power(spectra)
+            gidx = torch.argmax(power.view(bl, t, -1).mean(dim=1), dim=-1)
+            y = delaysum.beamform(spectra_blocks(), srp_mod.steering_vector(
+                plan, gidx))                               # [Bl, T, F]
+            audio, new_tail = resynth_stream(y.reshape(bt, f))
+            out = {"audio": audio, "doa": plan.azimuths_rad[gidx]}
+        elif algo == "mvdr":
+            fixed = self._pipe.fixed_steer
+            covs_c, ncov_c, carry_last, _ = mvdr_chain(
+                cov_mod.from_planes(state.cov))
+            y, cov, new_carry = mvdr_finish(
+                covs_c, ncov_c, carry_last,
+                fixed.expand(bl, *fixed.shape))            # [Bl, T, F]
+            audio, new_tail = resynth_stream(y.reshape(bt, f))
+            out = {"audio": audio}
+            new_cov = cov_mod.to_planes(cov)
         elif algo == "srp_mvdr":
             power = self._srp_power(spectra)
             gidx = torch.argmax(power.view(bl, t, -1).mean(dim=1), dim=-1)

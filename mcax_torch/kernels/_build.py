@@ -7,10 +7,12 @@ an unchanged one loads at once).  The library is bound with ``ctypes``:
 including PyTorch's headers would cost minutes of build time, a plain C
 interface costs seconds.
 
-Each C entry point launches its kernel on the stream it is given (PyTorch's
-current stream), allocates nothing, does not synchronise, and returns
-``cudaGetLastError()``; ``check_launch`` raises if that is not 0.  A failed
-build raises with nvcc's output.  Nothing here runs at import time.
+Each C entry point that launches a kernel launches it on the stream it is
+given (PyTorch's current stream), allocates nothing, does not synchronise,
+and returns ``cudaGetLastError()``; ``check_launch`` raises if that is not
+0.  The ring's buffers (``dist/halo_rdma.py``) are made and freed by host
+entry points of their own, which may synchronise.  A failed build raises
+with nvcc's output.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("stft_fused.cu", "srp_fused.cu", "covprefix.cu", "mvdrsolve.cu",
-           "cps.cu", "dft.cu", "steer.cu")
+           "cps.cu", "dft.cu", "steer.cu", "halo_rdma.cu")
 HEADERS = ("common.cuh", "gemm_rows.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -40,6 +42,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_U = ctypes.c_ulonglong
+_PP = ctypes.POINTER(ctypes.c_void_p)
 # C entry points: name -> argtypes (all return int = cudaError_t)
 SIGNATURES = {
     # samples, carry, w2, out, B, C, L, hop, F, ldw, stream
@@ -63,6 +67,17 @@ SIGNATURES = {
     "mcax_irdft_rows": (_P, _P, _P, _L, _I, _I, _I, _P),
     # cps, b2, out, M, K, G, ldb, stream
     "mcax_srp_power_cps": (_P, _P, _P, _L, _I, _I, _I, _P),
+    # the ring's host entry points (dist/halo_rdma.py): slot_bytes, &buf,
+    # handle; handle, &buf; buf; buf; &host, &dev; host
+    "mcax_ring_alloc": (_L, _PP, _P),
+    "mcax_ring_open": (_P, _PP),
+    "mcax_ring_close": (_P,),
+    "mcax_ring_free": (_P,),
+    "mcax_ring_error_alloc": (_PP, _PP),
+    "mcax_ring_error_free": (_P,),
+    # src, out, local, right, left, nbytes, slot_bytes, epoch, err,
+    # timeout_ns, stream
+    "mcax_ring_push": (_P, _P, _P, _P, _P, _L, _L, _U, _P, _L, _P),
 }
 
 

@@ -11,15 +11,16 @@ One ``Pipeline`` object per config, stateless, with all streaming state
     states, outs = pipe.process_streams(pipe.init_states(S), streams)
     state, outs = pipe.run(signal)                     # [C, N] host loop
 
-The port runs the ``gcc`` (config1), ``delaysum`` (config2), ``srp``
-(config3), ``srp_mvdr`` (config4) and ``track_mvdr`` with the EMA tracker
-(config5) chains through all four entry points.  Its kernels (STFT from
-blocks and from a contiguous signal, real DFT and inverse real DFT of rows,
-fused SRP, materialised-CPS SRP, covariance prefixes, MVDR solve from rows
-and from complex covariances, PHAT cross-power) are hand-written CUDA on a
-CUDA device; on ``device="cpu"`` their plain PyTorch versions run.
-``srp_delaysum``, ``mvdr``, ``mask``, the particle smoother and the scan
-mode are queued in ROADMAP.md.
+The port runs every chain of the reference — ``gcc`` (config1),
+``delaysum`` (config2), ``srp`` (config3), ``srp_mvdr`` (config4),
+``track_mvdr`` with the EMA tracker (config5), ``srp_delaysum``, ``mvdr``
+(fixed look) and ``mask`` — through all four entry points, and
+``process_blocks`` in both of the reference's modes (``scan_mode``).  Its
+kernels (STFT from blocks and from a contiguous signal, real DFT and inverse
+real DFT of rows, fused SRP, materialised-CPS SRP, covariance prefixes, MVDR
+solve from rows and from complex covariances, PHAT cross-power) are
+hand-written CUDA on a CUDA device; on ``device="cpu"`` their plain PyTorch
+versions run.  The particle smoother is queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from mcax_torch import config as cfg_mod
 from mcax_torch.algos import covariance as cov_mod
 from mcax_torch.algos import delaysum
 from mcax_torch.algos import gcc
+from mcax_torch.algos import masking
 from mcax_torch.algos import mvdr
 from mcax_torch.algos import srp as srp_mod
 from mcax_torch.algos import tracking
@@ -48,7 +50,15 @@ _SYNTH_ALGOS = ("delaysum", "srp_delaysum", "mvdr", "srp_mvdr", "track_mvdr",
                 "mask")
 _COV_ALGOS = ("mvdr", "srp_mvdr", "track_mvdr")
 _SRP_ALGOS = ("srp", "srp_delaysum", "srp_mvdr", "track_mvdr")
-_PORTED_ALGOS = ("gcc", "delaysum", "srp", "srp_mvdr", "track_mvdr")
+_PORTED_ALGOS = ("gcc", "delaysum", "srp", "srp_mvdr", "track_mvdr",
+                 "srp_delaysum", "mvdr", "mask")
+SCAN_MODES = ("batched", "scan")
+
+
+def check_scan_mode(scan_mode: str) -> str:
+    if scan_mode not in SCAN_MODES:
+        raise ValueError(f"scan_mode must be batched|scan, got {scan_mode!r}")
+    return scan_mode
 
 
 def _map_state(fn, state: PipelineState) -> PipelineState:
@@ -65,13 +75,18 @@ class Pipeline:
     """A streaming block processor for one PipelineConfig on one device."""
 
     def __init__(self, cfg: cfg_mod.PipelineConfig, device=None,
-                 srp: str = "fused"):
+                 srp: str = "fused", scan_mode: str = "batched"):
         """``srp`` picks the SRP kernel of every SRP algorithm on all four
         entry points: ``"fused"`` (steering made on the fly, no CPS tensor)
         or ``"matmul"`` (the CPS materialised, then one product with the
         stacked steering matrices) — the two the reference selects with
-        ``MCAX_SRP``.  There is no choice by shape and no fallback."""
+        ``MCAX_SRP``.  There is no choice by shape and no fallback.
+        ``scan_mode`` is ``process_blocks``'s mode, as in the reference:
+        ``"batched"`` (one step over all B blocks) or ``"scan"`` (the block
+        step once per block, the reference's bit reference of the
+        recursion order)."""
         self.srp = srp_mod.check_method(srp)
+        self.scan_mode = check_scan_mode(scan_mode)
         self.cfg = cfg.validate()
         algo = cfg.algo.name
         if algo not in _PORTED_ALGOS:
@@ -108,7 +123,10 @@ class Pipeline:
                 cfg.algo.peak_suppression_deg / deg_per_bin)))
         self.fixed_steer = (torch.from_numpy(delaysum.steering_vector(
             self.geom, cfg.algo.steer_azimuth_rad, s.frame_len)).to(
-                self.device) if algo == "delaysum" else None)
+                self.device) if algo in ("delaysum", "mvdr") else None)
+        self.mask_phase = (torch.from_numpy(masking.expected_phase(
+            self.geom, cfg.algo.steer_azimuth_rad, s.frame_len)).to(
+                self.device) if algo == "mask" else None)
         # the DFT kernels read their matrices padded to whole tiles
         self._w2 = stft_fused.analysis_matrix(s.frame_len, self.win_a,
                                               self.device)
@@ -203,34 +221,58 @@ class Pipeline:
         spectra = spectra_cs.transpose(0, 1)               # [S, C, T, F]
 
         algo = cfg.algo.name
+        a = cfg.algo
         new_tail, new_cov, new_tracks = state.ola_tail, state.cov, state.tracks
+
+        def resynth(y):
+            """y [S, ..., T, F] -> (audio [S, ..., T*hop], new OLA tail)."""
+            frames = stft_mod.istft_frames(y, self._a2)    # [S, ..., T, L]
+            return streaming_overlap_add(frames, hop, state.ola_tail)
+
+        def cov_update():
+            return cov_mod.update(cov_mod.from_planes(state.cov), spectra,
+                                  a.cov_forget)            # [S, F, C, C]
+
         if algo == "gcc":
-            out = self._gcc(spectra, lambda a: a)
+            out = self._gcc(spectra, lambda v: v)
         elif algo == "delaysum":
-            y = delaysum.beamform(spectra, self.fixed_steer)      # [S, T, F]
-            frames = stft_mod.istft_frames(y, self._a2)           # [S, T, L]
-            audio, new_tail = streaming_overlap_add(frames, hop,
-                                                    state.ola_tail)
+            audio, new_tail = resynth(delaysum.beamform(
+                spectra, self.fixed_steer))                # y [S, T, F]
+            out = {"audio": audio}
+        elif algo == "mask":
+            audio, new_tail = resynth(masking.mask_block(
+                spectra, self.mask_phase, a.mask_threshold_rad,
+                a.mask_sharpness))
             out = {"audio": audio}
         elif algo == "srp":
             power = self._srp_power(spectra_cs).view(s_, t, -1)   # [S, T, G]
             az, pk = srp_mod.argmax_doa(power, self.plan,
-                                        interpolate=cfg.algo.srp_interpolate)
+                                        interpolate=a.srp_interpolate)
             out = {"doa": az, "power": pk}
+        elif algo == "srp_delaysum":
+            power = self._srp_power(spectra_cs).view(s_, t, -1)
+            gidx = torch.argmax(power.mean(dim=1), dim=-1)        # [S]
+            steer = srp_mod.steering_vector(self.plan, gidx)      # [S, C, F]
+            audio, new_tail = resynth(delaysum.beamform(spectra, steer))
+            out = {"audio": audio, "doa": self.plan.azimuths_rad[gidx]}
+        elif algo == "mvdr":
+            cov = cov_update()
+            # mcax's weights per stream; the solve kernel with B = S
+            w = mvdr.weights_blocks(
+                cov, self.fixed_steer.expand(s_, *self.fixed_steer.shape),
+                a.diag_load)                                      # [S, C, F]
+            audio, new_tail = resynth(mvdr.beamform(spectra, w))
+            out = {"audio": audio}
+            new_cov = cov_mod.to_planes(cov)
         elif algo == "srp_mvdr":
             power = self._srp_power(spectra_cs).view(s_, t, -1)
             gidx = torch.argmax(power.mean(dim=1), dim=-1)        # [S]
             steer = srp_mod.steering_vector(self.plan, gidx)      # [S, C, F]
-            cov = cov_mod.update(cov_mod.from_planes(state.cov), spectra,
-                                 cfg.algo.cov_forget)             # [S, F, C, C]
-            # mcax's weights per stream; the solve kernel with B = S
-            w = mvdr.weights_blocks(cov, steer, cfg.algo.diag_load)
-            y = mvdr.beamform(spectra, w)                         # [S, T, F]
-            frames = stft_mod.istft_frames(y, self._a2)           # [S, T, L]
-            audio, new_tail = streaming_overlap_add(frames, hop,
-                                                    state.ola_tail)
+            cov = cov_update()
+            w = mvdr.weights_blocks(cov, steer, a.diag_load)
+            audio, new_tail = resynth(mvdr.beamform(spectra, w))  # y [S, T, F]
             az_f, _ = srp_mod.argmax_doa(
-                power, self.plan, interpolate=cfg.algo.srp_interpolate)
+                power, self.plan, interpolate=a.srp_interpolate)
             out = {"audio": audio, "doa": self.plan.azimuths_rad[gidx],
                    "doa_frame": az_f}
             new_cov = cov_mod.to_planes(cov)
@@ -238,15 +280,12 @@ class Pipeline:
             power = self._srp_power(spectra_cs).view(s_, t, -1)
             new_tracks, gidx = tracking.track_block(
                 state.tracks, power.mean(dim=1), self.plan.azimuths_rad,
-                self.suppress_bins, cfg.algo.track_smooth)   # gidx [S, Src]
+                self.suppress_bins, a.track_smooth)          # gidx [S, Src]
             steer = srp_mod.steering_vector(self.plan, gidx)  # [S, Src, C, F]
-            cov = cov_mod.update(cov_mod.from_planes(state.cov), spectra,
-                                 cfg.algo.cov_forget)        # [S, F, C, C]
-            w = mvdr.weights_blocks(cov, steer, cfg.algo.diag_load)
-            y = mvdr.beamform(spectra, w)                    # [S, Src, T, F]
-            frames = stft_mod.istft_frames(y, self._a2)
-            audio, new_tail = streaming_overlap_add(frames, hop,
-                                                    state.ola_tail)
+            cov = cov_update()
+            w = mvdr.weights_blocks(cov, steer, a.diag_load)
+            # y [S, Src, T, F]: one signal per source
+            audio, new_tail = resynth(mvdr.beamform(spectra, w))
             out = {"audio": audio, "doa": new_tracks.angles_rad,
                    "confidence": new_tracks.confidence}
             new_cov = cov_mod.to_planes(cov)
@@ -299,8 +338,28 @@ class Pipeline:
           axis (srp_mvdr: ``audio`` [B, T*hop], ``doa`` [B], ``doa_frame``
           [B, T]; track_mvdr: ``audio`` [B, S, T*hop], ``doa`` and
           ``confidence`` [B, S]).
+
+        ``scan_mode="batched"`` runs one step over all B blocks: the STFT,
+        SRP, covariance prefixes and MVDR solve once each over every frame.
+        ``scan_mode="scan"`` runs the block step once per block, in order,
+        and stacks the outputs (``lax.scan(_block_step)`` in the reference).
         """
         samples = self._check_samples(samples, "B").contiguous()
+        if self.scan_mode == "scan":
+            return self._blocks_scan(state, samples)
+        return self._blocks_batched(state, samples)
+
+    def _blocks_scan(self, state: PipelineState, samples: torch.Tensor):
+        """``process_block`` on each [C, L] block of ``samples`` in order,
+        the outputs stacked on a leading axis (none for no block)."""
+        outs = []
+        for blk in samples:
+            state, out = self.process_block(state, blk)
+            outs.append(out)
+        return state, ({k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+                       if outs else {})
+
+    def _blocks_batched(self, state: PipelineState, samples: torch.Tensor):
         cfg = self.cfg
         hop = cfg.stft.hop
         b, c, block_len = samples.shape
@@ -317,10 +376,12 @@ class Pipeline:
             x = torch.cat([state.carry, flat], dim=-1)
             new_carry = x[:, bt * hop:].clone()
             spectra = stft_mod.stft(x, self._w2, hop)      # [C, B*T, F]
+        algo = cfg.algo.name
+        a = cfg.algo
 
-        def per_block(a):
+        def per_block(v):
             """[..., B*T] -> [B, ..., T] (split the frame axis into blocks)."""
-            return a.reshape(*a.shape[:-1], b, t).movedim(-2, 0)
+            return v.reshape(*v.shape[:-1], b, t).movedim(-2, 0)
 
         def resynth(y):
             """y [..., B*T, F] -> (audio [B, ..., T*hop], new OLA tail):
@@ -329,7 +390,17 @@ class Pipeline:
             full, tail = streaming_overlap_add(frames, hop, state.ola_tail)
             return full.view(*full.shape[:-1], b, t * hop).movedim(-2, 0), tail
 
-        algo = cfg.algo.name
+        def blocks():
+            """[C, B*T, F] -> [B, C, T, F] (a view)."""
+            return spectra.view(c, b, t, -1).permute(1, 0, 2, 3)
+
+        def weights(steer):
+            """(w [B, (S,) C, F], the last block's covariance): the
+            covariance kernel's rows feed the solve kernel."""
+            return mvdr.weights_and_cov_from_spectra(
+                spectra, cov_mod.from_planes(state.cov), a.cov_forget, t,
+                steer, a.diag_load)
+
         new_tail, new_cov, new_tracks = state.ola_tail, state.cov, state.tracks
         if algo == "gcc":
             out = self._gcc(spectra, per_block)
@@ -337,24 +408,40 @@ class Pipeline:
             y = delaysum.beamform(spectra, self.fixed_steer)   # [B*T, F]
             audio, new_tail = resynth(y)
             out = {"audio": audio}
+        elif algo == "mask":
+            audio, new_tail = resynth(masking.mask_block(
+                spectra, self.mask_phase, a.mask_threshold_rad,
+                a.mask_sharpness))                         # y [B*T, F]
+            out = {"audio": audio}
         elif algo == "srp":
             power = self._srp_power(spectra)               # [B*T, G]
             az, pk = srp_mod.argmax_doa(power, self.plan,
-                                        interpolate=cfg.algo.srp_interpolate)
+                                        interpolate=a.srp_interpolate)
             out = {"doa": per_block(az), "power": per_block(pk)}
+        elif algo == "srp_delaysum":
+            power = self._srp_power(spectra)               # [B*T, G]
+            gidx = torch.argmax(power.view(b, t, -1).mean(dim=1), dim=-1)
+            steer = srp_mod.steering_vector(self.plan, gidx)  # [B, C, F]
+            y = delaysum.beamform(blocks(), steer)         # [B, T, F]
+            audio, new_tail = resynth(y.reshape(bt, -1))
+            out = {"audio": audio, "doa": self.plan.azimuths_rad[gidx]}
+        elif algo == "mvdr":
+            w, cov = weights(self.fixed_steer.expand(
+                b, *self.fixed_steer.shape))               # [B, C, F]
+            y = mvdr.beamform(blocks(), w)                 # [B, T, F]
+            audio, new_tail = resynth(y.reshape(bt, -1))
+            out = {"audio": audio}
+            new_cov = cov_mod.to_planes(cov)
         elif algo == "srp_mvdr":
             power = self._srp_power(spectra)               # [B*T, G]
             pmean = power.view(b, t, -1).mean(dim=1)       # [B, G]
             gidx = torch.argmax(pmean, dim=-1)             # [B]
             steer = srp_mod.steering_vector(self.plan, gidx)  # [B, C, F]
-            w, cov = mvdr.weights_and_cov_from_spectra(
-                spectra, cov_mod.from_planes(state.cov), cfg.algo.cov_forget,
-                t, steer, cfg.algo.diag_load)              # [B, C, F]
-            blocks = spectra.view(c, b, t, -1).permute(1, 0, 2, 3)
-            y = mvdr.beamform(blocks, w)                   # [B, T, F]
+            w, cov = weights(steer)                        # [B, C, F]
+            y = mvdr.beamform(blocks(), w)                 # [B, T, F]
             audio, new_tail = resynth(y.reshape(bt, -1))
             az_f, _ = srp_mod.argmax_doa(
-                power, self.plan, interpolate=cfg.algo.srp_interpolate)
+                power, self.plan, interpolate=a.srp_interpolate)
             out = {"audio": audio, "doa": self.plan.azimuths_rad[gidx],
                    "doa_frame": per_block(az_f)}
             new_cov = cov_mod.to_planes(cov)
@@ -363,13 +450,10 @@ class Pipeline:
             pmean = power.view(b, t, -1).mean(dim=1)       # [B, G]
             new_tracks, gidx, angles, conf = tracking.track_blocks(
                 state.tracks, pmean, self.plan.azimuths_rad,
-                self.suppress_bins, cfg.algo.track_smooth)  # [B, S] each
+                self.suppress_bins, a.track_smooth)        # [B, S] each
             steer = srp_mod.steering_vector(self.plan, gidx)  # [B, S, C, F]
-            w, cov = mvdr.weights_and_cov_from_spectra(
-                spectra, cov_mod.from_planes(state.cov), cfg.algo.cov_forget,
-                t, steer, cfg.algo.diag_load)              # [B, S, C, F]
-            blocks = spectra.view(c, b, t, -1).permute(1, 0, 2, 3)
-            y = mvdr.beamform(blocks, w)                   # [B, S, T, F]
+            w, cov = weights(steer)                        # [B, S, C, F]
+            y = mvdr.beamform(blocks(), w)                 # [B, S, T, F]
             # per-source contiguous frame streams [S, B*T, F]
             y_s = y.transpose(0, 1).reshape(y.shape[1], bt, -1)
             audio, new_tail = resynth(y_s)                 # [B, S, T*hop]
@@ -403,11 +487,6 @@ class Pipeline:
         padded[:, :n] = x.to(self.device)
         if state is None:
             state = self.init_state()
-        outs = []
-        for i in range(nblocks):
-            state, out = self.process_block(state,
-                                            padded[:, i * b:(i + 1) * b])
-            outs.append(out)
-        stacked = ({k: torch.stack([o[k] for o in outs]).cpu().numpy()
-                    for k in outs[0]} if outs else {})
-        return state, stacked
+        state, outs = self._blocks_scan(
+            state, padded.view(c, nblocks, b).transpose(0, 1))
+        return state, {k: v.cpu().numpy() for k, v in outs.items()}

@@ -110,3 +110,16 @@ def test_srp_plan_band_mask():
                           band_hz=band)
     for name in ("band_mask", "e_re", "e_im", "tau_pg"):
         np.testing.assert_array_equal(getattr(got, name), getattr(ref, name))
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_mask_expected_phase(name):
+    """The mask's target phase difference of mics 0 and 1: equal to mcax's
+    at several look directions on every preset's array."""
+    from mcax.algos import masking as m_masking
+    from mcax_torch.algos import masking as t_masking
+    ref, got = m_config.get_config(name), t_config.get_config(name)
+    for az in (-2.0, 0.0, np.pi / 2, 1.1):
+        np.testing.assert_array_equal(
+            t_masking.expected_phase(got.geometry(), az, got.stft.frame_len),
+            m_masking.expected_phase(ref.geometry(), az, ref.stft.frame_len))

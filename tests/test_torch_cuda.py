@@ -16,9 +16,15 @@ multiple of the block, frame lengths and hops that break the DFT kernel's
 vector loads, an odd inverse-DFT width; the MVDR solve at C = 16; the
 materialised-CPS SRP (kernel 10) at ragged sizes and at config4's (B = 512
 and one block); each streaming entry point on the card against the CPU;
-ShardedPipeline on a 1 x 1 mesh against Pipeline; and, on a machine with
-four cards (it skips on fewer), ShardedPipeline 2 x 2 over NCCL, one
-process a card, against Pipeline on one card."""
+ShardedPipeline on a 1 x 1 mesh against Pipeline; the halo ring (kernel
+11) in 2 and 4 processes sharing the one card through CUDA IPC, against its
+plain ring over gloo, its timeout when a peer never pushes, and
+ShardedPipeline(halo="rdma") 2 x 1 over gloo raising on every rank when a
+peer stalls past the timeout; and, on a
+machine with four cards (they skip on fewer), ShardedPipeline 2 x 2 over
+NCCL, one process a card, against Pipeline on one card, and
+ShardedPipeline(halo="rdma") against halo="ppermute" with one push timed
+against NCCL's."""
 
 import time
 
@@ -27,6 +33,7 @@ import pytest
 import torch
 
 from mcax_torch import geometry as t_geo
+from mcax_torch.convert import state_to_numpy
 from mcax_torch.algos import srp as t_srp
 from mcax_torch.frames import window as t_window
 from mcax_torch.kernels import (covprefix, cps, fft, mvdrsolve, srp_fused,
@@ -380,7 +387,6 @@ def _four_card_signal(name):
 
 def _four_card_worker(rank, store_path, out_dir):
     import torch.distributed as dist
-    from mcax_torch.convert import state_to_numpy
     from mcax_torch.dist import mesh, multihost
     from mcax_torch.dist.sharded import ShardedPipeline
     store = dist.FileStore(store_path, 4)
@@ -417,22 +423,11 @@ def test_sharded_two_by_two_on_four_cards(dev, tmp_path):
     the card's 5e-4 plus the reference's sharded-vs-single atol (config4
     1e-4, config5 5e-4); carry and block index equal; every rank's
     gathered outputs equal."""
-    import torch.multiprocessing as tmp
     from mcax_torch.pipeline import Pipeline
     if torch.cuda.device_count() < 4:
         pytest.skip("needs 4 cards (one process a card)")
-    ctx = tmp.start_processes(_four_card_worker,
-                              args=(str(tmp_path / "store"), str(tmp_path)),
-                              nprocs=4, join=False, start_method="spawn")
-    deadline = time.monotonic() + 600
-    try:
-        # join returns False while any rank still runs (after each exit)
-        while not ctx.join(timeout=max(deadline - time.monotonic(), 0)):
-            assert time.monotonic() < deadline, "the ranks ran past 600 s"
-    finally:
-        for proc in ctx.processes:
-            if proc.is_alive():
-                proc.terminate()
+    _spawn(_four_card_worker, 4, (str(tmp_path / "store"), str(tmp_path)),
+           600)
     ranks = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(4)]
     for r in range(1, 4):
         for k, v in ranks[0].items():
@@ -465,3 +460,306 @@ def test_sharded_two_by_two_on_four_cards(dev, tmp_path):
             np.testing.assert_array_equal(
                 got[f"{name}/{srp}/s/{k}"],
                 getattr(st, k).cpu().numpy(), err_msg=k)
+
+
+def _spawn(fn, nprocs, args, limit_s):
+    """Start ``nprocs`` processes of ``fn(rank, *args)`` (spawn) and join
+    them; a child that raises fails the caller, and every child is stopped
+    by the end."""
+    import torch.multiprocessing as tmp
+    from mcax_torch.kernels import _build
+    _build.library()                 # build once, before the children load it
+    ctx = tmp.start_processes(fn, args=args, nprocs=nprocs, join=False,
+                              start_method="spawn")
+    deadline = time.monotonic() + limit_s
+    try:
+        # join returns False while any rank still runs (after each exit)
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0)):
+            assert time.monotonic() < deadline, f"ran past {limit_s} s"
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+            proc.join(timeout=10)
+
+
+# ---------------------------------------------------------------------------
+# The halo ring (kernel 11) on ONE card: processes map each other's receive
+# buffers through CUDA IPC; the plain ring runs over gloo on CPU copies.
+# ---------------------------------------------------------------------------
+RING_EPOCHS = 16
+RING_SHAPES = ((4, 512), (512,))          # config4 2 x 2's halo and spill
+
+
+def _ring_payload(rank, epoch):
+    """Distinct exact floats per rank and epoch; every third epoch pushes
+    the spill's size, the others the halo's."""
+    shape = RING_SHAPES[int(epoch % 3 == 2)]
+    n = int(np.prod(shape))
+    return (torch.arange(n, dtype=torch.float32) + 1e4 * epoch
+            + 1e6 * rank).view(shape)
+
+
+def _ring_worker(rank, world, ts, store_path, out_dir, mode):
+    import json
+    import torch.distributed as dist
+    from mcax_torch.dist import halo_rdma, mesh
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            world_size=world, rank=rank)
+    try:
+        m = mesh.make_mesh(ts, world // ts)
+        res = {}
+        if mode == "ring":
+            xs = [_ring_payload(rank, e).cuda() for e in range(RING_EPOCHS)]
+            before = halo_rdma.ring_push_right.LAUNCHES
+            # no host synchronisation between the pushes: a rank may run
+            # ahead, which the slots' acknowledgements must absorb
+            got = [halo_rdma.ring_push_right(x, m) for x in xs]
+            halo_rdma.check_errors()
+            res["launches"] = halo_rdma.ring_push_right.LAUNCHES - before
+            res["unequal"] = [
+                e for e, (g, x) in enumerate(zip(got, xs))
+                if not torch.equal(g.cpu(), halo_rdma.ring_push_right_plain(
+                    x.cpu(), m))]
+        else:
+            # ring index 1 makes its buffers and never pushes; index 0's
+            # push must time out, fill its output with NaN and raise
+            x = torch.ones(RING_SHAPES[0], device="cuda")
+            halo_rdma.ring(m, mesh.TIME_AXIS, x.numel() * 4, x.device)
+            if m.ti == 0:
+                out = halo_rdma.ring_push_right(x, m, timeout_s=1.0)
+                for key in ("check_errors", "next_push"):
+                    try:
+                        if key == "check_errors":
+                            halo_rdma.check_errors()
+                        else:
+                            halo_rdma.ring_push_right(x, m)
+                        res[key] = ""
+                    except RuntimeError as e:
+                        res[key] = str(e)
+                res["nan"] = bool(torch.isnan(out).all())
+        halo_rdma.release()
+        with open(f"{out_dir}/rank{rank}.json", "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("ts,cs", [(2, 1), (2, 2), (4, 1)])
+def test_halo_ring_on_one_card(dev, tmp_path, ts, cs):
+    """Kernel 11 in ts x cs processes on one card: 16 pushes a rank with no
+    host synchronisation between them, the halo's and the spill's sizes
+    mixed, each bit-equal to the plain ring (the left time neighbour's
+    payload at the same channel position, shard 0 shard ts-1's); one
+    counted launch a push."""
+    import json
+    _spawn(_ring_worker, ts * cs,
+           (ts * cs, ts, str(tmp_path / "store"), str(tmp_path), "ring"),
+           300)
+    for r in range(ts * cs):
+        res = json.loads((tmp_path / f"rank{r}.json").read_text())
+        assert res["launches"] == RING_EPOCHS, (r, res)
+        assert res["unequal"] == [], (r, res)
+
+
+def test_halo_ring_times_out_when_a_peer_never_pushes(dev, tmp_path):
+    """A lost peer never hangs the run: the wait gives up after its timeout,
+    its output is NaN, and the error is raised, by ``check_errors`` and by
+    the ring's next push."""
+    import json
+    _spawn(_ring_worker, 2, (2, 2, str(tmp_path / "store"), str(tmp_path),
+                             "timeout"), 120)
+    res = json.loads((tmp_path / "rank0.json").read_text())
+    assert res["nan"], res
+    for key in ("check_errors", "next_push"):
+        assert "did not arrive" in res[key], res
+
+
+def _stalled_pipeline_worker(rank, store_path, out_dir):
+    """config4 ShardedPipeline(halo="rdma") on a 2 x 1 mesh of processes
+    sharing the card (gloo on CUDA tensors), the ring's timeout cut to 1 s;
+    rank 0 stalls 3 s before its first ring push.  Records whether this
+    rank's own outputs hold NaN and what gather_outputs raised."""
+    import json
+    import torch.distributed as dist
+    from mcax_torch.dist import halo_rdma, mesh
+    from mcax_torch.dist.sharded import ShardedPipeline
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, 2),
+                            world_size=2, rank=rank)
+    try:
+        halo_rdma.TIMEOUT_S = 1.0
+        if rank == 0:
+            push = halo_rdma.Ring.push
+
+            def stalled(self, *args):
+                halo_rdma.Ring.push = push
+                time.sleep(3.0)
+                push(self, *args)
+            halo_rdma.Ring.push = stalled
+        cfg, x = _four_card_signal("config4")
+        sp = ShardedPipeline(cfg, mesh.make_mesh(2, 1), device="cuda:0",
+                             halo="rdma")
+        _, o = sp.process_block(sp.init_state(), x[:, :cfg.block_len])
+        res = {"nan": bool(torch.isnan(o["audio"]).any())}
+        try:
+            sp.gather_outputs(o)
+            res["raised"] = ""
+        except RuntimeError as e:
+            res["raised"] = str(e)
+        halo_rdma.release()
+        with open(f"{out_dir}/rank{rank}.json", "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_halo_ring_pipeline_raises_when_a_peer_stalls(dev, tmp_path):
+    """ShardedPipeline(halo="rdma") 2 x 1 on one card: rank 1's wait for
+    rank 0's halo gives up after its timeout and its audio holds NaN;
+    gather_outputs then raises on both ranks (rank 1 naming its ring,
+    rank 0 naming another rank), so the NaN never reaches a caller
+    silently."""
+    import json
+    _spawn(_stalled_pipeline_worker, 2, (str(tmp_path / "store"),
+                                         str(tmp_path)), 180)
+    r0, r1 = (json.loads((tmp_path / f"rank{r}.json").read_text())
+              for r in range(2))
+    assert r1["nan"], r1
+    assert "did not arrive" in r1["raised"], r1
+    assert "another rank" in r0["raised"], r0
+
+
+# ---------------------------------------------------------------------------
+# Four cards: ShardedPipeline(halo="rdma") over NCCL, one process a card.
+# ---------------------------------------------------------------------------
+FOUR_CARD_RDMA = (("config2", 4, 1), ("config4", 2, 2))
+PUSHES = 200                         # timed pushes per implementation
+NVLINK_BYTES_S = 450e9               # NVLink 4, one way (H100 data sheet)
+
+
+def _four_card_rdma_worker(rank, store_path, out_dir):
+    import torch.distributed as dist
+    from mcax_torch.dist import halo, halo_rdma, mesh, multihost
+    from mcax_torch.dist.sharded import ShardedPipeline
+    store = dist.FileStore(store_path, 4)
+    if not multihost.initialize(store=store, world_size=4, rank=rank):
+        raise RuntimeError("no process group")
+    try:
+        res = {}
+        for name, ts, cs in FOUR_CARD_RDMA:
+            cfg, x = _four_card_signal(name)
+            bl = cfg.block_len
+            m = mesh.make_mesh(ts, cs)
+            for scan in ("batched", "scan"):
+                for impl in ("rdma", "ppermute"):
+                    tag = f"{name}/{scan}/{impl}"
+                    sp = ShardedPipeline(cfg, m, scan_mode=scan, halo=impl)
+                    before = halo_rdma.ring_push_right.LAUNCHES
+                    st = sp.init_state()
+                    for b in range(3):
+                        st, o = sp.process_block(st, x[:, b * bl:(b + 1) * bl])
+                        for k, v in sp.gather_outputs(o).items():
+                            res[f"{tag}/b{b}/{k}"] = v.cpu().numpy()
+                    blocks = x[:, 3 * bl:].reshape(x.shape[0], 4, bl)
+                    st, o = sp.process_blocks(st, blocks.transpose(1, 0, 2))
+                    for k, v in sp.gather_outputs(o).items():
+                        res[f"{tag}/B/{k}"] = v.cpu().numpy()
+                    for k, v in state_to_numpy(st).items():
+                        if k != "tracks" and v is not None:
+                            res[f"{tag}/s/{k}"] = v
+                    res[f"{tag}/launches"] = np.asarray(
+                        halo_rdma.ring_push_right.LAUNCHES - before)
+        halo_rdma.check_errors()
+        # one push of config4 2 x 2's halo payload along the 4-ring: the
+        # kernel, NCCL's batch_isend_irecv ring (the plain version on the
+        # card) and the open chain (halo="ppermute")
+        m = mesh.make_mesh(4, 1)
+        payload = torch.randn(RING_SHAPES[0], device="cuda")
+        for impl, fn in (
+                ("rdma", lambda: halo_rdma.ring_push_right(payload, m)),
+                ("nccl_ring", lambda: halo_rdma.ring_push_right_plain(
+                    payload, m)),
+                ("nccl_chain", lambda: halo.push_right(payload, m))):
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            dist.barrier()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(PUSHES):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            res[f"push_ms/{impl}"] = np.asarray(start.elapsed_time(end)
+                                                / PUSHES)
+        halo_rdma.release()
+        np.savez(f"{out_dir}/rank{rank}.npz", **res)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_rdma_halo_on_four_cards(dev, tmp_path):
+    """ShardedPipeline(halo="rdma") (config2 4 x 1, config4 2 x 2) in both
+    scan modes on four cards: bit-equal to halo="ppermute", within the
+    card's 5e-4 plus the reference's 1e-4 of Pipeline on one card, carry and
+    block index equal; 2 ring launches per block step and per batched
+    dispatch on every rank.  Prints one push's time: the kernel against
+    NCCL's ring and open chain."""
+    from mcax_torch.pipeline import Pipeline
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 cards (one process a card)")
+    _spawn(_four_card_rdma_worker, 4, (str(tmp_path / "store"),
+                                       str(tmp_path)), 600)
+    ranks = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(4)]
+    got = ranks[0]
+    for name, ts, cs in FOUR_CARD_RDMA:
+        cfg, x = _four_card_signal(name)
+        bl = cfg.block_len
+        pipe = Pipeline(cfg)
+        st = pipe.init_state()
+        want = {}
+        for b in range(3):
+            st, o = pipe.process_block(st, torch.from_numpy(
+                x[:, b * bl:(b + 1) * bl]).to(dev))
+            want.update({f"b{b}/{k}": v.cpu().numpy() for k, v in o.items()})
+        blocks = x[:, 3 * bl:].reshape(x.shape[0], 4, bl).transpose(1, 0, 2)
+        st, o = pipe.process_blocks(st, torch.from_numpy(
+            np.ascontiguousarray(blocks)).to(dev))
+        want.update({f"B/{k}": v.cpu().numpy() for k, v in o.items()})
+        for scan in ("batched", "scan"):
+            rd, pp = f"{name}/{scan}/rdma", f"{name}/{scan}/ppermute"
+            # process_block: 3 steps; process_blocks: 1 dispatch or 4 steps
+            pushes = 2 * (3 + (1 if scan == "batched" else 4))
+            for r in range(4):
+                assert int(ranks[r][f"{rd}/launches"]) == pushes, (r, rd)
+                assert int(ranks[r][f"{pp}/launches"]) == 0, (r, pp)
+            for k in [k for k in got if k.startswith(rd + "/")]:
+                if k.endswith("/launches"):
+                    continue
+                tail = k[len(rd) + 1:]
+                np.testing.assert_array_equal(got[k], got[f"{pp}/{tail}"],
+                                              err_msg=k)
+                for r in range(1, 4):
+                    np.testing.assert_array_equal(ranks[r][k], got[k],
+                                                  err_msg=f"rank {r} {k}")
+                if tail.startswith("s/"):
+                    if tail[2:] in ("carry", "block_idx"):
+                        np.testing.assert_array_equal(
+                            got[k], getattr(st, tail[2:]).cpu().numpy(),
+                            err_msg=k)
+                    continue
+                w = want[tail]
+                if tail.endswith("/doa") and name == "config4":
+                    np.testing.assert_array_equal(got[k], w, err_msg=k)
+                else:
+                    np.testing.assert_allclose(got[k], w, atol=6e-4,
+                                               rtol=6e-4, err_msg=k)
+    times = {impl: [float(rk[f"push_ms/{impl}"]) for rk in ranks]
+             for impl in ("rdma", "nccl_ring", "nccl_chain")}
+    nbytes = 4 * int(np.prod(RING_SHAPES[0]))
+    print(f"one push of a {RING_SHAPES[0]} fp32 payload along a ring of 4 "
+          f"cards, ms per push by rank (mean of {PUSHES}): {times}; its "
+          f"bound over NVLink one way {nbytes / NVLINK_BYTES_S * 1e3:.3g} ms")

@@ -2,13 +2,19 @@
 
 Several CPU processes join a gloo group (rendezvous on a ``FileStore`` in a
 temporary directory), started with ``torch.multiprocessing`` (spawn): one
-world of 4 ranks (2 x 2 and 4 x 1 meshes) and one of 8 (1 x 8 and 8 x 1).
-Every rank runs each case and writes its gathered outputs and states to an
-``.npz``; the reference, ``mcax.dist.sharded.ShardedPipeline`` on the same
-mesh of the suite's 8 virtual CPU devices, runs in the parent meanwhile.
-Each case streams ``process_block`` over 3 blocks, then ``process_blocks``
-over B = 4 from the handed-on state.  This module imports neither JAX nor
-mcax at its top: the spawned children import only torch and mcax_torch.
+world of 4 ranks (2 x 2 and 4 x 1 meshes) and one of 8 (1 x 8, 8 x 1 and
+4 x 2).  Every rank runs each case and writes its gathered outputs and
+states to an ``.npz``; the reference, ``mcax.dist.sharded.ShardedPipeline``
+on the same mesh of the suite's 8 virtual CPU devices, runs in the parent
+meanwhile.  Each case streams ``process_block`` over 3 blocks, then
+``process_blocks`` over B = 4 from the handed-on state, with the case's
+``halo`` (the reference's ``MCAX_HALO``, set for its run only) and
+``scan_mode``.  The halo ring (``halo="rdma"``: its plain
+``batch_isend_irecv`` ring on gloo) is also held bit-equal to mcax's
+``ring_push_right`` (the Pallas kernel in interpret mode) on the 4 x 2
+mesh, as tests/dist/test_halo_rdma.py holds it to a ppermute.  This module
+imports neither JAX nor mcax at its top: the spawned children import only
+torch and mcax_torch.
 
 Bounds: each output's bound in the port's single-device test of its config
 plus the reference's own sharded-vs-single bound
@@ -31,32 +37,59 @@ from mcax_torch import config as t_config
 from mcax_torch.convert import state_to_numpy
 from mcax_torch.dist import collectives as coll
 from mcax_torch.dist import halo, mesh as t_mesh, multihost, scan
-from mcax_torch.dist.sharded import ShardedPipeline
+from mcax_torch.dist.sharded import ShardedPipeline, Shards
 
 torch.set_num_threads(1)
 
 NBLOCKS, B = 3, 4
 JOIN_S = 300            # the children's time limit, both worlds together
 
-# (id, config, hop override, time shards, channel shards, srp)
+# the chains built from a preset, as tests/unit/test_pipeline.py builds
+# them: algo -> (preset, overrides of its algo)
+CHAINS = {"srp_delaysum": ("config3", {}),
+          "mvdr": ("config4", {"steer_azimuth_rad": float(np.deg2rad(37.0))}),
+          "mask": ("config1", {"steer_azimuth_rad": float(np.deg2rad(37.0))})}
+
+
+def _case(cid, name, hop, ts, cs, srp="fused", halo="ppermute",
+          scan="batched"):
+    """(id, config or chain, hop override, time shards, channel shards,
+    srp, halo, scan_mode)."""
+    return (cid, name, hop, ts, cs, srp, halo, scan)
+
+
 CASES = [
-    ("config1-2x2", "config1", None, 2, 2, "fused"),
-    ("config2-2x2", "config2", None, 2, 2, "fused"),
-    ("config2-hop128-4x1", "config2", 128, 4, 1, "fused"),
-    ("config3-2x2-fused", "config3", None, 2, 2, "fused"),
-    ("config3-2x2-matmul", "config3", None, 2, 2, "matmul"),
-    ("config3-1x8-fused", "config3", None, 1, 8, "fused"),
-    ("config3-1x8-matmul", "config3", None, 1, 8, "matmul"),
-    ("config4-2x2-fused", "config4", None, 2, 2, "fused"),
-    ("config4-2x2-matmul", "config4", None, 2, 2, "matmul"),
-    ("config5-2x2-fused", "config5", None, 2, 2, "fused"),
+    _case("config1-2x2", "config1", None, 2, 2),
+    _case("config2-2x2", "config2", None, 2, 2),
+    _case("config2-hop128-4x1", "config2", 128, 4, 1),
+    _case("config3-2x2-fused", "config3", None, 2, 2),
+    _case("config3-2x2-matmul", "config3", None, 2, 2, "matmul"),
+    _case("config3-1x8-fused", "config3", None, 1, 8),
+    _case("config3-1x8-matmul", "config3", None, 1, 8, "matmul"),
+    _case("config4-2x2-fused", "config4", None, 2, 2),
+    _case("config4-2x2-matmul", "config4", None, 2, 2, "matmul"),
+    _case("config5-2x2-fused", "config5", None, 2, 2),
+    # the halo ring (test_halo_rdma.py's two pipelines)
+    _case("config2-4x2-rdma", "config2", None, 4, 2, halo="rdma"),
+    _case("config4-2x2-rdma", "config4", None, 2, 2, halo="rdma"),
+    # the scan mode: the block step once per block
+    _case("config4-2x2-scan", "config4", None, 2, 2, scan="scan"),
+    _case("config5-2x2-scan", "config5", None, 2, 2, scan="scan"),
+    # the remaining chains (mask needs two mics: channels unsharded)
+    _case("srp_delaysum-2x2", "srp_delaysum", None, 2, 2),
+    _case("mvdr-2x2", "mvdr", None, 2, 2),
+    _case("mask-4x1", "mask", None, 4, 1),
 ]
 # the meshes of each world, built in this order on every rank
-WORLDS = {4: ((2, 2), (4, 1)), 8: ((1, 8), (8, 1))}
+WORLDS = {4: ((2, 2), (4, 1)), 8: ((1, 8), (8, 1), (4, 2))}
 # the distributed primitives at each time-shard count (tests/dist/
-# test_primitives.py): (check, shards)
+# test_primitives.py): (check, shards), each on one mesh
 PRIMS = [(check, s) for check in ("left_halo", "stft_left_halo",
                                   "cov_monoid", "ola") for s in (2, 4, 8)]
+PRIM_MESHES = {2: (2, 2), 4: (4, 1), 8: (8, 1)}
+# the halo ring on the 4 x 2 mesh (tests/dist/test_halo_rdma.py's cases)
+RINGS = ("matches_ppermute", "channel_axis_held_fixed")
+RING_X = np.arange(4 * 2 * 3 * 128, dtype=np.float32).reshape(4 * 3, 2 * 128)
 
 # Bounds per config: (atol, rtol) by output, and the state's.
 BOUNDS = {
@@ -76,11 +109,32 @@ BOUNDS = {
                 "ola_tail": (5e-4 + 5e-4, 5e-4 + 3e-5),
                 "tracks0": (1e-5 + 5e-4, 3e-5),
                 "tracks1": (5e-4, 1e-4 + 3e-5)},
+    # the chains: test_torch_chains' bounds (audio, OLA tail 5e-4, grid doa
+    # exact, covariance 1e-4) + the reference's 1e-4 / 3e-5
+    "srp_delaysum": {"audio": (5e-4 + 1e-4, 5e-4 + 3e-5), "doa": (1e-4, 3e-5),
+                     "ola_tail": (5e-4 + 1e-4, 5e-4 + 3e-5)},
+    "mvdr": {"audio": (5e-4 + 1e-4, 5e-4 + 3e-5),
+             "cov": (1e-4 + 1e-4, 1e-4 + 3e-5),
+             "ola_tail": (5e-4 + 1e-4, 5e-4 + 3e-5)},
+    "mask": {"audio": (5e-4 + 1e-4, 5e-4 + 3e-5),
+             "ola_tail": (5e-4 + 1e-4, 5e-4 + 3e-5)},
 }
 
+# (atol, rtol) of the rdma cases' outputs and OLA tail, on top of BOUNDS
+RDMA_BOUNDS = {"audio": (1e-4, 3e-5), "doa": (1e-4, 3e-5),
+               "ola_tail": (1e-4, 0)}
 
-def _port_config(name, hop):
-    cfg = t_config.get_config(name)
+
+def _config(mod, name, hop):
+    """A preset (``hop`` overriding its STFT hop) or a chain of CHAINS, from
+    ``mod`` (mcax's or the port's config module)."""
+    if name in CHAINS:
+        base, over = CHAINS[name]
+        cfg = mod.get_config(base)
+        return dataclasses.replace(
+            cfg, stft=dataclasses.replace(cfg.stft, synthesis=True),
+            algo=dataclasses.replace(cfg.algo, name=name, **over))
+    cfg = mod.get_config(name)
     if hop is not None:
         cfg = dataclasses.replace(cfg, stft=dataclasses.replace(cfg.stft,
                                                                 hop=hop))
@@ -157,6 +211,57 @@ def _run_prim(check, s, mesh):
     return {"out": gather(out, -1).numpy(), "tail": tail.numpy()}
 
 
+def _run_ring(check, mesh):
+    """One ring case on this rank of the 4 x 2 mesh: the left ring
+    neighbour's payload along 'time', through ``ring_push_right`` and
+    through ``halo.push_right(impl="rdma")``."""
+    from mcax_torch.dist import halo_rdma
+    ti, ci = mesh.ti, mesh.ci
+    if check == "matches_ppermute":
+        x = torch.from_numpy(RING_X[ti * 3:(ti + 1) * 3,
+                                    ci * 128:(ci + 1) * 128].copy())
+    else:
+        x = torch.full((1, 128), 10.0 * ti + ci)
+    ring = halo_rdma.ring_push_right(x, mesh, t_mesh.TIME_AXIS)
+    via_halo = halo.push_right(x, mesh, t_mesh.TIME_AXIS, impl="rdma")
+    return {"out": ring.numpy(), "via_halo": via_halo.numpy()}
+
+
+class _TimedOutRing:
+    """Stands in for a ring whose push timed out (its error word set to 2,
+    the left neighbour's payload did not arrive)."""
+    nbytes = 4
+
+    def error(self):
+        return 2
+
+    def raise_on_error(self):
+        from mcax_torch.dist import halo_rdma
+        halo_rdma.Ring.raise_on_error(self)
+
+
+def _ring_error_message(mesh, failed_rank):
+    """``gather_outputs`` of a ``halo="rdma"`` pipeline after a push of
+    ``failed_rank`` timed out (a stand-in ring of that rank): what it raised
+    on this rank, or "did not raise"."""
+    from mcax_torch.dist import halo_rdma
+    sp = ShardedPipeline(t_config.get_config("config2"), mesh, device="cpu",
+                         halo="rdma")
+    key = ("stand-in", 0)
+    if mesh.rank == failed_rank:
+        halo_rdma._RINGS[key] = _TimedOutRing()
+    sync = torch.cuda.synchronize
+    torch.cuda.synchronize = lambda *a: None       # the stand-in has no card
+    try:
+        sp.gather_outputs(Shards({}, {}))
+        return "did not raise"
+    except RuntimeError as e:
+        return str(e)
+    finally:
+        torch.cuda.synchronize = sync
+        halo_rdma._RINGS.pop(key, None)
+
+
 # ---------------------------------------------------------------------------
 # The spawned ranks.
 # ---------------------------------------------------------------------------
@@ -178,11 +283,12 @@ def _worker(rank, world, store_path, in_path, out_dir):
         meshes = {shape: t_mesh.make_mesh(*shape) for shape in WORLDS[world]}
         inputs = np.load(in_path)
         res = {}
-        for cid, name, hop, ts, cs, srp in CASES:
+        for cid, name, hop, ts, cs, srp, halo_impl, scan_mode in CASES:
             if _world_of(ts, cs) != world:
                 continue
-            cfg = _port_config(name, hop)
-            sp = ShardedPipeline(cfg, meshes[(ts, cs)], device="cpu", srp=srp)
+            cfg = _config(t_config, name, hop)
+            sp = ShardedPipeline(cfg, meshes[(ts, cs)], device="cpu", srp=srp,
+                                 scan_mode=scan_mode, halo=halo_impl)
             x = inputs[cid]
             bl = cfg.block_len
             st = sp.init_state()
@@ -197,11 +303,18 @@ def _worker(rank, world, store_path, in_path, out_dir):
                 res[f"{cid}/B/{k}"] = v.numpy()
             _save_state(res, f"{cid}/sB", st)
         for check, s in PRIMS:
-            shape = next((m for m in WORLDS[world] if m[0] == s), None)
-            if shape is None:
+            shape = PRIM_MESHES[s]
+            if _world_of(*shape) != world:
                 continue
             for k, v in _run_prim(check, s, meshes[shape]).items():
                 res[f"prim/{check}/{s}/{k}"] = v
+        if world == 4:
+            res["ring_error"] = np.asarray(
+                _ring_error_message(meshes[(2, 2)], 0))
+        if world == 8:
+            for check in RINGS:
+                for k, v in _run_ring(check, meshes[(4, 2)]).items():
+                    res[f"ring/{check}/{k}"] = v
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
     finally:
         dist.destroy_process_group()
@@ -214,8 +327,8 @@ def _inputs():
     from mcax import config as m_config
     from tests import helpers
     out = {}
-    for cid, name, hop, ts, cs, srp in CASES:
-        cfg = m_config.get_config(name)
+    for cid, name, hop, ts, cs, *_ in CASES:
+        cfg = _config(m_config, name, None)
         g = cfg.geometry()
         n = cfg.block_len * (NBLOCKS + B)
         if name == "config5":
@@ -228,38 +341,86 @@ def _inputs():
     return out
 
 
+def _ref_key(case):
+    """A reference run serves every case that differs only in srp."""
+    cid, name, hop, ts, cs, srp, halo_impl, scan_mode = case
+    return (name, hop, ts, cs, halo_impl, scan_mode)
+
+
 def _reference(inputs):
     """mcax's ShardedPipeline on the same meshes (materialised SRP, the
-    suite's MCAX_BACKEND=xla), with the same inputs and leaves."""
-    import jax
+    suite's MCAX_BACKEND=xla), with the same inputs and leaves;
+    ``MCAX_HALO`` is set for the rdma cases' runs only."""
     from mcax import config as m_config
     from mcax.dist import mesh as m_mesh
     from mcax.dist.sharded import ShardedPipeline as MSharded
     ref = {}
-    for cid, name, hop, ts, cs, srp in CASES:
-        key = (name, hop, ts, cs)
+    for case in CASES:
+        cid, name, hop, ts, cs, srp, halo_impl, scan_mode = case
+        key = _ref_key(case)
         if key in ref:                       # the other srp value's run
             continue
-        cfg = m_config.get_config(name)
-        if hop is not None:
-            cfg = dataclasses.replace(cfg, stft=dataclasses.replace(cfg.stft,
-                                                                    hop=hop))
-        sp = MSharded(cfg, m_mesh.make_mesh(ts, cs), donate=False)
-        x = inputs[cid]
-        bl = cfg.block_len
-        st = sp.init_state()
         r = ref[key] = {}
-        for b in range(NBLOCKS):
-            st, o = sp.process_block(st, x[:, b * bl:(b + 1) * bl])
-            for k, v in o.items():
-                r[f"b{b}/{k}"] = np.asarray(v)
-        _ref_state(r, "sb", st)
-        blocks = x[:, NBLOCKS * bl:].reshape(x.shape[0], B, bl)
-        st, o = sp.process_blocks(st, blocks.transpose(1, 0, 2))
-        for k, v in jax.tree_util.tree_map(np.asarray, o).items():
-            r[f"B/{k}"] = v
-        _ref_state(r, "sB", st)
+        prev = os.environ.get("MCAX_HALO")
+        os.environ["MCAX_HALO"] = halo_impl
+        try:
+            _reference_case(r, inputs[cid], _config(m_config, name, hop),
+                            m_mesh.make_mesh(ts, cs), scan_mode, MSharded)
+        finally:
+            if prev is None:
+                del os.environ["MCAX_HALO"]
+            else:
+                os.environ["MCAX_HALO"] = prev
+    ref["rings"] = _reference_rings()
     return ref
+
+
+def _reference_case(r, x, cfg, mesh, scan_mode, MSharded):
+    """One case's reference run into ``r``: 3 blocks, then B = 4."""
+    import jax
+    sp = MSharded(cfg, mesh, donate=False, scan_mode=scan_mode)
+    bl = cfg.block_len
+    st = sp.init_state()
+    for b in range(NBLOCKS):
+        st, o = sp.process_block(st, x[:, b * bl:(b + 1) * bl])
+        for k, v in o.items():
+            r[f"b{b}/{k}"] = np.asarray(v)
+    _ref_state(r, "sb", st)
+    blocks = x[:, NBLOCKS * bl:].reshape(x.shape[0], B, bl)
+    st, o = sp.process_blocks(st, blocks.transpose(1, 0, 2))
+    for k, v in jax.tree_util.tree_map(np.asarray, o).items():
+        r[f"B/{k}"] = v
+    _ref_state(r, "sB", st)
+
+
+def _reference_rings():
+    """mcax's ring_push_right (interpret mode) on the 4 x 2 mesh, both of
+    test_halo_rdma.py's payloads: the global [time*rows, channel*128]
+    result of each."""
+    import jax
+    import jax.numpy as jnp
+    from jax import lax
+    from jax.sharding import PartitionSpec as P
+    from mcax.dist import halo_rdma as m_rdma
+    from mcax.dist import mesh as m_mesh
+    mesh = m_mesh.make_mesh(4, 2)
+
+    def fixed(_):
+        ti = lax.axis_index("time").astype(jnp.float32)
+        ci = lax.axis_index("channel").astype(jnp.float32)
+        return m_rdma.ring_push_right(jnp.full((1, 128), 10.0 * ti + ci),
+                                      "time")
+
+    out = {}
+    for check, body, x in (
+            ("matches_ppermute",
+             lambda xl: m_rdma.ring_push_right(xl, "time"), RING_X),
+            ("channel_axis_held_fixed", fixed,
+             np.zeros((4, 2 * 128), np.float32))):
+        sm = jax.shard_map(body, mesh=mesh, in_specs=P("time", "channel"),
+                           out_specs=P("time", "channel"), check_vma=False)
+        out[check] = np.asarray(sm(x))
+    return out
 
 
 def _ref_state(r, prefix, st):
@@ -314,11 +475,11 @@ def _close(got, want, atol, rtol, what):
 
 @pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
 def test_sharded_matches_mcax_sharded(runs, case):
-    cid, name, hop, ts, cs, srp = case
+    cid, name, hop, ts, cs = case[:5]
     ranks = runs["got"][_world_of(ts, cs)]
     got = {k[len(cid) + 1:]: v for k, v in ranks[0].items()
            if k.startswith(cid + "/")}
-    want = runs["ref"][(name, hop, ts, cs)]
+    want = runs["ref"][_ref_key(case)]
     assert sorted(got) == sorted(want), (sorted(got), sorted(want))
     bounds = BOUNDS[name]
     for key, w in want.items():
@@ -332,6 +493,15 @@ def test_sharded_matches_mcax_sharded(runs, case):
         if name == "config5" and field == "cov":
             atol += 1e-6 * np.abs(w).max()
         _close(got[key], w, atol, rtol, key)
+        if case[6] == "rdma" and field in RDMA_BOUNDS:
+            # test_halo_rdma.py:86-91's bounds, mcax's sharded-vs-single
+            _close(got[key], w, *RDMA_BOUNDS[field], key)
+    if case[6] == "rdma" and any(c[0] == cid[:-4] + "fused" for c in CASES):
+        # the ring moves the bytes the open chain moves: bit-equal to the
+        # ppermute twin on the same inputs
+        for key, v in got.items():
+            np.testing.assert_array_equal(
+                v, ranks[0][f"{cid[:-4]}fused/{key}"], err_msg=key)
     # the state and the gathered outputs are the same on every rank
     for r, other in enumerate(ranks[1:], 1):
         for key, v in got.items():
@@ -389,9 +559,56 @@ def test_primitives_on_gloo(runs, check, shards):
                                    atol=1e-5)
 
 
+@pytest.mark.parametrize("check", RINGS)
+def test_ring_matches_mcax_ring_push_right(runs, check):
+    """The halo ring on gloo (the plain version of ``ring_push_right``):
+    every rank of the 4 x 2 mesh receives its left time neighbour's payload
+    at its own channel position, shard 0 shard 3's, bit-equal to mcax's
+    Pallas ring; ``halo.push_right(impl="rdma")`` is the same ring."""
+    want = runs["ref"]["rings"][check]
+    ranks = runs["got"][8]
+    for key in ("out", "via_halo"):
+        rows = []
+        for ti in range(4):
+            rows.append(np.concatenate(
+                [ranks[ti * 2 + ci][f"ring/{check}/{key}"]
+                 for ci in range(2)], axis=1))
+        np.testing.assert_array_equal(np.concatenate(rows, axis=0), want,
+                                      err_msg=key)
+    if check == "channel_axis_held_fixed":
+        got = want.reshape(4, 2, 128)[:, :, 0]
+        np.testing.assert_array_equal(got, [[30.0, 31.0], [0.0, 1.0],
+                                            [10.0, 11.0], [20.0, 21.0]])
+
+
+def test_ring_timeout_raises_on_every_rank(runs):
+    """Under halo="rdma", a push that timed out on rank 0 (shard 0, which
+    drops what its wait brings, so its outputs show nothing) makes
+    ``gather_outputs`` raise on every rank of the 2 x 2 mesh: on rank 0
+    naming its ring, on the others naming another rank."""
+    msgs = [str(r["ring_error"]) for r in runs["got"][4]]
+    assert "did not arrive" in msgs[0], msgs
+    for m in msgs[1:]:
+        assert "another rank" in m, msgs
+
+
 # ---------------------------------------------------------------------------
 # In process: a 1 x 1 mesh needs no process group.
 # ---------------------------------------------------------------------------
+def test_gather_outputs_checks_the_ring_only_under_rdma():
+    """On one process ``gather_outputs`` raises on a timed-out ring push
+    under halo="rdma" and reads no ring under halo="ppermute"."""
+    m = t_mesh.make_mesh(1, 1)
+    assert "did not arrive" in _ring_error_message(m, 0)
+    sp = ShardedPipeline(t_config.get_config("config2"), m, device="cpu")
+    from mcax_torch.dist import halo_rdma
+    halo_rdma._RINGS[("stand-in", 0)] = _TimedOutRing()
+    try:
+        assert sp.gather_outputs(Shards({}, {})) == {}
+    finally:
+        halo_rdma._RINGS.pop(("stand-in", 0))
+
+
 @pytest.mark.parametrize("srp", ["fused", "matmul"])
 @pytest.mark.parametrize("name", ["config1", "config2", "config3", "config4",
                                   "config5"])
@@ -438,12 +655,14 @@ def test_mesh_and_pipeline_validation():
     with pytest.raises(RuntimeError, match="process group"):
         t_mesh.make_mesh(2, 2)
     cfg = t_config.get_config("config3")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ShardedPipeline(cfg, m, device="cpu", scan_mode="scan")
+    assert ShardedPipeline(cfg, m, device="cpu",
+                           scan_mode="scan").scan_mode == "scan"
     with pytest.raises(ValueError, match="srp"):
         ShardedPipeline(cfg, m, device="cpu", srp="xla")
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="scan_mode"):
         ShardedPipeline(cfg, m, device="cpu", scan_mode="loop")
+    with pytest.raises(ValueError, match="halo"):
+        ShardedPipeline(cfg, m, device="cpu", halo="nccl")
     sp = ShardedPipeline(cfg, m, device="cpu")
     with pytest.raises(ValueError, match="expected samples"):
         sp.process_block(sp.init_state(),
@@ -456,12 +675,28 @@ def test_mesh_and_pipeline_validation():
 @pytest.mark.parametrize("algo", ["srp_delaysum", "mvdr", "mask",
                                   "particle"])
 def test_unported_algos_raise(algo):
-    cfg = t_config.get_config("config5" if algo == "particle" else "config4")
-    a = (dataclasses.replace(cfg.algo, smoother="particle")
-         if algo == "particle" else dataclasses.replace(cfg.algo, name=algo))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ShardedPipeline(dataclasses.replace(cfg, algo=a),
-                        t_mesh.make_mesh(1, 1), device="cpu")
+    """Only the particle smoother is left unported: it raises, naming
+    ROADMAP.md.  The three chains ported since build, and one block of each
+    on a 1 x 1 mesh equals ``Pipeline``'s."""
+    from mcax_torch.pipeline import Pipeline
+    if algo == "particle":
+        cfg = t_config.get_config("config5")
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            ShardedPipeline(dataclasses.replace(cfg, algo=dataclasses.replace(
+                cfg.algo, smoother="particle")), t_mesh.make_mesh(1, 1),
+                device="cpu")
+        return
+    cfg = _config(t_config, algo, None)
+    sp = ShardedPipeline(cfg, t_mesh.make_mesh(1, 1), device="cpu")
+    pipe = Pipeline(cfg, device="cpu")
+    x = np.random.default_rng(4).standard_normal(
+        (cfg.geometry().num_mics, cfg.block_len)).astype(np.float32)
+    _, o1 = pipe.process_block(pipe.init_state(), x)
+    _, o2 = sp.process_block(sp.init_state(), x)
+    o2 = sp.gather_outputs(o2)
+    assert sorted(o1) == sorted(o2)
+    for k in o1:
+        torch.testing.assert_close(o2[k], o1[k], atol=0, rtol=0)
 
 
 def test_initialize_alone_and_pod_mesh(monkeypatch, caplog):

@@ -25,12 +25,12 @@ def test_import_loads_no_jax_and_no_mcax():
             "from mcax_torch.kernels import (_build, covprefix, cps, fft,\n"
             "                                mvdrsolve, srp_fused, steer,\n"
             "                                stft_fused)\n"
-            "from mcax_torch.algos import (covariance, delaysum, gcc, mvdr,\n"
-            "                              srp, tracking)\n"
+            "from mcax_torch.algos import (covariance, delaysum, gcc,\n"
+            "                              masking, mvdr, srp, tracking)\n"
             "from mcax_torch.frames import ola, stft, window\n"
             "import mcax_torch.dist\n"
-            "from mcax_torch.dist import (collectives, halo, mesh,\n"
-            "                             multihost, scan, sharded)\n"
+            "from mcax_torch.dist import (collectives, halo, halo_rdma,\n"
+            "                             mesh, multihost, scan, sharded)\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'mcax'))\n"
             "built = _build.library.cache_info().currsize\n"
@@ -72,17 +72,29 @@ def test_pipeline_raises_without_a_card(monkeypatch):
 @pytest.mark.parametrize("name", ["srp_delaysum", "mvdr", "mask",
                                   "config5 particle"])
 def test_unported_algos_raise(name):
+    """Only the particle smoother is left unported: it raises, naming
+    ROADMAP.md.  The chains ported since (on config4's array) build on the
+    CPU only when asked, with all four entry points."""
     import dataclasses
     from mcax_torch.config import get_config
     from mcax_torch.pipeline import Pipeline
     if name == "config5 particle":
         cfg = get_config("config5")
         algo = dataclasses.replace(cfg.algo, smoother="particle")
-    else:
-        cfg = get_config("config4")
-        algo = dataclasses.replace(cfg.algo, name=name)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Pipeline(dataclasses.replace(cfg, algo=algo), device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            Pipeline(dataclasses.replace(cfg, algo=algo), device="cpu")
+        return
+    cfg = get_config("config4")
+    cfg = dataclasses.replace(cfg, algo=dataclasses.replace(cfg.algo,
+                                                            name=name))
+    pipe = Pipeline(cfg, device="cpu")
+    for entry in ("process_block", "process_blocks", "process_streams",
+                  "init_states", "run"):
+        assert callable(getattr(pipe, entry))
+    st, out = pipe.process_block(pipe.init_state(),
+                                 torch.zeros(8, cfg.block_len))
+    assert out["audio"].shape == (cfg.block_len,)
+    assert torch.isfinite(out["audio"]).all()
 
 
 @pytest.mark.parametrize("name", ["config1", "config2", "config3", "config4",
@@ -110,6 +122,7 @@ def test_dispatch_rule():
 
 
 def test_every_kernel_has_a_counter_and_its_sources():
+    from mcax_torch.dist import halo_rdma
     from mcax_torch.kernels import (_build, covprefix, cps, fft, mvdrsolve,
                                     srp_fused, steer, stft_fused)
     for fn in (stft_fused.stft_fused_from_blocks, srp_fused.srp_power_fused,
@@ -117,7 +130,7 @@ def test_every_kernel_has_a_counter_and_its_sources():
                mvdrsolve.weights_blocks_fused_rows,
                stft_fused.stft_fused_planes, mvdrsolve.weights_blocks_fused,
                fft.irdft_rows, fft.rdft_rows, cps.cps_phat_pairs,
-               steer.srp_power_cps):
+               steer.srp_power_cps, halo_rdma.ring_push_right):
         assert isinstance(fn.LAUNCHES, int)
     for name in _build.SOURCES + _build.HEADERS:
         assert (_build.CSRC / name).is_file(), name
@@ -161,3 +174,46 @@ def test_bad_srp_raises(bad):
     with pytest.raises(ValueError, match="srp must be one of"):
         ShardedPipeline(get_config("config3"), mesh.make_mesh(1, 1),
                         device="cpu", srp=bad)
+
+
+@pytest.mark.parametrize("arg,bad", [("halo", "nccl"), ("halo", "RDMA"),
+                                     ("halo", None), ("scan_mode", "loop"),
+                                     ("scan_mode", None)])
+def test_bad_halo_and_scan_mode_raise(arg, bad):
+    from mcax_torch.config import get_config
+    from mcax_torch.dist import halo, mesh
+    from mcax_torch.dist.sharded import ShardedPipeline
+    with pytest.raises(ValueError, match=arg):
+        ShardedPipeline(get_config("config4"), mesh.make_mesh(1, 1),
+                        device="cpu", **{arg: bad})
+    if arg == "halo":
+        with pytest.raises(ValueError, match="halo"):
+            halo.push_right(torch.zeros(4), mesh.make_mesh(1, 1), impl=bad)
+
+
+@pytest.mark.parametrize("scan_mode", ["batched", "scan"])
+def test_rdma_on_a_ring_of_one_launches_nothing(scan_mode):
+    """A 1 x 1 mesh with halo="rdma" pushes nothing (a ring of one returns
+    its input, as mcax's ring_push_right does) and equals halo="ppermute"
+    bit for bit."""
+    import numpy as np
+    from mcax_torch.config import get_config
+    from mcax_torch.dist import halo_rdma, mesh
+    from mcax_torch.dist.sharded import ShardedPipeline
+    cfg = get_config("config2")
+    m = mesh.make_mesh(1, 1)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, cfg.geometry().num_mics, cfg.block_len)).astype(np.float32))
+    before = halo_rdma.ring_push_right.LAUNCHES
+    res = []
+    for impl in ("rdma", "ppermute"):
+        sp = ShardedPipeline(cfg, m, device="cpu", halo=impl,
+                             scan_mode=scan_mode)
+        st, o = sp.process_block(sp.init_state(), x[0])
+        st, ob = sp.process_blocks(st, x)
+        res.append((o["audio"], ob["audio"], st.ola_tail))
+    assert halo_rdma.ring_push_right.LAUNCHES == before
+    payload = torch.arange(6.0).reshape(2, 3)
+    assert halo_rdma.ring_push_right(payload, m) is payload
+    for a, b in zip(*res):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
