@@ -21,7 +21,11 @@ on the first that fails:
      CPS at B = 512 and at one block, M = 24; both MVDR solve layouts again
      at C = 16 on config5's shapes, bit-equal), to the parity bounds below,
      and time kernel, plain version and (where one PyTorch call computes
-     the same function) that library call with CUDA events; the halo ring
+     the same function) that library call with CUDA events; the STFT from
+     blocks on both its routes (the FFT that config4's frame takes, and the
+     DFT-as-GEMM that other frames take, timed on the same inputs); the
+     materialised-CPS SRP with its split of 2K, its 3xTF32 design bound and
+     two calls bit-equal at both M; the halo ring
      (kernel 11) in 2 x 1 and 2 x 2 meshes of processes that all share the
      one card (spawned, joined over gloo on a FileStore, each mapping its
      neighbours' buffers through CUDA IPC): 16 pushes a rank of config4
@@ -145,6 +149,7 @@ SCAN_DISPATCHES = 4     # 1 warm-up + 3 timed
 # H100 SXM published peaks (NVIDIA data sheet, dense, full power limit):
 # fp32 on the CUDA cores and memory bandwidth.
 PEAKS = (67e12, 3.35e12)
+TF32_PEAK = 495e12      # dense TF32 on the tensor cores (kernel 10's design)
 
 
 def nvidia_smi_line() -> str:
@@ -248,16 +253,22 @@ def check_kernels(pipe, carry0, blocks, peaks):
     recs = {}
 
     # -- kernel 1: STFT from blocks ----------------------------------------
-    spec, new_carry = stft_fused.stft_fused_from_blocks(blocks, carry0,
-                                                        pipe._w2, hop)
+    # the FFT route (config4's frame is a power of two) and, on the same
+    # inputs, the GEMM route that frames of other lengths take
+    spec, new_carry = stft_fused.stft_fused_from_blocks(
+        blocks, carry0, pipe._w2, pipe._fft_op, hop)
     want = stft_fused.stft_fused_from_blocks_plain(blocks, carry0, pipe._w2,
                                                    hop)
+    spec_g = stft_fused._launch_gemm(blocks, carry0, pipe._w2, hop)
     torch.cuda.synchronize()
     scale = torch.view_as_real(want).abs().max().item()
     err = torch.view_as_real(spec - want).abs().max().item()
-    if not err / scale <= 3e-6:
-        raise AssertionError(f"stft_from_blocks: scaled error {err / scale:.3e}"
-                             " > 3e-6")
+    err_g = torch.view_as_real(spec_g - want).abs().max().item()
+    del spec_g
+    for route, e in (("fft", err), ("gemm", err_g)):
+        if not e / scale <= 3e-6:
+            raise AssertionError(f"stft_from_blocks ({route} route): scaled "
+                                 f"error {e / scale:.3e} > 3e-6")
     if not torch.equal(new_carry, blocks[-1, :, -hop:]):
         raise AssertionError("stft_from_blocks: new carry is not bit-equal")
     stream = torch.cat([carry0, blocks.permute(1, 0, 2).reshape(c, -1)], -1)
@@ -267,15 +278,26 @@ def check_kernels(pipe, carry0, blocks, peaks):
         return_complex=True))
     bound, design = stft_bounds(c * m, n, f, blocks.numel() + carry0.numel(),
                                 peaks)
+    plain_ms = time_ms(lambda: stft_fused.stft_fused_from_blocks_plain(
+        blocks, carry0, pipe._w2, hop))
     recs["stft_from_blocks"] = dict(
         route="cuda", source="mcax_torch/csrc/stft_fused.cu",
         replaces="mcax/kernels/stft_fused.py:222", max_abs_err=err,
         scaled_err=err / scale,
         ms=time_ms(lambda: stft_fused.stft_fused_from_blocks(
-            blocks, carry0, pipe._w2, hop)),
-        plain_ms=time_ms(lambda: stft_fused.stft_fused_from_blocks_plain(
-            blocks, carry0, pipe._w2, hop)),
-        library_ms=lib_ms, bound=bound, design_bound=design)
+            blocks, carry0, pipe._w2, pipe._fft_op, hop)),
+        plain_ms=plain_ms, library_ms=lib_ms, library_call="torch.stft",
+        bound=bound, design_bound=design,
+        design="design_bound is the GEMM route's (at_gemm_route)",
+        # the DFT-as-GEMM route (csrc/gemm_rows.cuh) on the same inputs,
+        # held to the same function's bound (its own design bound, the
+        # GEMM's fp32 operations, is printed as the record's design_bound)
+        at_gemm_route=dict(
+            shape=[b, c, block_len, hop], max_abs_err=err_g,
+            ms=time_ms(lambda: stft_fused._launch_gemm(
+                blocks, carry0, pipe._w2, hop)),
+            plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound[0],
+            bound_by=bound[1]))
 
     # -- kernel 2: fused SRP -------------------------------------------------
     eps = cfg.algo.phat_eps
@@ -442,7 +464,7 @@ def check_new_kernels(pipe4, x_streams, pipe1, blocks1, peaks):
     hop1 = pipe1.cfg.stft.hop
     spec1, _ = stft_fused.stft_fused_from_blocks(
         blocks1, torch.zeros((blocks1.shape[1], hop1), device=blocks1.device),
-        pipe1._w2, hop1)
+        pipe1._w2, pipe1._fft_op, hop1)
     pi, pj = pipe1.gplan.pairs[:, 0], pipe1.gplan.pairs[:, 1]
     xi = torch.index_select(spec1, -3, pi)                 # [P, B*T, F]
     xj = torch.index_select(spec1, -3, pj)
@@ -560,7 +582,11 @@ def check_steer_kernel(pipe_m, spec4, peaks):
         m = cps_m.shape[0]
         power = steer.srp_power_cps(cps_m, b2)
         want = steer.srp_power_cps_plain(cps_m, b2)
+        again = steer.srp_power_cps(cps_m, b2)
         torch.cuda.synchronize()
+        if not torch.equal(power, again):
+            raise AssertionError(f"srp_power_cps at M = {m}: two calls on the "
+                                 "same inputs differ")
         scale = want.abs().max().item()
         err = (power - want).abs().max().item()
         if not err / scale <= 1e-4:
@@ -574,16 +600,30 @@ def check_steer_kernel(pipe_m, spec4, peaks):
                                  f"{loss:.3e} of peak power")
         # cuBLAS on the same interleaved operands: [M, 2K] x [2K, G]
         a = torch.view_as_real(cps_m).view(m, 2 * k)
-        del power, want
+        del power, want, again
+        splits, chunk = steer.split_k_plan(
+            m, 2 * k, gp,
+            torch.cuda.get_device_properties(a.device).multi_processor_count)
+        whole = -(-2 * k // steer.BK) * steer.BK
         return dict(
             max_abs_err=err, scaled_err=err / scale,
             ms=time_ms(lambda: steer.srp_power_cps(cps_m, b2)),
+            # the same kernel with 2K unsplit (S = 1), beside the plan's S
+            unsplit_ms=time_ms(lambda: steer._launch(cps_m, b2, 1, whole)),
             plain_ms=time_ms(lambda: steer.srp_power_cps_plain(cps_m, b2),
                              reps=3),
             library_ms=time_ms(lambda: torch.matmul(a, b2)),
             bound=bound_ms(4.0 * m * k * gp,
                            8.0 * m * k + 4.0 * 2 * k * gp + 4.0 * m * gp,
-                           peaks))
+                           peaks),
+            # this design's own floor: 3 TF32 products of every term at the
+            # tensor cores' 495 TFLOP/s
+            design_bound=(3 * 4.0 * m * k * gp / TF32_PEAK * 1e3,
+                          "3xTF32 operations"),
+            design=f"M = {m}: split-K S = {splits} (chunk {chunk} of 2K = "
+                   f"{2 * k}), {-(-m // steer.BM) * -(-gp // steer.BN) * splits}"
+                   f" blocks, 3xTF32 bound "
+                   f"{3 * 4.0 * m * k * gp / TF32_PEAK * 1e3:.4f} ms")
 
     rec = measure(cps_all)
     small = measure(cps_all[:pipe_m.cfg.frames_per_block])
@@ -592,8 +632,11 @@ def check_steer_kernel(pipe_m, spec4, peaks):
         replaces="mcax/kernels/steer.py:80",
         library_call="torch.matmul of the interleaved CPS and B' (cuBLAS "
                      "SGEMM, TF32 off)",
+        design=f"3xTF32 mma.sync tiles {steer.BM}x{steer.BN}x{steer.BK}; "
+               f"{rec['design']}; {small['design']}",
         at_m24=dict(shape=[pipe_m.cfg.frames_per_block, k, gp],
                     max_abs_err=small["max_abs_err"], ms=small["ms"],
+                    unsplit_ms=small["unsplit_ms"],
                     plain_ms=small["plain_ms"],
                     library_ms=small["library_ms"],
                     bound_ms=small["bound"][0], bound_by=small["bound"][1]))
@@ -636,7 +679,7 @@ def check_mvdr_c16(pipe5, blocks5, x5_streams, recs, peaks):
 
     spec, _ = stft_fused.stft_fused_from_blocks(
         blocks5, torch.zeros((c, hop), device=blocks5.device), pipe5._w2,
-        hop)
+        pipe5._fft_op, hop)
     cov0 = cov_mod.from_planes(pipe5.init_state().cov)
     rows = covprefix.block_prefixes_rows(spec, cov0, lam, t)
     steer = srp.steering_vector(pipe5.plan, grid.expand(b, 2))
@@ -1495,7 +1538,7 @@ def main() -> int:
     recs.update(check_new_kernels(pipe, x_streams, pipe1,
                                   blocks1[:BLOCKS], PEAKS))
     spec4, _ = stft_fused.stft_fused_from_blocks(
-        stream_blocks[:BLOCKS], carry0, pipe._w2, hop)
+        stream_blocks[:BLOCKS], carry0, pipe._w2, pipe._fft_op, hop)
     recs.update(check_dft_kernels(pipe, spec4, pipe3h, blocks3[:BLOCKS],
                                   PEAKS))
     recs.update(check_steer_kernel(pipe_m, spec4, PEAKS))
@@ -1512,8 +1555,11 @@ def main() -> int:
               f"library_ms {lib}"
               + (f" ({r['library_call']})" if "library_call" in r else "")
               + f", bound_ms {r['bound'][0]:.4f} ({r['bound'][1]})"
+              + (f", unsplit_ms {r['unsplit_ms']:.4f}" if "unsplit_ms" in r
+                 else "")
               + (f", design_bound_ms {r['design_bound'][0]:.3f} "
-                 f"({r['design_bound'][1]})" if "design_bound" in r else ""))
+                 f"({r['design_bound'][1]})" if "design_bound" in r else "")
+              + (f"; {r['design']}" if "design" in r else ""))
         for at in (a for a in r if a.startswith("at_")):
             q = r[at]
             lib = ("n/a" if q["library_ms"] is None
@@ -1521,7 +1567,9 @@ def main() -> int:
             print(f"kernel {name} {at} {q['shape']}: max_abs_err "
                   f"{q['max_abs_err']:.3e}, kernel_ms {q['ms']:.4f}, plain_ms "
                   f"{q['plain_ms']:.4f}, library_ms {lib}, bound_ms "
-                  f"{q['bound_ms']:.4f} ({q['bound_by']})")
+                  f"{q['bound_ms']:.4f} ({q['bound_by']})"
+                  + (f", unsplit_ms {q['unsplit_ms']:.4f}"
+                     if "unsplit_ms" in q else ""))
     print("kernels checked: " + ", ".join(recs))
 
     counters = launch_counters()
@@ -2071,8 +2119,8 @@ def main() -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=r["library_ms"],
-            **{k: r[k] for k in ("library_call", "timing", "shape")
-               if k in r},
+            **{k: r[k] for k in ("library_call", "timing", "shape",
+                                 "unsplit_ms") if k in r},
             **{a: q for a, q in r.items() if a.startswith("at_")}))
     check_every_kernel_launched(kernels)
     print(smi)

@@ -21,20 +21,32 @@
 //
 // What bounds it on this card.  The function itself needs only its bytes
 // (config4, B = 512: ~0.6 GB, ~0.18 ms at 3.35 TB/s): a real FFT's
-// operations are far fewer.  This design, a DFT as a GEMM, does
-// 4*rows*N*F fp32 operations (~207 GFLOP at config4, B = 512: ~3.1 ms at
-// 67 TFLOP/s on the CUDA cores), so the design is compute-bound, at ~17x
-// the function's floor, while fp32 stays off the tensor cores.  A config4
-// block (8 x 24 rows) fills 2 x 9 of the card's 132 SMs: that call is
-// bound by its launch, not by either.
+// ~2.5 N log2 N operations a frame lie far under them.  A DFT as a GEMM
+// does 4*rows*N*F fp32 operations instead (~207 GFLOP at config4, B = 512:
+// ~3.1 ms at 67 TFLOP/s, 17x the byte floor), so no GEMM can approach it.
 //
-// Design.  The register-tiled SGEMM body of gemm_rows.cuh (128x128 output
-// tiles, 8x8 fp32 FMA accumulators per thread, K = 2*hop in 16-deep slices)
-// with its A operand gathered on the fly: each thread resolves its A row's
-// two slab pointers once, through the entry point's row functor, so the
-// [rows, 2*hop] frame tensor never exists.  No TF32: every product is an
-// fp32 FMA, which holds the 3e-6 (scaled) parity bound.  Tensor-core
-// (3xTF32) tiles are later work.
+// Design.
+//   * From blocks, power-of-two frames of 32 to 4096 (every preset's):
+//     mcax_stft_fft_from_blocks, a shared-memory real FFT (rfft.cuh).  A
+//     block takes 2048 / hop consecutive frames of one channel and reads
+//     their hop-sized slabs once (the carry for slab -1) with 16-byte
+//     loads: a sample feeds both frames it falls in from registers, so it
+//     is read once, not twice.  It windows the slab as it packs each frame
+//     into hop complex values, runs the Stockham passes in shared memory,
+//     and writes every frame's F bins with coalesced 8-byte stores straight
+//     into [C, B*T, F].  Window and twiddles come in one operand made on
+//     the host in float64 (kernels/stft_fused.py, fft_operand).
+//   * From blocks, any other frame with hop % 16 == 0 (--set
+//     stft.frame_len=640, say), and the planes entry point (the block
+//     step's analysis, kernel 5): the register-tiled SGEMM body of
+//     gemm_rows.cuh (128x128 output tiles, 8x8 fp32 FMA accumulators per
+//     thread, K = 2*hop in 16-deep slices) with its A operand gathered on
+//     the fly: each thread resolves its A row's two slab pointers once,
+//     through the entry point's row functor, so the [rows, 2*hop] frame
+//     tensor never exists.  Every product is an fp32 FMA.
+// The wrapper picks the route from the frame before the launch; both hold
+// the 3e-6 (scaled) parity bound.
+#include "rfft.cuh"
 #include "gemm_rows.cuh"
 
 namespace {
@@ -98,6 +110,97 @@ struct PlanesRows {
 };
 
 }  // namespace
+
+namespace {
+
+// Grid (ceil(M / frames a block), C); see the design note above.
+__global__ void __launch_bounds__(mcax::rfft::THREADS) stft_fft_blocks_kernel(
+    const float* __restrict__ samples, const float* __restrict__ carry,
+    const float* __restrict__ op, float2* __restrict__ out, int C, int L,
+    int T, long long M, int lh) {
+  using namespace mcax::rfft;
+  extern __shared__ __align__(16) float2 buf[];   // [2][PADDED]
+  const int hop = 1 << lh;                        // = H, the FFT's points
+  const int fr = SPAN >> lh;                      // frames a block
+  const int c = blockIdx.y;
+  const long long m0 = (long long)blockIdx.x * fr;
+  const float* win = op;                          // [2*hop]
+  const float2* tw = reinterpret_cast<const float2*>(op + 2 * hop);
+
+  // Slabs m0-1 .. m0+fr-1: their addresses once each (the only divisions),
+  // then float4 u of slab i feeds the hi half of frame m0+i-1 and the lo
+  // half of frame m0+i.
+  __shared__ const float* slab[SPAN / 16 + 1];
+  for (int i = threadIdx.x; i <= fr; i += THREADS) {
+    const long long s = m0 - 1 + i;
+    slab[i] = s < 0 ? carry + (long long)c * hop
+              : s >= M ? nullptr
+                       : samples + ((s / T) * C + c) * (long long)L +
+                             (s % T) * hop;
+  }
+  __syncthreads();
+  const int lq4 = lh - 2;
+  for (int idx = threadIdx.x; idx < (fr + 1) << lq4; idx += THREADS) {
+    const int i = idx >> lq4;
+    const int u = idx & ((1 << lq4) - 1);
+    const float* src = slab[i];
+    if (src == nullptr) continue;
+    const float4 x = __ldg(reinterpret_cast<const float4*>(src) + u);
+    if (i >= 1) {
+      const float4 w = __ldg(reinterpret_cast<const float4*>(win + hop) + u);
+      const int e = ((i - 1) << lh) + (hop >> 1) + 2 * u;
+      buf[pad(e)] = make_float2(w.x * x.x, w.y * x.y);
+      buf[pad(e + 1)] = make_float2(w.z * x.z, w.w * x.w);
+    }
+    if (i < fr && slab[i + 1] != nullptr) {
+      const float4 w = __ldg(reinterpret_cast<const float4*>(win) + u);
+      const int e = (i << lh) + 2 * u;
+      buf[pad(e)] = make_float2(w.x * x.x, w.y * x.y);
+      buf[pad(e + 1)] = make_float2(w.z * x.z, w.w * x.w);
+    }
+  }
+  __syncthreads();
+  const float2* z = fft_frames(buf, lh, tw);
+
+  // each frame's F bins, contiguous in the output: coalesced 8-byte stores
+  const int F = hop + 1;
+  const long long left = M - m0;
+  const int nf = (int)(left < fr ? left : fr);
+  float2* o = out + ((long long)c * M + m0) * F;
+  for (int f = 0; f < nf; ++f)
+    for (int k = threadIdx.x; k < F; k += THREADS)
+      o[(long long)f * F + k] = real_bin(z, f << lh, k, lh, tw);
+}
+
+}  // namespace
+
+// samples [B, C, L], carry [C, hop], op [3 * 2*hop] (the window [2*hop],
+// then e^{-2 pi j k / (2*hop)} for k < 2*hop as (re, im) pairs), out
+// complex64 [C, B*L/hop, hop + 1].  hop is a power of two in [16, 2048], L
+// % hop == 0, bases 16-byte aligned (the wrapper checks).
+MCAX_API int mcax_stft_fft_from_blocks(const float* samples,
+                                       const float* carry, const float* op,
+                                       void* out, int B, int C, int L,
+                                       int hop, void* stream) {
+  int lh = 0;
+  while ((1 << lh) < hop) ++lh;
+  if ((1 << lh) != hop || lh < 4 || lh > 11 || B <= 0 || C <= 0 ||
+      C > 65535 || L % hop)
+    return (int)cudaErrorInvalidValue;
+  const int T = L / hop;
+  const long long M = (long long)B * T;
+  const long long blocks = mcax::ceil_div(M, mcax::rfft::SPAN >> lh);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      stft_fft_blocks_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      mcax::rfft::SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  stft_fft_blocks_kernel<<<dim3((unsigned)blocks, (unsigned)C),
+                           mcax::rfft::THREADS, mcax::rfft::SMEM_BYTES,
+                           (cudaStream_t)stream>>>(
+      samples, carry, op, static_cast<float2*>(out), C, L, T, M, lh);
+  return (int)cudaGetLastError();
+}
 
 // samples [B, C, L], carry [C, hop], w2 [2*hop, ldw] (ldw a multiple of BN,
 // zero past 2F), out [C, B*L/hop, 2F] (complex64 [C, M, F]).  The wrapper

@@ -32,7 +32,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("stft_fused.cu", "srp_fused.cu", "covprefix.cu", "mvdrsolve.cu",
            "cps.cu", "dft.cu", "steer.cu", "halo_rdma.cu")
-HEADERS = ("common.cuh", "gemm_rows.cuh")
+HEADERS = ("common.cuh", "gemm_rows.cuh", "gemm_tc.cuh", "rfft.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")
@@ -48,6 +48,8 @@ _PP = ctypes.POINTER(ctypes.c_void_p)
 SIGNATURES = {
     # samples, carry, w2, out, B, C, L, hop, F, ldw, stream
     "mcax_stft_from_blocks": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # samples, carry, op (window, twiddles), out, B, C, L, hop, stream
+    "mcax_stft_fft_from_blocks": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x, w2, out, R, N, hop, F, ldw, stream
     "mcax_stft_planes": (_P, _P, _P, _L, _I, _I, _I, _I, _P),
     # spec, pairs, valid, tau, omega, out, C, M, F, P, G, eps, stream
@@ -65,8 +67,10 @@ SIGNATURES = {
     "mcax_rdft_rows": (_P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I, _P),
     # y, a2, out, rows, F, N, lda, stream
     "mcax_irdft_rows": (_P, _P, _P, _L, _I, _I, _I, _P),
-    # cps, b2, out, M, K, G, ldb, stream
-    "mcax_srp_power_cps": (_P, _P, _P, _L, _I, _I, _I, _P),
+    # cps, b2, scratch (or NULL), out, M, K, G, ldb, splits, chunk, stream
+    "mcax_srp_power_cps": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
+    # tiles (int[4]: BM, BN, BK, blocks an SM of gemm_tc.cuh)
+    "mcax_gemm_tc_tiles": (_P,),
     # the ring's host entry points (dist/halo_rdma.py): slot_bytes, &buf,
     # handle; handle, &buf; buf; buf; &host, &dev; host
     "mcax_ring_alloc": (_L, _PP, _P),

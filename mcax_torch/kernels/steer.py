@@ -11,15 +11,19 @@ spectrum (CPS).
   * ``stacked_steering`` — the kernel's operand B' [2K, G] (B'[2k] = E_re[k],
     B'[2k+1] = -E_im[k]), padded to whole tiles, built once at plan time.
   * ``srp_power_cps`` — the wrapper of ``_srp_power_pallas``'s port: on CUDA
-    tensors it launches the hand-written kernel (``csrc/steer.cu``), which
-    reads the complex CPS [M, K] as 2K floats a row and takes one product
-    with B'; on CPU tensors it runs the plain version.
+    tensors it launches the hand-written kernel (``csrc/steer.cu`` on
+    ``csrc/gemm_tc.cuh``: 3xTF32 tensor-core tiles), which reads the complex
+    CPS [M, K] as 2K floats a row and takes one product with B', split over
+    2K as ``split_k_plan`` says; on CPU tensors it runs the plain version.
   * ``srp_power_cps_plain`` / ``srp_power_flat`` — the same function in plain
     PyTorch, two fp32 matmuls (the reference's ``srp_power_flat``); the fused
     SRP kernel's plain version ends with it too.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -84,6 +88,55 @@ def srp_power_cps_plain(cps: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     return srp_power_flat(cps.real, cps.imag, b2[0::2], -b2[1::2])
 
 
+# The tensor-core GEMM's tiles (csrc/gemm_tc.cuh): output rows and columns
+# a block, floats of 2K a shared-memory slice, and the blocks an SM holds
+# (two: 80 KB of shared memory and at most 128 registers a thread each).
+# The first launch checks them against the built kernel's (_check_tiles).
+BM, BN, BK = 64, 128, 32
+BLOCKS_PER_SM = 2
+# The planner's model of one block's slice (3 x 2*BM*BN*BK TF32 operations
+# at 139 TFLOP/s, the rate this kernel reaches on an H100 SXM at config4,
+# B = 512, in chip_smoke.py) against the partials' traffic (S writes, S
+# reads and one write of [M, G] floats at the data sheet's 3.35 TB/s), and
+# the most scratch a split may take.
+SLICE_FLOPS = 3 * 2 * BM * BN * BK
+TC_RATE = 139e12
+HBM_RATE = 3.35e12
+MAX_SCRATCH_BYTES = 1 << 28
+
+
+@functools.lru_cache(maxsize=256)
+def split_k_plan(m: int, k2: int, g: int, sms: int = 132) -> tuple[int, int]:
+    """(S, chunk): the split of 2K (``k2`` floats) into S chunks of ``chunk``
+    floats (a multiple of BK; the last chunk may be shorter, none is empty)
+    that minimises the modelled time of an [m, k2] x [k2, g] product on
+    ``sms`` SMs: whole waves of BLOCKS_PER_SM blocks an SM, each wave as
+    long as one block's chunk, plus the partials' traffic when S > 1."""
+    tiles = -(-m // BM) * -(-g // BN)
+    slices = max(1, -(-k2 // BK))
+    slots = sms * BLOCKS_PER_SM
+    best = None
+    for per in range(slices, 0, -1):          # slices a chunk
+        s = -(-slices // per)
+        if s > 1 and s * m * g * 4 > MAX_SCRATCH_BYTES:
+            break
+        waves = -(-tiles * s // slots)
+        t = waves * per * slots * SLICE_FLOPS / TC_RATE
+        if s > 1:
+            t += (2 * s + 1) * m * g * 4 / HBM_RATE
+        if best is None or t < best[0]:
+            best = (t, s, per * BK)
+    return best[1], best[2]
+
+
+def split_evenly(k2: int, splits: int) -> tuple[int, int]:
+    """(S, chunk): 2K (``k2`` floats) in at most ``splits`` chunks of whole
+    BK slices, none empty."""
+    slices = max(1, -(-k2 // BK))
+    per = -(-slices // max(1, min(splits, slices)))
+    return -(-slices // per), per * BK
+
+
 def srp_power_cps(cps: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """Steered power of a materialised PHAT cross-power spectrum.
 
@@ -97,17 +150,45 @@ def srp_power_cps(cps: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     m, k, g = _shape(cps, b2)
     if not dispatch.use_kernel(cps, b2):
         return srp_power_cps_plain(cps, b2)
+    return _launch(cps, b2, *split_k_plan(m, 2 * k, g, _sm_count(cps.device)))
+
+
+def _launch(cps: torch.Tensor, b2: torch.Tensor, splits: int,
+            chunk: int) -> torch.Tensor:
+    """The kernel on CUDA tensors with 2K split into ``splits`` chunks of
+    ``chunk`` floats (``split_k_plan`` or ``split_evenly``)."""
+    m, k, g = _shape(cps, b2)
     _build.check_tensor("cps", cps, torch.complex64, (m, k))
     kfft.check_operand("b2", b2, 2 * k, g)
+    _check_tiles()
     out = torch.empty((m, g), dtype=torch.float32, device=cps.device)
     if m == 0 or g == 0:
         return out
+    scratch = (torch.empty((splits, m, g), dtype=torch.float32,
+                           device=cps.device) if splits > 1 else None)
     code = _build.library().mcax_srp_power_cps(
-        cps.data_ptr(), b2.data_ptr(), out.data_ptr(), m, k, g, b2.stride(0),
-        _build.stream_of(cps))
+        cps.data_ptr(), b2.data_ptr(),
+        scratch.data_ptr() if scratch is not None else None, out.data_ptr(),
+        m, k, g, b2.stride(0), splits, chunk, _build.stream_of(cps))
     _build.check_launch("srp_power_cps", code)
     srp_power_cps.LAUNCHES += 1
     return out
 
 
 srp_power_cps.LAUNCHES = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _check_tiles() -> None:
+    """Raise unless the built kernel's tiles and blocks an SM are the
+    planner's (BM, BN, BK, BLOCKS_PER_SM)."""
+    got = (ctypes.c_int * 4)()
+    _build.library().mcax_gemm_tc_tiles(got)
+    if tuple(got) != (BM, BN, BK, BLOCKS_PER_SM):
+        raise RuntimeError(f"csrc/gemm_tc.cuh's tiles {tuple(got)} are not "
+                           f"kernels/steer.py's {(BM, BN, BK, BLOCKS_PER_SM)}")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -10,10 +10,15 @@ so the spectra follow without building the frame tensor:
   * ``stft_fused_planes`` — a contiguous signal [..., N] (the block step's
     carry + block): frame t is [slab t | slab t+1].
 
-Each wrapper launches the hand-written kernel (``csrc/stft_fused.cu``, on
-the GEMM body of ``csrc/gemm_rows.cuh``) on CUDA tensors and runs its plain
-version on CPU tensors: ``*_plain`` cuts the frames and does one fp32 matmul
-with the same matrix (``kfft.rdft_rows_plain``).
+Each wrapper launches a hand-written kernel (``csrc/stft_fused.cu``) on
+CUDA tensors and runs its plain version on CPU tensors: ``*_plain`` cuts
+the frames and does one fp32 matmul with the same matrix
+(``kfft.rdft_rows_plain``).  ``stft_fused_from_blocks`` takes one of two
+kernels by the frame's length (``stft_route``): a shared-memory real FFT
+(``csrc/rfft.cuh``) for power-of-two frames, which reads the window and its
+twiddles from ``fft_operand``, and the DFT-as-GEMM body of
+``csrc/gemm_rows.cuh`` with ``w2`` for any other frame; ``stft_fused_planes``
+is on the GEMM body.
 
 The port returns complex64 spectra [C, B*T, F] where ``mcax`` returns two
 float planes: the kernel writes (re, im) interleaved, which is complex64's
@@ -22,8 +27,9 @@ own layout, and the SRP and covariance kernels read it as such.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple
 
+import numpy as np
 import torch
 
 from mcax_torch.kernels import _build
@@ -35,12 +41,57 @@ from mcax_torch.kernels import fft as kfft
 # the two slabs of a frame.
 BN = kfft.BN
 BK = kfft.BK
+# The FFT route's frames (csrc/rfft.cuh): powers of two, hop 16 .. 2048.
+FFT_HOPS = tuple(1 << i for i in range(4, 12))
 
 
 def analysis_matrix(n: int, window, device: torch.device) -> torch.Tensor:
     """The windowed DFT operand W2 [n, ldw] the kernels (and plain) read,
     ldw a multiple of BN."""
     return kfft.analysis_matrix(n, window, device, col_align=BN)
+
+
+def fft_operand(n: int, window, device: torch.device) -> torch.Tensor:
+    """The FFT route's operand, float32 [3n] on ``device``: the analysis
+    window [n], then the twiddles e^{-2 pi j k / n} for k < n as (re, im)
+    pairs, computed in float64 and stored in fp32."""
+    k = np.arange(n, dtype=np.float64)
+    ang = -2.0 * np.pi * k / n
+    tw = np.stack([np.cos(ang), np.sin(ang)], axis=-1).reshape(-1)
+    win = np.asarray(window, np.float64).reshape(n)
+    op = np.concatenate([win, tw]).astype(np.float32)
+    return torch.from_numpy(op).to(device)
+
+
+def fft_passes(h: int) -> List[Tuple[int, int]]:
+    """The FFT kernel's Stockham schedule for an h-point complex FFT: the
+    (radix, Ns) of each pass, one radix-2 or radix-4 pass first when log2 h
+    is not a multiple of 3, then radix-8 passes (csrc/rfft.cuh,
+    fft_frames)."""
+    lh = h.bit_length() - 1
+    passes, ns = [], 1
+    if lh % 3:
+        passes.append((1 << (lh % 3), 1))
+        ns = 1 << (lh % 3)
+    while ns < h:
+        passes.append((8, ns))
+        ns *= 8
+    return passes
+
+
+def stft_route(hop: int) -> str:
+    """The kernel ``stft_fused_from_blocks`` launches for frame = 2*hop,
+    chosen by shape before the launch (not a fallback: a failed launch
+    raises): ``"fft"`` (``_launch_fft``) for a power-of-two hop in
+    FFT_HOPS (frames 32 to 4096), ``"gemm"`` (``_launch_gemm``) for any
+    other hop that is a multiple of BK; raises for the rest."""
+    if hop in FFT_HOPS:
+        return "fft"
+    if hop > 0 and hop % BK == 0:
+        return "gemm"
+    raise ValueError(f"the STFT kernels take a power-of-two hop in "
+                     f"[{FFT_HOPS[0]}, {FFT_HOPS[-1]}] or a hop % {BK} == 0, "
+                     f"got {hop}")
 
 
 def _shape(samples: torch.Tensor, carry: torch.Tensor, w2: torch.Tensor,
@@ -72,43 +123,86 @@ def stft_fused_from_blocks_plain(samples: torch.Tensor, carry: torch.Tensor,
 
 
 def stft_fused_from_blocks(samples: torch.Tensor, carry: torch.Tensor,
-                           w2: torch.Tensor, hop: int
+                           w2: torch.Tensor, op: torch.Tensor, hop: int
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Spectra of B consecutive blocks straight from the batched layout.
+
+    On CUDA tensors the frame picks the kernel (``stft_route``): the
+    shared-memory FFT, which reads ``op``, for a power-of-two hop from 16
+    to 2048, the DFT-as-GEMM kernel, which reads ``w2``, for any other hop
+    that is a multiple of 16.  Both count in ``LAUNCHES``.
 
     Args:
       samples: [B, C, L] float32, L % hop == 0.
       carry: [C, hop] float32, the previous dispatch's last hop.
       w2: [2*hop, ldw] float32 windowed DFT operand (``analysis_matrix``).
+      op: [3 * 2*hop] float32 window and twiddles (``fft_operand``).
       hop: frame advance; the frame is 2*hop.
     Returns:
       (spectra complex64 [C, B*L/hop, F], new_carry [C, hop]).
     """
-    b, c, block_len, f = _shape(samples, carry, w2, hop)
+    _shape(samples, carry, w2, hop)
+    if op.ndim != 1 or op.shape[0] != 6 * hop:
+        raise ValueError(f"op must be [{6 * hop}] (fft_operand), got "
+                         f"{list(op.shape)}")
     # the new carry is the last block's last hop: a copy, bit-equal, that
     # does not alias the caller's input buffer
-    new_carry = samples[-1, :, block_len - hop:].clone()
-    if not dispatch.use_kernel(samples, carry, w2):
+    new_carry = samples[-1, :, samples.shape[-1] - hop:].clone()
+    if not dispatch.use_kernel(samples, carry, w2, op):
         return stft_fused_from_blocks_plain(samples, carry, w2, hop), new_carry
-    if hop % BK:
-        raise ValueError(f"the STFT kernel needs hop % {BK} == 0, got {hop}")
-    if w2.shape[1] % BN:
-        raise ValueError(f"w2's row length must be a multiple of {BN} "
-                         "(use stft_fused.analysis_matrix)")
-    _build.check_tensor("samples", samples, torch.float32, samples.shape)
-    _build.check_tensor("carry", carry, torch.float32, carry.shape)
-    _build.check_tensor("w2", w2, torch.float32, w2.shape)
-    m = b * (block_len // hop)
-    out = torch.empty((c, m, f), dtype=torch.complex64, device=samples.device)
-    code = _build.library().mcax_stft_from_blocks(
-        samples.data_ptr(), carry.data_ptr(), w2.data_ptr(), out.data_ptr(),
-        b, c, block_len, hop, f, w2.shape[1], _build.stream_of(samples))
-    _build.check_launch("stft_from_blocks", code)
-    stft_fused_from_blocks.LAUNCHES += 1
-    return out, new_carry
+    if stft_route(hop) == "fft":
+        return _launch_fft(samples, carry, op, hop), new_carry
+    return _launch_gemm(samples, carry, w2, hop), new_carry
 
 
 stft_fused_from_blocks.LAUNCHES = 0
+
+
+def _blocks_out(samples: torch.Tensor, carry: torch.Tensor,
+                hop: int) -> torch.Tensor:
+    _build.check_tensor("samples", samples, torch.float32, samples.shape)
+    b, c, block_len = samples.shape
+    _build.check_tensor("carry", carry, torch.float32, (c, hop))
+    if block_len % hop:
+        raise ValueError(f"block_len {block_len} is not a multiple of the "
+                         f"hop {hop}")
+    return torch.empty((c, b * (block_len // hop), hop + 1),
+                       dtype=torch.complex64, device=samples.device)
+
+
+def _launch_fft(samples: torch.Tensor, carry: torch.Tensor, op: torch.Tensor,
+                hop: int) -> torch.Tensor:
+    """The shared-memory FFT kernel on CUDA tensors (hop in FFT_HOPS)."""
+    if hop not in FFT_HOPS:
+        raise ValueError(f"the FFT kernel takes a hop in {FFT_HOPS}, got {hop}")
+    out = _blocks_out(samples, carry, hop)
+    _build.check_tensor("op", op, torch.float32, (6 * hop,))
+    b, c, block_len = samples.shape
+    code = _build.library().mcax_stft_fft_from_blocks(
+        samples.data_ptr(), carry.data_ptr(), op.data_ptr(), out.data_ptr(),
+        b, c, block_len, hop, _build.stream_of(samples))
+    _build.check_launch("stft_fft_from_blocks", code)
+    stft_fused_from_blocks.LAUNCHES += 1
+    return out
+
+
+def _launch_gemm(samples: torch.Tensor, carry: torch.Tensor, w2: torch.Tensor,
+                 hop: int) -> torch.Tensor:
+    """The DFT-as-GEMM kernel on CUDA tensors (any hop % BK == 0)."""
+    if hop % BK:
+        raise ValueError(f"the GEMM kernel needs hop % {BK} == 0, got {hop}")
+    if w2.shape[1] % BN:
+        raise ValueError(f"w2's row length must be a multiple of {BN} "
+                         "(use stft_fused.analysis_matrix)")
+    out = _blocks_out(samples, carry, hop)
+    _build.check_tensor("w2", w2, torch.float32, w2.shape)
+    b, c, block_len = samples.shape
+    code = _build.library().mcax_stft_from_blocks(
+        samples.data_ptr(), carry.data_ptr(), w2.data_ptr(), out.data_ptr(),
+        b, c, block_len, hop, hop + 1, w2.shape[1], _build.stream_of(samples))
+    _build.check_launch("stft_from_blocks", code)
+    stft_fused_from_blocks.LAUNCHES += 1
+    return out
 
 
 def _planes_shape(x: torch.Tensor, w2: torch.Tensor, hop: int):

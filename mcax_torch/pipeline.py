@@ -130,6 +130,10 @@ class Pipeline:
         # the DFT kernels read their matrices padded to whole tiles
         self._w2 = stft_fused.analysis_matrix(s.frame_len, self.win_a,
                                               self.device)
+        # the blocks-native analysis's FFT route reads the window and its
+        # twiddles instead (kernels/stft_fused.py, stft_route)
+        self._fft_op = stft_fused.fft_operand(s.frame_len, self.win_a,
+                                              self.device)
         self._a2 = (kfft.synthesis_matrix(s.frame_len, self.win_s,
                                           self.device)
                     if algo in _SYNTH_ALGOS else None)
@@ -370,7 +374,8 @@ class Pipeline:
             # blocks-native analysis: the kernel reads the [B, C, L] input
             # directly, carry and block seams included
             spectra, new_carry = stft_fused.stft_fused_from_blocks(
-                samples, state.carry, self._w2, hop)       # [C, B*T, F]
+                samples, state.carry, self._w2, self._fft_op,
+                hop)                                       # [C, B*T, F]
         else:
             flat = samples.permute(1, 0, 2).reshape(c, b * block_len)
             x = torch.cat([state.carry, flat], dim=-1)

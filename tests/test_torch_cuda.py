@@ -69,20 +69,32 @@ def _rng_complex(rng, shape, dev):
     return torch.from_numpy(z.astype(np.complex64)).to(dev)
 
 
-@pytest.mark.parametrize("b,c,hop,tprime", [
-    (3, 2, 512, 24),     # config4's frame, 144 rows: a ragged row tile
-    (5, 3, 256, 7),      # odd frames per block; frames straddle row tiles
-    (1, 1, 16, 3),       # the smallest hop the kernel takes
+@pytest.mark.parametrize("b,c,hop,tprime,route", [
+    (3, 2, 512, 24, "fft"),   # config4's frame, 144 rows: a ragged block
+    (5, 3, 256, 7, "fft"),    # odd frames per block; runs straddle blocks
+    (1, 1, 16, 3, "fft"),     # the smallest hop the kernels take
+    (2, 3, 32, 5, "fft"),
+    (3, 2, 64, 9, "fft"),
+    (2, 2, 128, 3, "fft"),
+    (2, 1, 1024, 3, "fft"),
+    (1, 2, 1024, 3, "fft"),   # 2 frames a block: the last block's run short
+    (3, 2, 2048, 2, "fft"),   # the largest FFT: 1 frame a block
+    (4, 3, 48, 5, "gemm"),    # not a power of two: the GEMM route
+    (3, 2, 320, 4, "gemm"),   # frame 640 (--set stft.frame_len=640)
 ])
-def test_stft_from_blocks(dev, b, c, hop, tprime):
+def test_stft_from_blocks(dev, b, c, hop, tprime, route):
+    assert stft_fused.stft_route(hop) == route
     rng = np.random.default_rng(0)
     samples = torch.from_numpy(rng.standard_normal(
         (b, c, tprime * hop)).astype(np.float32)).to(dev)
     carry = torch.from_numpy(rng.standard_normal(
         (c, hop)).astype(np.float32)).to(dev)
-    w2 = stft_fused.analysis_matrix(2 * hop, t_window.sqrt_hann(2 * hop), dev)
+    win = t_window.sqrt_hann(2 * hop)
+    w2 = stft_fused.analysis_matrix(2 * hop, win, dev)
+    op = stft_fused.fft_operand(2 * hop, win, dev)
     before = stft_fused.stft_fused_from_blocks.LAUNCHES
-    got, new_carry = stft_fused.stft_fused_from_blocks(samples, carry, w2, hop)
+    got, new_carry = stft_fused.stft_fused_from_blocks(samples, carry, w2, op,
+                                                       hop)
     assert stft_fused.stft_fused_from_blocks.LAUNCHES == before + 1
     want = stft_fused.stft_fused_from_blocks_plain(samples, carry, w2, hop)
     scale = torch.view_as_real(want).abs().max()
@@ -311,27 +323,64 @@ def test_streaming_entry_points_card_vs_cpu(dev, name):
     assert torch.equal(res["cuda"][1], res["cpu"][1])
 
 
-@pytest.mark.parametrize("m,k,g", [
-    (5, 300, 90),          # ragged everything
-    (37, 129, 7),          # odd K: rows only 8-byte aligned
-    (24, 28 * 513, 360),   # config4, one block (M = 24)
-    (12288, 28 * 513, 360),  # config4, B = 512
-    (300, 120 * 257, 360),   # config5's K, ragged rows
-])
-def test_srp_power_cps(dev, m, k, g):
-    rng = np.random.default_rng(10)
+def _steer_case(m, k, g, dev, seed=10):
+    rng = np.random.default_rng(seed)
     cps_ = _rng_complex(rng, (m, k), dev)
     e = rng.uniform(-np.pi, np.pi, (k, g))
     b2 = steer.stacked_steering(np.cos(e).astype(np.float32),
                                 np.sin(e).astype(np.float32), dev)
+    return cps_, b2
+
+
+@pytest.mark.parametrize("m,k,g", [
+    (5, 300, 90),          # ragged everything
+    (37, 129, 7),          # odd K: rows only 8-byte aligned
+    (1, 28 * 513, 360),    # one frame
+    (24, 28 * 513, 360),   # config4, one block (M = 24)
+    (48, 28 * 513, 360),   # two blocks
+    (12288, 28 * 513, 360),  # config4, B = 512
+    (24, 120 * 257, 360),  # config5's K at one block
+    (300, 120 * 257, 360),   # config5's K, ragged rows
+    (64, 2 * 257 + 1, 200),  # odd K, a whole row tile
+])
+def test_srp_power_cps(dev, m, k, g):
+    cps_, b2 = _steer_case(m, k, g, dev)
     before = steer.srp_power_cps.LAUNCHES
     got = steer.srp_power_cps(cps_, b2)
     assert steer.srp_power_cps.LAUNCHES == before + 1
     want = steer.srp_power_cps_plain(cps_, b2)
     scale = want.abs().max()
     torch.testing.assert_close(got / scale, want / scale, atol=1e-4, rtol=0)
+    rows = torch.arange(m, device=dev)
+    loss = (want[rows, want.argmax(-1)] - want[rows, got.argmax(-1)]).max()
+    assert loss <= 1e-4 * scale
     with pytest.raises(ValueError, match="whole"):
         steer.srp_power_cps(cps_, b2.clone())  # the same operand, unpadded
+
+
+@pytest.mark.parametrize("m", [24, 12288])
+def test_srp_power_cps_is_deterministic(dev, m):
+    """Two calls on the same inputs are bit-equal: the split's partials are
+    summed in a fixed order, with no atomics."""
+    cps_, b2 = _steer_case(m, 28 * 513, 360, dev, seed=11)
+    a = steer.srp_power_cps(cps_, b2)
+    b = steer.srp_power_cps(cps_, b2)
+    assert torch.equal(a, b)
+    split = steer.split_evenly(2 * 28 * 513, 5)
+    assert torch.equal(steer._launch(cps_, b2, *split),
+                       steer._launch(cps_, b2, *split))
+
+
+@pytest.mark.parametrize("m,k,splits", [(24, 28 * 513, 82), (48, 129, 9),
+                                        (300, 120 * 257, 17)])
+def test_srp_power_cps_split_equals_unsplit(dev, m, k, splits):
+    cps_, b2 = _steer_case(m, k, 360, dev, seed=12)
+    whole = steer._launch(cps_, b2, *steer.split_evenly(2 * k, 1))
+    split = steer._launch(cps_, b2, *steer.split_evenly(2 * k, splits))
+    assert steer.split_evenly(2 * k, splits)[0] > 1
+    scale = whole.abs().max()
+    torch.testing.assert_close(split / scale, whole / scale, atol=1e-4,
+                               rtol=0)
 
 
 @pytest.mark.parametrize("name", ["config3", "config4", "config5"])

@@ -56,7 +56,8 @@ def test_stft_from_blocks_matches_mcax(b, c, hop, tprime):
     re, im = np.asarray(re), np.asarray(im)
     spec, got_carry = t_stft.stft_fused_from_blocks(
         torch.from_numpy(samples), torch.from_numpy(carry),
-        t_stft.analysis_matrix(n, win, CPU), hop)
+        t_stft.analysis_matrix(n, win, CPU), t_stft.fft_operand(n, win, CPU),
+        hop)
     assert spec.shape == re.shape == (c, b * tprime, hop + 1)
     assert spec.dtype == torch.complex64
     scale = max(np.abs(re).max(), np.abs(im).max())
@@ -79,12 +80,15 @@ def test_stft_from_blocks_equals_concat_chain():
         rng.standard_normal((b, c, tprime * hop)).astype(np.float32))
     carry = torch.from_numpy(rng.standard_normal((c, hop)).astype(np.float32))
     w2 = t_stft.analysis_matrix(2 * hop, win, CPU)
-    spec, _ = t_stft.stft_fused_from_blocks(samples, carry, w2, hop)
+    op = t_stft.fft_operand(2 * hop, win, CPU)
+    spec, _ = t_stft.stft_fused_from_blocks(samples, carry, w2, op, hop)
     x = torch.cat([carry, samples.permute(1, 0, 2).reshape(c, -1)], -1)
     want = t_stft_mod.stft(x, w2, hop)
     torch.testing.assert_close(spec, want, atol=1e-6, rtol=1e-6)
     with pytest.raises(ValueError):
-        t_stft.stft_fused_from_blocks(samples[..., :-1], carry, w2, hop)
+        t_stft.stft_fused_from_blocks(samples[..., :-1], carry, w2, op, hop)
+    with pytest.raises(ValueError, match="fft_operand"):
+        t_stft.stft_fused_from_blocks(samples, carry, w2, op[:-1], hop)
 
 
 # -- kernel 2: fused SRP ------------------------------------------------------

@@ -1,0 +1,299 @@
+"""The arithmetic of kernels 1 and 10's card designs, proven on the CPU.
+
+The CUDA kernels run only on the card, so these tests replay each design's
+schedule in PyTorch and hold it to the kernel's plain version at the
+kernel's own bound:
+
+  * kernel 1 (``csrc/rfft.cuh``): the packing of a frame's windowed samples
+    into half as many complex values, the radix-2/4/8 Stockham passes of
+    ``stft_fused.fft_passes`` with the twiddles of ``fft_operand`` (made in
+    float64 on the host, stored in fp32), and the real post-pass, against
+    ``stft_fused_from_blocks_plain`` within 3e-6 of the largest bin, for
+    every power-of-two frame from 32 to 4096; and the wrapper's choice of
+    kernel by frame (``stft_route``);
+  * kernel 10 (``csrc/gemm_tc.cuh``): 3xTF32, each operand split into big
+    by ``cvt.rna.tf32.f32``'s rounding (to nearest, ties away from zero, 10
+    mantissa bits) and small, the rest, truncated to TF32, and summed as small*big + big*small + big*big over the
+    chunks of ``steer.split_k_plan`` in their fixed order, against
+    ``srp_power_cps_plain`` within 1e-4 of the largest power with the argmax
+    check, at config4's and config5's K; and the planner itself (2K covered
+    exactly once, at least one wave of 132 SMs at one block's frames).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from mcax_torch.frames import window as t_window
+from mcax_torch.kernels import steer
+from mcax_torch.kernels import stft_fused
+
+torch.set_num_threads(1)
+CPU = torch.device("cpu")
+SMS = 132                       # the H100 SXM's SMs
+
+
+# -- kernel 1: the shared-memory real FFT ------------------------------------
+
+def _cmul(ar, ai, br, bi):
+    return ar * br - ai * bi, ar * bi + ai * br
+
+
+def _dft4(u):
+    a0 = (u[0][0] + u[2][0], u[0][1] + u[2][1])
+    a1 = (u[0][0] - u[2][0], u[0][1] - u[2][1])
+    a2 = (u[1][0] + u[3][0], u[1][1] + u[3][1])
+    a3 = (u[1][1] - u[3][1], u[3][0] - u[1][0])           # -j (u1 - u3)
+    return [(a0[0] + a2[0], a0[1] + a2[1]), (a1[0] + a3[0], a1[1] + a3[1]),
+            (a0[0] - a2[0], a0[1] - a2[1]), (a1[0] - a3[0], a1[1] - a3[1])]
+
+
+def _dft(v):
+    """The kernel's R-point butterfly (R = 2, 4, 8) on (re, im) pairs."""
+    if len(v) == 2:
+        return [(v[0][0] + v[1][0], v[0][1] + v[1][1]),
+                (v[0][0] - v[1][0], v[0][1] - v[1][1])]
+    if len(v) == 4:
+        return _dft4(v)
+    c = float(np.float32(0.70710678118654752))
+    e, o = _dft4(v[0::2]), _dft4(v[1::2])
+    o[1] = (c * (o[1][0] + o[1][1]), c * (o[1][1] - o[1][0]))
+    o[2] = (o[2][1], -o[2][0])
+    o[3] = (c * (o[3][1] - o[3][0]), -c * (o[3][0] + o[3][1]))
+    return ([(e[k][0] + o[k][0], e[k][1] + o[k][1]) for k in range(4)]
+            + [(e[k][0] - o[k][0], e[k][1] - o[k][1]) for k in range(4)])
+
+
+def _fft_kernel_emulation(samples, carry, op, hop):
+    """The FFT kernel's schedule in fp32: [C, B*T, F] complex64."""
+    b, c, block_len = samples.shape
+    h, n = hop, 2 * hop
+    win = op[:n]
+    tw_r, tw_i = op[n:].view(n, 2).unbind(-1)
+    stream = torch.cat([carry, samples.permute(1, 0, 2).reshape(c, -1)], -1)
+    frames = stream.unfold(-1, n, hop) * win               # [C, M, N]
+    zr, zi = frames[..., 0::2], frames[..., 1::2]           # [C, M, H]
+    for radix, ns in stft_fused.fft_passes(h):
+        q = h // radix
+        j = torch.arange(q)
+        jm = j % ns
+        vr = [zr[..., r * q:(r + 1) * q] for r in range(radix)]
+        vi = [zi[..., r * q:(r + 1) * q] for r in range(radix)]
+        for r in range(1, radix):
+            t = r * jm * (n // (ns * radix))
+            vr[r], vi[r] = _cmul(vr[r], vi[r], tw_r[t], tw_i[t])
+        o = _dft(list(zip(vr, vi)))
+        dst = (j // ns) * ns * radix + jm
+        nr, ni = torch.empty_like(zr), torch.empty_like(zi)
+        for r in range(radix):
+            nr[..., dst + r * ns] = o[r][0]
+            ni[..., dst + r * ns] = o[r][1]
+        zr, zi = nr, ni
+    k = torch.arange(h + 1)
+    ar, ai = zr[..., k % h], zi[..., k % h]
+    br, bi = zr[..., (h - k) % h], zi[..., (h - k) % h]
+    er, ei = 0.5 * (ar + br), 0.5 * (ai - bi)
+    orr, oi = 0.5 * (ai + bi), -0.5 * (ar - br)
+    pr, pi = _cmul(tw_r[k], tw_i[k], orr, oi)
+    return torch.complex(er + pr, ei + pi)
+
+
+@pytest.mark.parametrize("hop", stft_fused.FFT_HOPS)
+def test_fft_schedule_matches_plain(hop):
+    n = 2 * hop
+    c, b = 2, 2
+    tprime = max(1, 64 // hop) + 1
+    rng = np.random.default_rng(hop)
+    samples = torch.from_numpy(
+        rng.standard_normal((b, c, tprime * hop)).astype(np.float32))
+    carry = torch.from_numpy(rng.standard_normal((c, hop)).astype(np.float32))
+    win = t_window.sqrt_hann(n)
+    op = stft_fused.fft_operand(n, win, CPU)
+    got = _fft_kernel_emulation(samples, carry, op, hop)
+    want = stft_fused.stft_fused_from_blocks_plain(
+        samples, carry, stft_fused.analysis_matrix(n, win, CPU), hop)
+    assert got.shape == want.shape == (c, b * tprime, hop + 1)
+    scale = torch.view_as_real(want).abs().max()
+    torch.testing.assert_close(torch.view_as_real(got) / scale,
+                               torch.view_as_real(want) / scale,
+                               atol=3e-6, rtol=0)
+
+
+@pytest.mark.parametrize("hop", stft_fused.FFT_HOPS)
+def test_fft_schedule_against_float64(hop):
+    """The FFT's fp32 schedule stays within 3e-7 of the largest bin of a
+    float64 FFT (a DFT as one fp32 GEMM, the plain version, is ~N times
+    the operations and rounds accordingly)."""
+    n = 2 * hop
+    rng = np.random.default_rng(hop + 1)
+    samples = torch.from_numpy(
+        rng.standard_normal((2, 1, 4 * hop)).astype(np.float32))
+    carry = torch.from_numpy(rng.standard_normal((1, hop)).astype(np.float32))
+    win = t_window.hann(n)
+    got = _fft_kernel_emulation(samples, carry,
+                                stft_fused.fft_operand(n, win, CPU), hop)
+    x = torch.cat([carry, samples.permute(1, 0, 2).reshape(1, -1)], -1)
+    frames = x.double().unfold(-1, n, hop) * torch.from_numpy(
+        win.astype(np.float64))
+    want = torch.fft.rfft(frames)
+    scale = torch.view_as_real(want).abs().max()
+    err = torch.view_as_real(got.to(torch.complex128) - want).abs().max()
+    assert err / scale <= 3e-7
+
+
+@pytest.mark.parametrize("h", [2 ** i for i in range(1, 12)])
+def test_fft_passes_cover_the_transform(h):
+    passes = stft_fused.fft_passes(h)
+    assert int(np.prod([r for r, _ in passes])) == h
+    ns = 1
+    for r, pns in passes:
+        assert pns == ns and r in (2, 4, 8)
+        ns *= r
+    radices = [r for r, _ in passes]
+    assert all(r == 8 for r in radices[1:])       # one small pass, first
+    assert len(passes) == -(-(h.bit_length() - 1) // 3)
+
+
+def test_fft_operand_is_the_window_then_the_twiddles():
+    n = 64
+    win = t_window.hann(n)
+    op = stft_fused.fft_operand(n, win, CPU).numpy()
+    assert op.shape == (3 * n,) and op.dtype == np.float32
+    np.testing.assert_array_equal(op[:n], win)
+    k = np.arange(n)
+    want = np.exp(-2j * np.pi * k / n)
+    np.testing.assert_array_equal(op[n::2], want.real.astype(np.float32))
+    np.testing.assert_array_equal(op[n + 1::2], want.imag.astype(np.float32))
+
+
+@pytest.mark.parametrize("hop,route", [
+    (16, "fft"), (256, "fft"), (512, "fft"), (2048, "fft"),
+    (48, "gemm"), (320, "gemm"), (4096, "gemm"), (8, None), (20, None),
+    (0, None)])
+def test_stft_route_by_frame(hop, route):
+    if route is None:
+        with pytest.raises(ValueError, match="hop"):
+            stft_fused.stft_route(hop)
+    else:
+        assert stft_fused.stft_route(hop) == route
+
+
+# -- kernel 10: 3xTF32 and the split of 2K ----------------------------------
+
+def _tf32(x):
+    """cvt.rna.tf32.f32 on fp32 bits: add half an ulp of the 10-bit
+    mantissa to the magnitude, drop the low 13 bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split(x):
+    """(big, small) as the tensor cores read them: small = x - big,
+    truncated to TF32 (its low 13 bits ignored)."""
+    big = _tf32(x)
+    return big, ((x - big).view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _3xtf32_emulation(cps, b2, m, k, g):
+    a = torch.view_as_real(cps).reshape(m, 2 * k)
+    b = b2[:, :g]
+    splits, chunk = steer.split_k_plan(m, 2 * k, g, SMS)
+    parts = []
+    for s in range(splits):
+        sl = slice(s * chunk, min((s + 1) * chunk, 2 * k))
+        ab, asm = _split(a[:, sl])
+        bb, bsm = _split(b[sl])
+        parts.append(asm @ bb + ab @ bsm + ab @ bb)
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out
+
+
+def test_tf32_rounds_to_nearest_ties_away():
+    one = 1.0
+    ulp = 2.0 ** -10
+    x = torch.tensor([one + ulp / 2, -(one + ulp / 2), one + ulp / 2 - 2 ** -20,
+                      one + 3 * ulp / 2, 3.0e-30, 0.0], dtype=torch.float32)
+    want = torch.tensor([one + ulp, -(one + ulp), one, one + 2 * ulp,
+                         float(np.float32(3.0e-30)), 0.0])
+    got = _tf32(x)
+    assert torch.equal(got[[0, 1, 2, 3, 5]], want[[0, 1, 2, 3, 5]])
+    assert (got.view(torch.int32) & 0x1FFF == 0).all()
+    big, small = _split(torch.tensor([np.pi], dtype=torch.float32))
+    assert abs(float(big + small) - float(np.float32(np.pi))) < 2.0 ** -19
+
+
+@pytest.mark.parametrize("m,k", [(24, 28 * 513), (24, 120 * 257),
+                                 (37, 129)])
+def test_3xtf32_matches_plain(m, k):
+    g = 360
+    rng = np.random.default_rng(k)
+    z = rng.standard_normal((m, k)) + 1j * rng.standard_normal((m, k))
+    cps = torch.from_numpy((z / np.abs(z)).astype(np.complex64))
+    e = rng.uniform(-np.pi, np.pi, (k, g))
+    b2 = steer.stacked_steering(np.cos(e).astype(np.float32),
+                                np.sin(e).astype(np.float32), CPU)
+    got = _3xtf32_emulation(cps, b2, m, k, g)
+    want = steer.srp_power_cps_plain(cps, b2)
+    scale = want.abs().max()
+    torch.testing.assert_close(got / scale, want / scale, atol=1e-4, rtol=0)
+    rows = torch.arange(m)
+    loss = (want[rows, want.argmax(-1)] - want[rows, got.argmax(-1)]).max()
+    assert loss <= 1e-4 * scale
+    # one TF32 pass alone misses by far more than the split's error
+    one = (_tf32(torch.view_as_real(cps).reshape(m, 2 * k))
+           @ _tf32(b2[:, :g]))
+    assert (one - want).abs().max() > 10 * (got - want).abs().max()
+
+
+@pytest.mark.parametrize("m,k", [(1, 28 * 513), (24, 28 * 513),
+                                 (48, 28 * 513), (24, 120 * 257),
+                                 (12288, 28 * 513), (12288, 120 * 257),
+                                 (5, 300), (37, 129), (300, 120 * 257)])
+def test_split_k_plan_covers_2k_once(m, k):
+    k2 = 2 * k
+    s, chunk = steer.split_k_plan(m, k2, 360, SMS)
+    assert chunk % steer.BK == 0 and s >= 1
+    assert (s - 1) * chunk < k2 <= s * chunk       # no empty chunk, no gap
+    covered = np.zeros(k2, np.int32)
+    for i in range(s):
+        covered[i * chunk:min((i + 1) * chunk, k2)] += 1
+    assert (covered == 1).all()
+    tiles = -(-m // steer.BM) * -(-360 // steer.BN)
+    if m <= 48 and k2 // steer.BK >= SMS:
+        assert tiles * s >= SMS                   # at least one wave
+    if m == 12288:
+        slots = SMS * steer.BLOCKS_PER_SM
+        blocks = tiles * s
+        assert blocks / (-(-blocks // slots) * slots) >= 0.9   # no tail
+        assert s * m * 360 * 4 <= steer.MAX_SCRATCH_BYTES
+
+
+def test_split_k_plan_keeps_the_measured_splits():
+    """config4's two shapes keep the splits timed against S = 1 on the card
+    (M = 24: S = 82; B = 512: S = 5)."""
+    assert steer.split_k_plan(24, 2 * 28 * 513, 360, SMS) == (82, 352)
+    assert steer.split_k_plan(12288, 2 * 28 * 513, 360, SMS) == (5, 5760)
+
+
+def test_split_evenly():
+    assert steer.split_evenly(258, 1) == (1, 288)
+    assert steer.split_evenly(258, 9) == (9, 32)
+    assert steer.split_evenly(258, 100) == (9, 32)
+    s, chunk = steer.split_evenly(2 * 28 * 513, 82)
+    assert (s, chunk) == (82, 352)
+
+
+def test_planner_tiles_are_the_kernels():
+    """The planner's tiles and blocks an SM are the ones csrc/gemm_tc.cuh
+    builds (the wrapper checks the built library's at its first launch)."""
+    import re
+    from pathlib import Path
+    src = (Path(steer.__file__).resolve().parent.parent / "csrc"
+           / "gemm_tc.cuh").read_text()
+    consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
+    assert {k: int(consts[k]) for k in ("BM", "BN", "BK", "BLOCKS_PER_SM")} \
+        == {"BM": steer.BM, "BN": steer.BN, "BK": steer.BK,
+            "BLOCKS_PER_SM": steer.BLOCKS_PER_SM}
+    assert "__launch_bounds__(THREADS, BLOCKS_PER_SM)" in src
