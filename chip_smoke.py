@@ -22,8 +22,11 @@ on the first that fails:
      at C = 16 on config5's shapes, bit-equal), to the parity bounds below,
      and time kernel, plain version and (where one PyTorch call computes
      the same function) that library call with CUDA events; the STFT from
-     blocks on both its routes (the FFT that config4's frame takes, and the
-     DFT-as-GEMM that other frames take, timed on the same inputs); the
+     blocks, the STFT of a contiguous signal and the real DFT on both their
+     routes (the FFT that power-of-two frames take, and the DFT-as-GEMM
+     that other frames take, timed on the same inputs); kernel 5's FFT
+     against kernel 1's on config4's [carry | blocks] (within 1e-6 of the
+     largest bin; one packing and one FFT, so 0 is expected); the
      materialised-CPS SRP with its split of 2K, its 3xTF32 design bound and
      two calls bit-equal at both M; the halo ring
      (kernel 11) in 2 x 1 and 2 x 2 meshes of processes that all share the
@@ -272,6 +275,21 @@ def check_kernels(pipe, carry0, blocks, peaks):
     if not torch.equal(new_carry, blocks[-1, :, -hop:]):
         raise AssertionError("stft_from_blocks: new carry is not bit-equal")
     stream = torch.cat([carry0, blocks.permute(1, 0, 2).reshape(c, -1)], -1)
+    # kernel 5's FFT on the contiguous stream [carry | blocks] (the sharded
+    # 1 x 1 analysis' shape) against kernel 1's FFT on the same frames: one
+    # packing and one FFT, so expected bit-equal; held to 1e-6 of max
+    def planes_of_stream():
+        return stft_fused.stft_fused_planes(stream, pipe._w2, pipe._fft_op,
+                                            hop)
+
+    cross = torch.view_as_real(planes_of_stream() - spec).abs().max().item()
+    if not cross <= 1e-6 * scale:
+        raise AssertionError(f"kernel 5 against kernel 1 on the same frames: "
+                             f"max difference {cross:.3e} > 1e-6 of max")
+    print(f"kernel 5 (stft_fused_planes, FFT) against kernel 1 "
+          f"(stft_from_blocks, FFT) on config4's [carry | blocks] "
+          f"{list(stream.shape)}: max abs difference {cross:.3e} (scale "
+          f"{scale:.3e}); kernel 5 there {time_ms(planes_of_stream):.4f} ms")
     win = torch.from_numpy(pipe.win_a).to(blocks.device)
     lib_ms = time_ms(lambda: torch.stft(
         stream, n_fft=n, hop_length=hop, window=win, center=False,
@@ -408,29 +426,42 @@ def check_new_kernels(pipe4, x_streams, pipe1, blocks1, peaks):
     x = torch.cat([x_streams[:, :, bl - hop:bl], x_streams[:, :, bl:2 * bl]],
                   dim=-1).transpose(0, 1).contiguous()     # [C, S, N]
     c, s_, nn = x.shape
-    spec = stft_fused.stft_fused_planes(x, pipe4._w2, hop)
-    want = stft_fused.stft_fused_planes_plain(x, pipe4._w2, hop)
+    w2, op = pipe4._w2, pipe4._fft_op
+    spec = stft_fused.stft_fused_planes(x, w2, op, hop)
+    want = stft_fused.stft_fused_planes_plain(x, w2, hop)
+    spec_g = stft_fused._launch_planes_gemm(x, w2, hop)
     torch.cuda.synchronize()
     scale = torch.view_as_real(want).abs().max().item()
     err = torch.view_as_real(spec - want).abs().max().item()
-    if not err / scale <= 3e-6:
-        raise AssertionError(f"stft_planes: scaled error {err / scale:.3e} "
-                             "> 3e-6")
+    err_g = torch.view_as_real(spec_g - want).abs().max().item()
+    del spec_g
+    for route, e in (("fft", err), ("gemm", err_g)):
+        if not e / scale <= 3e-6:
+            raise AssertionError(f"stft_planes ({route} route): scaled error "
+                                 f"{e / scale:.3e} > 3e-6")
     win = torch.from_numpy(pipe4.win_a).to(x.device)
     x2 = x.view(-1, nn)
     t = spec.shape[-2]
     bound, design = stft_bounds(c * s_ * t, n, f, x.numel(), peaks)
+    plain_ms = time_ms(lambda: stft_fused.stft_fused_planes_plain(x, w2, hop))
+    lib_ms = time_ms(lambda: torch.stft(
+        x2, n_fft=n, hop_length=hop, window=win, center=False,
+        return_complex=True))
     recs["stft_planes"] = dict(
-        route="cuda", source="mcax_torch/csrc/stft_fused.cu",
+        route="cuda", source="mcax_torch/csrc/fft_rows.cu",
         replaces="mcax/kernels/stft_fused.py:154", max_abs_err=err,
         scaled_err=err / scale,
-        ms=time_ms(lambda: stft_fused.stft_fused_planes(x, pipe4._w2, hop)),
-        plain_ms=time_ms(lambda: stft_fused.stft_fused_planes_plain(
-            x, pipe4._w2, hop)),
-        library_ms=time_ms(lambda: torch.stft(
-            x2, n_fft=n, hop_length=hop, window=win, center=False,
-            return_complex=True)),
-        bound=bound, design_bound=design)
+        ms=time_ms(lambda: stft_fused.stft_fused_planes(x, w2, op, hop)),
+        plain_ms=plain_ms, library_ms=lib_ms, library_call="torch.stft",
+        bound=bound, design_bound=design,
+        design="design_bound is the GEMM route's (at_gemm_route)",
+        # the DFT-as-GEMM route (csrc/stft_fused.cu) on the same inputs,
+        # held to the same function's bound
+        at_gemm_route=dict(
+            shape=[c, s_, nn, hop], max_abs_err=err_g,
+            ms=time_ms(lambda: stft_fused._launch_planes_gemm(x, w2, hop)),
+            plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound[0],
+            bound_by=bound[1]))
 
     # -- kernel 6: MVDR solve from complex covariances, S = 64 streams -----
     spectra = spec.transpose(0, 1)                         # [S, C, T, F]
@@ -536,27 +567,40 @@ def check_dft_kernels(pipe4, spec4, pipe3h, blocks3h, peaks):
     b, c, _ = blocks3h.shape
     x = torch.cat([torch.zeros((c, n - hop), device=blocks3h.device),
                    blocks3h.permute(1, 0, 2).reshape(c, -1)], dim=-1)
-    spec = kfft.rdft_rows(x, pipe3h._w2, hop)             # [C, B*T, F]
-    want = kfft.rdft_rows_plain(x, pipe3h._w2, hop)
+    w2, op = pipe3h._w2, pipe3h._fft_op
+    spec = kfft.rdft_rows(x, w2, op, hop)                  # [C, B*T, F]
+    want = kfft.rdft_rows_plain(x, w2, hop)
+    spec_g = kfft._launch_gemm(x, w2, hop)
     torch.cuda.synchronize()
     scale = torch.view_as_real(want).abs().max().item()
     err = torch.view_as_real(spec - want).abs().max().item()
-    if not err / scale <= 3e-6:
-        raise AssertionError(f"rdft_rows: scaled error {err / scale:.3e} "
-                             "> 3e-6")
+    err_g = torch.view_as_real(spec_g - want).abs().max().item()
+    del spec_g
+    for route, e in (("fft", err), ("gemm", err_g)):
+        if not e / scale <= 3e-6:
+            raise AssertionError(f"rdft_rows ({route} route): scaled error "
+                                 f"{e / scale:.3e} > 3e-6")
     win_a = torch.from_numpy(pipe3h.win_a).to(x.device)
     bound, design = stft_bounds(c * spec.shape[1], n, f, x.numel(), peaks)
+    plain_ms = time_ms(lambda: kfft.rdft_rows_plain(x, w2, hop))
+    lib_ms = time_ms(lambda: torch.stft(
+        x, n_fft=n, hop_length=hop, window=win_a, center=False,
+        return_complex=True))
     recs["rdft_rows"] = dict(
-        route="cuda", source="mcax_torch/csrc/dft.cu",
+        route="cuda", source="mcax_torch/csrc/fft_rows.cu",
         replaces="mcax/kernels/fft.py:166", max_abs_err=err,
         scaled_err=err / scale,
-        ms=time_ms(lambda: kfft.rdft_rows(x, pipe3h._w2, hop)),
-        plain_ms=time_ms(lambda: kfft.rdft_rows_plain(x, pipe3h._w2, hop)),
-        library_ms=time_ms(lambda: torch.stft(
-            x, n_fft=n, hop_length=hop, window=win_a, center=False,
-            return_complex=True)),
-        library_call="torch.stft",
-        bound=bound, design_bound=design)
+        ms=time_ms(lambda: kfft.rdft_rows(x, w2, op, hop)),
+        plain_ms=plain_ms, library_ms=lib_ms, library_call="torch.stft",
+        bound=bound, design_bound=design,
+        design="design_bound is the GEMM route's (at_gemm_route)",
+        # the DFT-as-GEMM route (csrc/dft.cu) on the same inputs, held to
+        # the same function's bound
+        at_gemm_route=dict(
+            shape=list(x.shape) + [n, hop], max_abs_err=err_g,
+            ms=time_ms(lambda: kfft._launch_gemm(x, w2, hop)),
+            plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound[0],
+            bound_by=bound[1]))
     return recs
 
 
@@ -690,7 +734,8 @@ def check_mvdr_c16(pipe5, blocks5, x5_streams, recs, peaks):
     s_ = x5_streams.shape[0]
     x = torch.cat([x5_streams[:, :, bl - hop:bl], x5_streams[:, :, bl:2 * bl]],
                   dim=-1).transpose(0, 1).contiguous()    # [C, S, N]
-    spectra = stft_fused.stft_fused_planes(x, pipe5._w2, hop).transpose(0, 1)
+    spectra = stft_fused.stft_fused_planes(x, pipe5._w2, pipe5._fft_op,
+                                           hop).transpose(0, 1)
     covs = cov_mod.update(cov_mod.from_planes(pipe5.init_states(s_).cov),
                           spectra, lam).contiguous()
     steer = srp.steering_vector(pipe5.plan, grid.expand(s_, 2))

@@ -2,8 +2,10 @@
 //
 // Replaces: mcax/kernels/fft.py, _rdft_pallas (the Pallas kernel
 // _rdft_kernel: kfft.rfft, the analysis of any overlap other than frame =
-// 2*hop) and _irdft_pallas (the Pallas kernel _irdft_kernel: kfft.irfft,
-// every synthesis chain's inverse DFT and GCC's lag correlation).
+// 2*hop) for frames that are not a power of two from 32 to 4096 (those
+// take fft_rows.cu's FFT), and _irdft_pallas (the Pallas kernel
+// _irdft_kernel: kfft.irfft, every synthesis chain's inverse DFT and GCC's
+// lag correlation).
 //
 // What it computes.
 //   * rdft_rows: frame row r of a real signal starts at

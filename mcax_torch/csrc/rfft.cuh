@@ -12,16 +12,22 @@
 // pass (R, Ns) reads butterfly j's R inputs at j + r H/R, multiplies input r
 // by e^{-2 pi j r (j mod Ns) / (Ns R)}, and writes its outputs to
 // (j / Ns) Ns R + (j mod Ns) + r Ns; after the passes Z is in natural order
-// (kernels/stft_fused.py's fft_passes gives the same schedule, and the CPU
+// (kernels/fft.py's fft_passes gives the same schedule, and the CPU
 // tests emulate it).  Every twiddle is read from a table made on the host
 // in float64 and stored in fp32, e^{-2 pi j k / N} for k < N: the pass
 // twiddle above is entry r (j mod Ns) N / (Ns R), the post-pass's entry k.
 //
 // A block holds SPAN = 2048 complex values: 2048 / H consecutive frames of
-// one channel, in two padded SPAN buffers (36 KB of dynamic shared memory,
+// one signal, in two padded SPAN buffers (36 KB of dynamic shared memory,
 // so 6 blocks an SM) that the passes ping-pong between.  A butterfly's R
 // values live in registers, 8 at most, so a 512-point FFT makes 3 trips
 // through shared memory.
+//
+// Two kernels are built on it, and differ only in where a frame's samples
+// lie: the STFT from blocks (stft_fused.cu: [B, C, L] blocks and a carry)
+// and the FFT of strided frame rows (fft_rows.cu: frames cut from
+// contiguous signals at any hop).  Both pack with pack4, run fft_frames
+// and write with store_bins, so the same samples give the same bits.
 #pragma once
 
 #include "common.cuh"
@@ -161,6 +167,29 @@ __device__ __forceinline__ float2 real_bin(const float2* z, int base, int k,
   const float2 t = __ldg(tw + k);
   return make_float2(e.x + (t.x * od.x - t.y * od.y),
                      e.y + (t.x * od.y + t.y * od.x));
+}
+
+// Four windowed samples x * w (p' = e*2 .. e*2+3 of a frame, p' % 4 == 0)
+// as the two packed values z[e], z[e+1].
+__device__ __forceinline__ void pack4(float2* buf, int e, float4 w,
+                                      float4 x) {
+  buf[pad(e)] = make_float2(w.x * x.x, w.y * x.y);
+  buf[pad(e + 1)] = make_float2(w.z * x.z, w.w * x.w);
+}
+
+// The real spectra of the block's first nf frames (z from fft_frames), F =
+// H + 1 bins each, to out [nf, F] contiguous: one flat loop over the nf*F
+// bins, so consecutive threads make coalesced 8-byte stores.
+__device__ __forceinline__ void store_bins(const float2* z,
+                                           float2* __restrict__ out, int nf,
+                                           int lh,
+                                           const float2* __restrict__ tw) {
+  const int F = (1 << lh) + 1;
+  for (int idx = threadIdx.x; idx < nf * F; idx += THREADS) {
+    const int f = idx / F;
+    const int k = idx - f * F;
+    out[idx] = real_bin(z, f << lh, k, lh, tw);
+  }
 }
 
 }  // namespace rfft

@@ -35,10 +35,11 @@
 //     into hop complex values, runs the Stockham passes in shared memory,
 //     and writes every frame's F bins with coalesced 8-byte stores straight
 //     into [C, B*T, F].  Window and twiddles come in one operand made on
-//     the host in float64 (kernels/stft_fused.py, fft_operand).
-//   * From blocks, any other frame with hop % 16 == 0 (--set
-//     stft.frame_len=640, say), and the planes entry point (the block
-//     step's analysis, kernel 5): the register-tiled SGEMM body of
+//     the host in float64 (kernels/fft.py, fft_operand).
+//   * Planes, power-of-two frames: fft_rows.cu's strided-rows FFT, on the
+//     same rfft.cuh packing, passes and store (the wrapper launches it).
+//   * Both entry points, any other frame with hop % 16 == 0 (--set
+//     stft.frame_len=640, say): the register-tiled SGEMM body of
 //     gemm_rows.cuh (128x128 output tiles, 8x8 fp32 FMA accumulators per
 //     thread, K = 2*hop in 16-deep slices) with its A operand gathered on
 //     the fly: each thread resolves its A row's two slab pointers once,
@@ -146,30 +147,20 @@ __global__ void __launch_bounds__(mcax::rfft::THREADS) stft_fft_blocks_kernel(
     const float* src = slab[i];
     if (src == nullptr) continue;
     const float4 x = __ldg(reinterpret_cast<const float4*>(src) + u);
-    if (i >= 1) {
-      const float4 w = __ldg(reinterpret_cast<const float4*>(win + hop) + u);
-      const int e = ((i - 1) << lh) + (hop >> 1) + 2 * u;
-      buf[pad(e)] = make_float2(w.x * x.x, w.y * x.y);
-      buf[pad(e + 1)] = make_float2(w.z * x.z, w.w * x.w);
-    }
-    if (i < fr && slab[i + 1] != nullptr) {
-      const float4 w = __ldg(reinterpret_cast<const float4*>(win) + u);
-      const int e = (i << lh) + 2 * u;
-      buf[pad(e)] = make_float2(w.x * x.x, w.y * x.y);
-      buf[pad(e + 1)] = make_float2(w.z * x.z, w.w * x.w);
-    }
+    if (i >= 1)
+      pack4(buf, ((i - 1) << lh) + (hop >> 1) + 2 * u,
+            __ldg(reinterpret_cast<const float4*>(win + hop) + u), x);
+    if (i < fr && slab[i + 1] != nullptr)
+      pack4(buf, (i << lh) + 2 * u,
+            __ldg(reinterpret_cast<const float4*>(win) + u), x);
   }
   __syncthreads();
   const float2* z = fft_frames(buf, lh, tw);
 
-  // each frame's F bins, contiguous in the output: coalesced 8-byte stores
-  const int F = hop + 1;
+  // each frame's F bins, contiguous in the output
   const long long left = M - m0;
-  const int nf = (int)(left < fr ? left : fr);
-  float2* o = out + ((long long)c * M + m0) * F;
-  for (int f = 0; f < nf; ++f)
-    for (int k = threadIdx.x; k < F; k += THREADS)
-      o[(long long)f * F + k] = real_bin(z, f << lh, k, lh, tw);
+  store_bins(z, out + ((long long)c * M + m0) * (hop + 1),
+             (int)(left < fr ? left : fr), lh, tw);
 }
 
 }  // namespace

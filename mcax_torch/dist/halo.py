@@ -69,14 +69,14 @@ def left_halo(samples_local: torch.Tensor, halo_len: int, carry: torch.Tensor,
 
 
 def stft_left_halo(samples_local: torch.Tensor, halo_len: int,
-                   carry: torch.Tensor, w2: torch.Tensor, hop: int,
-                   mesh: Mesh, axis: str = TIME_AXIS,
+                   carry: torch.Tensor, w2: torch.Tensor, op: torch.Tensor,
+                   hop: int, mesh: Mesh, axis: str = TIME_AXIS,
                    impl: str = "ppermute") -> torch.Tensor:
     """Halo exchange + STFT: complex64 spectra [..., T, F] of the
-    halo-extended signal (``frames.stft.stft`` with the analysis operand
-    ``w2``)."""
+    halo-extended signal (``frames.stft.stft`` with the analysis operands
+    ``w2`` and ``op``)."""
     return stft_mod.stft(left_halo(samples_local, halo_len, carry, mesh,
-                                   axis, impl), w2, hop)
+                                   axis, impl), w2, op, hop)
 
 
 def ola_tail_exchange(full_local: torch.Tensor, out_len: int,

@@ -213,7 +213,8 @@ class ShardedPipeline:
         hop = self.cfg.stft.hop
         lh = self.cfg.stft.frame_len - hop
         local = halo_mod.stft_left_halo(flat, lh, carry_local, self._pipe._w2,
-                                        hop, self.mesh, impl=self.halo)
+                                        self._pipe._fft_op, hop, self.mesh,
+                                        impl=self.halo)
         return coll.gather(local, self.mesh, CHANNEL_AXIS, dim=0)
 
     def _srp_power(self, spectra: torch.Tensor) -> torch.Tensor:

@@ -2,13 +2,15 @@
 ``mcax/frames/stft.py``.
 
 At the ratio-2 overlap (frame = 2*hop, every shipped config) ``stft`` is
-the fused analysis kernel of ``kernels/stft_fused.py`` (``stft_fused_planes``:
+the fused analysis of ``kernels/stft_fused.py`` (``stft_fused_planes``:
 frames gathered on the fly, never materialised), under the reference's own
-condition; at any other overlap it is the real-DFT kernel of
-``kernels/fft.py`` (``rdft_rows``), which cuts the frames from the signal on
-the fly too.  The batched pipeline's analysis at frame = 2*hop reads the
-blocked input directly (``stft_fused_from_blocks``) and does not go through
-here.  ``istft_frames`` is the inverse-DFT kernel (``irdft_rows``).
+condition; at any other overlap it is the real DFT of ``kernels/fft.py``
+(``rdft_rows``), which cuts the frames from the signal on the fly too.  On
+the card both take the same strided-rows FFT kernel for power-of-two
+frames (``fft_operand``) and a DFT-as-GEMM kernel (``w2``) otherwise.  The
+batched pipeline's analysis at frame = 2*hop reads the blocked input
+directly (``stft_fused_from_blocks``) and does not go through here.
+``istft_frames`` is the inverse-DFT kernel (``irdft_rows``).
 """
 
 from __future__ import annotations
@@ -42,7 +44,8 @@ def frame_signal(x: torch.Tensor, frame_len: int, hop: int) -> torch.Tensor:
     return x.unfold(-1, frame_len, hop).contiguous()
 
 
-def stft(x: torch.Tensor, w2: torch.Tensor, hop: int) -> torch.Tensor:
+def stft(x: torch.Tensor, w2: torch.Tensor, op: torch.Tensor,
+         hop: int) -> torch.Tensor:
     """Windowed short-time spectra of a block.
 
     Args:
@@ -50,6 +53,7 @@ def stft(x: torch.Tensor, w2: torch.Tensor, hop: int) -> torch.Tensor:
       w2: interleaved windowed DFT matrix [L, >= 2F]
         (``kernels.fft.analysis_matrix``; the kernel's operand,
         ``stft_fused.analysis_matrix``, on a CUDA device).
+      op: [3L] float32 window and twiddles (``kernels.fft.fft_operand``).
       hop: frame advance.
     Returns:
       complex64 spectra [..., T, F], F = L//2 + 1.
@@ -57,8 +61,8 @@ def stft(x: torch.Tensor, w2: torch.Tensor, hop: int) -> torch.Tensor:
     n = w2.shape[0]
     if (n == 2 * hop and num_frames(x.shape[-1], n, hop) > 0
             and x.shape[-1] % hop == 0):
-        return stft_fused.stft_fused_planes(x, w2, hop)
-    return kfft.rdft_rows(x, w2, hop)
+        return stft_fused.stft_fused_planes(x, w2, op, hop)
+    return kfft.rdft_rows(x, w2, op, hop)
 
 
 def istft_frames(spectra: torch.Tensor, a2: torch.Tensor) -> torch.Tensor:

@@ -31,7 +31,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("stft_fused.cu", "srp_fused.cu", "covprefix.cu", "mvdrsolve.cu",
-           "cps.cu", "dft.cu", "steer.cu", "halo_rdma.cu")
+           "cps.cu", "dft.cu", "fft_rows.cu", "steer.cu", "halo_rdma.cu")
 HEADERS = ("common.cuh", "gemm_rows.cuh", "gemm_tc.cuh", "rfft.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -65,6 +65,8 @@ SIGNATURES = {
     "mcax_cps_phat": (_P, _P, _P, _L, _F, _P),
     # x, w2, out, rows, N, hop, T, L, F, ldw, vec, stream
     "mcax_rdft_rows": (_P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I, _P),
+    # x, op (window, twiddles), out, rows, N, hop, T, L, vec, stream
+    "mcax_fft_rows": (_P, _P, _P, _L, _L, _L, _L, _I, _I, _P),
     # y, a2, out, rows, F, N, lda, stream
     "mcax_irdft_rows": (_P, _P, _P, _L, _I, _I, _I, _P),
     # cps, b2, scratch (or NULL), out, M, K, G, ldb, splits, chunk, stream

@@ -9,27 +9,31 @@ complex64 (forward) or whose complex64 input is read as floats (inverse):
   * analysis  W2 [N, 2F]: column 2f = Re, 2f+1 = Im of bin f;
   * synthesis A2 [2F, N]: row 2k = Ar[k], row 2k+1 = Ai[k].
 
-Two kernels carry them (``csrc/dft.cu``, on the GEMM body the STFT kernels
-share), the counterparts of the reference's Pallas ``_rdft_pallas`` and
-``_irdft_pallas``:
+Two wrappers carry them, the counterparts of the reference's Pallas
+``_rdft_pallas`` and ``_irdft_pallas``:
 
   * ``rdft_rows`` — the windowed real DFT of frame rows cut from a signal
     on the fly (or of a materialised frame tensor): ``rfft`` and the STFT
-    of any overlap other than frame = 2*hop;
-  * ``irdft_rows`` — the inverse real DFT with the synthesis window: every
-    synthesis chain's ``istft_frames`` and GCC's lag correlation.
+    of any overlap other than frame = 2*hop.  The frame picks the kernel
+    (``frame_route``): a shared-memory real FFT (``csrc/fft_rows.cu`` on
+    ``csrc/rfft.cuh``), which reads the window and its twiddles from
+    ``fft_operand``, for power-of-two frames of 32 to 4096, and the
+    DFT-as-GEMM kernel (``csrc/dft.cu``) with ``w2`` for any other frame;
+  * ``irdft_rows`` — the inverse real DFT with the synthesis window
+    (``csrc/dft.cu``): every synthesis chain's ``istft_frames`` and GCC's
+    lag correlation.
 
-Each wrapper launches its kernel on CUDA tensors and runs its plain version
-(one fp32 ``torch.matmul`` on the same matrix) on CPU tensors.  The kernels
-read their matrix in whole 16-row x 128-column tiles, so the builders pad
-it to them at plan time and return it as a view of the zero-padded buffer,
-of the shape the plain versions read.
+Each wrapper launches a kernel on CUDA tensors and runs its plain version
+(one fp32 ``torch.matmul`` on the same matrix) on CPU tensors.  The GEMM
+kernels read their matrix in whole 16-row x 128-column tiles, so the
+builders pad it to them at plan time and return it as a view of the
+zero-padded buffer, of the shape the plain versions read.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +45,8 @@ from mcax_torch.kernels import dispatch
 # the K slice.  A kernel's matrix operand is readable in whole tiles.
 BN = 128
 BK = 16
+# The FFT kernel's frames (csrc/rfft.cuh): powers of two, 32 .. 4096.
+FFT_FRAMES = tuple(1 << i for i in range(5, 13))
 
 
 def _fwd_matrices(n: int, f_pad: int, window: Optional[np.ndarray] = None):
@@ -144,6 +150,85 @@ def check_operand(name: str, m: torch.Tensor, k: int, ncol: int) -> None:
                          "(build it with pad_to_tiles)")
 
 
+def fft_operand(n: int, window, device: torch.device) -> torch.Tensor:
+    """The FFT kernels' operand, float32 [3n] on ``device``: the analysis
+    window [n], then the twiddles e^{-2 pi j k / n} for k < n as (re, im)
+    pairs, computed in float64 and stored in fp32."""
+    k = np.arange(n, dtype=np.float64)
+    ang = -2.0 * np.pi * k / n
+    tw = np.stack([np.cos(ang), np.sin(ang)], axis=-1).reshape(-1)
+    win = np.asarray(window, np.float64).reshape(n)
+    op = np.concatenate([win, tw]).astype(np.float32)
+    return torch.from_numpy(op).to(device)
+
+
+def fft_passes(h: int) -> List[Tuple[int, int]]:
+    """The FFT kernels' Stockham schedule for an h-point complex FFT: the
+    (radix, Ns) of each pass, one radix-2 or radix-4 pass first when log2 h
+    is not a multiple of 3, then radix-8 passes (csrc/rfft.cuh,
+    fft_frames)."""
+    lh = h.bit_length() - 1
+    passes, ns = [], 1
+    if lh % 3:
+        passes.append((1 << (lh % 3), 1))
+        ns = 1 << (lh % 3)
+    while ns < h:
+        passes.append((8, ns))
+        ns *= 8
+    return passes
+
+
+def frame_route(n: int) -> str:
+    """The kernel a frame of n samples takes, chosen by shape before the
+    launch (not a fallback: a failed launch raises): ``"fft"`` for a power
+    of two in FFT_FRAMES, ``"gemm"`` (a DFT as a GEMM) for any other
+    length; raises for n < 1.  ``rdft_rows`` and ``stft_fused``'s two
+    wrappers all route by it."""
+    if n in FFT_FRAMES:
+        return "fft"
+    if n >= 1:
+        return "gemm"
+    raise ValueError(f"a frame has at least one sample, got {n}")
+
+
+def check_fft_operand(op: torch.Tensor, n: int) -> None:
+    """Raise unless ``op`` is a 1-D operand of a frame of n (3n floats)."""
+    if op.ndim != 1 or op.shape[0] != 3 * n:
+        raise ValueError(f"op must be [{3 * n}] (fft_operand), got "
+                         f"{list(op.shape)}")
+
+
+def fft_rows(x: torch.Tensor, op: torch.Tensor, n: int, hop: int, t: int
+             ) -> torch.Tensor:
+    """The FFT kernel on CUDA tensors (``csrc/fft_rows.cu``): complex64
+    [..., t, n/2 + 1], frame t' of each signal x[..., :] at t' * hop, n in
+    FFT_FRAMES.  It launches unless the output is empty, and counts
+    nothing: each wrapper that calls it counts its own launch."""
+    if n not in FFT_FRAMES:
+        raise ValueError(f"the FFT kernel takes a frame in {FFT_FRAMES}, "
+                         f"got {n}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"x: expected torch.float32, got {x.dtype}")
+    _build.check_tensor("op", op, torch.float32, (3 * n,))
+    x = x.contiguous()
+    big_n = x.shape[-1]
+    if t < 0 or (t and (t - 1) * hop + n > big_n):
+        raise ValueError(f"{t} frames of {n} at hop {hop} do not fit in "
+                         f"{big_n} samples")
+    f = n // 2 + 1
+    out = torch.empty((*x.shape[:-1], t, f), dtype=torch.complex64,
+                      device=x.device)
+    rows = math.prod(x.shape[:-1]) * t
+    if rows == 0:
+        return out
+    vec = x.data_ptr() % 16 == 0 and big_n % 4 == 0 and hop % 4 == 0
+    code = _build.library().mcax_fft_rows(
+        x.data_ptr(), op.data_ptr(), out.data_ptr(), rows, big_n, hop, t, n,
+        int(vec), _build.stream_of(x))
+    _build.check_launch("fft_rows", code)
+    return out
+
+
 def rdft_rows_plain(x: torch.Tensor, w2: torch.Tensor,
                     hop: int) -> torch.Tensor:
     """Plain PyTorch version: the frames cut out, one fp32 matmul."""
@@ -157,13 +242,20 @@ def rdft_rows_plain(x: torch.Tensor, w2: torch.Tensor,
     return torch.view_as_complex(y.view(*y.shape[:-1], f, 2))
 
 
-def rdft_rows(x: torch.Tensor, w2: torch.Tensor, hop: int) -> torch.Tensor:
+def rdft_rows(x: torch.Tensor, w2: torch.Tensor, op: torch.Tensor,
+              hop: int) -> torch.Tensor:
     """Windowed real DFT of the frames of a signal, cut on the fly.
+
+    On CUDA tensors the frame picks the kernel (``frame_route``): the
+    shared-memory FFT, which reads ``op``, for a power-of-two frame from 32
+    to 4096, the DFT-as-GEMM kernel, which reads ``w2``, for any other.
+    Both count in ``LAUNCHES``.
 
     Args:
       x: float32 [..., N].
       w2: interleaved windowed DFT matrix [L, >= 2F] (``analysis_matrix``);
         L is the frame length and may be any length.
+      op: [3L] float32 window and twiddles (``fft_operand``).
       hop: frame advance; hop = L with N = L is a plain row-wise DFT.
     Returns:
       complex64 [..., T, F], T = (N - L) // hop + 1 complete frames.
@@ -173,14 +265,37 @@ def rdft_rows(x: torch.Tensor, w2: torch.Tensor, hop: int) -> torch.Tensor:
     if w2.ndim != 2 or w2.shape[1] < 2 * f or x.ndim < 1 or hop < 1:
         raise ValueError(f"expected x [..., N], w2 [L, >= 2F] and hop >= 1, "
                          f"got {list(x.shape)}, {list(w2.shape)}, {hop}")
-    if not dispatch.use_kernel(x, w2):
+    check_fft_operand(op, n)
+    if not dispatch.use_kernel(x, w2, op):
         return rdft_rows_plain(x, w2, hop)
+    if frame_route(n) == "fft":
+        return _launch_fft(x, op, n, hop)
+    return _launch_gemm(x, w2, hop)
+
+
+def _frames(x: torch.Tensor, n: int, hop: int) -> int:
+    return (x.shape[-1] - n) // hop + 1 if x.shape[-1] >= n else 0
+
+
+def _launch_fft(x: torch.Tensor, op: torch.Tensor, n: int,
+                hop: int) -> torch.Tensor:
+    """The FFT kernel on CUDA tensors (n in FFT_FRAMES)."""
+    out = fft_rows(x, op, n, hop, _frames(x, n, hop))
+    if out.numel():
+        rdft_rows.LAUNCHES += 1
+    return out
+
+
+def _launch_gemm(x: torch.Tensor, w2: torch.Tensor, hop: int) -> torch.Tensor:
+    """The DFT-as-GEMM kernel on CUDA tensors (any frame)."""
+    n = w2.shape[0]
+    f = n // 2 + 1
     if x.dtype != torch.float32:
         raise TypeError(f"x: expected torch.float32, got {x.dtype}")
     check_operand("w2", w2, n, 2 * f)
     x = x.contiguous()
     big_n = x.shape[-1]
-    t = (big_n - n) // hop + 1 if big_n >= n else 0
+    t = _frames(x, n, hop)
     lead = x.shape[:-1]
     out = torch.empty((*lead, t, f), dtype=torch.complex64, device=x.device)
     rows = math.prod(lead) * t
@@ -242,13 +357,15 @@ def irdft_rows(y: torch.Tensor, a2: torch.Tensor) -> torch.Tensor:
 irdft_rows.LAUNCHES = 0
 
 
-def rfft(x: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+def rfft(x: torch.Tensor, w2: torch.Tensor, op: torch.Tensor
+         ) -> torch.Tensor:
     """Real DFT over the last axis: [..., N] float32 -> [..., F] complex64,
-    with the window folded into ``w2`` (``analysis_matrix``)."""
+    with the window folded into ``w2`` (``analysis_matrix``) and carried
+    by ``op`` (``fft_operand``)."""
     n = x.shape[-1]
     if w2.shape[0] != n:
         raise ValueError(f"w2 has {w2.shape[0]} rows for frames of {n}")
-    return rdft_rows(x, w2, n)[..., 0, :]
+    return rdft_rows(x, w2, op, n)[..., 0, :]
 
 
 def irfft(y: torch.Tensor, a2: torch.Tensor) -> torch.Tensor:

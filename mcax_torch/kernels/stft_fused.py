@@ -10,15 +10,16 @@ so the spectra follow without building the frame tensor:
   * ``stft_fused_planes`` — a contiguous signal [..., N] (the block step's
     carry + block): frame t is [slab t | slab t+1].
 
-Each wrapper launches a hand-written kernel (``csrc/stft_fused.cu``) on
-CUDA tensors and runs its plain version on CPU tensors: ``*_plain`` cuts
-the frames and does one fp32 matmul with the same matrix
-(``kfft.rdft_rows_plain``).  ``stft_fused_from_blocks`` takes one of two
-kernels by the frame's length (``stft_route``): a shared-memory real FFT
+Each wrapper launches a hand-written kernel on CUDA tensors and runs its
+plain version on CPU tensors: ``*_plain`` cuts the frames and does one fp32
+matmul with the same matrix (``kfft.rdft_rows_plain``).  Each takes one of
+two kernels by the frame's length (``stft_route``): a shared-memory real FFT
 (``csrc/rfft.cuh``) for power-of-two frames, which reads the window and its
-twiddles from ``fft_operand``, and the DFT-as-GEMM body of
-``csrc/gemm_rows.cuh`` with ``w2`` for any other frame; ``stft_fused_planes``
-is on the GEMM body.
+twiddles from ``kfft.fft_operand``, and the DFT-as-GEMM body of
+``csrc/gemm_rows.cuh`` with ``w2`` for any other frame.  From blocks, both
+are in ``csrc/stft_fused.cu``; the planes' FFT is the strided-rows FFT of
+``csrc/fft_rows.cu`` that ``kfft.rdft_rows`` launches too, their GEMM
+``csrc/stft_fused.cu``'s.
 
 The port returns complex64 spectra [C, B*T, F] where ``mcax`` returns two
 float planes: the kernel writes (re, im) interleaved, which is complex64's
@@ -27,9 +28,8 @@ own layout, and the SRP and covariance kernels read it as such.
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Tuple
 
-import numpy as np
 import torch
 
 from mcax_torch.kernels import _build
@@ -42,7 +42,7 @@ from mcax_torch.kernels import fft as kfft
 BN = kfft.BN
 BK = kfft.BK
 # The FFT route's frames (csrc/rfft.cuh): powers of two, hop 16 .. 2048.
-FFT_HOPS = tuple(1 << i for i in range(4, 12))
+FFT_HOPS = tuple(n // 2 for n in kfft.FFT_FRAMES)
 
 
 def analysis_matrix(n: int, window, device: torch.device) -> torch.Tensor:
@@ -51,41 +51,13 @@ def analysis_matrix(n: int, window, device: torch.device) -> torch.Tensor:
     return kfft.analysis_matrix(n, window, device, col_align=BN)
 
 
-def fft_operand(n: int, window, device: torch.device) -> torch.Tensor:
-    """The FFT route's operand, float32 [3n] on ``device``: the analysis
-    window [n], then the twiddles e^{-2 pi j k / n} for k < n as (re, im)
-    pairs, computed in float64 and stored in fp32."""
-    k = np.arange(n, dtype=np.float64)
-    ang = -2.0 * np.pi * k / n
-    tw = np.stack([np.cos(ang), np.sin(ang)], axis=-1).reshape(-1)
-    win = np.asarray(window, np.float64).reshape(n)
-    op = np.concatenate([win, tw]).astype(np.float32)
-    return torch.from_numpy(op).to(device)
-
-
-def fft_passes(h: int) -> List[Tuple[int, int]]:
-    """The FFT kernel's Stockham schedule for an h-point complex FFT: the
-    (radix, Ns) of each pass, one radix-2 or radix-4 pass first when log2 h
-    is not a multiple of 3, then radix-8 passes (csrc/rfft.cuh,
-    fft_frames)."""
-    lh = h.bit_length() - 1
-    passes, ns = [], 1
-    if lh % 3:
-        passes.append((1 << (lh % 3), 1))
-        ns = 1 << (lh % 3)
-    while ns < h:
-        passes.append((8, ns))
-        ns *= 8
-    return passes
-
-
 def stft_route(hop: int) -> str:
-    """The kernel ``stft_fused_from_blocks`` launches for frame = 2*hop,
-    chosen by shape before the launch (not a fallback: a failed launch
-    raises): ``"fft"`` (``_launch_fft``) for a power-of-two hop in
-    FFT_HOPS (frames 32 to 4096), ``"gemm"`` (``_launch_gemm``) for any
-    other hop that is a multiple of BK; raises for the rest."""
-    if hop in FFT_HOPS:
+    """The kernel ``stft_fused_from_blocks`` and ``stft_fused_planes``
+    launch for frame = 2*hop, chosen by shape before the launch (not a
+    fallback: a failed launch raises) by ``kfft.frame_route``: ``"fft"``
+    for a power-of-two hop in FFT_HOPS (frames 32 to 4096), ``"gemm"`` for
+    any other hop that is a multiple of BK; raises for the rest."""
+    if hop > 0 and kfft.frame_route(2 * hop) == "fft":
         return "fft"
     if hop > 0 and hop % BK == 0:
         return "gemm"
@@ -136,15 +108,13 @@ def stft_fused_from_blocks(samples: torch.Tensor, carry: torch.Tensor,
       samples: [B, C, L] float32, L % hop == 0.
       carry: [C, hop] float32, the previous dispatch's last hop.
       w2: [2*hop, ldw] float32 windowed DFT operand (``analysis_matrix``).
-      op: [3 * 2*hop] float32 window and twiddles (``fft_operand``).
+      op: [3 * 2*hop] float32 window and twiddles (``kfft.fft_operand``).
       hop: frame advance; the frame is 2*hop.
     Returns:
       (spectra complex64 [C, B*L/hop, F], new_carry [C, hop]).
     """
     _shape(samples, carry, w2, hop)
-    if op.ndim != 1 or op.shape[0] != 6 * hop:
-        raise ValueError(f"op must be [{6 * hop}] (fft_operand), got "
-                         f"{list(op.shape)}")
+    kfft.check_fft_operand(op, 2 * hop)
     # the new carry is the last block's last hop: a copy, bit-equal, that
     # does not alias the caller's input buffer
     new_carry = samples[-1, :, samples.shape[-1] - hop:].clone()
@@ -205,16 +175,22 @@ def _launch_gemm(samples: torch.Tensor, carry: torch.Tensor, w2: torch.Tensor,
     return out
 
 
-def _planes_shape(x: torch.Tensor, w2: torch.Tensor, hop: int):
+def _planes_frames(x: torch.Tensor, hop: int):
+    """(N, T) of a contiguous signal x [..., N]: T = N/hop - 1 frames."""
     n = x.shape[-1] if x.ndim else 0
     if x.ndim < 1 or n % hop or n < 2 * hop:
         raise ValueError(f"x must be [..., N] with N % {hop} == 0 and N >= "
                          f"{2 * hop}, got {list(x.shape)}")
+    return n, n // hop - 1
+
+
+def _planes_shape(x: torch.Tensor, w2: torch.Tensor, hop: int):
+    n, t = _planes_frames(x, hop)
     f = hop + 1
     if w2.shape[0] != 2 * hop or w2.shape[1] < 2 * f:
         raise ValueError(f"w2 must be [{2 * hop}, >= {2 * f}], got "
                          f"{list(w2.shape)}")
-    return n, n // hop - 1, f
+    return n, t, f
 
 
 def stft_fused_planes_plain(x: torch.Tensor, w2: torch.Tensor,
@@ -224,22 +200,52 @@ def stft_fused_planes_plain(x: torch.Tensor, w2: torch.Tensor,
     return kfft.rdft_rows_plain(x, w2, hop)
 
 
-def stft_fused_planes(x: torch.Tensor, w2: torch.Tensor,
+def stft_fused_planes(x: torch.Tensor, w2: torch.Tensor, op: torch.Tensor,
                       hop: int) -> torch.Tensor:
     """Spectra of a contiguous signal, frame = 2*hop, no padding.
+
+    On CUDA tensors the frame picks the kernel (``stft_route``): the
+    strided-rows FFT (``kfft.fft_rows``), which reads ``op``, for a
+    power-of-two hop from 16 to 2048, the DFT-as-GEMM kernel, which reads
+    ``w2``, for any other hop that is a multiple of 16.  Both count in
+    ``LAUNCHES``.
 
     Args:
       x: [..., N] float32, N % hop == 0.
       w2: [2*hop, ldw] float32 windowed DFT operand (``analysis_matrix``).
+      op: [3 * 2*hop] float32 window and twiddles (``kfft.fft_operand``).
       hop: frame advance.
     Returns:
       complex64 [..., N/hop - 1, F].
     """
-    n, t, f = _planes_shape(x, w2, hop)
-    if not dispatch.use_kernel(x, w2):
+    _planes_shape(x, w2, hop)
+    kfft.check_fft_operand(op, 2 * hop)
+    if not dispatch.use_kernel(x, w2, op):
         return stft_fused_planes_plain(x, w2, hop)
+    if stft_route(hop) == "fft":
+        return _launch_planes_fft(x, op, hop)
+    return _launch_planes_gemm(x, w2, hop)
+
+
+stft_fused_planes.LAUNCHES = 0
+
+
+def _launch_planes_fft(x: torch.Tensor, op: torch.Tensor,
+                       hop: int) -> torch.Tensor:
+    """The strided-rows FFT kernel on CUDA tensors (hop in FFT_HOPS)."""
+    _, t = _planes_frames(x, hop)
+    out = kfft.fft_rows(x, op, 2 * hop, hop, t)
+    if out.numel():
+        stft_fused_planes.LAUNCHES += 1
+    return out
+
+
+def _launch_planes_gemm(x: torch.Tensor, w2: torch.Tensor,
+                        hop: int) -> torch.Tensor:
+    """The DFT-as-GEMM kernel on CUDA tensors (any hop % BK == 0)."""
+    n, t, f = _planes_shape(x, w2, hop)
     if hop % BK:
-        raise ValueError(f"the STFT kernel needs hop % {BK} == 0, got {hop}")
+        raise ValueError(f"the GEMM kernel needs hop % {BK} == 0, got {hop}")
     if w2.shape[1] % BN:
         raise ValueError(f"w2's row length must be a multiple of {BN} "
                          "(use stft_fused.analysis_matrix)")
@@ -257,6 +263,3 @@ def stft_fused_planes(x: torch.Tensor, w2: torch.Tensor,
     _build.check_launch("stft_planes", code)
     stft_fused_planes.LAUNCHES += 1
     return out
-
-
-stft_fused_planes.LAUNCHES = 0

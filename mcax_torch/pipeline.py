@@ -130,10 +130,9 @@ class Pipeline:
         # the DFT kernels read their matrices padded to whole tiles
         self._w2 = stft_fused.analysis_matrix(s.frame_len, self.win_a,
                                               self.device)
-        # the blocks-native analysis's FFT route reads the window and its
-        # twiddles instead (kernels/stft_fused.py, stft_route)
-        self._fft_op = stft_fused.fft_operand(s.frame_len, self.win_a,
-                                              self.device)
+        # the analysis kernels' FFT route reads the window and its twiddles
+        # instead (kernels/fft.py, frame_route)
+        self._fft_op = kfft.fft_operand(s.frame_len, self.win_a, self.device)
         self._a2 = (kfft.synthesis_matrix(s.frame_len, self.win_s,
                                           self.device)
                     if algo in _SYNTH_ALGOS else None)
@@ -221,7 +220,8 @@ class Pipeline:
         x = torch.cat([state.carry.transpose(0, 1),
                        samples.transpose(0, 1)], dim=-1)
         new_carry = x[..., t * hop:].transpose(0, 1).contiguous()
-        spectra_cs = stft_mod.stft(x, self._w2, hop)       # [C, S, T, F]
+        spectra_cs = stft_mod.stft(x, self._w2, self._fft_op,
+                                   hop)                    # [C, S, T, F]
         spectra = spectra_cs.transpose(0, 1)               # [S, C, T, F]
 
         algo = cfg.algo.name
@@ -380,7 +380,8 @@ class Pipeline:
             flat = samples.permute(1, 0, 2).reshape(c, b * block_len)
             x = torch.cat([state.carry, flat], dim=-1)
             new_carry = x[:, bt * hop:].clone()
-            spectra = stft_mod.stft(x, self._w2, hop)      # [C, B*T, F]
+            spectra = stft_mod.stft(x, self._w2, self._fft_op,
+                                    hop)                   # [C, B*T, F]
         algo = cfg.algo.name
         a = cfg.algo
 

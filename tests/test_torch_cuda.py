@@ -13,7 +13,12 @@ grid points that are not tile multiples, odd bin counts, other channel
 counts for the covariance prefixes, several sources, a zero seed
 covariance, signals of one or many rows, element counts that are not a
 multiple of the block, frame lengths and hops that break the DFT kernel's
-vector loads, an odd inverse-DFT width; the MVDR solve at C = 16; the
+vector loads, an odd inverse-DFT width; both routes of each analysis
+kernel (the FFT for power-of-two frames, checked to be the one launched,
+and the GEMM for others), the FFT over strided rows at config4's S = 64
+step, config3's hop 128, hop = L, an unaligned hop, hop > L and sharded
+1 x 1's long signal, and kernel 5's FFT equal to kernel 1's on the same
+frames; the MVDR solve at C = 16; the
 materialised-CPS SRP (kernel 10) at ragged sizes and at config4's (B = 512
 and one block); each streaming entry point on the card against the CPU;
 ShardedPipeline on a 1 x 1 mesh against Pipeline; the halo ring (kernel
@@ -91,7 +96,7 @@ def test_stft_from_blocks(dev, b, c, hop, tprime, route):
         (c, hop)).astype(np.float32)).to(dev)
     win = t_window.sqrt_hann(2 * hop)
     w2 = stft_fused.analysis_matrix(2 * hop, win, dev)
-    op = stft_fused.fft_operand(2 * hop, win, dev)
+    op = fft.fft_operand(2 * hop, win, dev)
     before = stft_fused.stft_fused_from_blocks.LAUNCHES
     got, new_carry = stft_fused.stft_fused_from_blocks(samples, carry, w2, op,
                                                        hop)
@@ -161,24 +166,58 @@ def test_mvdr_solve(dev, b, f, c, s):
                                rtol=0)
 
 
-@pytest.mark.parametrize("lead,hop,nslab", [
-    ((8,), 512, 25),     # a config4 block: carry + 24 slabs
-    ((3, 2), 256, 17),   # config1/3's frame, two leading axes
-    ((), 16, 2),         # one frame of the smallest hop
+@pytest.mark.parametrize("lead,hop,nslab,route", [
+    ((8, 64), 512, 25, "fft"),    # config4's S = 64 step: carry + 24 slabs
+    ((8,), 512, 25, "fft"),       # a config4 block
+    ((8,), 512, 769, "fft"),      # sharded 1 x 1's signal at B = 32
+    ((3, 2), 256, 17, "fft"),     # config1/3's frame, two leading axes
+    ((5,), 2048, 4, "fft"),       # the largest FFT: 1 frame a run
+    ((), 16, 2, "fft"),           # one frame of the smallest hop
+    ((70000,), 16, 3, "fft"),     # more signals than a grid's y limit
+    ((4,), 48, 9, "gemm"),        # not a power of two: the GEMM route
+    ((2,), 320, 7, "gemm"),       # frame 640 (--set stft.frame_len=640)
 ])
-def test_stft_planes(dev, lead, hop, nslab):
+def test_stft_planes(dev, lead, hop, nslab, route):
+    assert stft_fused.stft_route(hop) == route
     rng = np.random.default_rng(4)
     x = torch.from_numpy(rng.standard_normal(
         (*lead, nslab * hop)).astype(np.float32)).to(dev)
-    w2 = stft_fused.analysis_matrix(2 * hop, t_window.hann(2 * hop), dev)
+    win = t_window.hann(2 * hop)
+    w2 = stft_fused.analysis_matrix(2 * hop, win, dev)
+    op = fft.fft_operand(2 * hop, win, dev)
     before = stft_fused.stft_fused_planes.LAUNCHES
-    got = stft_fused.stft_fused_planes(x, w2, hop)
+    got = stft_fused.stft_fused_planes(x, w2, op, hop)
     assert stft_fused.stft_fused_planes.LAUNCHES == before + 1
+    # the route's own launcher gives the same bits: the wrapper took it
+    again = (stft_fused._launch_planes_fft(x, op, hop) if route == "fft"
+             else stft_fused._launch_planes_gemm(x, w2, hop))
+    assert torch.equal(got, again)
     want = stft_fused.stft_fused_planes_plain(x, w2, hop)
     scale = torch.view_as_real(want).abs().max()
     torch.testing.assert_close(torch.view_as_real(got) / scale,
                                torch.view_as_real(want) / scale,
                                atol=3e-6, rtol=0)
+
+
+@pytest.mark.parametrize("b,c,hop", [(16, 8, 512), (5, 3, 256), (3, 2, 64)])
+def test_planes_fft_equals_blocks_fft(dev, b, c, hop):
+    """Kernel 5's FFT on the contiguous stream [carry | blocks] against
+    kernel 1's FFT on the blocks: one packing and one FFT, so within 1e-6
+    of the largest bin (bit-equal by design)."""
+    rng = np.random.default_rng(9)
+    samples = torch.from_numpy(rng.standard_normal(
+        (b, c, 24 * hop)).astype(np.float32)).to(dev)
+    carry = torch.from_numpy(rng.standard_normal(
+        (c, hop)).astype(np.float32)).to(dev)
+    win = t_window.sqrt_hann(2 * hop)
+    w2 = stft_fused.analysis_matrix(2 * hop, win, dev)
+    op = fft.fft_operand(2 * hop, win, dev)
+    blocks, _ = stft_fused.stft_fused_from_blocks(samples, carry, w2, op, hop)
+    stream = torch.cat([carry, samples.permute(1, 0, 2).reshape(c, -1)], -1)
+    planes = stft_fused.stft_fused_planes(stream, w2, op, hop)
+    scale = torch.view_as_real(blocks).abs().max()
+    err = torch.view_as_real(planes - blocks).abs().max()
+    assert err <= 1e-6 * scale
 
 
 @pytest.mark.parametrize("b,f,c,s", [(1, 513, 8, 0), (64, 513, 8, 0),
@@ -221,20 +260,31 @@ def test_cps_phat(dev, shape):
                                atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("lead,n,hop,nsig", [
-    ((8,), 512, 128, 4480),    # config3 at hop 128: a block step's signal
-    ((37,), 1536, 1536, 1536), # materialised frames (hop = L), 37 rows
-    ((2, 3), 300, 100, 2500),  # L not a multiple of 16: the K tail
-    ((3,), 512, 130, 4099),    # unaligned row starts: scalar loads
+@pytest.mark.parametrize("lead,n,hop,nsig,route", [
+    ((8,), 512, 128, 4480, "fft"),     # config3 at hop 128: a block step
+    ((8,), 512, 128, 384 + 512 * 4096, "fft"),   # ... and B = 512 bulk
+    ((37,), 512, 512, 512, "fft"),     # materialised frames (hop = L)
+    ((3,), 512, 130, 4099, "fft"),     # unaligned row starts: scalar loads
+    ((2,), 256, 300, 2000, "fft"),     # hop > L: disjoint frames
+    ((1,), 32, 3, 700, "fft"),         # the smallest frame, hop 3
+    ((2,), 4096, 1024, 9000, "fft"),   # the largest frame
+    ((37,), 1536, 1536, 1536, "gemm"), # materialised frames, 37 rows
+    ((2, 3), 300, 100, 2500, "gemm"),  # L not a multiple of 16: the K tail
 ])
-def test_rdft_rows(dev, lead, n, hop, nsig):
+def test_rdft_rows(dev, lead, n, hop, nsig, route):
+    assert fft.frame_route(n) == route
     rng = np.random.default_rng(7)
     x = torch.from_numpy(rng.standard_normal(
         (*lead, nsig)).astype(np.float32)).to(dev)
-    w2 = fft.analysis_matrix(n, t_window.sqrt_hann(n), dev)
+    win = t_window.sqrt_hann(n)
+    w2 = fft.analysis_matrix(n, win, dev)
+    op = fft.fft_operand(n, win, dev)
     before = fft.rdft_rows.LAUNCHES
-    got = fft.rdft_rows(x, w2, hop)
+    got = fft.rdft_rows(x, w2, op, hop)
     assert fft.rdft_rows.LAUNCHES == before + 1
+    again = (fft._launch_fft(x, op, n, hop) if route == "fft"
+             else fft._launch_gemm(x, w2, hop))
+    assert torch.equal(got, again)
     want = fft.rdft_rows_plain(x, w2, hop)
     assert got.shape == want.shape
     scale = torch.view_as_real(want).abs().max()

@@ -41,7 +41,8 @@ def test_rfft_matches_pallas_rdft(n, windowed):
     x = np.random.default_rng(n).standard_normal((ROWS, n)).astype(np.float32)
     want = np.asarray(m_fft.rfft(x, window=win))
     w2 = t_fft.analysis_matrix(n, win, CPU, col_align=t_fft.BN)
-    got = t_fft.rfft(torch.from_numpy(x), w2)
+    op = t_fft.fft_operand(n, np.ones(n) if win is None else win, CPU)
+    got = t_fft.rfft(torch.from_numpy(x), w2, op)
     assert got.shape == want.shape == (ROWS, n // 2 + 1)
     assert got.dtype == torch.complex64
     scale = np.abs(want).max()
@@ -74,12 +75,13 @@ def test_rdft_rows_cuts_frames_on_the_fly(n, hop):
     x = torch.from_numpy(np.random.default_rng(5).standard_normal(
         (2, 3, 2500)).astype(np.float32))
     w2 = t_fft.analysis_matrix(n, t_window.hann(n), CPU, col_align=t_fft.BN)
-    got = t_fft.rdft_rows(x, w2, hop)
-    want = t_fft.rfft(t_stft.frame_signal(x, n, hop), w2)
+    op = t_fft.fft_operand(n, t_window.hann(n), CPU)
+    got = t_fft.rdft_rows(x, w2, op, hop)
+    want = t_fft.rfft(t_stft.frame_signal(x, n, hop), w2, op)
     assert got.shape == (2, 3, t_stft.num_frames(2500, n, hop), n // 2 + 1)
     torch.testing.assert_close(got, want, atol=0, rtol=0)
-    assert t_fft.rdft_rows(x[..., :n - 1], w2, hop).shape == (2, 3, 0,
-                                                              n // 2 + 1)
+    assert t_fft.rdft_rows(x[..., :n - 1], w2, op, hop).shape == (
+        2, 3, 0, n // 2 + 1)
 
 
 def test_padded_matrices_and_the_kernels_operand_check():

@@ -194,7 +194,9 @@ def _run_prim(check, s, mesh):
             return {"out": gather(out, -1).numpy()}
         win, _ = make_windows(128, 32, False)
         w2 = kfft.analysis_matrix(128, win, torch.device("cpu"))
-        out = halo.stft_left_halo(xl, carry.shape[1], carry, w2, 32, mesh)
+        op = kfft.fft_operand(128, win, torch.device("cpu"))
+        out = halo.stft_left_halo(xl, carry.shape[1], carry, w2, op, 32,
+                                  mesh)
         return {"out": gather(out, -2).numpy()}
     if check == "cov_monoid":
         spec = torch.from_numpy(inp["spec"])
@@ -540,8 +542,9 @@ def test_primitives_on_gloo(runs, check, shards):
     elif check == "stft_left_halo":
         win, _ = make_windows(128, 32, False)
         w2 = kfft.analysis_matrix(128, win, torch.device("cpu"))
+        op = kfft.fft_operand(128, win, torch.device("cpu"))
         want = t_stft.stft(torch.from_numpy(np.concatenate(
-            [inp["carry"], inp["x"]], axis=-1)), w2, 32).numpy()
+            [inp["carry"], inp["x"]], axis=-1)), w2, op, 32).numpy()
         scale = np.abs(want).max()
         np.testing.assert_allclose(got["out"] / scale, want / scale,
                                    atol=3e-6, rtol=0)

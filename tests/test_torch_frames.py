@@ -48,7 +48,8 @@ def test_stft_and_inverse_match_mcax(frame_len, hop):
     x = np.random.default_rng(1).standard_normal((2, 4096)).astype(np.float32)
     want = np.asarray(m_stft.stft(x, win, hop))
     got = t_stft.stft(torch.from_numpy(x),
-                      t_fft.analysis_matrix(frame_len, win, CPU), hop)
+                      t_fft.analysis_matrix(frame_len, win, CPU),
+                      t_fft.fft_operand(frame_len, win, CPU), hop)
     scale = np.abs(want).max()
     np.testing.assert_allclose(got.numpy() / scale, want / scale, atol=3e-6)
     frames_want = np.asarray(m_stft.istft_frames(want, win))
@@ -58,7 +59,9 @@ def test_stft_and_inverse_match_mcax(frame_len, hop):
     # the matmul-form DFT agrees with the reference's own matmul form
     np.testing.assert_allclose(
         t_fft.rfft(torch.from_numpy(x[:, :frame_len]),
-                   t_fft.analysis_matrix(frame_len, None, CPU)).numpy(),
+                   t_fft.analysis_matrix(frame_len, None, CPU),
+                   t_fft.fft_operand(frame_len, np.ones(frame_len),
+                                     CPU)).numpy(),
         np.asarray(m_fft.rfft_matmul(x[:, :frame_len])), atol=2e-4)
 
 

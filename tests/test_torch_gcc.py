@@ -118,7 +118,8 @@ def test_config1_weightings_match_mcax(weighting):
     x = helpers.array_signals(cfg.geometry(), np.deg2rad(40.0),
                               cfg.block_len * NB, seed=11)
     x = torch.cat([torch.zeros((2, cfg.stft.hop)), torch.from_numpy(x)], -1)
-    spec = t_stft.stft(x, pipe._w2, cfg.stft.hop)         # [C, M, F]
+    spec = t_stft.stft(x, pipe._w2, pipe._fft_op,
+                       cfg.stft.hop)                       # [C, M, F]
     g = t_cps.cps_weighted(spec, pipe.pairs, weighting)   # [P, M, F]
     delta = 3e-6 * spec.abs().max()
     mag = spec.abs()

@@ -21,6 +21,7 @@ from mcax_torch.algos import srp as t_srp
 from mcax_torch.frames import window as t_window
 from mcax_torch.kernels import covprefix as t_cov
 from mcax_torch.kernels import cps as t_cps
+from mcax_torch.kernels import fft as t_fft
 from mcax_torch.kernels import mvdrsolve as t_mvdr
 from mcax_torch.kernels import srp_fused as t_srp_fused
 from mcax_torch.kernels import stft_fused as t_stft
@@ -56,7 +57,7 @@ def test_stft_from_blocks_matches_mcax(b, c, hop, tprime):
     re, im = np.asarray(re), np.asarray(im)
     spec, got_carry = t_stft.stft_fused_from_blocks(
         torch.from_numpy(samples), torch.from_numpy(carry),
-        t_stft.analysis_matrix(n, win, CPU), t_stft.fft_operand(n, win, CPU),
+        t_stft.analysis_matrix(n, win, CPU), t_fft.fft_operand(n, win, CPU),
         hop)
     assert spec.shape == re.shape == (c, b * tprime, hop + 1)
     assert spec.dtype == torch.complex64
@@ -80,10 +81,10 @@ def test_stft_from_blocks_equals_concat_chain():
         rng.standard_normal((b, c, tprime * hop)).astype(np.float32))
     carry = torch.from_numpy(rng.standard_normal((c, hop)).astype(np.float32))
     w2 = t_stft.analysis_matrix(2 * hop, win, CPU)
-    op = t_stft.fft_operand(2 * hop, win, CPU)
+    op = t_fft.fft_operand(2 * hop, win, CPU)
     spec, _ = t_stft.stft_fused_from_blocks(samples, carry, w2, op, hop)
     x = torch.cat([carry, samples.permute(1, 0, 2).reshape(c, -1)], -1)
-    want = t_stft_mod.stft(x, w2, hop)
+    want = t_stft_mod.stft(x, w2, op, hop)
     torch.testing.assert_close(spec, want, atol=1e-6, rtol=1e-6)
     with pytest.raises(ValueError):
         t_stft.stft_fused_from_blocks(samples[..., :-1], carry, w2, op, hop)
@@ -254,7 +255,8 @@ def test_stft_planes_matches_mcax(lead, hop, nslab):
     re, im = jax.jit(lambda v: m_stft.stft_fused_planes(v, win, hop))(x)
     re, im = np.asarray(re), np.asarray(im)
     got = t_stft.stft_fused_planes(torch.from_numpy(x),
-                                   t_stft.analysis_matrix(n, win, CPU), hop)
+                                   t_stft.analysis_matrix(n, win, CPU),
+                                   t_fft.fft_operand(n, win, CPU), hop)
     assert got.shape == re.shape == (*lead, nslab - 1, hop + 1)
     assert got.dtype == torch.complex64
     scale = max(np.abs(re).max(), np.abs(im).max())
@@ -270,19 +272,20 @@ def test_stft_routes_ratio_two_to_the_planes_kernel():
     condition (frame = 2*hop, N % hop == 0, T > 0) and equals the generic
     framing chain; other overlaps keep the generic chain."""
     from mcax_torch.frames import stft as t_stft_mod
-    from mcax_torch.kernels import fft as t_fft
     rng = np.random.default_rng(12)
     x = torch.from_numpy(rng.standard_normal((3, 640)).astype(np.float32))
     w2 = t_stft.analysis_matrix(128, t_window.hann(128), CPU)
-    got = t_stft_mod.stft(x, w2, 64)
-    want = t_fft.rfft(t_stft_mod.frame_signal(x, 128, 64), w2)
+    op = t_fft.fft_operand(128, t_window.hann(128), CPU)
+    got = t_stft_mod.stft(x, w2, op, 64)
+    want = t_fft.rfft(t_stft_mod.frame_signal(x, 128, 64), w2, op)
     torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
-    torch.testing.assert_close(got, t_stft.stft_fused_planes(x, w2, 64),
+    torch.testing.assert_close(got, t_stft.stft_fused_planes(x, w2, op, 64),
                                atol=0, rtol=0)
     w3 = t_fft.analysis_matrix(192, t_window.hann(192), CPU)
-    assert t_stft_mod.stft(x, w3, 64).shape == (3, 8, 97)
+    op3 = t_fft.fft_operand(192, t_window.hann(192), CPU)
+    assert t_stft_mod.stft(x, w3, op3, 64).shape == (3, 8, 97)
     with pytest.raises(ValueError):
-        t_stft.stft_fused_planes(x[:, :-1], w2, 64)
+        t_stft.stft_fused_planes(x[:, :-1], w2, op, 64)
 
 
 # -- kernel 6: MVDR solve from complex covariances ---------------------------

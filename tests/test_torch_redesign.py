@@ -1,4 +1,5 @@
-"""The arithmetic of kernels 1 and 10's card designs, proven on the CPU.
+"""The arithmetic of kernels 1, 5, 8 and 10's card designs, proven on the
+CPU.
 
 The CUDA kernels run only on the card, so these tests replay each design's
 schedule in PyTorch and hold it to the kernel's plain version at the
@@ -6,11 +7,18 @@ kernel's own bound:
 
   * kernel 1 (``csrc/rfft.cuh``): the packing of a frame's windowed samples
     into half as many complex values, the radix-2/4/8 Stockham passes of
-    ``stft_fused.fft_passes`` with the twiddles of ``fft_operand`` (made in
+    ``kfft.fft_passes`` with the twiddles of ``kfft.fft_operand`` (made in
     float64 on the host, stored in fp32), and the real post-pass, against
     ``stft_fused_from_blocks_plain`` within 3e-6 of the largest bin, for
     every power-of-two frame from 32 to 4096; and the wrapper's choice of
     kernel by frame (``stft_route``);
+  * kernels 5 and 8 (``csrc/fft_rows.cu``): frames cut from contiguous
+    signals at any hop, each run of frames' stretch read once and every
+    sample scattered into the frames that hold it (each frame position
+    written exactly once; 16-byte groups never straddle a frame), then
+    the same passes and post-pass, against ``rdft_rows_plain`` within
+    3e-6 and a float64 FFT within 3e-7 of the largest bin; and kernel 1's
+    bits on the same stream;
   * kernel 10 (``csrc/gemm_tc.cuh``): 3xTF32, each operand split into big
     by ``cvt.rna.tf32.f32``'s rounding (to nearest, ties away from zero, 10
     mantissa bits) and small, the rest, truncated to TF32, and summed as small*big + big*small + big*big over the
@@ -25,6 +33,7 @@ import pytest
 import torch
 
 from mcax_torch.frames import window as t_window
+from mcax_torch.kernels import fft as kfft
 from mcax_torch.kernels import steer
 from mcax_torch.kernels import stft_fused
 
@@ -67,13 +76,20 @@ def _dft(v):
 def _fft_kernel_emulation(samples, carry, op, hop):
     """The FFT kernel's schedule in fp32: [C, B*T, F] complex64."""
     b, c, block_len = samples.shape
-    h, n = hop, 2 * hop
-    win = op[:n]
-    tw_r, tw_i = op[n:].view(n, 2).unbind(-1)
+    n = 2 * hop
     stream = torch.cat([carry, samples.permute(1, 0, 2).reshape(c, -1)], -1)
-    frames = stream.unfold(-1, n, hop) * win               # [C, M, N]
-    zr, zi = frames[..., 0::2], frames[..., 1::2]           # [C, M, H]
-    for radix, ns in stft_fused.fft_passes(h):
+    frames = stream.unfold(-1, n, hop) * op[:n]            # [C, M, N]
+    return _passes_and_bins(frames, op)
+
+
+def _passes_and_bins(frames, op):
+    """rfft.cuh's fft_frames and real_bin on packed windowed frames
+    [..., N] (z[p/2] = (frame[p], frame[p+1])): [..., N/2 + 1]."""
+    n = frames.shape[-1]
+    h = n // 2
+    tw_r, tw_i = op[n:].view(n, 2).unbind(-1)
+    zr, zi = frames[..., 0::2], frames[..., 1::2]           # [..., H]
+    for radix, ns in kfft.fft_passes(h):
         q = h // radix
         j = torch.arange(q)
         jm = j % ns
@@ -108,7 +124,7 @@ def test_fft_schedule_matches_plain(hop):
         rng.standard_normal((b, c, tprime * hop)).astype(np.float32))
     carry = torch.from_numpy(rng.standard_normal((c, hop)).astype(np.float32))
     win = t_window.sqrt_hann(n)
-    op = stft_fused.fft_operand(n, win, CPU)
+    op = kfft.fft_operand(n, win, CPU)
     got = _fft_kernel_emulation(samples, carry, op, hop)
     want = stft_fused.stft_fused_from_blocks_plain(
         samples, carry, stft_fused.analysis_matrix(n, win, CPU), hop)
@@ -131,7 +147,7 @@ def test_fft_schedule_against_float64(hop):
     carry = torch.from_numpy(rng.standard_normal((1, hop)).astype(np.float32))
     win = t_window.hann(n)
     got = _fft_kernel_emulation(samples, carry,
-                                stft_fused.fft_operand(n, win, CPU), hop)
+                                kfft.fft_operand(n, win, CPU), hop)
     x = torch.cat([carry, samples.permute(1, 0, 2).reshape(1, -1)], -1)
     frames = x.double().unfold(-1, n, hop) * torch.from_numpy(
         win.astype(np.float64))
@@ -143,7 +159,7 @@ def test_fft_schedule_against_float64(hop):
 
 @pytest.mark.parametrize("h", [2 ** i for i in range(1, 12)])
 def test_fft_passes_cover_the_transform(h):
-    passes = stft_fused.fft_passes(h)
+    passes = kfft.fft_passes(h)
     assert int(np.prod([r for r, _ in passes])) == h
     ns = 1
     for r, pns in passes:
@@ -157,7 +173,7 @@ def test_fft_passes_cover_the_transform(h):
 def test_fft_operand_is_the_window_then_the_twiddles():
     n = 64
     win = t_window.hann(n)
-    op = stft_fused.fft_operand(n, win, CPU).numpy()
+    op = kfft.fft_operand(n, win, CPU).numpy()
     assert op.shape == (3 * n,) and op.dtype == np.float32
     np.testing.assert_array_equal(op[:n], win)
     k = np.arange(n)
@@ -176,6 +192,126 @@ def test_stft_route_by_frame(hop, route):
             stft_fused.stft_route(hop)
     else:
         assert stft_fused.stft_route(hop) == route
+
+
+# -- kernels 5 and 8: the strided-rows FFT ----------------------------------
+
+def _run_frames(q, n, hop, nf):
+    """The frames f_lo .. f_hi of a run of nf that hold run offset q when
+    frames overlap (hop < n): csrc/fft_rows.cu's index rule."""
+    f_hi = torch.minimum(torch.full_like(q, nf - 1), q // hop)
+    f_lo = torch.where(q < n, torch.zeros_like(q), (q - n) // hop + 1)
+    return f_lo, f_hi
+
+
+def _fft_rows_emulation(x, op, n, hop):
+    """csrc/fft_rows.cu's schedule in fp32 on signals x [S, N]: the runs
+    of SPAN / H frames, each run's stretch read once and every sample
+    scattered, windowed, into the frames that hold it; then rfft.cuh's
+    passes and post-pass.  Returns complex64 [S, T, F]; asserts that every
+    frame position is written exactly once and, where the kernel loads 16
+    bytes, that a group of 4 samples never straddles a frame's edge."""
+    s_, big_n = x.shape
+    h = n // 2
+    fr = 2048 // h
+    t = (big_n - n) // hop + 1
+    rows = s_ * t
+    xf = x.reshape(-1)
+    sig_n, khop, kt = big_n, hop, t
+    if kt == 1:                        # materialised rows: one signal
+        khop, kt = big_n, rows
+    runs = -(-kt // fr)
+    vec = big_n % 4 == 0 and hop % 4 == 0
+    win = op[:n]
+    nblk = rows // kt * runs
+    z = torch.full((nblk, fr, n), float("nan"))
+    count = torch.zeros((nblk, fr, n), dtype=torch.int32)
+    for blk in range(nblk):
+        sig, t0 = blk // runs, (blk % runs) * fr
+        nf = min(fr, kt - t0)
+        base = sig * sig_n + t0 * khop
+        if khop < n:
+            q = torch.arange((nf - 1) * khop + n)
+            f_lo, f_hi = _run_frames(q, n, khop, nf)
+            if vec:
+                g_lo, g_hi = _run_frames(q // 4 * 4, n, khop, nf)
+                assert torch.equal(f_lo, g_lo) and torch.equal(f_hi, g_hi)
+            v = xf[base + q]
+            for f in range(nf):
+                m = (f_lo <= f) & (f <= f_hi)
+                pos = q[m] - f * khop
+                z[blk, f, pos] = win[pos] * v[m]
+                count[blk, f, pos] += 1
+        else:                          # disjoint frames: the gaps unread
+            pos = torch.arange(n)
+            for f in range(nf):
+                z[blk, f, pos] = win * xf[base + f * khop + pos]
+                count[blk, f, pos] += 1
+        assert (count[blk, :nf] == 1).all()
+    spec = _passes_and_bins(z, op)                         # [blocks, fr, F]
+    out = torch.cat([spec[blk, :min(fr, kt - (blk % runs) * fr)]
+                     for blk in range(nblk)])              # [rows, F]
+    return out.view(s_, t, h + 1)
+
+
+# (L, hop, S, N): kernel 5's frames (hop = L/2), config3 at hop 128, hops
+# that do not divide L (unaligned: scalar loads), hop = L (materialised
+# rows, T = 1), hop > L (gaps), a T that is no multiple of the run.
+FFT_ROWS_CASES = [
+    (1024, 512, 2, 512 * 11),       # kernel 5, config4's frame: T = 10
+    (512, 256, 3, 256 * 17),        # kernel 5, config1/3/5's frame
+    (512, 128, 2, 384 + 128 * 40),  # config3 hop 128: T = 41, runs of 8
+    (512, 130, 2, 4099),            # hop 130: row starts unaligned
+    (512, 100, 1, 3000),            # hop 100 (aligned, not dividing L)
+    (256, 256, 11, 256),            # hop = L = N: 11 materialised rows
+    (256, 300, 2, 2000),            # hop > L: disjoint frames, gaps
+    (32, 3, 1, 700),                # the smallest frame, hop 3
+    (4096, 1024, 1, 4096 + 1024 * 4),  # the largest frame: 1 a run
+]
+
+
+@pytest.mark.parametrize("n,hop,s_,big_n", FFT_ROWS_CASES)
+def test_fft_rows_schedule_matches_plain(n, hop, s_, big_n):
+    rng = np.random.default_rng(n + hop)
+    x = torch.from_numpy(rng.standard_normal((s_, big_n)).astype(np.float32))
+    win = t_window.sqrt_hann(n)
+    got = _fft_rows_emulation(x, kfft.fft_operand(n, win, CPU), n, hop)
+    want = kfft.rdft_rows_plain(x, kfft.analysis_matrix(n, win, CPU), hop)
+    assert got.shape == want.shape
+    scale = torch.view_as_real(want).abs().max()
+    torch.testing.assert_close(torch.view_as_real(got) / scale,
+                               torch.view_as_real(want) / scale,
+                               atol=3e-6, rtol=0)
+
+
+@pytest.mark.parametrize("n,hop,s_,big_n", FFT_ROWS_CASES)
+def test_fft_rows_schedule_against_float64(n, hop, s_, big_n):
+    rng = np.random.default_rng(n + hop + 1)
+    x = torch.from_numpy(rng.standard_normal((s_, big_n)).astype(np.float32))
+    win = t_window.hann(n)
+    got = _fft_rows_emulation(x, kfft.fft_operand(n, win, CPU), n, hop)
+    frames = x.double().unfold(-1, n, hop) * torch.from_numpy(
+        win.astype(np.float64))
+    want = torch.fft.rfft(frames)
+    scale = torch.view_as_real(want).abs().max()
+    err = torch.view_as_real(got.to(torch.complex128) - want).abs().max()
+    assert err / scale <= 3e-7
+
+
+@pytest.mark.parametrize("hop", [256, 512])
+def test_fft_rows_equals_the_blocks_fft_bit_for_bit(hop):
+    """Kernel 5's schedule on the contiguous stream [carry | blocks] gives
+    kernel 1's bits on the same blocks: one packing, one FFT."""
+    n = 2 * hop
+    rng = np.random.default_rng(hop + 2)
+    samples = torch.from_numpy(
+        rng.standard_normal((3, 2, 5 * hop)).astype(np.float32))
+    carry = torch.from_numpy(rng.standard_normal((2, hop)).astype(np.float32))
+    op = kfft.fft_operand(n, t_window.sqrt_hann(n), CPU)
+    stream = torch.cat([carry, samples.permute(1, 0, 2).reshape(2, -1)], -1)
+    got = _fft_rows_emulation(stream, op, n, hop)
+    want = _fft_kernel_emulation(samples, carry, op, hop)
+    assert torch.equal(got, want)
 
 
 # -- kernel 10: 3xTF32 and the split of 2K ----------------------------------
