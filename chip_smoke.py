@@ -28,7 +28,16 @@ on the first that fails:
      against kernel 1's on config4's [carry | blocks] (within 1e-6 of the
      largest bin; one packing and one FFT, so 0 is expected); the
      materialised-CPS SRP with its split of 2K, its 3xTF32 design bound and
-     two calls bit-equal at both M; the halo ring
+     two calls bit-equal at both M; the fused SRP (kernel 2) again at the
+     frames every pipeline's call gives it (config5's block step, M = 16;
+     config4's, 24; config4 serving S = 64, 1536; config3 at hop 128,
+     B = 512, 16 384), each against its plain version, two calls bit-equal,
+     timed beside the materialised chain (pair gather, PHAT cross-power,
+     kernel 10) on the same spectra; the inverse real DFT also on
+     config4's MVDR output (an imaginary part in the Nyquist bin), each
+     input on both routes (the FFT and the DFT-as-GEMM) beside
+     ``torch.fft.irfft`` and the window; the
+     registers and spills of both kernels from ``nvcc.log``; the halo ring
      (kernel 11) in 2 x 1 and 2 x 2 meshes of processes that all share the
      one card (spawned, joined over gloo on a FileStore, each mapping its
      neighbours' buffers through CUDA IPC): 16 pushes a rank of config4
@@ -152,7 +161,10 @@ SCAN_DISPATCHES = 4     # 1 warm-up + 3 timed
 # H100 SXM published peaks (NVIDIA data sheet, dense, full power limit):
 # fp32 on the CUDA cores and memory bandwidth.
 PEAKS = (67e12, 3.35e12)
-TF32_PEAK = 495e12      # dense TF32 on the tensor cores (kernel 10's design)
+TF32_PEAK = 495e12      # dense TF32 on the tensor cores (kernels 2, 10)
+# timings printed beside a kernel's own: its unsplit product, its other
+# route, the materialised chain
+EXTRA_MS = ("unsplit_ms", "gemm_ms", "chain_ms")
 
 
 def nvidia_smi_line() -> str:
@@ -240,10 +252,11 @@ def stft_bounds(rows: int, n: int, f: int, in_floats: int, peaks):
 
 def check_kernels(pipe, carry0, blocks, peaks):
     """Phase 3, kernels 1-4: against their plain versions on the inputs
-    the config4 main path gives them.  Returns {name: record}."""
+    the config4 main path gives them.  Returns ({name: record}, the MVDR
+    beamformer's output [B*T, F] with those weights)."""
     import torch
     from mcax_torch.kernels import covprefix, mvdrsolve, srp_fused, stft_fused
-    from mcax_torch.algos import srp
+    from mcax_torch.algos import mvdr, srp
 
     cfg = pipe.cfg
     hop, n = cfg.stft.hop, cfg.stft.frame_len
@@ -320,7 +333,7 @@ def check_kernels(pipe, carry0, blocks, peaks):
     # -- kernel 2: fused SRP -------------------------------------------------
     eps = cfg.algo.phat_eps
     args = (spec, plan.pairs, plan.tau_pg, plan.omega, eps, plan.valid)
-    power = srp_fused.srp_power_fused(*args)
+    power = srp_fused.srp_power_fused(*args, plan.omega_step)
     want = srp_fused.srp_power_fused_plain(*args)
     torch.cuda.synchronize()
     scale = want.abs().max().item()
@@ -337,7 +350,8 @@ def check_kernels(pipe, carry0, blocks, peaks):
         route="cuda", source="mcax_torch/csrc/srp_fused.cu",
         replaces="mcax/kernels/srp_fused.py:293", max_abs_err=err,
         scaled_err=err / scale,
-        ms=time_ms(lambda: srp_fused.srp_power_fused(*args)),
+        ms=time_ms(lambda: srp_fused.srp_power_fused(*args,
+                                                     plan.omega_step)),
         plain_ms=time_ms(lambda: srp_fused.srp_power_fused_plain(*args),
                          reps=3),
         library_ms=None,
@@ -386,7 +400,8 @@ def check_kernels(pipe, carry0, blocks, peaks):
             rows, steer, delta), reps=3),
         library_ms=None,
         bound=mvdr_bound(b, f, c, steer.numel(), peaks))
-    return recs
+    y = mvdr.beamform(spec.view(c, b, t, f).transpose(0, 1), w)
+    return recs, y.reshape(m, f).contiguous()
 
 
 def check_mvdr(name, w, want, steer):
@@ -521,45 +536,77 @@ def check_new_kernels(pipe4, x_streams, pipe1, blocks1, peaks):
     return recs
 
 
-def check_dft_kernels(pipe4, spec4, pipe3h, blocks3h, peaks):
+def check_dft_kernels(pipe4, spec4, y_mvdr, pipe3h, blocks3h, peaks):
     """Phase 3, kernels 7 and 8: the inverse real DFT on config4's
-    synthesis at B = 512 (one channel's spectra: the beamformer's output
-    shape [B*T, F]) and the real DFT on config3 at stft.hop=128, B = 512
-    (the generic analysis of the carry + blocks signal), each against its
-    plain version within 3e-6 of the largest output.  Returns {name:
-    record}."""
+    synthesis at B = 512 (one channel's spectra and the MVDR output
+    ``y_mvdr``, both [B*T, F]) and the real DFT on config3 at
+    stft.hop=128, B = 512 (the generic analysis of the carry + blocks
+    signal), each against its plain version within 3e-6 of the largest
+    output.  Returns {name: record}."""
     import torch
     from mcax_torch.kernels import fft as kfft
     recs = {}
 
     # -- kernel 7: inverse real DFT, config4's synthesis -------------------
+    # the FFT route (config4's frame is a power of two) on one channel's
+    # spectra and on the MVDR output (a nonzero imaginary Nyquist bin, which
+    # the function ignores; its DC bin is real, as the weights are at DC),
+    # each beside the GEMM route that other frames and GCC's lags take and
+    # torch.fft.irfft with the window
     n, f = pipe4.cfg.stft.frame_len, pipe4.cfg.stft.num_bins
-    y = spec4[0]                                           # [B*T, F]
-    rows = y.shape[0]
-    frames = kfft.irdft_rows(y, pipe4._a2)
-    want = kfft.irdft_rows_plain(y, pipe4._a2)
-    torch.cuda.synchronize()
-    scale = want.abs().max().item()
-    err = (frames - want).abs().max().item()
-    if not err / scale <= 3e-6:
-        raise AssertionError(f"irdft_rows: scaled error {err / scale:.3e} "
-                             "> 3e-6")
-    win_s = torch.from_numpy(pipe4.win_s).to(y.device)
-    io_bytes = 8.0 * rows * f + 4.0 * rows * n
+    a2, op = pipe4._a2, pipe4._ifft_op
+    win_s = torch.from_numpy(pipe4.win_s).to(spec4.device)
+    if not y_mvdr[:, -1].imag.abs().max() > 0:
+        raise AssertionError("the MVDR output's Nyquist bin is real: not "
+                             "the case this input is for")
+
+    def inverse(y, what):
+        rows = y.shape[0]
+        frames = kfft.irdft_rows(y, a2, op)
+        want = kfft.irdft_rows_plain(y, a2)
+        gemm = kfft._launch_irdft_gemm(y, a2)
+        torch.cuda.synchronize()
+        scale = want.abs().max().item()
+        err = (frames - want).abs().max().item()
+        err_g = (gemm - want).abs().max().item()
+        for route, e in (("fft", err), ("gemm", err_g)):
+            if not e / scale <= 3e-6:
+                raise AssertionError(f"irdft_rows ({route} route, {what}): "
+                                     f"scaled error {e / scale:.3e} > 3e-6")
+        io_bytes = 8.0 * rows * f + 4.0 * rows * n
+        return dict(
+            shape=[rows, f, n], max_abs_err=err, scaled_err=err / scale,
+            ms=time_ms(lambda: kfft.irdft_rows(y, a2, op)),
+            plain_ms=time_ms(lambda: kfft.irdft_rows_plain(y, a2)),
+            library_ms=time_ms(lambda: torch.fft.irfft(y, n=n) * win_s),
+            gemm_ms=time_ms(lambda: kfft._launch_irdft_gemm(y, a2)),
+            gemm_err=err_g,
+            # the function: a real inverse FFT per row and the window
+            # multiply, against its bytes; the GEMM route's design: the
+            # [rows, 2F] x [2F, N] product
+            bound=bound_ms(rows * (2.5 * n * np.log2(n) + n),
+                           io_bytes + 4.0 * 3 * n, peaks),
+            design_bound=bound_ms(4.0 * rows * f * n,
+                                  io_bytes + 4.0 * 2 * f * n, peaks))
+
+    rec = inverse(spec4[0], "one channel's spectra")
+    mv = inverse(y_mvdr, "the MVDR output")
+    gemm_err, gemm_ms = rec.pop("gemm_err"), rec.pop("gemm_ms")
     recs["irdft_rows"] = dict(
-        route="cuda", source="mcax_torch/csrc/dft.cu",
-        replaces="mcax/kernels/fft.py:199", max_abs_err=err,
-        scaled_err=err / scale,
-        ms=time_ms(lambda: kfft.irdft_rows(y, pipe4._a2)),
-        plain_ms=time_ms(lambda: kfft.irdft_rows_plain(y, pipe4._a2)),
-        library_ms=time_ms(lambda: torch.fft.irfft(y, n=n) * win_s),
+        route="cuda", source="mcax_torch/csrc/irfft_rows.cu",
+        replaces="mcax/kernels/fft.py:199",
         library_call="torch.fft.irfft and the window multiply",
-        # the function: a real inverse FFT per row and the window multiply;
-        # the design: the [rows, 2F] x [2F, N] product
-        bound=bound_ms(rows * (2.5 * n * np.log2(n) + n), io_bytes + 4.0 * n,
-                       peaks),
-        design_bound=bound_ms(4.0 * rows * f * n,
-                              io_bytes + 4.0 * 2 * f * n, peaks))
+        design="design_bound is the GEMM route's (at_gemm_route)", **rec,
+        at_gemm_route=dict(
+            shape=rec["shape"], max_abs_err=gemm_err,
+            ms=gemm_ms, plain_ms=rec["plain_ms"],
+            library_ms=rec["library_ms"], bound_ms=rec["bound"][0],
+            bound_by=rec["bound"][1]),
+        at_mvdr_output=dict(
+            shape=mv["shape"], max_abs_err=mv["max_abs_err"], ms=mv["ms"],
+            gemm_ms=mv["gemm_ms"], plain_ms=mv["plain_ms"],
+            library_ms=mv["library_ms"], bound_ms=mv["bound"][0],
+            bound_by=mv["bound"][1]))
 
     # -- kernel 8: real DFT of frames cut from the signal, config3 hop 128 -
     cfg = pipe3h.cfg
@@ -602,6 +649,131 @@ def check_dft_kernels(pipe4, spec4, pipe3h, blocks3h, peaks):
             plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound[0],
             bound_by=bound[1]))
     return recs
+
+
+def fused_srp_cases(pipe4, pipe_m, spec4, pipe5, blocks5, pipe3h, blocks3):
+    """Kernel 2's inputs at the frames each pipeline's call gives it (see
+    ``check_fused_srp``): config4 bulk B = 512 (M = 12 288), its block step
+    (24) and serving S = 64 (1536, the first frames of the same spectra),
+    config5's block step (16) and config3 at hop 128, B = 512 (16 384)."""
+    import torch
+    from mcax_torch.algos import srp
+    from mcax_torch.kernels import fft as kfft
+    from mcax_torch.kernels import stft_fused
+
+    def matmul_plan(pipe):
+        return srp.device_plan(pipe.srp_plan, pipe.pairs, pipe.device,
+                               "matmul")
+
+    cfg4, cfg5, cfg3h = pipe4.cfg, pipe5.cfg, pipe3h.cfg
+    eps4 = cfg4.algo.phat_eps
+    hop5 = cfg5.stft.hop
+    spec5, _ = stft_fused.stft_fused_from_blocks(
+        blocks5[:1], torch.zeros((blocks5.shape[1], hop5),
+                                 device=blocks5.device),
+        pipe5._w2, pipe5._fft_op, hop5)
+    n3, hop3 = cfg3h.stft.frame_len, cfg3h.stft.hop
+    b3 = blocks3[:BLOCKS]
+    x3 = torch.cat([torch.zeros((b3.shape[1], n3 - hop3), device=b3.device),
+                    b3.permute(1, 0, 2).reshape(b3.shape[1], -1)], dim=-1)
+    spec3h = kfft.rdft_rows(x3, pipe3h._w2, pipe3h._fft_op, hop3)
+    del x3
+    return [
+        ("m12288", spec4, pipe4.plan, pipe_m.plan, eps4),
+        ("m24", spec4[:, :cfg4.frames_per_block].contiguous(), pipe4.plan,
+         pipe_m.plan, eps4),
+        ("m1536", spec4[:, :STREAMS * cfg4.frames_per_block].contiguous(),
+         pipe4.plan, pipe_m.plan, eps4),
+        ("m16_config5", spec5, pipe5.plan, matmul_plan(pipe5),
+         cfg5.algo.phat_eps),
+        ("m16384_config3_hop128", spec3h, pipe3h.plan, matmul_plan(pipe3h),
+         cfg3h.algo.phat_eps)]
+
+
+def check_fused_srp(rec, cases, peaks):
+    """Phase 3, kernel 2 at the frames each pipeline's call gives it.
+    ``cases``: (label, spectra [C, M, F], the pipeline's SRP plan, a plan
+    of the same grid holding kernel 10's operand, PHAT eps).  Each:
+    against the plain version within 1e-4 of the largest power with the
+    argmax-loss check, two calls bit-equal, timed beside the materialised
+    chain (``srp_surface(method="matmul")``: pair gather, kernel 9, kernel
+    10) on the same spectra.  The first case's
+    numbers go into ``rec`` itself (it is the record's own shape), the
+    others under ``at_<label>``."""
+    import torch
+    from mcax_torch.algos import srp
+    from mcax_torch.kernels import srp_fused
+    for i, (label, spec, plan, plan_m, eps) in enumerate(cases):
+        c, m, f = spec.shape
+        p, g = plan.tau_pg.shape
+        args = (spec, plan.pairs, plan.tau_pg, plan.omega, eps, plan.valid)
+        power = srp_fused.srp_power_fused(*args, plan.omega_step)
+        again = srp_fused.srp_power_fused(*args, plan.omega_step)
+        want = srp_fused.srp_power_fused_plain(*args)
+        splits, per = srp_fused.split_plan(
+            m, f, p, g, c,
+            torch.cuda.get_device_properties(spec.device).multi_processor_count)
+        torch.cuda.synchronize()
+        if not torch.equal(power, again):
+            raise AssertionError(f"srp_fused {label}: two calls on the same "
+                                 "inputs differ")
+        scale = want.abs().max().item()
+        err = (power - want).abs().max().item()
+        if not err / scale <= 1e-4:
+            raise AssertionError(f"srp_fused {label}: scaled error "
+                                 f"{err / scale:.3e} > 1e-4")
+        rows_i = torch.arange(m, device=power.device)
+        loss = (want[rows_i, want.argmax(-1)]
+                - want[rows_i, power.argmax(-1)]).max().item()
+        if not loss <= 1e-4 * scale:
+            raise AssertionError(f"srp_fused {label}: argmax loses "
+                                 f"{loss:.3e} of peak power")
+        del power, again, want
+        q = dict(
+            shape=[c, m, f, p, g], max_abs_err=err, scaled_err=err / scale,
+            ms=time_ms(lambda: srp_fused.srp_power_fused(*args,
+                                                         plan.omega_step)),
+            chain_ms=time_ms(lambda: srp.srp_surface(spec, plan_m, eps,
+                                                     method="matmul")),
+            plain_ms=time_ms(lambda: srp_fused.srp_power_fused_plain(*args),
+                             reps=3),
+            library_ms=None,
+            bound=bound_ms(4.0 * m * p * f * g,
+                           8.0 * c * m * f + 4.0 * m * g
+                           + 4.0 * p * (g + 3) + 4.0 * f, peaks),
+            design=f"{label}: split-K S = {splits} (runs of {per} of "
+                   f"{-(-f // srp_fused.KB) * p} slices), "
+                   f"{-(-m // srp_fused.BM) * -(-g // srp_fused.BN) * splits}"
+                   f" blocks, 3xTF32 bound "
+                   f"{3 * 4.0 * m * p * f * g / TF32_PEAK * 1e3:.4f} ms")
+        if i == 0:
+            rec.update({k: v for k, v in q.items() if k != "shape"},
+                       design_bound=(3 * 4.0 * m * p * f * g / TF32_PEAK
+                                     * 1e3, "3xTF32 operations"))
+        else:
+            rec[f"at_{label}"] = dict(
+                shape=q["shape"], max_abs_err=q["max_abs_err"], ms=q["ms"],
+                chain_ms=q["chain_ms"],
+                plain_ms=q["plain_ms"], library_ms=None,
+                bound_ms=q["bound"][0], bound_by=q["bound"][1])
+            rec["design"] += "; " + q["design"]
+
+
+def kernel_registers(names):
+    """{name: ptxas's register and spill lines} of the entry functions
+    whose mangled names hold ``name``, from the build's nvcc.log."""
+    from mcax_torch.kernels import _build
+    log = (_build.BUILD_ROOT / _build.source_hash() / "nvcc.log")
+    found = {name: [] for name in names}
+    current = None
+    for line in log.read_text().splitlines():
+        if "Compiling entry function" in line:
+            current = next((n for n in names if n in line), None)
+            if current:
+                found[current].append(line.split("'")[1])
+        elif current and ("registers" in line or "spill" in line):
+            found[current].append(line.strip())
+    return found
 
 
 def check_steer_kernel(pipe_m, spec4, peaks):
@@ -1579,15 +1751,21 @@ def main() -> int:
                         cfg2.block_len)
 
     # -- phase 3: kernels against their plain versions ---------------------
-    recs = check_kernels(pipe, carry0, stream_blocks[:BLOCKS], PEAKS)
+    recs, y_mvdr = check_kernels(pipe, carry0, stream_blocks[:BLOCKS], PEAKS)
     recs.update(check_new_kernels(pipe, x_streams, pipe1,
                                   blocks1[:BLOCKS], PEAKS))
     spec4, _ = stft_fused.stft_fused_from_blocks(
         stream_blocks[:BLOCKS], carry0, pipe._w2, pipe._fft_op, hop)
-    recs.update(check_dft_kernels(pipe, spec4, pipe3h, blocks3[:BLOCKS],
-                                  PEAKS))
+    recs.update(check_dft_kernels(pipe, spec4, y_mvdr, pipe3h,
+                                  blocks3[:BLOCKS], PEAKS))
+    del y_mvdr
     recs.update(check_steer_kernel(pipe_m, spec4, PEAKS))
+    check_fused_srp(recs["srp_fused"], fused_srp_cases(
+        pipe, pipe_m, spec4, pipe5, blocks5, pipe3h, blocks3), PEAKS)
     del spec4
+    for name, lines in kernel_registers(
+            ("srp_fused_kernel", "irfft_rows_kernel")).items():
+        print(f"nvcc.log, {name}: " + " | ".join(lines))
     check_mvdr_c16(pipe5, blocks5[:BLOCKS], x5_streams, recs, PEAKS)
     ring_recs, ring_paths = check_ring_kernel(repo, PEAKS)
     recs.update(ring_recs)
@@ -1600,8 +1778,7 @@ def main() -> int:
               f"library_ms {lib}"
               + (f" ({r['library_call']})" if "library_call" in r else "")
               + f", bound_ms {r['bound'][0]:.4f} ({r['bound'][1]})"
-              + (f", unsplit_ms {r['unsplit_ms']:.4f}" if "unsplit_ms" in r
-                 else "")
+              + "".join(f", {k} {r[k]:.4f}" for k in EXTRA_MS if k in r)
               + (f", design_bound_ms {r['design_bound'][0]:.3f} "
                  f"({r['design_bound'][1]})" if "design_bound" in r else "")
               + (f"; {r['design']}" if "design" in r else ""))
@@ -1613,8 +1790,8 @@ def main() -> int:
                   f"{q['max_abs_err']:.3e}, kernel_ms {q['ms']:.4f}, plain_ms "
                   f"{q['plain_ms']:.4f}, library_ms {lib}, bound_ms "
                   f"{q['bound_ms']:.4f} ({q['bound_by']})"
-                  + (f", unsplit_ms {q['unsplit_ms']:.4f}"
-                     if "unsplit_ms" in q else ""))
+                  + "".join(f", {k} {q[k]:.4f}" for k in EXTRA_MS
+                            if k in q))
     print("kernels checked: " + ", ".join(recs))
 
     counters = launch_counters()
@@ -2164,8 +2341,8 @@ def main() -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=r["library_ms"],
-            **{k: r[k] for k in ("library_call", "timing", "shape",
-                                 "unsplit_ms") if k in r},
+            **{k: r[k] for k in ("library_call", "timing", "shape")
+               + EXTRA_MS if k in r},
             **{a: q for a, q in r.items() if a.startswith("at_")}))
     check_every_kernel_launched(kernels)
     print(smi)

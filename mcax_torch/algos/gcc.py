@@ -12,7 +12,8 @@ The inverse DFT is the inverse-DFT kernel (``kfft.irfft``, the reference's
 ``_irdft_pallas``) with the unwindowed synthesis matrix.  Only the gathered
 lags are needed, so the lag gather is folded into the matrix's columns: the
 same dot products, W = 2*max_lag + 3 columns instead of N (the matrix is
-padded to the kernel's tiles beyond that view).
+padded to the kernel's tiles beyond that view).  W columns take the
+DFT-as-GEMM route (``kfft.inverse_route``), not the full inverse FFT.
 """
 
 from __future__ import annotations
@@ -148,7 +149,7 @@ def cross_correlation(g_phat: torch.Tensor, plan: DevicePlan) -> torch.Tensor:
     Returns:
       float32 cc [..., P, T, W]; the lag axis runs -(max_lag+1)..max_lag+1.
     """
-    return kfft.irfft(g_phat, plan.a2_lags)
+    return kfft.irfft(g_phat, plan.a2_lags, None)
 
 
 def parabolic_offset(ym1: torch.Tensor, y0: torch.Tensor,

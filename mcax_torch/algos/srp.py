@@ -7,8 +7,8 @@ step reads, moved to the pipeline's device once, so that no host-to-device
 copy interrupts a dispatch.  ``srp_surface`` runs one of the reference's two
 SRP kernels, chosen by the caller (``mcax`` chooses by ``MCAX_SRP``):
 
-  * ``"fused"`` — ``kernels/srp_fused.py``: steering phases made on the fly,
-    no CPS tensor;
+  * ``"fused"`` — ``kernels/srp_fused.py``: steering phases made on the fly
+    (on the plan's uniform omega ramp), no CPS tensor;
   * ``"matmul"`` — the materialised branch: the PHAT CPS written out in full
     (``kernels/cps.py``) and one product with the stacked steering operand
     (``kernels/steer.py``), which ``DevicePlan`` then holds (config4: 44 MB,
@@ -94,6 +94,7 @@ class DevicePlan:
     steer: torch.Tensor            # [G, C, F] complex64
     azimuths_rad: torch.Tensor     # [G] float32
     azimuth_step: float            # grid spacing, rounded to float32
+    omega_step: float = 0.0        # omega's uniform step (uniform_step)
     band_mask: Optional[torch.Tensor] = None   # [F] float32
     b2: Optional[torch.Tensor] = None          # [2*P*F, G] "matmul" only
 
@@ -105,6 +106,20 @@ def check_method(method: str) -> str:
     if method not in METHODS:
         raise ValueError(f"srp must be one of {METHODS}, got {method!r}")
     return method
+
+
+def uniform_step(omega: np.ndarray) -> float:
+    """The step of omega when it is the uniform ramp f * step that
+    ``make_plan`` builds (omega[1], within fp32 rounding of every bin),
+    else 0.0, which the fused SRP refuses: it makes its phasors on the
+    ramp (``srp_power_fused``'s ``omega_step``).  Found once, when the
+    plan is made."""
+    om = np.asarray(omega, np.float64)
+    if om.size < 2 or om[0] != 0.0 or not om[1] > 0.0:
+        return 0.0
+    step = float(np.float32(om[1]))
+    ramp = np.arange(om.size) * step
+    return step if np.allclose(om, ramp, rtol=1e-6, atol=0.0) else 0.0
 
 
 def device_plan(plan: SrpPlan, pairs: np.ndarray, device: torch.device,
@@ -130,6 +145,7 @@ def device_plan(plan: SrpPlan, pairs: np.ndarray, device: torch.device,
                          torch.float32),
         azimuth_step=float(np.float32(plan.azimuths_rad[1]
                                       - plan.azimuths_rad[0])),
+        omega_step=uniform_step(plan.omega),
         band_mask=(None if plan.band_mask is None
                    else put(plan.band_mask, torch.float32)),
         b2=(ksteer.stacked_steering(plan.e_re, plan.e_im, device)
@@ -186,7 +202,8 @@ def srp_surface(spectra: torch.Tensor, plan: DevicePlan,
     if plan.band_mask is not None:
         spectra = spectra * plan.band_mask                 # masked bins -> 0
     return srp_fused.srp_power_fused(spectra, plan.pairs, plan.tau_pg,
-                                     plan.omega, eps, plan.valid)
+                                     plan.omega, eps, plan.valid,
+                                     plan.omega_step)
 
 
 def argmax_doa(power: torch.Tensor, plan: DevicePlan,

@@ -4,8 +4,12 @@
 // _rdft_kernel: kfft.rfft, the analysis of any overlap other than frame =
 // 2*hop) for frames that are not a power of two from 32 to 4096 (those
 // take fft_rows.cu's FFT), and _irdft_pallas (the Pallas kernel
-// _irdft_kernel: kfft.irfft, every synthesis chain's inverse DFT and GCC's
-// lag correlation).
+// _irdft_kernel: kfft.irfft) for the inverses that are not a full
+// synthesis of such a frame: a synthesis of any other frame length, and
+// GCC's lag correlation, a selection of W = 13 of the synthesis matrix's
+// columns (a full synthesis of a power-of-two frame takes irfft_rows.cu's
+// FFT).  kfft.rdft_rows and kfft.irdft_rows pick the kernel from the shape
+// before the launch.
 //
 // What it computes.
 //   * rdft_rows: frame row r of a real signal starts at
@@ -19,18 +23,17 @@
 //     times a2 [2F, N] (row 2k = Ar[k], 2k+1 = Ai[k], synthesis window
 //     folded into the columns) gives the frames x float32 [rows, N].
 //
-// What bounds it on this card.  Both functions need only their bytes (a
-// real FFT's operations are fewer): kernel 7 at config4, B = 512 (12 288
-// rows, F = 513, N = 1024) moves ~0.1 GB, ~0.03 ms at 3.35 TB/s.  This
-// design, a DFT as a GEMM, does 4*rows*F*N fp32 operations (25.8 GFLOP
-// there: ~0.39 ms at 67 TFLOP/s on the CUDA cores), so it is compute-bound,
-// as the TPU kernel it replaces was on the MXU.
+// What bounds it on this card.  A full transform needs only its bytes (a
+// real FFT's operations are fewer); this design, a DFT as a GEMM, does
+// 4*rows*F*N fp32 operations, so it is compute-bound, as the TPU kernel it
+// replaces was on the MXU.  GCC's lags need 4*rows*F*W operations for W
+// columns, fewer than a full transform's bytes and FFT when W is small
+// (config1: W = 13 of N = 512).
 //
 // Design.  The SGEMM body of gemm_rows.cuh with two row loaders (kernel 7's,
-// ComplexRows, and its real-rows epilogue are in the header, shared with
-// kernel 10 in steer.cu).  Neither operand is padded at run time: the DFT
-// matrices are padded at plan time to
-// whole 16-row x 128-column tiles (kfft.analysis_matrix,
+// ComplexRows, and its real-rows epilogue are in the header).  Neither
+// operand is padded at run time: the DFT matrices are padded at plan time
+// to whole 16-row x 128-column tiles (kfft.analysis_matrix,
 // kfft.synthesis_matrix), and the loaders zero-fill the K tail (L may be any
 // length, 2F is 1026 or 514).  Spectra rows are 2F floats long, so only
 // 8-byte aligned: kernel 7 reads them as float2.  Kernel 8 reads float4

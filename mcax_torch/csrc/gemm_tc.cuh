@@ -1,14 +1,20 @@
-// A 3xTF32 tensor-core GEMM with an optional split of K, for the steered
-// power of kernel 10 (steer.cu):
+// A 3xTF32 tensor-core GEMM body with an optional split of K, shared by
+// the steered power of kernel 10 (steer.cu) and the fused SRP of kernel 2
+// (srp_fused.cu):
 //
 //     part[s, row, :] = A[row, k in chunk s] @ B[k in chunk s, :]
 //
-// A is [rows, K] fp32 with rows only 8-byte aligned (a complex64 row read
-// as floats: K = 2 * complex count, so K is even but K/2 may be odd); B is
-// [K, ldb] fp32, row-major, ldb a multiple of 4 covering every column tile
-// the grid touches, 16-byte-aligned base.  Nothing past K is read: loads
-// beyond a chunk's end are zero-filled by cp.async, so B needs no padded
-// rows.
+// The body (mma_slice, store_tile) takes a 32-deep slice of its operand
+// tiles from shared memory, whoever made them: kernel 10's cp.async loader
+// (gemm_3xtf32_kernel below) copies them from device memory, kernel 2's
+// generator makes them on chip.
+//
+// Kernel 10's operands.  A is [rows, K] fp32 with rows only 8-byte aligned
+// (a complex64 row read as floats: K = 2 * complex count, so K is even but
+// K/2 may be odd); B is [K, ldb] fp32, row-major, ldb a multiple of 4
+// covering every column tile the grid touches, 16-byte-aligned base.
+// Nothing past K is read: loads beyond a chunk's end are zero-filled by
+// cp.async, so B needs no padded rows.
 //
 // Precision.  Every operand x is split as big = tf32(x) (cvt.rna.tf32.f32:
 // round to nearest, ties away from zero, to 10 mantissa bits) and small =
@@ -28,13 +34,13 @@
 //
 // Tiles.  A 64 x 128 output tile per block of 256 threads (8 warps as 2 x 4,
 // each warp 32 x 32: 2 x 4 m16n8 accumulator tiles, 32 fp32 a thread for
-// the sum and 32 for the slice), K in 32-deep slices through a 3-stage
-// cp.async ring in dynamic shared memory (80 KB: two blocks an SM).  A is
-// copied 8 bytes at a time (its rows are only 8-byte aligned), B 16 bytes.
-// Rows are padded (A by 8 floats, B by 4) so that the fragment loads of a
-// warp hit 32 distinct banks: A's 8-byte loads at (8*group + 2*(lane%4))
-// for each half warp, B at (8*(lane%4) + group) and, a row on, 4 banks
-// further.
+// the sum and 32 for the slice).  Kernel 10 brings K in 32-deep slices
+// through a 3-stage cp.async ring in dynamic shared memory (80 KB: two
+// blocks an SM).  A is copied 8 bytes at a time (its rows are only 8-byte
+// aligned), B 16 bytes.  Rows are padded (A by 8 floats, B by 4) so that
+// the fragment loads of a warp hit 32 distinct banks: A's 8-byte loads at
+// (8*group + 2*(lane%4)) for each half warp, B at (8*(lane%4) + group)
+// and, a row on, 4 banks further.
 #pragma once
 
 #include "common.cuh"
@@ -107,10 +113,118 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// One block: output tile (blockIdx.x % col_tiles, blockIdx.x / col_tiles),
-// K chunk blockIdx.y = [s * chunk, min((s + 1) * chunk, K)) floats (chunk a
-// multiple of BK).  Writes fp32 [rows, ncol] at out + s * rows * ncol.
-__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM) gemm_3xtf32_kernel(
+// The warp's place in the block's 64 x 128 tile.
+struct WarpTile {
+  int wm, wn, grp, tig;   // rows wm*32, columns wn*32; the lane's group
+  __device__ WarpTile() {
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    wm = warp >> 2;
+    wn = warp & 3;
+    grp = lane >> 2;
+    tig = lane & 3;
+  }
+};
+
+__device__ __forceinline__ void zero(float (&acc)[2][4][4]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+}
+
+// The MMA body: acc += (the 32-deep slice as [BM][A_LD] at as times the
+// slice as [BK][B_LD] at bs, both in shared memory), the slice summed by
+// the tensor cores from zero and added into acc by IEEE fp32 adds.
+__device__ __forceinline__ void mma_slice(const float* __restrict__ as,
+                                          const float* __restrict__ bs,
+                                          const WarpTile& w,
+                                          float (&acc)[2][4][4]) {
+  as += (w.wm * 32) * A_LD;
+  bs += w.wn * 32;
+  float part[2][4][4];
+  zero(part);
+#pragma unroll
+  for (int kk = 0; kk < BK; kk += 8) {
+    // The fragment's k columns (tig, tig + 4) are taken as the slice's
+    // k = (2 tig, 2 tig + 1), in A and in B alike (a sum does not care
+    // which k is which), so a thread's two A values of a row are one
+    // 8-byte load.  A's halves stay in registers for the 8-deep step;
+    // B's are made one column tile at a time (fewer live registers).
+    uint32_t ab[2][4], asm_[2][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const float* p = as + (mi * 16 + w.grp) * A_LD + kk + 2 * w.tig;
+      const float2 lo = *reinterpret_cast<const float2*>(p);
+      const float2 hi = *reinterpret_cast<const float2*>(p + 8 * A_LD);
+      split_tf32(lo.x, ab[mi][0], asm_[mi][0]);
+      split_tf32(hi.x, ab[mi][1], asm_[mi][1]);
+      split_tf32(lo.y, ab[mi][2], asm_[mi][2]);
+      split_tf32(hi.y, ab[mi][3], asm_[mi][3]);
+    }
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      uint32_t bb[2], bsm[2];
+      const float* p = bs + (kk + 2 * w.tig) * B_LD + ni * 8 + w.grp;
+      split_tf32(p[0], bb[0], bsm[0]);
+      split_tf32(p[B_LD], bb[1], bsm[1]);
+      // the two row tiles' products interleaved: no MMA waits on the
+      // one just issued
+      mma_tf32(part[0][ni], asm_[0], bb);
+      mma_tf32(part[1][ni], asm_[1], bb);
+      mma_tf32(part[0][ni], ab[0], bsm);
+      mma_tf32(part[1][ni], ab[1], bsm);
+      mma_tf32(part[0][ni], ab[0], bb);
+      mma_tf32(part[1][ni], ab[1], bb);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
+}
+
+// The block's tile at (row0, col0) of dst fp32 [rows, ncol], its edge
+// masked; 8-byte stores when ncol is even.
+__device__ __forceinline__ void store_tile(const float (&acc)[2][4][4],
+                                           const WarpTile& w,
+                                           float* __restrict__ dst,
+                                           long long rows, int ncol,
+                                           long long row0, int col0) {
+  const bool pairs = (ncol & 1) == 0;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const int col = col0 + w.wn * 32 + ni * 8 + w.tig * 2;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long row = row0 + w.wm * 32 + mi * 16 + w.grp + h * 8;
+        if (row >= rows || col >= ncol) continue;
+        float* o = dst + row * ncol + col;
+        const float v0 = acc[mi][ni][2 * h], v1 = acc[mi][ni][2 * h + 1];
+        if (pairs) {
+          *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+        } else {
+          o[0] = v0;
+          if (col + 1 < ncol) o[1] = v1;
+        }
+      }
+    }
+}
+
+// Kernel 10's block: output tile (blockIdx.x % col_tiles, blockIdx.x /
+// col_tiles), K chunk blockIdx.y = [s * chunk, min((s + 1) * chunk, K))
+// floats (chunk a multiple of BK), its slices copied from device memory by
+// cp.async.  Writes fp32 [rows, ncol] at out + s * rows * ncol.
+// (The kernels and their launchers are static: every source that includes
+// this header, steer.cu and srp_fused.cu, builds its own copy.)
+static __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
+gemm_3xtf32_kernel(
     const float* __restrict__ a, long long rows, int K,
     const float* __restrict__ b, int ldb, int ncol, int col_tiles, int chunk,
     float* __restrict__ out) {
@@ -119,13 +233,7 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM) gemm_3xtf32_kernel(
   float* Bs = smem + STAGES * A_STAGE;       // [STAGES][BK][B_LD]
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = warp >> 2;                  // 0..1: rows wm*32
-  const int wn = warp & 3;                   // 0..3: columns wn*32
-  const int grp = lane >> 2;
-  const int tig = lane & 3;
-
+  const WarpTile w;
   const int col0 = (blockIdx.x % col_tiles) * BN;
   const long long row0 = (long long)(blockIdx.x / col_tiles) * BM;
   const int kbeg = blockIdx.y * chunk;
@@ -159,13 +267,7 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM) gemm_3xtf32_kernel(
   };
 
   float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
-
+  zero(acc);
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < nk) load_stage(s, kbeg + s * BK);
@@ -179,85 +281,18 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM) gemm_3xtf32_kernel(
     const int pre = it + STAGES - 1;
     if (pre < nk) load_stage(pre % STAGES, kbeg + pre * BK);
     cp_async_commit();
-
-    const float* as = As + (it % STAGES) * A_STAGE + (wm * 32) * A_LD;
-    const float* bs = Bs + (it % STAGES) * B_STAGE + wn * 32;
-    float part[2][4][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) part[i][j][e] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 8) {
-      // The fragment's k columns (tig, tig + 4) are taken as the slice's
-      // k = (2 tig, 2 tig + 1), in A and in B alike (a sum does not care
-      // which k is which), so a thread's two A values of a row are one
-      // 8-byte load.  A's halves stay in registers for the 8-deep step;
-      // B's are made one column tile at a time (fewer live registers).
-      uint32_t ab[2][4], asm_[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const float* p = as + (mi * 16 + grp) * A_LD + kk + 2 * tig;
-        const float2 lo = *reinterpret_cast<const float2*>(p);
-        const float2 hi = *reinterpret_cast<const float2*>(p + 8 * A_LD);
-        split_tf32(lo.x, ab[mi][0], asm_[mi][0]);
-        split_tf32(hi.x, ab[mi][1], asm_[mi][1]);
-        split_tf32(lo.y, ab[mi][2], asm_[mi][2]);
-        split_tf32(hi.y, ab[mi][3], asm_[mi][3]);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        uint32_t bb[2], bsm[2];
-        const float* p = bs + (kk + 2 * tig) * B_LD + ni * 8 + grp;
-        split_tf32(p[0], bb[0], bsm[0]);
-        split_tf32(p[B_LD], bb[1], bsm[1]);
-        // the two row tiles' products interleaved: no MMA waits on the
-        // one just issued
-        mma_tf32(part[0][ni], asm_[0], bb);
-        mma_tf32(part[1][ni], asm_[1], bb);
-        mma_tf32(part[0][ni], ab[0], bsm);
-        mma_tf32(part[1][ni], ab[1], bsm);
-        mma_tf32(part[0][ni], ab[0], bb);
-        mma_tf32(part[1][ni], ab[1], bb);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
+    mma_slice(As + (it % STAGES) * A_STAGE, Bs + (it % STAGES) * B_STAGE, w,
+              acc);
   }
   cp_async_wait<0>();
-
-  float* dst = out + (long long)blockIdx.y * rows * ncol;
-  const bool pairs = (ncol & 1) == 0;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int col = col0 + wn * 32 + ni * 8 + tig * 2;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const long long row = row0 + wm * 32 + mi * 16 + grp + h * 8;
-        if (row >= rows || col >= ncol) continue;
-        float* o = dst + row * ncol + col;
-        const float v0 = acc[mi][ni][2 * h], v1 = acc[mi][ni][2 * h + 1];
-        if (pairs) {
-          *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
-        } else {
-          o[0] = v0;
-          if (col + 1 < ncol) o[1] = v1;
-        }
-      }
-    }
+  store_tile(acc, w, out + (long long)blockIdx.y * rows * ncol, rows, ncol,
+             row0, col0);
 }
 
 // out[i] = part[0][i] + part[1][i] + ... + part[S-1][i], in that order.
-__global__ void sum_partials_kernel(const float* __restrict__ part, int S,
-                                    long long n, float* __restrict__ out) {
+static __global__ void sum_partials_kernel(const float* __restrict__ part,
+                                           int S, long long n,
+                                           float* __restrict__ out) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
@@ -267,14 +302,25 @@ __global__ void sum_partials_kernel(const float* __restrict__ part, int S,
   }
 }
 
+// The second launch of a split product: out [n] = the sum of part [S, n]
+// in split order.  Returns cudaGetLastError().
+static inline int launch_sum_partials(const float* part, int splits,
+                                      long long n, float* out,
+                                      cudaStream_t stream) {
+  const long long blocks = ceil_div(n, 256) < 4096 ? ceil_div(n, 256) : 4096;
+  sum_partials_kernel<<<(unsigned)blocks, 256, 0, stream>>>(part, splits, n,
+                                                            out);
+  return (int)cudaGetLastError();
+}
+
 // Launch: with splits == 1 the product goes straight to out; otherwise the
 // chunks' partials go to scratch [splits, rows, ncol] and a second launch
 // sums them into out.  chunk (floats of K per split) is a multiple of BK
 // and covers K in `splits` pieces.  Returns cudaGetLastError().
-inline int launch_gemm_3xtf32(const float* a, long long rows, int K,
-                              const float* b, int ldb, int ncol, int splits,
-                              int chunk, float* scratch, float* out,
-                              void* stream_) {
+static inline int launch_gemm_3xtf32(const float* a, long long rows, int K,
+                                     const float* b, int ldb, int ncol,
+                                     int splits, int chunk, float* scratch,
+                                     float* out, void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
   const long long col_tiles = ceil_div(ncol, BN);
   const long long tiles = ceil_div(rows, BM) * col_tiles;
@@ -293,11 +339,7 @@ inline int launch_gemm_3xtf32(const float* a, long long rows, int K,
                                              (int)col_tiles, chunk, dst);
   e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return (int)e;
-  const long long n = rows * ncol;
-  const long long blocks = ceil_div(n, 256) < 4096 ? ceil_div(n, 256) : 4096;
-  sum_partials_kernel<<<(unsigned)blocks, 256, 0, stream>>>(scratch, splits, n,
-                                                            out);
-  return (int)cudaGetLastError();
+  return launch_sum_partials(scratch, splits, rows * ncol, out, stream);
 }
 
 }  // namespace tc

@@ -228,7 +228,8 @@ class ShardedPipeline:
     def _resynth(self, y: torch.Tensor, tail: torch.Tensor):
         """Spectra [..., Tl, F] -> (audio [..., Tl*hop], new OLA tail)."""
         hop = self.cfg.stft.hop
-        frames = stft_mod.istft_frames(y, self._pipe._a2)       # [..., Tl, L]
+        frames = stft_mod.istft_frames(y, self._pipe._a2,
+                                       self._pipe._ifft_op)   # [..., Tl, L]
         return halo_mod.ola_tail_exchange(overlap_add(frames, hop),
                                           frames.shape[-2] * hop, tail,
                                           self.mesh, impl=self.halo)
@@ -462,7 +463,8 @@ class ShardedPipeline:
         def resynth_stream(y):
             """y [..., Bl*T, F] -> (audio [Bl, ..., T*hop], tail): local OLA,
             the spill pushed to the right time shard."""
-            frames = stft_mod.istft_frames(y, self._pipe._a2)
+            frames = stft_mod.istft_frames(y, self._pipe._a2,
+                                           self._pipe._ifft_op)
             o, tail = halo_mod.ola_tail_exchange(
                 overlap_add(frames, hop), bt * hop, state.ola_tail, mesh,
                 impl=self.halo)

@@ -10,7 +10,9 @@ the card both take the same strided-rows FFT kernel for power-of-two
 frames (``fft_operand``) and a DFT-as-GEMM kernel (``w2``) otherwise.  The
 batched pipeline's analysis at frame = 2*hop reads the blocked input
 directly (``stft_fused_from_blocks``) and does not go through here.
-``istft_frames`` is the inverse-DFT kernel (``irdft_rows``).
+``istft_frames`` is the inverse-DFT kernel (``irdft_rows``): the inverse
+FFT run from ``fft_operand`` of the synthesis window for power-of-two
+frames, the DFT-as-GEMM kernel (``a2``) otherwise.
 """
 
 from __future__ import annotations
@@ -65,10 +67,12 @@ def stft(x: torch.Tensor, w2: torch.Tensor, op: torch.Tensor,
     return kfft.rdft_rows(x, w2, op, hop)
 
 
-def istft_frames(spectra: torch.Tensor, a2: torch.Tensor) -> torch.Tensor:
+def istft_frames(spectra: torch.Tensor, a2: torch.Tensor,
+                 op: torch.Tensor) -> torch.Tensor:
     """Inverse transform + synthesis windowing; OLA is a separate stage.
 
     [..., T, F] complex64 -> [..., T, L] float32 with the synthesis window
-    folded into ``a2`` (``kernels.fft.synthesis_matrix``).  Overlap-add
+    folded into ``a2`` (``kernels.fft.synthesis_matrix``) and carried by
+    ``op`` (``kernels.fft.fft_operand``).  Overlap-add
     (``mcax_torch.frames.ola``) completes resynthesis."""
-    return kfft.irfft(spectra, a2)
+    return kfft.irfft(spectra, a2, op)

@@ -31,7 +31,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("stft_fused.cu", "srp_fused.cu", "covprefix.cu", "mvdrsolve.cu",
-           "cps.cu", "dft.cu", "fft_rows.cu", "steer.cu", "halo_rdma.cu")
+           "cps.cu", "dft.cu", "fft_rows.cu", "irfft_rows.cu", "steer.cu",
+           "halo_rdma.cu")
 HEADERS = ("common.cuh", "gemm_rows.cuh", "gemm_tc.cuh", "rfft.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -52,9 +53,12 @@ SIGNATURES = {
     "mcax_stft_fft_from_blocks": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x, w2, out, R, N, hop, F, ldw, stream
     "mcax_stft_planes": (_P, _P, _P, _L, _I, _I, _I, _I, _P),
-    # spec, pairs, valid, tau, omega, out, C, M, F, P, G, eps, stream
-    "mcax_srp_power_fused": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                             _P),
+    # spec, pairs, valid, tau, omega, scratch (or NULL), out, C, M, F, P, G,
+    # eps, domega, splits, per, stream
+    "mcax_srp_power_fused": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _F, _F, _I, _I, _P),
+    # layout (int[6]: BM, BN, KB, tile bytes, channel bytes, blocks an SM)
+    "mcax_srp_fused_layout": (_P,),
     # spec, cov0 (or NULL), out, C, B, T, F, lam, decay, stream
     "mcax_cov_prefixes": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
     # rows, steer, w, B, S, C, F, delta, stream
@@ -69,6 +73,8 @@ SIGNATURES = {
     "mcax_fft_rows": (_P, _P, _P, _L, _L, _L, _L, _I, _I, _P),
     # y, a2, out, rows, F, N, lda, stream
     "mcax_irdft_rows": (_P, _P, _P, _L, _I, _I, _I, _P),
+    # y, op (window, twiddles), out, rows, N, stream
+    "mcax_irfft_rows": (_P, _P, _P, _L, _I, _P),
     # cps, b2, scratch (or NULL), out, M, K, G, ldb, splits, chunk, stream
     "mcax_srp_power_cps": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
     # tiles (int[4]: BM, BN, BK, blocks an SM of gemm_tc.cuh)

@@ -19,9 +19,14 @@ Two wrappers carry them, the counterparts of the reference's Pallas
     ``csrc/rfft.cuh``), which reads the window and its twiddles from
     ``fft_operand``, for power-of-two frames of 32 to 4096, and the
     DFT-as-GEMM kernel (``csrc/dft.cu``) with ``w2`` for any other frame;
-  * ``irdft_rows`` — the inverse real DFT with the synthesis window
-    (``csrc/dft.cu``): every synthesis chain's ``istft_frames`` and GCC's
-    lag correlation.
+  * ``irdft_rows`` — the inverse real DFT with the synthesis window:
+    every synthesis chain's ``istft_frames`` and GCC's lag correlation.
+    The shape picks the kernel (``inverse_route``): a full synthesis of a
+    power-of-two frame from 32 to 4096 takes the shared-memory real FFT
+    run backwards (``csrc/irfft_rows.cu`` on ``csrc/rfft.cuh``), which
+    reads the synthesis window and the twiddles from ``fft_operand``; any
+    other frame, and a selection of the synthesis matrix's columns (GCC's
+    lags), takes the DFT-as-GEMM kernel (``csrc/dft.cu``) with ``a2``.
 
 Each wrapper launches a kernel on CUDA tensors and runs its plain version
 (one fp32 ``torch.matmul`` on the same matrix) on CPU tensors.  The GEMM
@@ -151,8 +156,9 @@ def check_operand(name: str, m: torch.Tensor, k: int, ncol: int) -> None:
 
 
 def fft_operand(n: int, window, device: torch.device) -> torch.Tensor:
-    """The FFT kernels' operand, float32 [3n] on ``device``: the analysis
-    window [n], then the twiddles e^{-2 pi j k / n} for k < n as (re, im)
+    """The FFT kernels' operand, float32 [3n] on ``device``: the window [n]
+    (the analysis window for the forward kernels, the synthesis window for
+    the inverse), then the twiddles e^{-2 pi j k / n} for k < n as (re, im)
     pairs, computed in float64 and stored in fp32."""
     k = np.arange(n, dtype=np.float64)
     ang = -2.0 * np.pi * k / n
@@ -313,6 +319,14 @@ def _launch_gemm(x: torch.Tensor, w2: torch.Tensor, hop: int) -> torch.Tensor:
 rdft_rows.LAUNCHES = 0
 
 
+def inverse_route(f: int, n: int) -> str:
+    """The kernel an inverse DFT of F = ``f`` bins to ``n`` output columns
+    takes, chosen by shape before the launch: ``"fft"`` for a full
+    synthesis (n = 2(F - 1)) of a frame in FFT_FRAMES, ``"gemm"`` for any
+    other frame and for a column selection (GCC's lags)."""
+    return "fft" if n == 2 * (f - 1) and n in FFT_FRAMES else "gemm"
+
+
 def irdft_rows_plain(y: torch.Tensor, a2: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: one fp32 matmul of the spectra's floats."""
     f = y.shape[-1]
@@ -320,14 +334,22 @@ def irdft_rows_plain(y: torch.Tensor, a2: torch.Tensor) -> torch.Tensor:
     return torch.matmul(yr, a2)
 
 
-def irdft_rows(y: torch.Tensor, a2: torch.Tensor) -> torch.Tensor:
+def irdft_rows(y: torch.Tensor, a2: torch.Tensor,
+               op: Optional[torch.Tensor]) -> torch.Tensor:
     """Inverse real DFT of spectra rows with the synthesis window.
+
+    On CUDA tensors the shape picks the kernel (``inverse_route``): the
+    shared-memory FFT, which reads ``op``, or the DFT-as-GEMM kernel, which
+    reads ``a2``.  Both count in ``LAUNCHES``.
 
     Args:
       y: complex64 [..., F].
       a2: interleaved inverse matrix [2F, N] (``synthesis_matrix``, or a
         column selection of it padded with ``pad_to_tiles``); N may be any
         width.
+      op: [3N] float32 synthesis window and twiddles (``fft_operand``) of
+        the frame a2 synthesises; None only where the route is the GEMM's
+        (a column selection).
     Returns:
       float32 [..., N].
     """
@@ -336,8 +358,41 @@ def irdft_rows(y: torch.Tensor, a2: torch.Tensor) -> torch.Tensor:
             or a2.shape[0] != 2 * f:
         raise ValueError(f"expected y complex64 [..., F] and a2 [2F, N], got "
                          f"{y.dtype} {list(y.shape)} and {list(a2.shape)}")
-    if not dispatch.use_kernel(y, a2):
+    n = a2.shape[1]
+    route = inverse_route(f, n)
+    if route == "fft":
+        if op is None:
+            raise ValueError(f"a synthesis of {n}-sample frames takes the FFT "
+                             "route: pass its operand (fft_operand)")
+        check_fft_operand(op, n)
+    if not dispatch.use_kernel(y, a2, *(() if op is None else (op,))):
         return irdft_rows_plain(y, a2)
+    if route == "fft":
+        return _launch_irfft(y, op, n)
+    return _launch_irdft_gemm(y, a2)
+
+
+def _launch_irfft(y: torch.Tensor, op: torch.Tensor, n: int) -> torch.Tensor:
+    """The inverse FFT kernel on CUDA tensors (``csrc/irfft_rows.cu``; n
+    in FFT_FRAMES)."""
+    _build.check_tensor("op", op, torch.float32, (3 * n,))
+    y = y.contiguous()
+    out = torch.empty((*y.shape[:-1], n), dtype=torch.float32,
+                      device=y.device)
+    rows = y.numel() // y.shape[-1]
+    if rows == 0:
+        return out
+    code = _build.library().mcax_irfft_rows(
+        y.data_ptr(), op.data_ptr(), out.data_ptr(), rows, n,
+        _build.stream_of(y))
+    _build.check_launch("irfft_rows", code)
+    irdft_rows.LAUNCHES += 1
+    return out
+
+
+def _launch_irdft_gemm(y: torch.Tensor, a2: torch.Tensor) -> torch.Tensor:
+    """The DFT-as-GEMM kernel on CUDA tensors (any N, any columns)."""
+    f = y.shape[-1]
     n = a2.shape[1]
     check_operand("a2", a2, 2 * f, n)
     y = y.contiguous()
@@ -368,7 +423,9 @@ def rfft(x: torch.Tensor, w2: torch.Tensor, op: torch.Tensor
     return rdft_rows(x, w2, op, n)[..., 0, :]
 
 
-def irfft(y: torch.Tensor, a2: torch.Tensor) -> torch.Tensor:
+def irfft(y: torch.Tensor, a2: torch.Tensor,
+          op: Optional[torch.Tensor]) -> torch.Tensor:
     """Inverse real DFT over the last axis: [..., F] complex64 ->
-    [..., N] float32, with the synthesis window folded into ``a2``."""
-    return irdft_rows(y, a2)
+    [..., N] float32, with the synthesis window folded into ``a2`` and
+    carried by ``op`` (``fft_operand``; None for a column selection)."""
+    return irdft_rows(y, a2, op)

@@ -4,9 +4,13 @@
     power[m, g] = sum_p sum_{f<F} Re( PHAT(X_a X_b^*)[m, f] e^{+j omega_f tau_pg} )
 
   * ``srp_power_fused`` — the wrapper: on CUDA tensors it launches the
-    hand-written kernel (``csrc/srp_fused.cu``), which forms the CPS and the
-    steering phasors in shared memory and never materialises either; on
-    CPU tensors it runs the plain version.
+    hand-written kernel (``csrc/srp_fused.cu``: ``csrc/gemm_tc.cuh``'s
+    3xTF32 tensor-core body, whose operand tiles, the CPS and the steering
+    phasors, it makes in shared memory and never materialises), with the K
+    of (bin chunk, pair) slices split as ``split_plan`` says; on CPU
+    tensors it runs the plain version.  A thread's 8 bins' phasors come
+    from two sincosf by complex products on omega's uniform ramp (the
+    plan's ``omega_step``).
   * ``srp_power_fused_plain`` — the same function in plain PyTorch: the
     materialised CPS (``cps.cps_phat_pairs_plain``), the steering matrices made
     from the same fp32 phases with the same range reduction, and
@@ -14,6 +18,9 @@
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -70,9 +77,55 @@ def srp_power_fused_plain(spectra: torch.Tensor, pairs: torch.Tensor,
                                  er.reshape(p * f, g), ei.reshape(p * f, g))
 
 
+# The kernel's layout (csrc/srp_fused.cu, on csrc/gemm_tc.cuh): output
+# frames and grid points a block, complex bins a K slice (one pair's 16
+# bins: 32 floats of the interleaved product), the shared memory of the A
+# and B tiles and of one staged channel, and the blocks an SM at most (the
+# body's register bound).  The first launch checks them against the built
+# kernel's (_check_layout).
+BM, BN, KB = ksteer.BM, ksteer.BN, ksteer.BK // 2
+TILE_BYTES = (BM * (ksteer.BK + 8) + ksteer.BK * (BN + 4)) * 4
+CHANNEL_BYTES = BM * KB * 8
+BLOCKS_PER_SM = ksteer.BLOCKS_PER_SM
+# H100 shared memory: an SM's 228 KB, a block's most (227 KB), and the 1 KB
+# the card reserves a block.
+SM_SMEM, BLOCK_SMEM, RESERVED_SMEM = 233472, 232448, 1024
+# The planner's model of the card doing slices, each block slot one at a
+# time: slices a second over the whole card.  The kernel did 8.0e7 on an
+# H100 SXM at config4, B = 512 (576 tiles x 924 slices in 6.69 ms,
+# tests/test_torch_cuda.py's split sweep); 6e7 weighs the partials'
+# traffic so that the plan is the sweep's fastest split at M = 16
+# (config5), 1536 and 12 288 and within 5 % of it at 24 and 16 384.
+CARD_SLICES_PER_S = 6.0e7
+
+
+def blocks_per_sm(c: int) -> int:
+    """Blocks an SM holds at C channels (shared memory and the register
+    bound); raises when one block's staging does not fit."""
+    smem = TILE_BYTES + c * CHANNEL_BYTES
+    if smem > BLOCK_SMEM:
+        raise ValueError(f"the fused SRP kernel stages every channel of a "
+                         f"bin chunk in shared memory: C = {c} needs {smem} "
+                         f"bytes, more than a block's {BLOCK_SMEM} (at most "
+                         f"{(BLOCK_SMEM - TILE_BYTES) // CHANNEL_BYTES} "
+                         "channels; srp='matmul' takes any C)")
+    return min(BLOCKS_PER_SM, SM_SMEM // (smem + RESERVED_SMEM))
+
+
+@functools.lru_cache(maxsize=256)
+def split_plan(m: int, f: int, p: int, g: int, c: int,
+               sms: int = 132) -> tuple[int, int]:
+    """(S, per): the kernel's K, ceil(F / KB) bin chunks x P pairs slices,
+    split into S runs of ``per`` slices (``steer.plan_splits``) so that
+    [m, g]'s tiles fill ``sms`` SMs at ``blocks_per_sm(c)`` blocks each."""
+    slots = sms * blocks_per_sm(c)
+    return ksteer.plan_splits(-(-m // BM) * -(-g // BN), -(-f // KB) * p,
+                              m * g * 4, slots, slots / CARD_SLICES_PER_S)
+
+
 def srp_power_fused(spectra: torch.Tensor, pairs: torch.Tensor,
                     tau: torch.Tensor, omega: torch.Tensor, eps: float,
-                    valid: torch.Tensor) -> torch.Tensor:
+                    valid: torch.Tensor, omega_step: float) -> torch.Tensor:
     """Steered power from channel-major spectra.
 
     Args:
@@ -83,25 +136,62 @@ def srp_power_fused(spectra: torch.Tensor, pairs: torch.Tensor,
       eps: PHAT epsilon.
       valid: int32 [P]; 0 kills a pair's contribution (pair-axis padding of
         a sharded slice), all ones on the single-card path.
+      omega_step: omega's uniform step, > 0: omega[f] = f * omega_step, as
+        ``algos.srp.make_plan`` builds it (``DevicePlan.omega_step``).  The
+        kernel makes each thread's 8 bins' phasors from two by complex
+        products; the plain version reads omega alone.
     Returns:
       float32 [M, G] steered response power.
     """
     c, m, f, p, g = _shape(spectra, pairs, tau, omega, valid)
+    if not omega_step > 0:
+        raise ValueError(f"the fused SRP makes its phasors from omega's "
+                         f"uniform step (DevicePlan.omega_step), got "
+                         f"{omega_step}: omega must be a ramp f * step "
+                         "(srp='matmul' takes any omega)")
     if not dispatch.use_kernel(spectra, pairs, tau, omega, valid):
         return srp_power_fused_plain(spectra, pairs, tau, omega, eps, valid)
+    return _launch(spectra, pairs, tau, omega, eps, valid, omega_step,
+                   *split_plan(m, f, p, g, c, ksteer._sm_count(spectra.device)))
+
+
+def _launch(spectra, pairs, tau, omega, eps, valid, omega_step: float,
+            splits: int, per: int) -> torch.Tensor:
+    """The kernel on CUDA tensors with its K slices split into ``splits``
+    runs of ``per`` (``split_plan``)."""
+    c, m, f, p, g = _shape(spectra, pairs, tau, omega, valid)
     _build.check_tensor("spectra", spectra, torch.complex64, (c, m, f))
     _build.check_tensor("pairs", pairs, torch.int32, (p, 2))
     _build.check_tensor("valid", valid, torch.int32, (p,))
     _build.check_tensor("tau", tau, torch.float32, (p, g))
     _build.check_tensor("omega", omega, torch.float32, (f,))
+    blocks_per_sm(c)
+    _check_layout()
     out = torch.empty((m, g), dtype=torch.float32, device=spectra.device)
+    if m == 0 or g == 0:
+        return out
+    scratch = (torch.empty((splits, m, g), dtype=torch.float32,
+                           device=spectra.device) if splits > 1 else None)
     code = _build.library().mcax_srp_power_fused(
         spectra.data_ptr(), pairs.data_ptr(), valid.data_ptr(),
-        tau.data_ptr(), omega.data_ptr(), out.data_ptr(), c, m, f, p, g,
-        float(eps), _build.stream_of(spectra))
+        tau.data_ptr(), omega.data_ptr(),
+        scratch.data_ptr() if scratch is not None else None, out.data_ptr(),
+        c, m, f, p, g, float(eps), float(omega_step), splits, per,
+        _build.stream_of(spectra))
     _build.check_launch("srp_fused", code)
     srp_power_fused.LAUNCHES += 1
     return out
 
 
 srp_power_fused.LAUNCHES = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _check_layout() -> None:
+    """Raise unless the built kernel's layout is the planner's."""
+    got = (ctypes.c_int * 6)()
+    _build.library().mcax_srp_fused_layout(got)
+    want = (BM, BN, KB, TILE_BYTES, CHANNEL_BYTES, BLOCKS_PER_SM)
+    if tuple(got) != want:
+        raise RuntimeError(f"csrc/srp_fused.cu's layout {tuple(got)} is not "
+                           f"kernels/srp_fused.py's {want}")

@@ -105,28 +105,39 @@ HBM_RATE = 3.35e12
 MAX_SCRATCH_BYTES = 1 << 28
 
 
+def plan_splits(tiles: int, slices: int, out_bytes: int, slots: int,
+                wave_slice_s: float) -> tuple[int, int]:
+    """(S, per): the split of ``slices`` K slices into S runs of ``per``
+    (the last may be shorter, none is empty) that minimises the modelled
+    time of a split-K product of ``tiles`` output tiles on ``slots`` block
+    slots: whole waves of ``slots`` blocks, each wave ``wave_slice_s``
+    seconds a slice of its run, plus, when S > 1, the partials' traffic (S
+    writes, S reads and one write of ``out_bytes`` at the data sheet's
+    3.35 TB/s) within MAX_SCRATCH_BYTES.  Kernels 10 and 2 plan with it."""
+    best = None
+    for per in range(max(1, slices), 0, -1):
+        s = -(-slices // per)
+        if s > 1 and s * out_bytes > MAX_SCRATCH_BYTES:
+            break
+        waves = -(-tiles * s // slots)
+        t = waves * per * wave_slice_s
+        if s > 1:
+            t += (2 * s + 1) * out_bytes / HBM_RATE
+        if best is None or t < best[0]:
+            best = (t, s, per)
+    return best[1], best[2]
+
+
 @functools.lru_cache(maxsize=256)
 def split_k_plan(m: int, k2: int, g: int, sms: int = 132) -> tuple[int, int]:
     """(S, chunk): the split of 2K (``k2`` floats) into S chunks of ``chunk``
     floats (a multiple of BK; the last chunk may be shorter, none is empty)
     that minimises the modelled time of an [m, k2] x [k2, g] product on
-    ``sms`` SMs: whole waves of BLOCKS_PER_SM blocks an SM, each wave as
-    long as one block's chunk, plus the partials' traffic when S > 1."""
-    tiles = -(-m // BM) * -(-g // BN)
-    slices = max(1, -(-k2 // BK))
+    ``sms`` SMs (``plan_splits``, BLOCKS_PER_SM blocks an SM)."""
     slots = sms * BLOCKS_PER_SM
-    best = None
-    for per in range(slices, 0, -1):          # slices a chunk
-        s = -(-slices // per)
-        if s > 1 and s * m * g * 4 > MAX_SCRATCH_BYTES:
-            break
-        waves = -(-tiles * s // slots)
-        t = waves * per * slots * SLICE_FLOPS / TC_RATE
-        if s > 1:
-            t += (2 * s + 1) * m * g * 4 / HBM_RATE
-        if best is None or t < best[0]:
-            best = (t, s, per * BK)
-    return best[1], best[2]
+    s, per = plan_splits(-(-m // BM) * -(-g // BN), max(1, -(-k2 // BK)),
+                         m * g * 4, slots, slots * SLICE_FLOPS / TC_RATE)
+    return s, per * BK
 
 
 def split_evenly(k2: int, splits: int) -> tuple[int, int]:

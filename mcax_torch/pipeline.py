@@ -136,6 +136,10 @@ class Pipeline:
         self._a2 = (kfft.synthesis_matrix(s.frame_len, self.win_s,
                                           self.device)
                     if algo in _SYNTH_ALGOS else None)
+        # and the inverse's FFT route the synthesis window and its twiddles
+        self._ifft_op = (kfft.fft_operand(s.frame_len, self.win_s,
+                                          self.device)
+                         if algo in _SYNTH_ALGOS else None)
 
     @property
     def frames_per_block(self) -> int:
@@ -230,7 +234,8 @@ class Pipeline:
 
         def resynth(y):
             """y [S, ..., T, F] -> (audio [S, ..., T*hop], new OLA tail)."""
-            frames = stft_mod.istft_frames(y, self._a2)    # [S, ..., T, L]
+            frames = stft_mod.istft_frames(y, self._a2,
+                                           self._ifft_op)   # [S, ..., T, L]
             return streaming_overlap_add(frames, hop, state.ola_tail)
 
         def cov_update():
@@ -392,7 +397,8 @@ class Pipeline:
         def resynth(y):
             """y [..., B*T, F] -> (audio [B, ..., T*hop], new OLA tail):
             OLA over the whole contiguous frame stream, split per block."""
-            frames = stft_mod.istft_frames(y, self._a2)    # [..., B*T, L]
+            frames = stft_mod.istft_frames(y, self._a2,
+                                           self._ifft_op)   # [..., B*T, L]
             full, tail = streaming_overlap_add(frames, hop, state.ola_tail)
             return full.view(*full.shape[:-1], b, t * hop).movedim(-2, 0), tail
 

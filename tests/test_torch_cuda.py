@@ -123,10 +123,92 @@ def test_srp_fused(dev, c, f, g_pts, m, invalid):
     valid = plan.valid.clone()
     valid[list(invalid)] = 0
     args = (spec, plan.pairs, plan.tau_pg, plan.omega, 1e-12, valid)
-    got = srp_fused.srp_power_fused(*args)
+    got = srp_fused.srp_power_fused(*args, plan.omega_step)
     want = srp_fused.srp_power_fused_plain(*args)
     scale = want.abs().max()
     torch.testing.assert_close(got / scale, want / scale, atol=1e-4, rtol=0)
+
+
+def _fused_case(dev, c, f, m, r):
+    """A plane wave's spectra [C, M, F] with noise, at config-like shapes,
+    and the fused SRP's plan."""
+    fs = 48000 if f == 513 else 16000
+    geom = t_geo.ArrayGeometry(positions=t_geo.circular_positions(c, r),
+                               sample_rate=fs)
+    n = (f - 1) * 2
+    plan = t_srp.device_plan(t_srp.make_plan(geom, n, 360), geom.pairs, dev)
+    rng = np.random.default_rng(m)
+    x = torch.from_numpy(_plane_wave(geom, 0.7, n * (m + 1) // 2, m)).to(dev)
+    win = t_window.sqrt_hann(n)
+    spec = fft.rdft_rows(x, fft.analysis_matrix(n, win, dev),
+                         fft.fft_operand(n, win, dev), n // 2)[:, :m]
+    spec = (spec + 0.1 * _rng_complex(rng, spec.shape, dev)).contiguous()
+    return plan, (spec, plan.pairs, plan.tau_pg, plan.omega, 1e-12,
+                  plan.valid)
+
+
+PIPELINE_FRAMES = [
+    (16, 257, 16, 0.1),      # config5's block step (P = 120)
+    (8, 513, 24, 0.05),      # config4's block step
+    (8, 513, 1536, 0.05),    # config4 serving, S = 64
+    (8, 513, 12288, 0.05),   # config4 bulk, B = 512
+    (8, 257, 16384, 0.05),   # config3 at hop 128, B = 512
+]
+
+
+@pytest.mark.parametrize("c,f,m,r", PIPELINE_FRAMES)
+def test_srp_fused_at_pipeline_frames(dev, c, f, m, r):
+    """The tensor-core design at the frames each pipeline's call gives it:
+    within 1e-4 of the largest power, the argmax losing at most 1e-4 of the
+    peak, two calls bit-equal, one launch counted a call."""
+    plan, args = _fused_case(dev, c, f, m, r)
+    before = srp_fused.srp_power_fused.LAUNCHES
+    got = srp_fused.srp_power_fused(*args, plan.omega_step)
+    assert srp_fused.srp_power_fused.LAUNCHES == before + 1
+    assert torch.equal(got, srp_fused.srp_power_fused(*args,
+                                                      plan.omega_step))
+    want = srp_fused.srp_power_fused_plain(*args)
+    scale = want.abs().max()
+    torch.testing.assert_close(got / scale, want / scale, atol=1e-4, rtol=0)
+    rows = torch.arange(m, device=dev)
+    loss = (want[rows, want.argmax(-1)] - want[rows, got.argmax(-1)]).max()
+    assert loss <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("c,f,m,r", PIPELINE_FRAMES)
+def test_srp_fused_split_plan_against_a_sweep(dev, c, f, m, r):
+    """The planner's split against splits of 1 to 132 runs on the card
+    (CUDA events, 10 calls each): printed (run with -s), and the plan
+    within 10 % of the sweep's fastest."""
+    plan, args = _fused_case(dev, c, f, m, r)
+    p, g = plan.tau_pg.shape
+    slices = -(-f // srp_fused.KB) * p
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    chosen = srp_fused.split_plan(m, f, p, g, c, sms)
+
+    def time_ms(splits, per):
+        srp_fused._launch(*args, plan.omega_step, splits, per)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            srp_fused._launch(*args, plan.omega_step, splits, per)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / 10
+
+    runs = {chosen}
+    for s in (1, 2, 3, 4, 6, 8, 11, 16, 24, 33, 44, 66, 88, 132):
+        per = -(-slices // s)
+        s = -(-slices // per)
+        if s == 1 or s * m * g * 4 <= steer.MAX_SCRATCH_BYTES:
+            runs.add((s, per))
+    times = {run: time_ms(*run) for run in sorted(runs)}
+    print(f"\nsrp_fused split sweep at C = {c}, M = {m}, F = {f} "
+          f"({torch.cuda.get_device_name(dev)}): plan S = {chosen[0]} "
+          f"{times[chosen]:.4f} ms; "
+          + ", ".join(f"S = {s} {t:.4f}" for (s, _), t in times.items()))
+    assert times[chosen] <= 1.1 * min(times.values())
 
 
 @pytest.mark.parametrize("c,b,t,f,seeded", [
@@ -302,19 +384,55 @@ def test_irdft_rows(dev, rows, n, cols):
     rng = np.random.default_rng(8)
     f = n // 2 + 1
     y = _rng_complex(rng, (rows, f), dev)
+    op = None
     if cols is None:
-        a2 = fft.synthesis_matrix(n, t_window.sqrt_hann(n), dev)
+        win = t_window.sqrt_hann(n)
+        a2 = fft.synthesis_matrix(n, win, dev)
+        op = fft.fft_operand(n, win, dev)
     else:
         a2 = fft.pad_to_tiles(
             fft.synthesis_matrix(n, None, dev)[:, cols[0]:cols[1]], dev)
     before = fft.irdft_rows.LAUNCHES
-    got = fft.irdft_rows(y, a2)
+    got = fft.irdft_rows(y, a2, op)
     assert fft.irdft_rows.LAUNCHES == before + 1
     want = fft.irdft_rows_plain(y, a2)
     scale = want.abs().max()
     torch.testing.assert_close(got / scale, want / scale, atol=3e-6, rtol=0)
     with pytest.raises(ValueError, match="whole"):
-        fft.irdft_rows(y, a2.clone())      # the same matrix, unpadded
+        fft._launch_irdft_gemm(y, a2.clone())  # the same matrix, unpadded
+
+
+@pytest.mark.parametrize("rows,n", [
+    (12288, 1024),             # config4 B = 512's synthesis
+    (300, 512),                # config5's frame, a short last run
+    (37, 32), (5, 4096),       # the smallest and largest FFT frames
+])
+def test_irdft_rows_fft_route(dev, rows, n):
+    """The inverse FFT (the route a full power-of-two synthesis takes)
+    against the plain version and the GEMM route on the same spectra, whose
+    DC and Nyquist bins have a nonzero imaginary part (the MVDR output's),
+    which both ignore."""
+    rng = np.random.default_rng(n)
+    f = n // 2 + 1
+    y = _rng_complex(rng, (rows, f), dev)
+    assert y[:, 0].imag.abs().min() > 0 and y[:, -1].imag.abs().min() > 0
+    win = t_window.sqrt_hann(n)
+    a2 = fft.synthesis_matrix(n, win, dev)
+    op = fft.fft_operand(n, win, dev)
+    assert fft.inverse_route(f, n) == "fft"
+    before = fft.irdft_rows.LAUNCHES
+    got = fft.irdft_rows(y, a2, op)
+    assert fft.irdft_rows.LAUNCHES == before + 1
+    assert torch.equal(got, fft._launch_irfft(y, op, n))   # the FFT ran
+    want = fft.irdft_rows_plain(y, a2)
+    gemm = fft._launch_irdft_gemm(y, a2)
+    scale = want.abs().max()
+    torch.testing.assert_close(got / scale, want / scale, atol=3e-6, rtol=0)
+    torch.testing.assert_close(got / scale, gemm / scale, atol=3e-6, rtol=0)
+    y0 = y.clone()
+    y0[:, 0] = y0[:, 0].real.to(y.dtype)
+    y0[:, -1] = y0[:, -1].real.to(y.dtype)
+    assert torch.equal(fft.irdft_rows(y0, a2, op), got)
 
 
 @pytest.mark.parametrize("layout", ["rows", "complex"])

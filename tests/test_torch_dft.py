@@ -61,7 +61,8 @@ def test_irfft_matches_pallas_irdft(n, windowed):
     want = np.asarray(m_fft.irfft(y, n, window=win))
     a2 = t_fft.synthesis_matrix(n, win, CPU)
     assert a2.shape == (2 * f, n)
-    got = t_fft.irfft(torch.from_numpy(y), a2)
+    op = t_fft.fft_operand(n, np.ones(n) if win is None else win, CPU)
+    got = t_fft.irfft(torch.from_numpy(y), a2, op)
     assert got.shape == want.shape == (ROWS, n)
     scale = np.abs(want).max()
     np.testing.assert_allclose(got.numpy() / scale, want / scale, atol=3e-6)

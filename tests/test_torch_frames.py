@@ -53,8 +53,9 @@ def test_stft_and_inverse_match_mcax(frame_len, hop):
     scale = np.abs(want).max()
     np.testing.assert_allclose(got.numpy() / scale, want / scale, atol=3e-6)
     frames_want = np.asarray(m_stft.istft_frames(want, win))
-    frames_got = t_stft.istft_frames(got, t_fft.synthesis_matrix(
-        frame_len, win, CPU)).numpy()
+    frames_got = t_stft.istft_frames(
+        got, t_fft.synthesis_matrix(frame_len, win, CPU),
+        t_fft.fft_operand(frame_len, win, CPU)).numpy()
     np.testing.assert_allclose(frames_got, frames_want, atol=2e-5)
     # the matmul-form DFT agrees with the reference's own matmul form
     np.testing.assert_allclose(

@@ -25,15 +25,29 @@ kernel's own bound:
     chunks of ``steer.split_k_plan`` in their fixed order, against
     ``srp_power_cps_plain`` within 1e-4 of the largest power with the argmax
     check, at config4's and config5's K; and the planner itself (2K covered
-    exactly once, at least one wave of 132 SMs at one block's frames).
+    exactly once, at least one wave of 132 SMs at one block's frames);
+  * kernel 2 (``csrc/srp_fused.cu`` on the same body): the K of (16-bin
+    chunk, pair) slices, chunk outermost, each slice's PHAT CPS and
+    steering made as the kernel makes them (bins past F selected to 0,
+    NaN there included; a pair of valid 0 adding exactly 0; 8 bins'
+    phasors from two on omega's uniform ramp, and their phase error), 3xTF32
+    products summed from zero a slice and added in slice order, the
+    partials of ``srp_fused.split_plan`` added in split order, against
+    ``srp_power_fused_plain`` and ``mcax``'s ``srp_power_fused`` within
+    3e-5 of the largest power; and the planner (K covered exactly once,
+    the grid filling 132 SMs at every M the pipelines use).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from mcax.kernels import srp_fused as m_srp
+from mcax_torch import geometry as t_geo
+from mcax_torch.algos import srp as t_srp
 from mcax_torch.frames import window as t_window
 from mcax_torch.kernels import fft as kfft
+from mcax_torch.kernels import srp_fused
 from mcax_torch.kernels import steer
 from mcax_torch.kernels import stft_fused
 
@@ -82,13 +96,12 @@ def _fft_kernel_emulation(samples, carry, op, hop):
     return _passes_and_bins(frames, op)
 
 
-def _passes_and_bins(frames, op):
-    """rfft.cuh's fft_frames and real_bin on packed windowed frames
-    [..., N] (z[p/2] = (frame[p], frame[p+1])): [..., N/2 + 1]."""
-    n = frames.shape[-1]
-    h = n // 2
-    tw_r, tw_i = op[n:].view(n, 2).unbind(-1)
-    zr, zi = frames[..., 0::2], frames[..., 1::2]           # [..., H]
+def _stockham(zr, zi, tw_r, tw_i):
+    """rfft.cuh's fft_frames: the H-point complex FFT of (zr, zi) [..., H]
+    by the Stockham passes of ``kfft.fft_passes``, with the N = 2H entry
+    twiddle table (tw_r, tw_i)."""
+    h = zr.shape[-1]
+    n = 2 * h
     for radix, ns in kfft.fft_passes(h):
         q = h // radix
         j = torch.arange(q)
@@ -105,6 +118,16 @@ def _passes_and_bins(frames, op):
             nr[..., dst + r * ns] = o[r][0]
             ni[..., dst + r * ns] = o[r][1]
         zr, zi = nr, ni
+    return zr, zi
+
+
+def _passes_and_bins(frames, op):
+    """rfft.cuh's fft_frames and real_bin on packed windowed frames
+    [..., N] (z[p/2] = (frame[p], frame[p+1])): [..., N/2 + 1]."""
+    n = frames.shape[-1]
+    h = n // 2
+    tw_r, tw_i = op[n:].view(n, 2).unbind(-1)
+    zr, zi = _stockham(frames[..., 0::2], frames[..., 1::2], tw_r, tw_i)
     k = torch.arange(h + 1)
     ar, ai = zr[..., k % h], zi[..., k % h]
     br, bi = zr[..., (h - k) % h], zi[..., (h - k) % h]
@@ -433,3 +456,220 @@ def test_planner_tiles_are_the_kernels():
         == {"BM": steer.BM, "BN": steer.BN, "BK": steer.BK,
             "BLOCKS_PER_SM": steer.BLOCKS_PER_SM}
     assert "__launch_bounds__(THREADS, BLOCKS_PER_SM)" in src
+
+
+# -- kernel 2: the fused SRP on 3xTF32 tiles, its operands made on chip ----
+
+# (C, F, P) of config4 (and config3 at hop 128: F = 257) and config5, at the
+# frames a call of each pipeline gives the kernel: config5's and config4's
+# block step, config4 serving S = 64, config4 bulk B = 512, config3 hop 128
+# B = 512.
+FUSED_SHAPES = [(8, 513, 28), (8, 257, 28), (16, 257, 120)]
+FUSED_FRAMES = [16, 24, 1536, 12288, 16384]
+
+
+def _phasors(omega, tau_p, f0, f, omega_step):
+    """The steering tile of a slice as the kernel makes it: (E_re, E_im)
+    [KB, G] for bins f0 .. f0 + KB - 1, each thread's 8 bins from one
+    range-reduced phasor of its first bin (omega there, 0 past F) by
+    products with the step's."""
+    kb = srp_fused.KB
+    out_r, out_i = [], []
+    step_r, step_i = srp_fused.steering_planes(
+        tau_p[None], torch.tensor([omega_step], dtype=torch.float32))
+    for k0 in range(0, kb, 8):
+        f1 = f0 + k0
+        om = omega[f1] if f1 < f else torch.tensor(0.0)
+        er, ei = srp_fused.steering_planes(tau_p[None], om.reshape(1))
+        er, ei = er[0, 0], ei[0, 0]
+        for _ in range(8):
+            out_r.append(er)
+            out_i.append(ei)
+            er, ei = (er * step_r[0, 0] - ei * step_i[0, 0],
+                      er * step_i[0, 0] + ei * step_r[0, 0])
+    return torch.stack(out_r), torch.stack(out_i)
+
+
+def _fused_emulation(spectra, pairs, tau, omega, eps, valid, omega_step,
+                     pad=0.0):
+    """csrc/srp_fused.cu's arithmetic in its order: (power [M, G], the
+    largest |slice sum| of a pair of valid 0).  ``pad`` fills the staged
+    bins past F (the kernel zero-fills them; NaN shows the select)."""
+    c, m, f = spectra.shape
+    p, g = tau.shape
+    kb = srp_fused.KB
+    nfc = -(-f // kb)
+    slices = nfc * p
+    splits, per = srp_fused.split_plan(m, f, p, g, c, SMS)
+    staged = torch.full((c, m, nfc * kb), complex(pad, pad),
+                        dtype=torch.complex64)
+    staged[..., :f] = spectra
+    f_ok = torch.arange(nfc * kb) < f
+    invalid_max = 0.0
+    out = None
+    for sp in range(splits):
+        acc = torch.zeros((m, g))
+        for i in range(sp * per, min((sp + 1) * per, slices)):
+            fc, pp = divmod(i, p)
+            sl = slice(fc * kb, (fc + 1) * kb)
+            a = staged[pairs[pp, 0], :, sl]
+            b = staged[pairs[pp, 1], :, sl]
+            zr = a.real * b.real + a.imag * b.imag
+            zi = a.imag * b.real - a.real * b.imag
+            wt = float(valid[pp]) / (torch.sqrt(zr * zr + zi * zi) + eps)
+            ok = f_ok[sl]
+            gr = torch.where(ok, zr * wt, 0.0)
+            gi = torch.where(ok, zi * wt, 0.0)
+            er, ei = _phasors(omega, tau[pp], fc * kb, f, omega_step)
+            a_t = torch.stack([gr, gi], -1).reshape(m, 2 * kb)
+            b_t = torch.stack([er, -ei], 1).reshape(2 * kb, g)
+            ab, asm = _split(a_t)
+            bb, bsm = _split(b_t)
+            part = asm @ bb + ab @ bsm + ab @ bb
+            if not valid[pp]:
+                invalid_max = max(invalid_max, float(part.abs().max()))
+            acc = acc + part
+        out = acc if out is None else out + acc
+    return out, invalid_max
+
+
+def _fused_case(c, f, m, g=360, seed=0, radius=0.05, fs=48000):
+    geom = t_geo.ArrayGeometry(
+        positions=t_geo.circular_positions(c, radius), sample_rate=fs)
+    plan = t_srp.make_plan(geom, (f - 1) * 2, g)
+    rng = np.random.default_rng(seed)
+    spec = (rng.standard_normal((c, m, f))
+            + 1j * rng.standard_normal((c, m, f))).astype(np.complex64)
+    return geom, plan, spec
+
+
+@pytest.mark.parametrize("c,f,p", FUSED_SHAPES)
+@pytest.mark.parametrize("m", FUSED_FRAMES)
+def test_fused_split_plan_covers_k_once(c, f, p, m):
+    g = 360
+    s, per = srp_fused.split_plan(m, f, p, g, c, SMS)
+    slices = -(-f // srp_fused.KB) * p
+    assert s >= 1 and per >= 1
+    assert (s - 1) * per < slices <= s * per     # no empty run, no gap
+    covered = np.zeros(slices, np.int32)
+    for i in range(s):
+        covered[i * per:min((i + 1) * per, slices)] += 1
+    assert (covered == 1).all()
+    blocks = -(-m // srp_fused.BM) * -(-g // srp_fused.BN) * s
+    assert blocks >= SMS                          # every SM has a block
+    slots = SMS * srp_fused.blocks_per_sm(c)
+    if blocks > slots:
+        assert blocks / (-(-blocks // slots) * slots) >= 0.9   # no tail
+    assert s == 1 or s * m * g * 4 <= steer.MAX_SCRATCH_BYTES
+
+
+def test_fused_blocks_an_sm_and_the_channel_limit():
+    assert srp_fused.blocks_per_sm(8) == 2
+    assert srp_fused.blocks_per_sm(16) == 1
+    with pytest.raises(ValueError, match="channels"):
+        srp_fused.blocks_per_sm(26)
+
+
+@pytest.mark.parametrize("c,f,m,ref", [
+    (8, 513, 24, False),    # config4's block step
+    (16, 257, 16, False),   # config5's block step
+    (8, 257, 24, True),     # config3's bins, against mcax too
+    (4, 129, 37, True),     # ragged frames, a partial last chunk
+])
+def test_fused_3xtf32_matches_plain(c, f, m, ref, monkeypatch):
+    geom, plan, spec = _fused_case(c, f, m, seed=c + f)
+    args = (torch.from_numpy(spec), torch.from_numpy(geom.pairs),
+            torch.from_numpy(plan.tau_pg), torch.from_numpy(plan.omega), 1e-12,
+            torch.ones(geom.num_pairs, dtype=torch.int32))
+    step = t_srp.uniform_step(plan.omega)
+    assert step > 0
+    got, _ = _fused_emulation(*args, step)
+    want = srp_fused.srp_power_fused_plain(*args)
+    scale = want.abs().max()
+    torch.testing.assert_close(got / scale, want / scale, atol=3e-5, rtol=0)
+    rows = torch.arange(m)
+    loss = (want[rows, want.argmax(-1)] - want[rows, got.argmax(-1)]).max()
+    assert loss <= 1e-4 * scale
+    if ref:
+        monkeypatch.setenv("MCAX_BACKEND", "pallas")
+        monkeypatch.setenv("MCAX_PALLAS_INTERPRET", "1")
+        mcax = np.asarray(m_srp.srp_power_fused(
+            np.ascontiguousarray(spec.real), np.ascontiguousarray(spec.imag),
+            geom.pairs, plan.tau_pg, plan.omega, 360, 1e-12))
+        np.testing.assert_allclose(got.numpy() / float(scale),
+                                   mcax / float(scale), atol=3e-5)
+
+
+def test_fused_invalid_pairs_and_nan_past_f_add_exactly_zero():
+    c, f, m = 4, 129, 20
+    geom, plan, spec = _fused_case(c, f, m, seed=5)
+    valid = torch.ones(geom.num_pairs, dtype=torch.int32)
+    valid[[1, 4]] = 0
+    args = (torch.from_numpy(spec), torch.from_numpy(geom.pairs),
+            torch.from_numpy(plan.tau_pg), torch.from_numpy(plan.omega), 1e-12,
+            valid)
+    step = t_srp.uniform_step(plan.omega)
+    zero_pad, invalid_max = _fused_emulation(*args, step)
+    nan_pad, _ = _fused_emulation(*args, step, pad=float("nan"))
+    assert invalid_max == 0.0
+    assert torch.equal(zero_pad, nan_pad)
+    assert torch.isfinite(nan_pad).all()
+    want = srp_fused.srp_power_fused_plain(*args)
+    scale = want.abs().max()
+    torch.testing.assert_close(zero_pad / scale, want / scale, atol=3e-5,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("name", ["config3", "config4", "config5"])
+def test_ramp_phasors_phase_error(name):
+    """The kernel makes a thread's 8 bins' phasors from its first bin's and
+    the step's by complex products: within 1e-5 of float64's
+    e^{j omega_f tau} at every bin, pair and grid point, and within 1.25x
+    the error of the plain version's one range-reduced phasor a bin (both
+    are dominated by the fp32 phase omega_f * tau)."""
+    from mcax_torch.config import get_config
+    cfg = get_config(name)
+    geom = cfg.geometry()
+    n = cfg.stft.frame_len
+    f = n // 2 + 1
+    plan = t_srp.make_plan(geom, n, 360)
+    step = t_srp.uniform_step(plan.omega)
+    assert step == float(np.float32(2 * np.pi * cfg.sample_rate / n))
+    omega = torch.from_numpy(plan.omega)
+    truth = np.exp(1j * (2 * np.pi * cfg.sample_rate * np.arange(f) / n)
+                   [None, :, None] * plan.tau_pg.astype(np.float64)[:, None])
+    err = 0.0
+    for p in range(plan.tau_pg.shape[0]):
+        tau_p = torch.from_numpy(plan.tau_pg[p])
+        tiles = [_phasors(omega, tau_p, f0, f, step)
+                 for f0 in range(0, f, srp_fused.KB)]
+        er = torch.cat([t[0] for t in tiles])[:f].double().numpy()
+        ei = torch.cat([t[1] for t in tiles])[:f].double().numpy()
+        err = max(err, np.abs(er + 1j * ei - truth[p]).max())
+    pr, pi = srp_fused.steering_planes(torch.from_numpy(plan.tau_pg), omega)
+    plain = np.abs(pr.double().numpy() + 1j * pi.double().numpy()
+                   - truth).max()
+    assert err <= 1e-5
+    assert err <= 1.25 * plain
+
+
+def test_plan_carries_the_uniform_omega_step():
+    """device_plan sets omega_step from make_plan's ramp once; a pair
+    shard keeps it; an omega that is no uniform ramp takes one phasor a
+    bin (0)."""
+    geom = t_geo.ArrayGeometry(positions=t_geo.circular_positions(8, 0.05),
+                               sample_rate=48000)
+    plan = t_srp.make_plan(geom, 1024, 360)
+    dplan = t_srp.device_plan(plan, geom.pairs, CPU)
+    assert dplan.omega_step == float(np.float32(2 * np.pi * 48000 / 1024))
+    shard = t_srp.pair_shard(dplan, plan, "fused", 2, 1)
+    assert shard.omega_step == dplan.omega_step
+    bent = plan.omega.copy()
+    bent[7] *= 1.01
+    assert t_srp.uniform_step(bent) == 0.0
+    assert t_srp.uniform_step(plan.omega[:1]) == 0.0
+    assert t_srp.uniform_step(plan.omega + 1.0) == 0.0
+    spec = torch.zeros((8, 3, 513), dtype=torch.complex64)
+    with pytest.raises(ValueError, match="uniform step"):
+        srp_fused.srp_power_fused(spec, dplan.pairs, dplan.tau_pg,
+                                  dplan.omega, 1e-12, dplan.valid, 0.0)
