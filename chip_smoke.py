@@ -20,6 +20,12 @@ on the first that fails:
      config3 at stft.hop=128, B = 512; the materialised-CPS SRP: config4's
      CPS at B = 512 and at one block, M = 24; both MVDR solve layouts again
      at C = 16 on config5's shapes, bit-equal), to the parity bounds below,
+     the covariance prefixes' chunked scan also at config5 (C = 16,
+     B = 512) and on config4's spectra at one block, at B = 101 (no chunk
+     length divides it), at lam = 1 and with cov0 = None, each within 2e-4
+     and two calls bit-equal, with the plan of chunks printed; the MVDR
+     solve from complex covariances bit-equal at S = 64 and at one stream
+     (B = 1, the block step, timed beside ``torch.linalg.solve``);
      and time kernel, plain version and (where one PyTorch call computes
      the same function) that library call with CUDA events; the STFT from
      blocks, the STFT of a contiguous signal and the real DFT on both their
@@ -37,7 +43,8 @@ on the first that fails:
      config4's MVDR output (an imaginary part in the Nyquist bin), each
      input on both routes (the FFT and the DFT-as-GEMM) beside
      ``torch.fft.irfft`` and the window; the
-     registers and spills of both kernels from ``nvcc.log``; the halo ring
+     registers and spills of kernels 2, 7, 3 (its three launches) and 6
+     from ``nvcc.log``; the halo ring
      (kernel 11) in 2 x 1 and 2 x 2 meshes of processes that all share the
      one card (spawned, joined over gloo on a FileStore, each mapping its
      neighbours' buffers through CUDA IPC): 16 pushes a rank of config4
@@ -256,6 +263,7 @@ def check_kernels(pipe, carry0, blocks, peaks):
     beamformer's output [B*T, F] with those weights)."""
     import torch
     from mcax_torch.kernels import covprefix, mvdrsolve, srp_fused, stft_fused
+    from mcax_torch.algos import covariance as cov_mod
     from mcax_torch.algos import mvdr, srp
 
     cfg = pipe.cfg
@@ -362,13 +370,7 @@ def check_kernels(pipe, carry0, blocks, peaks):
     # -- kernel 3: covariance prefixes ---------------------------------------
     cov0 = torch.view_as_complex(pipe.init_state().cov)
     lam = cfg.algo.cov_forget
-    rows = covprefix.block_prefixes_rows(spec, cov0, lam, t)
-    want = covprefix.block_prefixes_rows_plain(spec, cov0, lam, t)
-    torch.cuda.synchronize()
-    err = (rows - want).abs().max().item()
-    if not torch.allclose(rows, want, atol=2e-4, rtol=2e-4):
-        raise AssertionError(f"cov_prefixes: error {err:.3e} beyond "
-                             "atol = rtol = 2e-4")
+    rows, err = check_cov_prefixes("config4 B = 512", spec, cov0, lam, t)
     recs["cov_prefixes"] = dict(
         route="cuda", source="mcax_torch/csrc/covprefix.cu",
         replaces="mcax/kernels/covprefix.py:102", max_abs_err=err,
@@ -376,9 +378,8 @@ def check_kernels(pipe, carry0, blocks, peaks):
         plain_ms=time_ms(lambda: covprefix.block_prefixes_rows_plain(
             spec, cov0, lam, t), reps=3),
         library_ms=None,
-        bound=bound_ms(8.0 * b * c * c * t * f,
-                       8.0 * c * m * f + 8.0 * f * c * c + 4.0 * rows.numel(),
-                       peaks))
+        bound=cov_prefix_bound(c, b, t, f, peaks),
+        design=cov_prefix_plan(c, b, t, f, spec.device))
 
     # -- kernel 4: MVDR solve from rows --------------------------------------
     # The solve reads the lower triangle only: C(C+1)/2 real and C(C-1)/2
@@ -390,6 +391,8 @@ def check_kernels(pipe, carry0, blocks, peaks):
     want = mvdrsolve.weights_blocks_fused_rows_plain(rows, steer, delta)
     torch.cuda.synchronize()
     check_mvdr("mvdr_solve_rows", w, want, steer)
+    loaded = cov_mod.loaded(covprefix.rows_to_complex(rows), delta)
+    d = steer.transpose(-1, -2)[..., None]                 # [B, F, C, 1]
     recs["mvdr_solve_rows"] = dict(
         route="cuda", source="mcax_torch/csrc/mvdrsolve.cu",
         replaces="mcax/kernels/mvdrsolve.py:150",
@@ -398,10 +401,89 @@ def check_kernels(pipe, carry0, blocks, peaks):
             rows, steer, delta)),
         plain_ms=time_ms(lambda: mvdrsolve.weights_blocks_fused_rows_plain(
             rows, steer, delta), reps=3),
-        library_ms=None,
+        # the solve alone of the loaded systems, as kernel 6's record
+        library_ms=time_ms(lambda: torch.linalg.solve(loaded, d)),
+        library_call="torch.linalg.solve of the loaded systems "
+                     "(rows_to_complex; solve alone)",
         bound=mvdr_bound(b, f, c, steer.numel(), peaks))
+    del loaded, d
     y = mvdr.beamform(spec.view(c, b, t, f).transpose(0, 1), w)
     return recs, y.reshape(m, f).contiguous()
+
+
+def check_cov_prefixes(what, spec, cov0, lam, t):
+    """Kernel 3 against its plain version at atol = rtol = 2e-4, and two
+    calls bit-equal.  Returns (the rows, the max abs error)."""
+    import torch
+    from mcax_torch.kernels import covprefix
+    rows = covprefix.block_prefixes_rows(spec, cov0, lam, t)
+    again = covprefix.block_prefixes_rows(spec, cov0, lam, t)
+    want = covprefix.block_prefixes_rows_plain(spec, cov0, lam, t)
+    torch.cuda.synchronize()
+    err = (rows - want).abs().max().item()
+    if not torch.allclose(rows, want, atol=2e-4, rtol=2e-4):
+        raise AssertionError(f"cov_prefixes at {what}: error {err:.3e} "
+                             "beyond atol = rtol = 2e-4")
+    if not torch.equal(rows, again):
+        raise AssertionError(f"cov_prefixes at {what}: two calls on the "
+                             "same inputs differ")
+    return rows, err
+
+
+def cov_prefix_bound(c, b, t, f, peaks):
+    """The spectra and the seed read once, the rows written once, against
+    the C^2 complex products of every frame and bin."""
+    return bound_ms(8.0 * b * c * c * t * f,
+                    8.0 * c * b * t * f + 8.0 * f * c * c
+                    + 8.0 * b * c * c * f, peaks)
+
+
+def cov_prefix_plan(c, b, t, f, dev):
+    """The chunked scan's plan at these shapes, as text."""
+    from mcax_torch.kernels import covprefix
+    bins, per_sm, sms = covprefix._layout(c, t, dev)
+    length, chunks = covprefix.plan_chunks(b, c, f, per_sm * sms)
+    return (f"C = {c}, B = {b}: {chunks} chunks of {length} blocks, "
+            f"{-(-f // bins)} bin tiles of {bins}, {per_sm} CTAs an SM")
+
+
+def check_cov_prefix_cases(spec4, cov0, lam, t, pipe5, blocks5, rec, peaks):
+    """Phase 3, kernel 3 beyond config4 B = 512: config5 (C = 16) at
+    B = 512, timed as ``at_c16``; and on config4's spectra one block, an
+    odd B that no chunk length divides (101), lam = 1 and cov0 = None, each
+    against the plain version at 2e-4 and two calls bit-equal."""
+    import torch
+    from mcax_torch.algos import covariance as cov_mod
+    from mcax_torch.kernels import covprefix, stft_fused
+    cfg5 = pipe5.cfg
+    hop5, t5 = cfg5.stft.hop, cfg5.frames_per_block
+    b5, c5, _ = blocks5.shape
+    spec5, _ = stft_fused.stft_fused_from_blocks(
+        blocks5, torch.zeros((c5, hop5), device=blocks5.device), pipe5._w2,
+        pipe5._fft_op, hop5)
+    cov05 = cov_mod.from_planes(pipe5.init_state().cov)
+    lam5 = cfg5.algo.cov_forget
+    f5 = spec5.shape[-1]
+    _, err5 = check_cov_prefixes(f"config5 B = {b5}", spec5, cov05, lam5, t5)
+    bound = cov_prefix_bound(c5, b5, t5, f5, peaks)
+    rec["at_c16"] = dict(
+        shape=[c5, b5, t5, f5], max_abs_err=err5,
+        ms=time_ms(lambda: covprefix.block_prefixes_rows(spec5, cov05, lam5,
+                                                         t5)),
+        plain_ms=time_ms(lambda: covprefix.block_prefixes_rows_plain(
+            spec5, cov05, lam5, t5), reps=3),
+        library_ms=None, bound_ms=bound[0], bound_by=bound[1])
+    rec["design"] += "; " + cov_prefix_plan(c5, b5, t5, f5, spec5.device)
+    del spec5
+    cases = {"B = 1": (spec4[:, :t], cov0, lam),
+             "B = 101": (spec4[:, :101 * t], cov0, lam),
+             "lam = 1": (spec4[:, :101 * t], cov0, 1.0),
+             "cov0 = None": (spec4[:, :101 * t], None, lam)}
+    for what, (sp, c0, lm) in cases.items():
+        check_cov_prefixes(what, sp.contiguous(), c0, lm, t)
+    print("kernel cov_prefixes: config5 B = 512 and config4's " 
+          + ", ".join(cases) + ": within 2e-4 of plain, two calls "
+          "bit-equal; " + rec["design"])
 
 
 def check_mvdr(name, w, want, steer):
@@ -486,16 +568,22 @@ def check_new_kernels(pipe4, x_streams, pipe1, blocks1, peaks):
     cov0 = cov_mod.from_planes(pipe4.init_states(s_).cov)
     covs = cov_mod.update(cov0, spectra, cfg.algo.cov_forget).contiguous()
     delta = cfg.algo.diag_load
-    w = mvdrsolve.weights_blocks_fused(covs, steer, delta)
-    want = mvdrsolve.weights_blocks_fused_plain(covs, steer, delta)
-    torch.cuda.synchronize()
-    check_mvdr("mvdr_solve_complex", w, want, steer)
+    def solve_bit_equal(what, cv, st):
+        w = mvdrsolve.weights_blocks_fused(cv, st, delta)
+        want = mvdrsolve.weights_blocks_fused_plain(cv, st, delta)
+        torch.cuda.synchronize()
+        if not torch.equal(w, want):
+            raise AssertionError(f"mvdr_solve_complex at {what}: not "
+                                 "bit-equal to its plain version (max abs "
+                                 f"err {(w - want).abs().max().item():.3e})")
+        check_mvdr(f"mvdr_solve_complex at {what}", w, want, st)
+
+    solve_bit_equal(f"S = {s_}", covs, steer)
     loaded = cov_mod.loaded(covs, delta)
     d = steer.transpose(-1, -2)[..., None]                 # [S, F, C, 1]
     recs["mvdr_solve_complex"] = dict(
         route="cuda", source="mcax_torch/csrc/mvdrsolve.cu",
-        replaces="mcax/kernels/mvdrsolve.py:202",
-        max_abs_err=(w - want).abs().max().item(),
+        replaces="mcax/kernels/mvdrsolve.py:202", max_abs_err=0.0,
         ms=time_ms(lambda: mvdrsolve.weights_blocks_fused(covs, steer,
                                                           delta)),
         plain_ms=time_ms(lambda: mvdrsolve.weights_blocks_fused_plain(
@@ -505,6 +593,20 @@ def check_new_kernels(pipe4, x_streams, pipe1, blocks1, peaks):
         library_ms=time_ms(lambda: torch.linalg.solve(loaded, d)),
         library_call="torch.linalg.solve of the loaded systems (solve alone)",
         bound=mvdr_bound(s_, f, c, steer.numel(), peaks))
+    # the block step: one stream's covariances and steering (B = 1)
+    cov1, steer1 = covs[:1].contiguous(), steer[:1].contiguous()
+    solve_bit_equal("B = 1", cov1, steer1)
+    loaded1, d1 = loaded[:1], d[:1]
+    bound = mvdr_bound(1, f, c, steer1.numel(), peaks)
+    recs["mvdr_solve_complex"]["at_b1"] = dict(
+        shape=list(steer1.shape), max_abs_err=0.0,
+        ms=time_ms(lambda: mvdrsolve.weights_blocks_fused(cov1, steer1,
+                                                          delta), reps=100),
+        plain_ms=time_ms(lambda: mvdrsolve.weights_blocks_fused_plain(
+            cov1, steer1, delta), reps=3),
+        library_ms=time_ms(lambda: torch.linalg.solve(loaded1, d1),
+                           reps=100),
+        bound_ms=bound[0], bound_by=bound[1])
 
     # -- kernel 9: PHAT cross-power, config1 B = 512 -----------------------
     hop1 = pipe1.cfg.stft.hop
@@ -899,9 +1001,12 @@ def check_mvdr_c16(pipe5, blocks5, x5_streams, recs, peaks):
     cov0 = cov_mod.from_planes(pipe5.init_state().cov)
     rows = covprefix.block_prefixes_rows(spec, cov0, lam, t)
     steer = srp.steering_vector(pipe5.plan, grid.expand(b, 2))
+    loaded = cov_mod.loaded(covprefix.rows_to_complex(rows), delta)
+    d = steer.permute(0, 3, 2, 1)                          # [B, F, C, 2]
     record("mvdr_solve_rows", mvdrsolve.weights_blocks_fused_rows,
            mvdrsolve.weights_blocks_fused_rows_plain, (rows, steer, delta),
-           b, steer)
+           b, steer, library=lambda: torch.linalg.solve(loaded, d))
+    del loaded, d
 
     s_ = x5_streams.shape[0]
     x = torch.cat([x5_streams[:, :, bl - hop:bl], x5_streams[:, :, bl:2 * bl]],
@@ -1752,10 +1857,14 @@ def main() -> int:
 
     # -- phase 3: kernels against their plain versions ---------------------
     recs, y_mvdr = check_kernels(pipe, carry0, stream_blocks[:BLOCKS], PEAKS)
-    recs.update(check_new_kernels(pipe, x_streams, pipe1,
-                                  blocks1[:BLOCKS], PEAKS))
     spec4, _ = stft_fused.stft_fused_from_blocks(
         stream_blocks[:BLOCKS], carry0, pipe._w2, pipe._fft_op, hop)
+    check_cov_prefix_cases(
+        spec4, torch.view_as_complex(pipe.init_state().cov),
+        cfg.algo.cov_forget, cfg.frames_per_block, pipe5, blocks5[:BLOCKS],
+        recs["cov_prefixes"], PEAKS)
+    recs.update(check_new_kernels(pipe, x_streams, pipe1,
+                                  blocks1[:BLOCKS], PEAKS))
     recs.update(check_dft_kernels(pipe, spec4, y_mvdr, pipe3h,
                                   blocks3[:BLOCKS], PEAKS))
     del y_mvdr
@@ -1764,7 +1873,9 @@ def main() -> int:
         pipe, pipe_m, spec4, pipe5, blocks5, pipe3h, blocks3), PEAKS)
     del spec4
     for name, lines in kernel_registers(
-            ("srp_fused_kernel", "irfft_rows_kernel")).items():
+            ("srp_fused_kernel", "irfft_rows_kernel", "cov_partials_kernel",
+             "cov_carries_kernel", "cov_fixup_kernel",
+             "mvdr_group_kernel")).items():
         print(f"nvcc.log, {name}: " + " | ".join(lines))
     check_mvdr_c16(pipe5, blocks5[:BLOCKS], x5_streams, recs, PEAKS)
     ring_recs, ring_paths = check_ring_kernel(repo, PEAKS)

@@ -60,33 +60,12 @@ constexpr int A_STAGE = BM * A_LD;
 constexpr int B_STAGE = BK * B_LD;
 constexpr int SMEM_BYTES = STAGES * (A_STAGE + B_STAGE) * 4;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// src_bytes = 0 zero-fills the destination and reads nothing.
-__device__ __forceinline__ void cp_async8(void* dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+// the cp.async helpers of common.cuh, as members of this namespace for the
+// sources that use it
+using mcax::cp_async16;
+using mcax::cp_async8;
+using mcax::cp_async_commit;
+using mcax::cp_async_wait;
 
 __device__ __forceinline__ uint32_t to_tf32(float x) {
   uint32_t r;

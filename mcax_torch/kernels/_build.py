@@ -59,8 +59,12 @@ SIGNATURES = {
                              _F, _F, _I, _I, _P),
     # layout (int[6]: BM, BN, KB, tile bytes, channel bytes, blocks an SM)
     "mcax_srp_fused_layout": (_P,),
-    # spec, cov0 (or NULL), out, C, B, T, F, lam, decay, stream
-    "mcax_cov_prefixes": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
+    # spec, cov0 (or NULL), out, carry (or NULL), C, B, T, F, lam, decay,
+    # chunk_len, chunks, stream
+    "mcax_cov_prefixes": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I,
+                          _P),
+    # C, T, layout (int[2]: bins a CTA, CTAs an SM)
+    "mcax_cov_prefix_layout": (_I, _I, _P),
     # rows, steer, w, B, S, C, F, delta, stream
     "mcax_mvdr_solve_rows": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
     # covs, steer, w, B, S, C, F, delta, stream

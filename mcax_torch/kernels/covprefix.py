@@ -8,8 +8,10 @@ Im R[i,j]; the port has no bin padding), which the MVDR solve reads
 directly.
 
   * ``block_prefixes_rows`` — the wrapper: on CUDA tensors it launches the
-    hand-written kernel (``csrc/covprefix.cu``), on CPU tensors it runs the
-    plain version.
+    hand-written kernels (``csrc/covprefix.cu``: per-block partials in
+    parallel over (bin tile, chunk of blocks), then a scan over the chunks),
+    on CPU tensors it runs the plain version;
+  * ``plan_chunks`` — how many consecutive blocks a chunk takes.
   * ``block_prefixes_rows_plain`` — the same function in plain PyTorch: one
     weighted einsum for all per-block partials and a loop over blocks for
     the prefix recursion.
@@ -17,6 +19,8 @@ directly.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -86,6 +90,52 @@ def block_prefixes_rows_plain(spectra: torch.Tensor,
     return complex_to_rows(torch.stack(covs))
 
 
+# The partials kernel's CTA (csrc/covprefix.cu): 256 threads, one for each
+# (row, bin) of KC = 8, 16 or 32 rows (C <= KC), so 256/KC bins a CTA.
+CTA_THREADS = 256
+MAX_CHUNKS = 64          # the carries' serial pass stays short
+
+
+def tile_bins(c: int) -> int:
+    """Bins a CTA of the partials kernel covers at C channels."""
+    return CTA_THREADS // next(kc for kc in (8, 16, 32) if c <= kc)
+
+
+def plan_chunks(b: int, c: int, f: int, slots: int) -> tuple[int, int]:
+    """(L, K): the B blocks cut into K chunks of L consecutive blocks (the
+    last may be shorter) for a grid of ceil(F / tile_bins(C)) x K CTAs, of
+    which ``slots`` run at once (SMs x CTAs an SM).  A CTA's time grows
+    with L, so the plan takes the L of least waves x L, K at most
+    MAX_CHUNKS, and the fewer chunks of two equal costs."""
+    tiles = -(-f // tile_bins(c))
+    best = None
+    for length in range(-(-b // MAX_CHUNKS), b + 1):
+        chunks = -(-b // length)
+        if best is not None and chunks == best[2]:
+            continue                     # the same K at a longer L
+        cost = -(-tiles * chunks // slots) * length
+        if best is None or cost < best[0]:
+            best = (cost, length, chunks)
+    return best[1], best[2]
+
+
+@functools.lru_cache(maxsize=None)
+def _layout(c: int, t: int, device: torch.device) -> tuple[int, int, int]:
+    """(bins a CTA, CTAs an SM, SMs) of the built partials kernel at (C, T)
+    on the card; raises unless the bins are ``tile_bins``'s or no CTA fits
+    an SM."""
+    got = (ctypes.c_int * 2)()
+    with torch.cuda.device(device):
+        code = _build.library().mcax_cov_prefix_layout(c, t, got)
+    _build.check_launch("cov_prefix_layout", code)
+    if got[0] != tile_bins(c) or got[1] < 1:
+        raise RuntimeError(f"csrc/covprefix.cu's layout at C = {c}, T = {t} "
+                           f"(bins {got[0]}, CTAs an SM {got[1]}) does not "
+                           f"match kernels/covprefix.py (bins {tile_bins(c)})")
+    return got[0], got[1], torch.cuda.get_device_properties(
+        device).multi_processor_count
+
+
 def block_prefixes_rows(spectra: torch.Tensor, cov0: Optional[torch.Tensor],
                         forget: float, frames_per_block: int) -> torch.Tensor:
     """Per-block prefix covariances in the rows layout.
@@ -110,12 +160,17 @@ def block_prefixes_rows(spectra: torch.Tensor, cov0: Optional[torch.Tensor],
     if cov0 is not None:
         _build.check_tensor("cov0", cov0, torch.complex64, (f, c, c))
         cov0_ptr = cov0.data_ptr()
-    out = torch.empty((b, 2 * c * c, f), dtype=torch.float32,
-                      device=spectra.device)
+    dev = spectra.device
+    _, per_sm, sms = _layout(c, t, dev)
+    length, chunks = plan_chunks(b, c, f, per_sm * sms)
+    out = torch.empty((b, 2 * c * c, f), dtype=torch.float32, device=dev)
+    carry = (torch.empty((chunks - 1, 2 * c * c, f), dtype=torch.float32,
+                         device=dev) if chunks > 1 else None)
     decay = float(torch.tensor(forget ** t, dtype=torch.float32))
     code = _build.library().mcax_cov_prefixes(
-        spectra.data_ptr(), cov0_ptr, out.data_ptr(), c, b, t, f,
-        float(forget), decay, _build.stream_of(spectra))
+        spectra.data_ptr(), cov0_ptr, out.data_ptr(),
+        carry.data_ptr() if carry is not None else None, c, b, t, f,
+        float(forget), decay, length, chunks, _build.stream_of(spectra))
     _build.check_launch("cov_prefixes", code)
     block_prefixes_rows.LAUNCHES += 1
     return out

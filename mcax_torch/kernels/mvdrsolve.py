@@ -11,12 +11,13 @@ denominator guard |d^H z| > 1e-12 (else 1e-12 + 0j).  Two layouts of R:
   * ``weights_blocks_fused`` — complex64 [B, F, C, C] (the block step, and
     the multi-stream step with B = S).
 
-Each wrapper launches the hand-written kernel (``csrc/mvdrsolve.cu``, one
-thread per (block, bin), one solve body for both layouts, built for C = 8
-and C = 16) on CUDA tensors
-and runs its plain version on CPU tensors: ``*_plain`` is ``_solve_math``
-(the reference's unrolled solve, operation for operation) on [B, F]
-tensors.
+Each wrapper launches a hand-written kernel (``csrc/mvdrsolve.cu``, built
+for C = 8 and C = 16) on CUDA tensors: the rows layout one thread per
+(block, bin), the complex layout a group of C lanes per (block, bin), lane
+i holding row i of the factor.  Both perform ``_solve_math``'s IEEE
+operations in its order, so both are bit-equal to the plain version, which
+the wrapper runs on CPU tensors: ``*_plain`` is ``_solve_math`` (the
+reference's unrolled solve, operation for operation) on [B, F] tensors.
 """
 
 from __future__ import annotations
@@ -29,8 +30,8 @@ import torch
 from mcax_torch.kernels import _build
 from mcax_torch.kernels import dispatch
 
-# C values the kernel is instantiated for (csrc/mvdrsolve.cu): config4's,
-# with the factor in registers, and config5's, with it in shared memory.
+# C values the kernels are instantiated for (csrc/mvdrsolve.cu): config4's
+# and config5's.
 KERNEL_CHANNELS = (8, 16)
 
 

@@ -10,7 +10,9 @@ which a machine with only the port need not have.)
 
 They cover the ragged edges the main path's shapes do not: frame rows and
 grid points that are not tile multiples, odd bin counts, other channel
-counts for the covariance prefixes, several sources, a zero seed
+counts for the covariance prefixes, their chunked scan at config4's and
+config5's B = 512, at one block, at a B no chunk divides, at lam = 1 and a
+decay that underflows, two calls bit-equal, several sources, a zero seed
 covariance, signals of one or many rows, element counts that are not a
 multiple of the block, frame lengths and hops that break the DFT kernel's
 vector loads, an odd inverse-DFT width; both routes of each analysis
@@ -18,7 +20,8 @@ kernel (the FFT for power-of-two frames, checked to be the one launched,
 and the GEMM for others), the FFT over strided rows at config4's S = 64
 step, config3's hop 128, hop = L, an unaligned hop, hop > L and sharded
 1 x 1's long signal, and kernel 5's FFT equal to kernel 1's on the same
-frames; the MVDR solve at C = 16; the
+frames; the MVDR solve at C = 16, and from complex covariances
+bit-equal on near-rank-1 scenes at the block step, S = 64 and C = 16; the
 materialised-CPS SRP (kernel 10) at ragged sizes and at config4's (B = 512
 and one block); each streaming entry point on the card against the CPU;
 ShardedPipeline on a 1 x 1 mesh against Pipeline; the halo ring (kernel
@@ -228,6 +231,60 @@ def test_cov_prefixes(dev, c, b, t, f, seeded):
     torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
 
 
+def _cov_case(dev, c, b, t, f, seeded, seed):
+    rng = np.random.default_rng(seed)
+    spec = _rng_complex(rng, (c, b * t, f), dev)
+    cov0 = None
+    if seeded:
+        a = _rng_complex(rng, (f, c, c), dev)
+        cov0 = (a + a.conj().transpose(-1, -2)).contiguous()
+    return spec, cov0
+
+
+@pytest.mark.parametrize("c,b,t,f,lam", [
+    (8, 512, 24, 513, 0.95),    # config4 bulk
+    (16, 512, 16, 257, 0.9),    # config5 bulk
+])
+def test_cov_prefixes_at_pipeline_shapes(dev, c, b, t, f, lam):
+    """The chunked scan at B = 512 (31 or 23 chunks), seeded, against the
+    plain recursion at atol = rtol = 2e-4; one launch counted."""
+    spec, cov0 = _cov_case(dev, c, b, t, f, True, seed=11)
+    _, per_sm, sms = covprefix._layout(c, t, dev)
+    length, chunks = covprefix.plan_chunks(b, c, f, per_sm * sms)
+    assert chunks > 1
+    before = covprefix.block_prefixes_rows.LAUNCHES
+    got = covprefix.block_prefixes_rows(spec, cov0, lam, t)
+    assert covprefix.block_prefixes_rows.LAUNCHES == before + 1
+    want = covprefix.block_prefixes_rows_plain(spec, cov0, lam, t)
+    torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("c,b,t,f,lam,seeded", [
+    (8, 1, 24, 513, 0.95, True),     # B = 1: one chunk, no scan
+    (8, 101, 24, 513, 0.95, True),   # no chunk length divides 101
+    (16, 101, 16, 257, 0.9, False),  # cov0 = None
+    (8, 64, 24, 513, 1.0, True),     # lam = 1: decay 1, weights 0
+    (8, 64, 24, 65, 1e-3, True),     # decay underflows to 0
+    (32, 7, 4, 20, 0.8, True),       # the widest layout (KC = 32)
+])
+def test_cov_prefixes_edge_cases(dev, c, b, t, f, lam, seeded):
+    spec, cov0 = _cov_case(dev, c, b, t, f, seeded, seed=b + c)
+    got = covprefix.block_prefixes_rows(spec, cov0, lam, t)
+    want = covprefix.block_prefixes_rows_plain(spec, cov0, lam, t)
+    torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
+    if lam == 1.0:
+        assert torch.equal(got, covprefix.complex_to_rows(
+            cov0.expand(b, -1, -1, -1)))
+
+
+@pytest.mark.parametrize("c,b,t,f", [(8, 512, 24, 513), (16, 101, 16, 257)])
+def test_cov_prefixes_two_calls_bit_equal(dev, c, b, t, f):
+    spec, cov0 = _cov_case(dev, c, b, t, f, True, seed=12)
+    first = covprefix.block_prefixes_rows(spec, cov0, 0.95, t)
+    assert torch.equal(first, covprefix.block_prefixes_rows(spec, cov0,
+                                                            0.95, t))
+
+
 @pytest.mark.parametrize("b,f,c,s", [(3, 513, 8, 0), (2, 257, 8, 2),
                                      (4, 65, 8, 3), (2, 31, 8, 0)])
 def test_mvdr_solve(dev, b, f, c, s):
@@ -326,6 +383,31 @@ def test_mvdr_solve_complex(dev, b, f, c, s):
     resp = (got.conj() * steer).sum(dim=-2)
     torch.testing.assert_close(resp, torch.ones_like(resp), atol=1e-3,
                                rtol=0)
+
+
+@pytest.mark.parametrize("b,f,c,s", [
+    (1, 513, 8, 1),      # the block step
+    (64, 513, 8, 1),     # config4 serving, S = 64 streams
+    (16, 257, 16, 2),    # config5 serving, two sources
+])
+def test_mvdr_solve_complex_bit_equal_near_rank_one(dev, b, f, c, s):
+    """The group solve on near-rank-1 covariances (a unit-modulus source
+    plus noise 1e-4 down): the plain version's IEEE operations in its
+    order, so bit-equal."""
+    rng = np.random.default_rng(13)
+    v = torch.polar(torch.ones((b, f, c, 1), device=dev),
+                    torch.from_numpy(rng.uniform(-np.pi, np.pi, (b, f, c, 1))
+                                     .astype(np.float32)).to(dev))
+    x = _rng_complex(rng, (b, f, c, 3 * c), dev)
+    covs = (v @ v.conj().transpose(-1, -2)
+            + 1e-4 * x @ x.conj().transpose(-1, -2) / (3 * c)).contiguous()
+    steer = torch.polar(torch.ones((b, s, c, f), device=dev),
+                        torch.from_numpy(rng.uniform(-np.pi, np.pi,
+                                                     (b, s, c, f))
+                                         .astype(np.float32)).to(dev))
+    got = mvdrsolve.weights_blocks_fused(covs, steer, 1e-3)
+    want = mvdrsolve.weights_blocks_fused_plain(covs, steer, 1e-3)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("shape", [(8192, 257), (3, 5, 33), (1, 1)])

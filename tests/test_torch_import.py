@@ -44,7 +44,7 @@ def test_import_loads_no_jax_and_no_mcax():
 def _port_sources():
     files = sorted((ROOT / "mcax_torch").rglob("*.py"))
     assert len(files) >= 16, files
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "time_kernels.py"]
 
 
 @pytest.mark.parametrize("path", _port_sources(),
