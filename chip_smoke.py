@@ -15,7 +15,10 @@ on the first that fails:
      the card, on the inputs its path gives it (kernels 1-4: config4
      ``process_blocks`` at B = 512; the STFT of a contiguous signal and the
      MVDR solve from complex covariances: config4 ``process_streams`` at
-     S = 64; the PHAT cross-power: config1 ``process_blocks`` at B = 512;
+     S = 64; the PHAT cross-power with the pair gather in its kernel:
+     config4 ``srp="matmul"`` and config1 ``process_blocks`` at B = 512,
+     bit-equal, timed beside the gather outside it (index_select and the
+     gathered-pairs kernel, itself checked on config1's gathered pairs);
      the inverse real DFT: config4's synthesis at B = 512; the real DFT:
      config3 at stft.hop=128, B = 512; the materialised-CPS SRP: config4's
      CPS at B = 512 and at one block, M = 24; both MVDR solve layouts again
@@ -43,8 +46,10 @@ on the first that fails:
      config4's MVDR output (an imaginary part in the Nyquist bin), each
      input on both routes (the FFT and the DFT-as-GEMM) beside
      ``torch.fft.irfft`` and the window; the
-     registers and spills of kernels 2, 7, 3 (its three launches) and 6
-     from ``nvcc.log``; the halo ring
+     registers and spills of kernels 2, 7, 3 (its three launches), 4, 6 and
+     9 from ``nvcc.log``; the MVDR solve from rows at config4 (C = 8) on
+     both bodies (one thread a system, the wrapper's; a group of C lanes a
+     system), bit-equal, both timed; the halo ring
      (kernel 11) in 2 x 1 and 2 x 2 meshes of processes that all share the
      one card (spawned, joined over gloo on a FileStore, each mapping its
      neighbours' buffers through CUDA IPC): 16 pushes a rank of config4
@@ -170,8 +175,9 @@ SCAN_DISPATCHES = 4     # 1 warm-up + 3 timed
 PEAKS = (67e12, 3.35e12)
 TF32_PEAK = 495e12      # dense TF32 on the tensor cores (kernels 2, 10)
 # timings printed beside a kernel's own: its unsplit product, its other
-# route, the materialised chain
-EXTRA_MS = ("unsplit_ms", "gemm_ms", "chain_ms")
+# route, the materialised chain, the pair gather outside the kernel, the
+# other solve body
+EXTRA_MS = ("unsplit_ms", "gemm_ms", "chain_ms", "gathered_ms", "group_ms")
 
 
 def nvidia_smi_line() -> str:
@@ -391,6 +397,13 @@ def check_kernels(pipe, carry0, blocks, peaks):
     want = mvdrsolve.weights_blocks_fused_rows_plain(rows, steer, delta)
     torch.cuda.synchronize()
     check_mvdr("mvdr_solve_rows", w, want, steer)
+    # the group body on the same rows (the wrapper takes it at C = 16)
+    wg = mvdrsolve._launch_rows_group(rows, steer, delta)
+    torch.cuda.synchronize()
+    if not (torch.equal(w, want) and torch.equal(wg, want)):
+        raise AssertionError("mvdr_solve_rows at C = 8: a body is not "
+                             "bit-equal to the plain version")
+    del wg
     loaded = cov_mod.loaded(covprefix.rows_to_complex(rows), delta)
     d = steer.transpose(-1, -2)[..., None]                 # [B, F, C, 1]
     recs["mvdr_solve_rows"] = dict(
@@ -398,6 +411,9 @@ def check_kernels(pipe, carry0, blocks, peaks):
         replaces="mcax/kernels/mvdrsolve.py:150",
         max_abs_err=(w - want).abs().max().item(),
         ms=time_ms(lambda: mvdrsolve.weights_blocks_fused_rows(
+            rows, steer, delta)),
+        # the other body at C = 8: a group of C lanes a system
+        group_ms=time_ms(lambda: mvdrsolve._launch_rows_group(
             rows, steer, delta)),
         plain_ms=time_ms(lambda: mvdrsolve.weights_blocks_fused_rows_plain(
             rows, steer, delta), reps=3),
@@ -505,13 +521,13 @@ def mvdr_bound(b, f, c, steer_elems, peaks):
                     4.0 * b * c * c * f + 16.0 * steer_elems, peaks)
 
 
-def check_new_kernels(pipe4, x_streams, pipe1, blocks1, peaks):
-    """Phase 3, kernels 5, 6 and 9: against their plain versions on the
+def check_new_kernels(pipe4, x_streams, peaks):
+    """Phase 3, kernels 5 and 6: against their plain versions on the
     inputs their paths give them.  Returns {name: record}."""
     import torch
     from mcax_torch.algos import covariance as cov_mod
     from mcax_torch.algos import srp
-    from mcax_torch.kernels import cps, mvdrsolve, stft_fused
+    from mcax_torch.kernels import mvdrsolve, stft_fused
     recs = {}
 
     # -- kernel 5: STFT of contiguous signals, config4 process_streams -----
@@ -608,34 +624,100 @@ def check_new_kernels(pipe4, x_streams, pipe1, blocks1, peaks):
                            reps=100),
         bound_ms=bound[0], bound_by=bound[1])
 
-    # -- kernel 9: PHAT cross-power, config1 B = 512 -----------------------
+    return recs
+
+
+def cps_bound(c, m, f, p, peaks):
+    """The function's bound: the spectra read once, the CPS written once
+    (and the pairs), against ~14 fp32 operations an output element."""
+    return bound_ms(14.0 * m * p * f, 8.0 * c * m * f + 8.0 * m * p * f
+                    + 8.0 * p, peaks)
+
+
+def check_cps_kernels(pipe_m, spec4, pipe1, blocks1, peaks):
+    """Phase 3, kernel 9: the PHAT cross-power with the pair gather in the
+    kernel (``cps_phat_gather``) at config4 srp="matmul" B = 512 (spectra
+    [C, M, F], frames-major out [M, P, F], as ``srp_surface`` calls it) and
+    at config1 B = 512 (out [P, M, F], as GCC calls it), each bit-equal to
+    its plain version (index_select, then the PHAT arithmetic) and timed
+    beside the route it replaced (``gathered_ms``: the two index_selects
+    and the gathered-pairs kernel); then the gathered-pairs entry
+    (``cps_phat_pairs``, no path's kernel any more) at config1, within
+    2e-6 of its plain version.  Returns {"cps_phat": record}, config1's
+    numbers under ``at_config1`` and the gathered-pairs entry's under
+    ``at_gathered_pairs``."""
+    import torch
+    from mcax_torch.kernels import cps, stft_fused
     hop1 = pipe1.cfg.stft.hop
     spec1, _ = stft_fused.stft_fused_from_blocks(
         blocks1, torch.zeros((blocks1.shape[1], hop1), device=blocks1.device),
         pipe1._w2, pipe1._fft_op, hop1)
-    pi, pj = pipe1.gplan.pairs[:, 0], pipe1.gplan.pairs[:, 1]
-    xi = torch.index_select(spec1, -3, pi)                 # [P, B*T, F]
-    xj = torch.index_select(spec1, -3, pj)
+
+    def measure(what, spec, pairs, eps, frames_major):
+        c, m, f = spec.shape
+        p = pairs.shape[0]
+        g = cps.cps_phat_gather(spec, pairs, eps, frames_major)
+        want = cps.cps_phat_gather_plain(spec, pairs, eps, frames_major)
+        torch.cuda.synchronize()
+        if not torch.equal(g, want):
+            raise AssertionError(
+                f"cps_phat_gather at {what}: not bit-equal to its plain "
+                f"version (max abs err {(g - want).abs().max().item():.3e})")
+        unit = (g.abs() - 1).abs().max().item()
+        if not unit <= 1e-4:
+            raise AssertionError(f"cps_phat_gather at {what}: ||g| - 1| = "
+                                 f"{unit:.3e} > 1e-4")
+        del g, want
+        st = spec.transpose(0, 1) if frames_major else spec
+        axis = 1 if frames_major else 0
+        pi, pj = pairs[:, 0], pairs[:, 1]
+
+        def gathered():
+            return cps.cps_phat_pairs(torch.index_select(st, axis, pi),
+                                      torch.index_select(st, axis, pj), eps)
+
+        ft, nf = cps.gather_plan(c, f, p, m)
+        return dict(
+            shape=[c, m, f, p], max_abs_err=0.0,
+            ms=time_ms(lambda: cps.cps_phat_gather(spec, pairs, eps,
+                                                   frames_major)),
+            gathered_ms=time_ms(gathered),
+            plain_ms=time_ms(lambda: cps.cps_phat_gather_plain(
+                spec, pairs, eps, frames_major), reps=3),
+            library_ms=None, bound=cps_bound(c, m, f, p, peaks),
+            design=f"{what}: {-(-m // nf)} x {-(-f // ft)} CTAs of {nf} "
+                   f"frames x {ft} bins")
+
+    rec = measure("config4 srp=matmul B = 512", spec4, pipe_m.plan.pairs,
+                  pipe_m.cfg.algo.phat_eps, True)
+    one = measure("config1 B = 512", spec1, pipe1.gplan.pairs,
+                  pipe1.cfg.algo.phat_eps, False)
+    rec.update(
+        route="cuda", source="mcax_torch/csrc/cps.cu",
+        replaces="mcax/kernels/cps.py:61",
+        design=f"cps_gather_kernel, the C channels' bins of a frame staged "
+               f"in shared memory; {rec['design']}; {one['design']}",
+        at_config1={k: v for k, v in one.items()
+                    if k not in ("bound", "design")}
+        | dict(bound_ms=one["bound"][0], bound_by=one["bound"][1]))
+    # the gathered-pairs entry (the reference's public cps_phat_pairs)
+    xi = torch.index_select(spec1, 0, pipe1.gplan.pairs[:, 0])
+    xj = torch.index_select(spec1, 0, pipe1.gplan.pairs[:, 1])
     eps = pipe1.cfg.algo.phat_eps
     g = cps.cps_phat_pairs(xi, xj, eps)
     want = cps.cps_phat_pairs_plain(xi, xj, eps)
     torch.cuda.synchronize()
     err = (g - want).abs().max().item()
     if not err <= 2e-6:
-        raise AssertionError(f"cps_phat: error {err:.3e} > 2e-6")
-    unit = (g.abs() - 1).abs().max().item()
-    if not unit <= 1e-4:
-        raise AssertionError(f"cps_phat: ||g| - 1| = {unit:.3e} > 1e-4")
+        raise AssertionError(f"cps_phat_pairs: error {err:.3e} > 2e-6")
     ne = xi.numel()
-    recs["cps_phat"] = dict(
-        route="cuda", source="mcax_torch/csrc/cps.cu",
-        replaces="mcax/kernels/cps.py:61", max_abs_err=err,
+    bound = bound_ms(14.0 * ne, 24.0 * ne, peaks)
+    rec["at_gathered_pairs"] = dict(
+        shape=list(xi.shape), max_abs_err=err,
         ms=time_ms(lambda: cps.cps_phat_pairs(xi, xj, eps)),
         plain_ms=time_ms(lambda: cps.cps_phat_pairs_plain(xi, xj, eps)),
-        library_ms=None,
-        # per element: 6 products, 3 sums, sqrt, + eps, divide, 2 products
-        bound=bound_ms(14.0 * ne, 24.0 * ne, peaks))
-    return recs
+        library_ms=None, bound_ms=bound[0], bound_by=bound[1])
+    return {"cps_phat": rec}
 
 
 def check_dft_kernels(pipe4, spec4, y_mvdr, pipe3h, blocks3h, peaks):
@@ -887,12 +969,10 @@ def check_steer_kernel(pipe_m, spec4, peaks):
     import torch
     from mcax_torch.kernels import cps, steer
     plan = pipe_m.plan
-    st = spec4.transpose(0, 1)                             # [M, C, F]
-    g = cps.cps_phat_pairs(torch.index_select(st, 1, plan.pairs[:, 0]),
-                           torch.index_select(st, 1, plan.pairs[:, 1]),
-                           pipe_m.cfg.algo.phat_eps)       # [M, P, F]
+    g = cps.cps_phat_gather(spec4, plan.pairs, pipe_m.cfg.algo.phat_eps,
+                            frames_major=True)             # [M, P, F]
     cps_all = g.view(g.shape[0], -1)                       # [M, K]
-    del g, st
+    del g
     b2 = plan.b2
     k, gp = cps_all.shape[1], b2.shape[1]
 
@@ -1007,6 +1087,10 @@ def check_mvdr_c16(pipe5, blocks5, x5_streams, recs, peaks):
            mvdrsolve.weights_blocks_fused_rows_plain, (rows, steer, delta),
            b, steer, library=lambda: torch.linalg.solve(loaded, d))
     del loaded, d
+    print(f"kernel mvdr_solve_rows at C = 16 on the group body (rows "
+          f"loader): {recs['mvdr_solve_rows']['at_c16']['ms']:.4f} ms a "
+          "call; the one-thread body it replaced took 0.673 ms there "
+          "(PERF.md, not this run)")
 
     s_ = x5_streams.shape[0]
     x = torch.cat([x5_streams[:, :, bl - hop:bl], x5_streams[:, :, bl:2 * bl]],
@@ -1048,8 +1132,9 @@ def launch_counters():
             covprefix.block_prefixes_rows,
             mvdrsolve.weights_blocks_fused_rows,
             stft_fused.stft_fused_planes, mvdrsolve.weights_blocks_fused,
-            fft.irdft_rows, fft.rdft_rows, cps.cps_phat_pairs,
-            steer.srp_power_cps, halo_rdma.ring_push_right)
+            fft.irdft_rows, fft.rdft_rows, cps.cps_phat_gather,
+            cps.cps_phat_pairs, steer.srp_power_cps,
+            halo_rdma.ring_push_right)
 
 
 def reset(counters):
@@ -1391,7 +1476,7 @@ def sharded_path(cfg, stream_blocks, lat_blocks, outs_m, outs_k, counters,
             by_path["config4 sharded 1x1 process_blocks"] = launches
             expect_launches("sharded 1x1 process_blocks", launches, {
                 k: DISPATCHES for k in (
-                    "stft_fused_planes", "cps_phat_pairs", "srp_power_cps",
+                    "stft_fused_planes", "cps_phat_gather", "srp_power_cps",
                     "block_prefixes_rows", "weights_blocks_fused",
                     "irdft_rows")})
             check_finite("sharded 1x1 process_blocks", outs, st)
@@ -1430,7 +1515,7 @@ def sharded_path(cfg, stream_blocks, lat_blocks, outs_m, outs_k, counters,
             launches = read(counters)
             by_path["config4 sharded 1x1 process_block"] = launches
             expect_launches("sharded 1x1 process_block", launches, {
-                k: nb for k in ("stft_fused_planes", "cps_phat_pairs",
+                k: nb for k in ("stft_fused_planes", "cps_phat_gather",
                                 "srp_power_cps", "weights_blocks_fused",
                                 "irdft_rows")})
             for i in range(nb):
@@ -1477,7 +1562,7 @@ def sharded_path(cfg, stream_blocks, lat_blocks, outs_m, outs_k, counters,
             launches = read(counters)
             by_path["config4 sharded 1x1 scan process_blocks"] = launches
             expect_launches("sharded 1x1 scan process_blocks", launches, {
-                k: nb for k in ("stft_fused_planes", "cps_phat_pairs",
+                k: nb for k in ("stft_fused_planes", "cps_phat_gather",
                                 "srp_power_cps", "weights_blocks_fused",
                                 "irdft_rows")})
             compare_outs("sharded 1x1 scan vs Pipeline process_block",
@@ -1863,8 +1948,9 @@ def main() -> int:
         spec4, torch.view_as_complex(pipe.init_state().cov),
         cfg.algo.cov_forget, cfg.frames_per_block, pipe5, blocks5[:BLOCKS],
         recs["cov_prefixes"], PEAKS)
-    recs.update(check_new_kernels(pipe, x_streams, pipe1,
-                                  blocks1[:BLOCKS], PEAKS))
+    recs.update(check_new_kernels(pipe, x_streams, PEAKS))
+    recs.update(check_cps_kernels(pipe_m, spec4, pipe1, blocks1[:BLOCKS],
+                                  PEAKS))
     recs.update(check_dft_kernels(pipe, spec4, y_mvdr, pipe3h,
                                   blocks3[:BLOCKS], PEAKS))
     del y_mvdr
@@ -1874,8 +1960,8 @@ def main() -> int:
     del spec4
     for name, lines in kernel_registers(
             ("srp_fused_kernel", "irfft_rows_kernel", "cov_partials_kernel",
-             "cov_carries_kernel", "cov_fixup_kernel",
-             "mvdr_group_kernel")).items():
+             "cov_carries_kernel", "cov_fixup_kernel", "mvdr_solve_kernel",
+             "mvdr_group_kernel", "cps_gather_kernel")).items():
         print(f"nvcc.log, {name}: " + " | ".join(lines))
     check_mvdr_c16(pipe5, blocks5[:BLOCKS], x5_streams, recs, PEAKS)
     ring_recs, ring_paths = check_ring_kernel(repo, PEAKS)
@@ -1913,7 +1999,7 @@ def main() -> int:
                  "stft_planes": "stft_fused_planes",
                  "mvdr_solve_complex": "weights_blocks_fused",
                  "irdft_rows": "irdft_rows", "rdft_rows": "rdft_rows",
-                 "cps_phat": "cps_phat_pairs",
+                 "cps_phat": "cps_phat_gather",
                  "srp_power_cps": "srp_power_cps",
                  "halo_ring": "ring_push_right"}
     by_path = dict(ring_paths)
@@ -2049,7 +2135,7 @@ def main() -> int:
     launches, ms1, win1, outs, st1 = drive_batched(pipe1, blocks1, counters)
     by_path["config1 process_blocks"] = launches
     expect_launches("config1 process_blocks", launches, {
-        "stft_fused_from_blocks": DISPATCHES, "cps_phat_pairs": DISPATCHES,
+        "stft_fused_from_blocks": DISPATCHES, "cps_phat_gather": DISPATCHES,
         "irdft_rows": DISPATCHES})
     true_s = float(pipe1.geom.pair_tdoas(np.deg2rad([SOURCE_DEG]))[0, 0])
     fs1 = cfg1.sample_rate
@@ -2067,7 +2153,7 @@ def main() -> int:
         o_b.append(o)
     by_path["config1 process_block"] = read(counters)
     expect_launches("config1 process_block", by_path["config1 process_block"],
-                    {"stft_fused_planes": 4, "cps_phat_pairs": 4,
+                    {"stft_fused_planes": 4, "cps_phat_gather": 4,
                      "irdft_rows": 4})
     # TDOA to the reference's own 1e-6; the DOA's arccos amplifies a TDOA
     # difference ~5000-fold at this baseline, and the peak is a sum of 257
@@ -2289,7 +2375,7 @@ def main() -> int:
     peak_m = torch.cuda.max_memory_allocated() / 2**30
     by_path["config4 matmul process_blocks"] = launches
     expect_launches("config4 matmul process_blocks", launches, {
-        k: DISPATCHES for k in ("stft_fused_from_blocks", "cps_phat_pairs",
+        k: DISPATCHES for k in ("stft_fused_from_blocks", "cps_phat_gather",
                                 "srp_power_cps", "block_prefixes_rows",
                                 "weights_blocks_fused_rows", "irdft_rows")})
     off = doa_error_deg(torch.cat([o["doa"] for o in outs_m]), SOURCE_DEG)
@@ -2316,10 +2402,15 @@ def main() -> int:
           f"{frame_off:.3f} deg; peak memory {peak_m:.2f} GiB; the fused "
           f"path in this run: samples/s {fused_rate:.6g}, median dispatch "
           f"{statistics.median(ms):.3f} ms")
+    prof_m = profile(lambda: pipe_m.process_blocks(
+        pipe_m.init_state(), stream_blocks[:BLOCKS]))
     print_profile("one config4 srp=matmul process_blocks dispatch (B = 512)",
-                  profile(lambda: pipe_m.process_blocks(
-                      pipe_m.init_state(), stream_blocks[:BLOCKS])),
-                  statistics.median(msm))
+                  prof_m, statistics.median(msm))
+    # the pair gather runs inside kernel 9: what gather kernels remain
+    # belong to the glue (argmax, steering)
+    print("gather kernels in that profile: " + ("; ".join(
+        f"{name} {ms_:.3f} ms" for name, ms_ in prof_m[0]
+        if "indexSelect" in name or "scatter_gather" in name) or "none"))
     del outs4a
 
     # -- phase 4k: config4 process_block with srp="matmul", 64 blocks -----
@@ -2327,7 +2418,7 @@ def main() -> int:
                                                        counters)
     by_path["config4 matmul process_block"] = launches
     expect_launches("config4 matmul process_block", launches, {
-        k: LATENCY_BLOCKS for k in ("stft_fused_planes", "cps_phat_pairs",
+        k: LATENCY_BLOCKS for k in ("stft_fused_planes", "cps_phat_gather",
                                     "srp_power_cps", "weights_blocks_fused",
                                     "irdft_rows")})
     off = doa_error_deg(torch.stack([o["doa"] for o in outs4k]), SOURCE_DEG)

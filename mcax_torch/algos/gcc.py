@@ -106,7 +106,7 @@ def multiband_masks(n_fft: int, sample_rate: float, num_bands: int,
 @dataclasses.dataclass(frozen=True)
 class DevicePlan:
     """The plan's tensors on one device (what the block step reads)."""
-    pairs: torch.Tensor            # [P, 2] int64
+    pairs: torch.Tensor            # [P, 2] int32 (the CPS kernel's)
     a2_lags: torch.Tensor          # [2F, W] inverse DFT at the gathered lags
     pair_mask: torch.Tensor        # [P, W] bool
     lag_offsets: torch.Tensor      # [W] float32
@@ -126,7 +126,7 @@ def device_plan(plan: GccPlan, pairs: np.ndarray, device: torch.device,
     a2 = kfft.synthesis_matrix(plan.n_fft, None, device)   # [2F, N]
     idx = torch.as_tensor(plan.gather_idx, device=device).long()
     return DevicePlan(
-        pairs=put(pairs, torch.int64),
+        pairs=put(pairs, torch.int32),
         # the inverse-DFT kernel reads its matrix in whole tiles
         a2_lags=kfft.pad_to_tiles(a2[:, idx], device),
         pair_mask=put(plan.pair_mask, torch.bool),

@@ -10,7 +10,8 @@ SRP kernels, chosen by the caller (``mcax`` chooses by ``MCAX_SRP``):
   * ``"fused"`` — ``kernels/srp_fused.py``: steering phases made on the fly
     (on the plan's uniform omega ramp), no CPS tensor;
   * ``"matmul"`` — the materialised branch: the PHAT CPS written out in full
-    (``kernels/cps.py``) and one product with the stacked steering operand
+    (``kernels/cps.py``, the pair gather in its kernel) and one product with
+    the stacked steering operand
     (``kernels/steer.py``), which ``DevicePlan`` then holds (config4: 44 MB,
     config5: 95 MB), built only when asked for.
 
@@ -186,18 +187,17 @@ def srp_surface(spectra: torch.Tensor, plan: DevicePlan,
                 method: str = "fused") -> torch.Tensor:
     """Steered-power surface per frame: [C, M, F] -> [M, G].
 
-    ``method="matmul"`` is the reference's materialised branch: the spectra
-    go frames-major [M, C, F] before the pair gather, so the PHAT CPS lands
-    as [M, P, F], which the steering kernel reads as [M, P*F] with no copy.
-    The band mask lives in its steering rows (``make_plan``)."""
+    ``method="matmul"`` is the reference's materialised branch: the PHAT
+    CPS of every pair is written frames-major [M, P, F] by the kernel that
+    gathers the pairs itself, and the steering kernel reads it as [M, P*F]
+    with no copy.  The band mask lives in its steering rows
+    (``make_plan``)."""
     if check_method(method) == "matmul":
         if plan.b2 is None:
             raise ValueError("this plan holds no steering operand: build it "
                              "with device_plan(..., method='matmul')")
-        st = spectra.transpose(0, 1)                       # [M, C, F]
-        xi = torch.index_select(st, 1, plan.pairs[:, 0])   # [M, P, F]
-        xj = torch.index_select(st, 1, plan.pairs[:, 1])
-        g = kcps.cps_phat_pairs(xi, xj, eps)
+        g = kcps.cps_phat_gather(spectra, plan.pairs, eps,
+                                 frames_major=True)        # [M, P, F]
         return ksteer.srp_power_cps(g.view(g.shape[0], -1), plan.b2)
     if plan.band_mask is not None:
         spectra = spectra * plan.band_mask                 # masked bins -> 0

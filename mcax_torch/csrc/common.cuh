@@ -23,6 +23,13 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 
 // cp.async copies into shared memory; src_bytes = 0 zero-fills the
 // destination and reads nothing.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
 __device__ __forceinline__ void cp_async8(void* dst, const void* src,
                                           int src_bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(

@@ -67,10 +67,15 @@ SIGNATURES = {
     "mcax_cov_prefix_layout": (_I, _I, _P),
     # rows, steer, w, B, S, C, F, delta, stream
     "mcax_mvdr_solve_rows": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
+    "mcax_mvdr_solve_rows_group": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
     # covs, steer, w, B, S, C, F, delta, stream
     "mcax_mvdr_solve_complex": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
     # a, b, g, n, eps, stream
     "mcax_cps_phat": (_P, _P, _P, _L, _F, _P),
+    # spec, pairs, out, L, C, M, F, P, spec strides (l, c, m), out strides
+    # (l, m, p), ft, nf, eps, stream
+    "mcax_cps_phat_gather": (_P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L,
+                             _L, _L, _I, _I, _F, _P),
     # x, w2, out, rows, N, hop, T, L, F, ldw, vec, stream
     "mcax_rdft_rows": (_P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I, _P),
     # x, op (window, twiddles), out, rows, N, hop, T, L, vec, stream

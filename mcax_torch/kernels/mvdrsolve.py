@@ -13,11 +13,14 @@ denominator guard |d^H z| > 1e-12 (else 1e-12 + 0j).  Two layouts of R:
 
 Each wrapper launches a hand-written kernel (``csrc/mvdrsolve.cu``, built
 for C = 8 and C = 16) on CUDA tensors: the rows layout one thread per
-(block, bin), the complex layout a group of C lanes per (block, bin), lane
-i holding row i of the factor.  Both perform ``_solve_math``'s IEEE
-operations in its order, so both are bit-equal to the plain version, which
-the wrapper runs on CPU tensors: ``*_plain`` is ``_solve_math`` (the
-reference's unrolled solve, operation for operation) on [B, F] tensors.
+(block, bin) at C = 8 and, at C = 16, a group of C lanes per (block, bin),
+lane i holding row i of the factor (the rows staged for a run of 32
+systems at a time); the complex layout that group body at both C.  All
+perform ``_solve_math``'s IEEE operations in its order, so all are
+bit-equal to the plain version, which the wrapper runs on CPU tensors:
+``*_plain`` is ``_solve_math`` (the reference's unrolled solve, operation
+for operation) on [B, F] tensors.  ``_launch_rows_group`` runs the group
+body on the rows at C = 8 too, to compare the two bodies there.
 """
 
 from __future__ import annotations
@@ -169,9 +172,22 @@ def weights_blocks_fused_rows(cov_rows: torch.Tensor, steer: torch.Tensor,
     Returns:
       w complex64 with steer's shape.
     """
-    b, c, f, extra, s = _shape(cov_rows, steer)
+    _shape(cov_rows, steer)
     if not dispatch.use_kernel(cov_rows, steer):
         return weights_blocks_fused_rows_plain(cov_rows, steer, diag_load)
+    return _solve_rows(cov_rows, steer, diag_load, "mcax_mvdr_solve_rows")
+
+
+def _launch_rows_group(cov_rows: torch.Tensor, steer: torch.Tensor,
+                       diag_load: float) -> torch.Tensor:
+    """``weights_blocks_fused_rows`` on the group body at either C (the
+    wrapper takes it at C = 16 only): CUDA tensors."""
+    return _solve_rows(cov_rows, steer, diag_load,
+                       "mcax_mvdr_solve_rows_group")
+
+
+def _solve_rows(cov_rows, steer, diag_load, entry):
+    b, c, f, extra, s = _shape(cov_rows, steer)
     if c not in KERNEL_CHANNELS:
         raise ValueError(f"the MVDR kernel is built for C in "
                          f"{KERNEL_CHANNELS}, got {c}")
@@ -179,10 +195,10 @@ def weights_blocks_fused_rows(cov_rows: torch.Tensor, steer: torch.Tensor,
     _build.check_tensor("cov_rows", cov_rows, torch.float32, (b, 2 * c * c, f))
     _build.check_tensor("steer", st, torch.complex64, (b, s, c, f))
     w = torch.empty((b, s, c, f), dtype=torch.complex64, device=steer.device)
-    code = _build.library().mcax_mvdr_solve_rows(
+    code = getattr(_build.library(), entry)(
         cov_rows.data_ptr(), st.data_ptr(), w.data_ptr(), b, s, c, f,
         float(np.float32(diag_load / c)), _build.stream_of(cov_rows))
-    _build.check_launch("mvdr_solve_rows", code)
+    _build.check_launch(entry.removeprefix("mcax_"), code)
     weights_blocks_fused_rows.LAUNCHES += 1
     return w.reshape(steer.shape)
 

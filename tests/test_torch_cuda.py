@@ -23,7 +23,12 @@ step, config3's hop 128, hop = L, an unaligned hop, hop > L and sharded
 frames; the MVDR solve at C = 16, and from complex covariances
 bit-equal on near-rank-1 scenes at the block step, S = 64 and C = 16; the
 materialised-CPS SRP (kernel 10) at ragged sizes and at config4's (B = 512
-and one block); each streaming entry point on the card against the CPU;
+and one block); the PHAT cross-power with the pair gather in the kernel
+bit-equal at config1's, config4's (B = 512) and config5's shapes, with
+padded pairs, leading signals, a strided view and three bin tiles, in both
+layouts, and config4's srp="matmul" bulk through it equal to the fused
+SRP; kernel 4 on the group body with the rows loader bit-equal at config5
+B = 512, at runs cut short by the last system, and at C = 8; each streaming entry point on the card against the CPU;
 ShardedPipeline on a 1 x 1 mesh against Pipeline; the halo ring (kernel
 11) in 2 and 4 processes sharing the one card through CUDA IPC, against its
 plain ring over gloo, its timeout when a peer never pushes, and
@@ -424,6 +429,77 @@ def test_cps_phat(dev, shape):
                                atol=1e-4, rtol=0)
 
 
+def _all_pairs(c):
+    return np.array([(i, j) for i in range(c) for j in range(i + 1, c)],
+                    np.int32)
+
+
+GATHER_CASES = [   # spectra shape [..., C, M, F], pairs, (0, 0) pads
+    ((2, 8192, 257), _all_pairs(2), 0),        # config1, B = 512
+    ((8, 12288, 513), _all_pairs(8), 0),       # config4 srp="matmul" B = 512
+    ((8, 96, 513), _all_pairs(8), 4),          # a channel shard's padding
+    ((3, 8, 24, 513), _all_pairs(8), 0),       # three leading signals
+    ((16, 32, 257), _all_pairs(16), 0),        # config5's 120 pairs
+    ((32, 20, 513), _all_pairs(32), 0),        # 32 channels: 3 bin tiles
+]
+
+
+@pytest.mark.parametrize("frames_major", [False, True])
+@pytest.mark.parametrize("case", range(len(GATHER_CASES)))
+def test_cps_phat_gather_bit_equal(dev, case, frames_major):
+    """The pair gather in the kernel: bit-equal to index_select and the
+    plain PHAT arithmetic, one launch a call."""
+    shape, pairs, pad = GATHER_CASES[case]
+    pairs = np.concatenate([pairs, np.zeros((pad, 2), np.int32)])
+    spec = _rng_complex(np.random.default_rng(case), shape, dev)
+    pt = torch.from_numpy(pairs).to(dev)
+    before = cps.cps_phat_gather.LAUNCHES
+    got = cps.cps_phat_gather(spec, pt, frames_major=frames_major)
+    assert cps.cps_phat_gather.LAUNCHES == before + 1
+    want = cps.cps_phat_gather_plain(spec, pt, frames_major=frames_major)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_cps_phat_gather_strided_and_cps_phat(dev):
+    """The block step's [S, C, T, F] view of channel-major spectra, without
+    a copy, equals its contiguous copy; cps_phat (GCC's path) launches the
+    gathering kernel, never the gathered-pairs one."""
+    spec_cl = _rng_complex(np.random.default_rng(4), (8, 64, 24, 513), dev)
+    view = spec_cl.transpose(0, 1)
+    pt = torch.from_numpy(_all_pairs(8)).to(dev)
+    before = (cps.cps_phat_gather.LAUNCHES, cps.cps_phat_pairs.LAUNCHES)
+    got = cps.cps_phat(view, pt)
+    assert (cps.cps_phat_gather.LAUNCHES,
+            cps.cps_phat_pairs.LAUNCHES) == (before[0] + 1, before[1])
+    assert torch.equal(got, cps.cps_phat_gather(view.contiguous(), pt))
+    assert torch.equal(got, cps.cps_phat_gather_plain(view, pt))
+
+
+def test_matmul_bulk_equals_fused(dev):
+    """config4 Pipeline(srp="matmul").process_blocks (the gathering CPS and
+    kernel 10) against the fused SRP on the same blocks: audio within
+    5e-4, block DOA equal; one launch of the gathering kernel a dispatch
+    and none of index_select's gathered-pairs kernel."""
+    from mcax_torch.config import get_config
+    from mcax_torch.pipeline import Pipeline
+    cfg = get_config("config4")
+    bl = cfg.block_len
+    x = torch.from_numpy(_plane_wave(cfg.geometry(), np.deg2rad(40.0),
+                                     16 * bl, 17)).to(dev)
+    blocks = x.reshape(x.shape[0], 16, bl).transpose(0, 1).contiguous()
+    fused = Pipeline(cfg, srp="fused")
+    mat = Pipeline(cfg, srp="matmul")
+    _, want = fused.process_blocks(fused.init_state(), blocks)
+    before = (cps.cps_phat_gather.LAUNCHES, cps.cps_phat_pairs.LAUNCHES)
+    _, got = mat.process_blocks(mat.init_state(), blocks)
+    assert (cps.cps_phat_gather.LAUNCHES,
+            cps.cps_phat_pairs.LAUNCHES) == (before[0] + 1, before[1])
+    torch.testing.assert_close(got["audio"], want["audio"], atol=5e-4,
+                               rtol=5e-4)
+    assert torch.equal(got["doa"], want["doa"])
+
+
 @pytest.mark.parametrize("lead,n,hop,nsig,route", [
     ((8,), 512, 128, 4480, "fft"),     # config3 at hop 128: a block step
     ((8,), 512, 128, 384 + 512 * 4096, "fft"),   # ... and B = 512 bulk
@@ -519,8 +595,9 @@ def test_irdft_rows_fft_route(dev, rows, n):
 
 @pytest.mark.parametrize("layout", ["rows", "complex"])
 def test_mvdr_solve_c16_bit_equal(dev, layout):
-    """config5's C = 16 solve (factor in shared memory), two sources: the
-    plain version's IEEE operations in its order, so bit-equal."""
+    """config5's C = 16 solve (the group body, from either loader), two
+    sources: the plain version's IEEE operations in its order, so
+    bit-equal."""
     rng = np.random.default_rng(9)
     b, f, c, s = 3, 257, 16, 2
     x = _rng_complex(rng, (b, f, c, 3 * c), dev)
@@ -540,6 +617,44 @@ def test_mvdr_solve_c16_bit_equal(dev, layout):
     resp = (got.conj() * steer).sum(dim=-2)
     torch.testing.assert_close(resp, torch.ones_like(resp), atol=1e-3,
                                rtol=0)
+
+
+def _near_rank_one_rows(b, f, c, s, seed, dev):
+    """Covariance-prefix rows of near-rank-1 covariances (a unit-modulus
+    source plus noise 1e-4 down) and unit-modulus steering, on the card."""
+    rng = np.random.default_rng(seed)
+    v = torch.polar(torch.ones((b, f, c, 1), device=dev),
+                    torch.from_numpy(rng.uniform(-np.pi, np.pi, (b, f, c, 1))
+                                     .astype(np.float32)).to(dev))
+    x = _rng_complex(rng, (b, f, c, 3 * c), dev)
+    covs = (v @ v.conj().transpose(-1, -2)
+            + 1e-4 * x @ x.conj().transpose(-1, -2) / (3 * c))
+    steer = torch.polar(torch.ones((b, s, c, f), device=dev),
+                        torch.from_numpy(rng.uniform(-np.pi, np.pi,
+                                                     (b, s, c, f))
+                                         .astype(np.float32)).to(dev))
+    return covprefix.complex_to_rows(covs).contiguous(), steer
+
+
+@pytest.mark.parametrize("b,f,c,s", [
+    (512, 257, 16, 2),   # config5 bulk: whole runs of 32 systems
+    (5, 257, 16, 2),     # 1285 systems: the last block's run holds 5
+    (1, 9, 16, 1),       # fewer systems than one run
+    (512, 513, 8, 1),    # config4 bulk on the group body (the comparison)
+    (3, 257, 8, 1),      # ... a partial last run
+])
+def test_mvdr_solve_rows_group_bit_equal(dev, b, f, c, s):
+    """Kernel 4 on the group body with the rows loader (the wrapper's at
+    C = 16, ``_launch_rows_group`` at either C) on near-rank-1 scenes: the
+    plain version's IEEE operations in its order, so bit-equal."""
+    rows, steer = _near_rank_one_rows(b, f, c, s, seed=b + c, dev=dev)
+    want = mvdrsolve.weights_blocks_fused_rows_plain(rows, steer, 1e-3)
+    got = mvdrsolve._launch_rows_group(rows, steer, 1e-3)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if c == 16:
+        assert torch.equal(
+            mvdrsolve.weights_blocks_fused_rows(rows, steer, 1e-3), want)
 
 
 @pytest.mark.parametrize("name", ["config1", "config2", "config3", "config4",

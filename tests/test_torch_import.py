@@ -129,8 +129,9 @@ def test_every_kernel_has_a_counter_and_its_sources():
                covprefix.block_prefixes_rows,
                mvdrsolve.weights_blocks_fused_rows,
                stft_fused.stft_fused_planes, mvdrsolve.weights_blocks_fused,
-               fft.irdft_rows, fft.rdft_rows, cps.cps_phat_pairs,
-               steer.srp_power_cps, halo_rdma.ring_push_right):
+               fft.irdft_rows, fft.rdft_rows, cps.cps_phat_gather,
+               cps.cps_phat_pairs, steer.srp_power_cps,
+               halo_rdma.ring_push_right):
         assert isinstance(fn.LAUNCHES, int)
     for name in _build.SOURCES + _build.HEADERS:
         assert (_build.CSRC / name).is_file(), name

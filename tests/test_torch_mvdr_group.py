@@ -1,5 +1,5 @@
-"""The arithmetic of kernel 6's card design (``csrc/mvdrsolve.cu``,
-``mvdr_group_kernel``), proven on the CPU.
+"""The arithmetic of the group solve's card design (``csrc/mvdrsolve.cu``,
+``mvdr_group_kernel``: kernel 6, and kernel 4 at C = 16), proven on the CPU.
 
 The CUDA kernel runs only on the card, so this test replays its schedule
 in PyTorch: a group of C lanes per (block, bin), lane i holding row i of
@@ -13,28 +13,50 @@ and subtracted by lane k with j ascending; d^H z's terms added with k
 ascending.  It is held bit-equal (``torch.equal``) to ``_solve_math``
 (``weights_blocks_fused_plain``) at C = 8 and 16 on near-rank-1 loaded
 covariances, which amplify a one-ulp difference into ~1e-3 of the weights.
+
+Kernel 4's loader (``RowsLoader``) is replayed too: a block's run of 32
+systems s = b*F + f (crossing from one block b to the next, the last run
+past the last system), the C^2 rows the solve reads staged slot by slot
+in the kernel's order (each warp's column walk of the triangle, every
+slot written once, zero past the last system, the XOR swizzle
+conflict-free for the staging and for the lanes' reads), then each pass's
+lanes taking their rows: fed to the same body, bit-equal to
+``weights_blocks_fused_rows_plain`` at C = 16 and 8.  The plain version is
+held to ``mcax``'s ``weights_blocks_fused_rows`` (Pallas in interpret
+mode) at C = 16 at the reference's 2e-4/2e-3, distortionless within 1e-3.
 """
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from mcax_torch.kernels import mvdrsolve
+from mcax.kernels import mvdrsolve as m_mvdr
+from mcax_torch.kernels import covprefix, mvdrsolve
 
 torch.set_num_threads(1)
 
 
 def _group_emulation(covs, steer, delta):
-    """The group schedule: covs complex64 [B, F, C, C], steer [B, S, C, F]
-    -> w [B, S, C, F]."""
+    """The group schedule from ComplexRows: covs complex64 [B, F, C, C],
+    steer [B, S, C, F] -> w [B, S, C, F]."""
     b, f, c, _ = covs.shape
-    s = steer.shape[1]
-    n = b * f
     lane = torch.arange(c)
     low = lane[None, :] <= lane[:, None]                   # [i, k]: k <= i
     strict = lane[None, :] < lane[:, None]
-    re = torch.where(low, covs.real.reshape(n, c, c), 0.0)  # lane i's row
-    im = torch.where(strict, covs.imag.reshape(n, c, c), 0.0)
+    re = torch.where(low, covs.real.reshape(b * f, c, c), 0.0)  # lane i's row
+    im = torch.where(strict, covs.imag.reshape(b * f, c, c), 0.0)
+    return _group_body(re, im, steer, delta)
+
+
+def _group_body(re, im, steer, delta):
+    """The group body on lane rows re, im [B*F, lane i, k] (0 past the
+    lower triangle), steer [B, S, C, F] -> w [B, S, C, F]."""
+    b, s, c, f = steer.shape
+    n = b * f
+    lane = torch.arange(c)
+    re, im = re.clone(), im.clone()
 
     diag = re[:, lane, lane]                               # [N, lanes]
     tr = diag[:, 0]
@@ -141,3 +163,149 @@ def test_near_rank_one_amplifies_an_ulp():
     moved = mvdrsolve.weights_blocks_fused_plain(bumped, steer, 1e-3)
     rel = ((moved - want).abs().max() / want.abs().max()).item()
     assert rel > 10 * np.finfo(np.float32).eps
+
+
+# -- kernel 4 at C = 16: RowsLoader feeding the same body ---------------------
+
+RUN = 32                       # RowsLoader::kSystems, a block's run
+WARPS = 4                      # GROUP_THREADS / 32
+
+
+def _stage_slots(c, warp):
+    """(slot, row of the 2C^2) that warp ``warp`` copies, in
+    RowsLoader::stage's order: the real rows (i, k), k <= i, column by
+    column from slot 0, then the imaginary rows (i, k), k < i, from slot
+    C(C+1)/2, each walk stepping 4 slots and carrying i past C into the
+    next column."""
+    tri = c * (c + 1) // 2
+    out = []
+    slot, i, k = warp, warp, 0
+    while slot < tri:
+        out.append((slot, i * c + k))
+        i += 4
+        while k < c and i >= c:
+            i -= c - k - 1
+            k += 1
+        slot += 4
+    t, i, k = warp, warp + 1, 0
+    while t < c * c - tri:
+        out.append((tri + t, c * c + i * c + k))
+        i += 4
+        while k < c and i >= c:
+            i -= c - k - 2
+            k += 1
+        t += 4
+    return out
+
+
+def _at(c, slot, j):
+    """System j of a slot in shared memory (the XOR swizzle)."""
+    return slot * RUN + (j ^ ((slot * (32 // c)) & 31))
+
+
+def _re_slot(c, i, k):
+    return k * c - k * (k - 1) // 2 + (i - k)
+
+
+def _im_slot(c, i, k):
+    return c * (c + 1) // 2 + k * (c - 1) - k * (k - 1) // 2 + (i - k - 1)
+
+
+def _rows_loader_replay(rows):
+    """RowsLoader's staging and rows, lane by lane: rows [B, 2C^2, F] ->
+    lane rows re, im [B*F, lane i, k] (what each group's lanes hold after
+    the loader), checking that each block's staging writes every slot once
+    and that no warp instruction meets a bank conflict."""
+    b, r2, f = rows.shape
+    c = int(round((r2 // 2) ** 0.5))
+    n = b * f
+    kpass = 128 // c
+    j = np.arange(RUN)
+    slots = [_stage_slots(c, w) for w in range(WARPS)]
+    assert sorted(s for w in slots for s, _ in w) == list(range(c * c))
+    assert sorted(r for w in slots for _, r in w) == sorted(
+        [i * c + k for i in range(c) for k in range(i + 1)]
+        + [c * c + i * c + k for i in range(c) for k in range(i)])
+    flat = rows.reshape(b, r2, f)
+    re = torch.zeros((n, c, c))
+    im = torch.zeros((n, c, c))
+    for run0 in range(0, n, RUN):
+        s = run0 + j
+        ok = s < n
+        bb, ff = np.where(ok, s // f, 0), np.where(ok, s % f, 0)
+        sm = torch.full((c * c * RUN,), float("nan"))
+        count = np.zeros(c * c * RUN, int)
+        for w in range(WARPS):
+            for slot, row in slots[w]:
+                at = np.array([_at(c, slot, jj) for jj in j])
+                assert len(set(at % 32)) == 32         # one slot: 32 banks
+                vals = flat[torch.from_numpy(bb), row, torch.from_numpy(ff)]
+                sm[torch.from_numpy(at)] = torch.where(
+                    torch.from_numpy(ok), vals, torch.zeros(()))
+                count[at] += 1
+        assert (count == 1).all()
+        for pas in range(RUN // kpass):
+            sys0 = run0 + pas * kpass
+            if sys0 >= n:
+                break
+            for w in range(WARPS):
+                jw = pas * kpass + w * (32 // c)
+                for k in range(c):
+                    for part, slot_of, lanes in (
+                            ("re", _re_slot, [(g, i) for g in range(32 // c)
+                                              for i in range(k, c)]),
+                            ("im", _im_slot, [(g, i) for g in range(32 // c)
+                                              for i in range(k + 1, c)])):
+                        at = [_at(c, slot_of(c, i, k), jw + g)
+                              for g, i in lanes]
+                        assert len({a % 32 for a in at}) == len(at)
+                        for (g, i), a in zip(lanes, at):
+                            sys = run0 + jw + g
+                            if sys < n:
+                                (re if part == "re" else im)[sys, i, k] = sm[a]
+    return re, im
+
+
+def _near_rank_one_rows(b, f, c, s, seed):
+    covs, steer = _near_rank_one(b, f, c, s, seed)
+    return covprefix.complex_to_rows(covs).contiguous(), steer
+
+
+@pytest.mark.parametrize("b,f,c,s", [
+    (2, 257, 16, 2),    # config5: runs cross a block, the last one short
+    (1, 41, 16, 1),     # one block: two runs, 9 systems in the last
+    (2, 33, 8, 1),      # config4's channels on the group body
+])
+def test_rows_loader_schedule_bit_equal_to_solve_math(b, f, c, s):
+    rows, steer = _near_rank_one_rows(b, f, c, s, seed=c + f)
+    re, im = _rows_loader_replay(rows)
+    got = _group_body(re, im, steer, 1e-3)
+    want = mvdrsolve.weights_blocks_fused_rows_plain(rows, steer, 1e-3)
+    assert got.shape == want.shape == (b, s, c, f)
+    assert torch.equal(got, want)
+
+
+def test_rows_plain_matches_mcax_at_c16(monkeypatch):
+    """The plain version at config5's channels and sources against mcax's
+    rows solve (its Pallas kernel in interpret mode), as
+    tests/unit/test_mvdrsolve.py bounds it."""
+    monkeypatch.setenv("MCAX_BACKEND", "pallas")
+    monkeypatch.setenv("MCAX_PALLAS_INTERPRET", "1")
+    b, f, c, s = 2, 9, 16, 2
+    rows, steer = _near_rank_one_rows(b, f, c, s, seed=3)
+    rows_np = rows.numpy()
+    st = steer.numpy()
+
+    @jax.jit
+    def ref(rp, sr, si):
+        w = m_mvdr.weights_blocks_fused_rows(rp, jax.lax.complex(sr, si),
+                                             1e-3, f)
+        return jnp.real(w), jnp.imag(w)
+
+    wr, wi = ref(rows_np, st.real, st.imag)
+    want = np.asarray(wr) + 1j * np.asarray(wi)
+    got = mvdrsolve.weights_blocks_fused_rows(rows, steer, 1e-3).numpy()
+    assert got.shape == want.shape == (b, s, c, f)
+    np.testing.assert_allclose(got, want, atol=2e-4, rtol=2e-3)
+    resp = np.sum(np.conj(got) * st, axis=-2)
+    np.testing.assert_allclose(resp, np.ones_like(resp), atol=1e-3)
