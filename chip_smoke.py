@@ -11,7 +11,7 @@ on the first that fails:
   1. print the card's name and power limit (``nvidia-smi``);
   2. build the port's CUDA kernels from ``mcax_torch/csrc`` with ``nvcc``
      (into ``build/``) and print the build seconds;
-  3. hold each of the eleven kernels against its plain PyTorch version on
+  3. hold each of the twelve kernels against its plain PyTorch version on
      the card, on the inputs its path gives it (kernels 1-4: config4
      ``process_blocks`` at B = 512; the STFT of a contiguous signal and the
      MVDR solve from complex covariances: config4 ``process_streams`` at
@@ -62,7 +62,12 @@ on the first that fails:
      tensors), two ``process_block`` calls and a batched and a scan-mode
      ``process_blocks`` of 4 blocks, each counted (the ring: 2 a block
      step or batched dispatch, 8 a scan dispatch) and held to
-     ``Pipeline``; a failure in any child fails the phase;
+     ``Pipeline``; a failure in any child fails the phase; the particle
+     smoother's threefry draws (``threefry.particle_draws``, the port's own
+     kernel) bit-equal at config5's bulk dispatch (one key, B = 512, S = 2,
+     N = 256) and at 16 serving streams' one block, with its pass 1 (the
+     serial key chain) timed alone, and split, uniform and normal
+     bit-equal;
   4. drive every ported path through the user's entry points, with every
      kernel's launch count set to 0 just before each path and read just
      after, on synthetic plane waves from seeded numpy generators:
@@ -124,6 +129,18 @@ on the first that fails:
           ``process_blocks`` at B = 512, counted, samples/s, the output's
           look-direction gain and srp_delaysum's block DOA; ``process_block``
           on 4 blocks equal to ``process_blocks``;
+       o. config5 with the particle smoother on ``particle_scene`` (two
+          static sources at -60 and 60 degrees, tiled over the dispatches):
+          ``process_blocks`` at B = 512 (its five kernels and the draws once
+          per dispatch, tracks within 5 degrees from PARTICLE_FROM_BLOCK on,
+          samples/s, host wall, a profile); the scan mode on the first 64
+          blocks against the batched mode (audio 5e-4, doa 1e-4, keys
+          equal); ``process_block`` over 16 blocks (latency, one draw a
+          block) against ``process_blocks``; ``run`` over them (init's
+          split and uniform on the card); ``process_streams`` at S = 16;
+          and, in phase l's group, ``ShardedPipeline`` 1 x 1 on one NCCL
+          rank, batched over 64 blocks and 4 block steps, against
+          ``Pipeline``;
   5. run each path on the card and on the CPU (the plain versions) on a
      small input and hold them to the slice's parity bounds (config4
      ``process_blocks`` on the main path's first 4 blocks, the other paths
@@ -160,6 +177,14 @@ DISPATCHES5 = 4         # config5 batched dispatches: 1 warm-up + 3 timed
 SOURCES5_DEG = (-60.0, 60.0)   # config5's two static sources
 BLOCKS5 = 16            # config5 process_block path
 STREAMS5 = 16           # config5 process_streams path
+# config5 with the particle smoother (phase 4o): a scene of SCENE5P_BLOCKS
+# blocks of the two static sources, periodic (plane_waves delays by a
+# circular FFT), tiled over the dispatches; tracks within 5 degrees from
+# PARTICLE_FROM_BLOCK on, the block from which mcax's own tracks on this
+# scene are (recorded by tests/test_torch_particle.py on the CPU)
+SCENE5P_BLOCKS = 32
+PARTICLE_FROM_BLOCK = 0
+SCAN5P_BLOCKS = 64      # the particle scan mode's blocks, against batched
 
 RING_MESHES = ((2, 1), (2, 2))   # kernel 11: processes sharing the card
 RING_SHAPES = ((4, 512), (512,))  # config4 2 x 2's halo and OLA spill
@@ -176,8 +201,9 @@ PEAKS = (67e12, 3.35e12)
 TF32_PEAK = 495e12      # dense TF32 on the tensor cores (kernels 2, 10)
 # timings printed beside a kernel's own: its unsplit product, its other
 # route, the materialised chain, the pair gather outside the kernel, the
-# other solve body
-EXTRA_MS = ("unsplit_ms", "gemm_ms", "chain_ms", "gathered_ms", "group_ms")
+# other solve body, the draws' serial key chain alone
+EXTRA_MS = ("unsplit_ms", "gemm_ms", "chain_ms", "gathered_ms", "group_ms",
+            "pass1_ms")
 
 
 def nvidia_smi_line() -> str:
@@ -236,6 +262,15 @@ def plane_waves(geom, azimuths_deg, n: int, seed: int, device):
 def plane_wave(geom, azimuth_deg: float, n: int, seed: int, device):
     """[C, n] float32: one source (``plane_waves`` with K = 1)."""
     return plane_waves(geom, [azimuth_deg], n, seed, device)[0]
+
+
+def particle_scene(geom, block_len: int, device):
+    """Phase 4o's scene: [SCENE5P_BLOCKS, C, L] blocks of the two sources
+    of SOURCES5_DEG, made on the CPU (the CPU test that records
+    PARTICLE_FROM_BLOCK builds the same numbers) and moved to ``device``."""
+    x = plane_waves(geom, SOURCES5_DEG, SCENE5P_BLOCKS * block_len,
+                    SEED + 17, "cpu").sum(0)
+    return to_blocks(x, block_len).to(device)
 
 
 def to_blocks(x, block_len: int):
@@ -1107,6 +1142,86 @@ def check_mvdr_c16(pipe5, blocks5, x5_streams, recs, peaks):
            steer, library=lambda: torch.linalg.solve(loaded, d))
 
 
+def check_particle_draws(peaks):
+    """Phase 3, the particle smoother's draws (``threefry.particle_draws``,
+    the port's own kernel: jax.random's threefry2x32 has no Pallas kernel
+    in the reference): bit-equal to the plain version on the card at
+    config5's bulk dispatch (one key, B = 512, S = 2, N = 256: 262 144
+    normals) and at 16 serving streams' one block, with pass 1 (the serial
+    key chain, one thread a key) timed alone; and the split, uniform and
+    normal entries of init and of the filter's own draws."""
+    import torch
+    from mcax_torch.kernels import threefry
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 18)
+
+    def keys_of(r):
+        return torch.from_numpy(rng.integers(0, 2 ** 32, (r, 2)).astype(
+            np.int64)).to(dev)
+
+    def bit_equal(what, got, want):
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            if a.shape != b.shape or not torch.equal(a, b):
+                raise AssertionError(f"{what}: not bit-equal to its plain "
+                                     "version")
+
+    def draws_bound(r, b, s, n):
+        # the outputs written once (noise, u, the keys) and the keys read;
+        # the float work of a normal (log1p, sqrt, 9 FMAs: ~30) at fp32
+        return bound_ms(30.0 * r * b * s * n,
+                        4.0 * r * b * s * (n + 1) + 32.0 * r, peaks)
+
+    def measure(r, b, s=2, n=256):
+        keys = keys_of(r)
+        bit_equal(f"particle_draws R = {r}, B = {b}",
+                  threefry.particle_draws(keys, b, s, n),
+                  threefry.particle_draws_plain(keys, b, s, n))
+        bound = draws_bound(r, b, s, n)
+        return dict(
+            shape=[r, b, s, n], max_abs_err=0.0,
+            ms=time_ms(lambda: threefry.particle_draws(keys, b, s, n)),
+            pass1_ms=time_ms(lambda: threefry._launch_chain(keys, 2 * b)),
+            plain_ms=time_ms(lambda: threefry.particle_draws_plain(
+                keys, b, s, n), reps=2),
+            library_ms=None, bound_ms=bound[0], bound_by=bound[1])
+
+    bulk = measure(1, BLOCKS)
+    rec = dict(
+        route="cuda", source="mcax_torch/csrc/threefry.cu",
+        replaces="jax.random (threefry2x32) in "
+        "mcax/algos/particle.py:27,41,83",
+        max_abs_err=0.0, ms=bulk["ms"], pass1_ms=bulk["pass1_ms"],
+        plain_ms=bulk["plain_ms"], library_ms=None,
+        library_call="none: torch has no threefry2x32 (torch.randn's "
+        "Philox draws other numbers)",
+        bound=(bulk["bound_ms"], bulk["bound_by"]), shape=bulk["shape"],
+        design=f"pass 1 (the serial chain of {2 * BLOCKS} splits on one "
+        f"thread) {100.0 * bulk['pass1_ms'] / bulk['ms']:.1f} % of the "
+        "call",
+        at_r16=measure(16, 1))
+    keys = keys_of(3)
+    for name, args in (("split", ()), ("uniform", ((2, 256), -np.pi, np.pi)),
+                       ("normal", ((2, 256),))):
+        fn = getattr(threefry, name)
+        plain = getattr(threefry, name + "_plain")
+        got, want = fn(keys, *args), plain(keys, *args)
+        bit_equal(f"threefry.{name}", got if name == "split" else (got,),
+                  want if name == "split" else (want,))
+        words = 3 * (2 if name == "split" else 512)
+        bound = bound_ms(0.0, 4.0 * words + 48.0, peaks)
+        rec[f"at_{name}"] = dict(
+            shape=[3, 2] if name == "split" else [3, 2, 256], max_abs_err=0.0,
+            ms=time_ms(lambda: fn(keys, *args)),
+            plain_ms=time_ms(lambda: plain(keys, *args)), library_ms=None,
+            bound_ms=bound[0], bound_by=bound[1])
+    print(f"kernel particle_draws: bit-equal to its plain version at R = 1, "
+          f"B = {BLOCKS} (262 144 normals) and R = 16, B = 1; split, uniform "
+          "and normal bit-equal; pass 1 alone "
+          f"{bulk['pass1_ms']:.4f} ms of {bulk['ms']:.4f} ms")
+    return {"particle_draws": rec}
+
+
 def circ_deg(a, b):
     """|circular difference| of degree arrays."""
     return np.abs((np.asarray(a) - np.asarray(b) + 180.0) % 360.0 - 180.0)
@@ -1127,14 +1242,15 @@ def launch_counters():
     """Every kernel wrapper of the port, each with its ``LAUNCHES`` count."""
     from mcax_torch.dist import halo_rdma
     from mcax_torch.kernels import (covprefix, cps, fft, mvdrsolve,
-                                    srp_fused, steer, stft_fused)
+                                    srp_fused, steer, stft_fused, threefry)
     return (stft_fused.stft_fused_from_blocks, srp_fused.srp_power_fused,
             covprefix.block_prefixes_rows,
             mvdrsolve.weights_blocks_fused_rows,
             stft_fused.stft_fused_planes, mvdrsolve.weights_blocks_fused,
             fft.irdft_rows, fft.rdft_rows, cps.cps_phat_gather,
             cps.cps_phat_pairs, steer.srp_power_cps,
-            halo_rdma.ring_push_right)
+            halo_rdma.ring_push_right, threefry.particle_draws,
+            threefry.split, threefry.uniform, threefry.normal)
 
 
 def reset(counters):
@@ -1448,13 +1564,14 @@ def frame_doas_within_a_step(what, outs_a, outs_b, plan):
 
 
 def sharded_path(cfg, stream_blocks, lat_blocks, outs_m, outs_k, counters,
-                 by_path):
+                 by_path, then=None):
     """Phase 4l: ``ShardedPipeline(cfg, make_mesh(1, 1), srp="matmul")`` in
     a one-rank NCCL group joined through ``multihost.initialize`` (a
     ``FileStore`` in a temporary directory): ``process_blocks`` over the
     main path's dispatches and ``process_block`` over 4 blocks, counted and
     held to ``Pipeline(srp="matmul")``'s outputs on the same blocks
-    (``outs_m``, ``outs_k``); the group is destroyed afterwards."""
+    (``outs_m``, ``outs_k``); then ``then()`` (phase 4o's sharded
+    particle path) in the same group, which is destroyed afterwards."""
     import os
     import tempfile
     import torch
@@ -1576,6 +1693,8 @@ def sharded_path(cfg, stream_blocks, lat_blocks, outs_m, outs_k, counters,
                   f"scan_mode=scan process_blocks over {nb} blocks: launches "
                   f"{launches}, equal to Pipeline(srp=matmul).process_block "
                   "(audio 5e-4, doa equal)")
+            if then is not None:
+                then()
         finally:
             dist.destroy_process_group()
 
@@ -1786,6 +1905,233 @@ def check_ring_kernel(repo, peaks):
     return recs, by_path
 
 
+PARTICLE_TOL = {"audio": 5e-4, "doa": 1e-4, "confidence": 1e-4}
+# the kernels of config5's bulk dispatch and block step, the particle
+# smoother's draws with them
+PARTICLE_BULK = ("stft_fused_from_blocks", "srp_power_fused",
+                 "block_prefixes_rows", "weights_blocks_fused_rows",
+                 "irdft_rows", "particle_draws")
+PARTICLE_STEP = ("stft_fused_planes", "srp_power_fused",
+                 "weights_blocks_fused", "irdft_rows", "particle_draws")
+
+
+def particle_config(cfg5):
+    """config5 with the particle smoother, as the reference's own test
+    builds it (tests/unit/test_process_blocks.py)."""
+    import dataclasses
+    return dataclasses.replace(cfg5, algo=dataclasses.replace(
+        cfg5.algo, smoother="particle"))
+
+
+def particle_keys_equal(what, got, want):
+    import torch
+    if not torch.equal(got.particles.key, want.particles.key):
+        raise AssertionError(f"{what}: particle keys differ")
+
+
+def particle_paths(cfg5, x5_streams, counters, by_path):
+    """Phase 4o: config5 with the particle smoother on the scene of
+    ``particle_scene`` tiled over the dispatches: ``process_blocks`` at
+    B = BLOCKS (samples/s, launches, host wall, profile, tracks within 5
+    degrees from PARTICLE_FROM_BLOCK on); the scan mode on the first
+    SCAN5P_BLOCKS blocks against the batched mode on them; ``process_block``
+    over BLOCKS5 blocks (latency) against ``process_blocks``; ``run`` over
+    them; ``process_streams`` at S = STREAMS5.  Returns the blocks (the
+    sharded particle path's, phase 4l)."""
+    import torch
+    from mcax_torch.pipeline import Pipeline
+    cfg = particle_config(cfg5)
+    pipe = Pipeline(cfg)
+    bl = cfg.block_len
+    scene = particle_scene(pipe.geom, bl, pipe.device)
+    blocks = scene.repeat(DISPATCHES5 * BLOCKS // SCENE5P_BLOCKS, 1, 1)
+    del scene
+
+    t0 = time.perf_counter()
+    launches, ms, win, outs, st = drive_batched(pipe, blocks, counters,
+                                                DISPATCHES5)
+    wall = time.perf_counter() - t0
+    by_path["config5 particle process_blocks"] = launches
+    expect_launches("config5 particle process_blocks", launches,
+                    {k: DISPATCHES5 for k in PARTICLE_BULK})
+    doa = torch.cat([o["doa"] for o in outs])              # [D*B, 2]
+    off = track_error_deg(doa[PARTICLE_FROM_BLOCK:], SOURCES5_DEG)
+    if not np.all(off <= 5.0):
+        raise AssertionError(f"config5 particle tracks off the sources by "
+                             f"up to {off.max():.2f} deg from block "
+                             f"{PARTICLE_FROM_BLOCK}")
+    check_finite("config5 particle process_blocks", outs, st)
+    if tuple(outs[0]["audio"].shape) != (BLOCKS, 2, bl):
+        raise AssertionError(f"config5 particle audio "
+                             f"{list(outs[0]['audio'].shape)}")
+    rate = rate_line(f"config5 particle process_blocks, B = {BLOCKS}", ms,
+                     win, BLOCKS * bl)
+    print(rate + f"; launches {launches}; host wall {wall:.3f} s for all "
+          f"{DISPATCHES5} dispatches; tracks within {off.max():.2f} deg of "
+          f"{list(SOURCES5_DEG)} from block {PARTICLE_FROM_BLOCK} over "
+          f"{doa.shape[0]} blocks")
+    print_profile("one config5 particle process_blocks dispatch (B = 512)",
+                  profile(lambda: pipe.process_blocks(pipe.init_state(),
+                                                      blocks[:BLOCKS])),
+                  statistics.median(ms))
+    del outs
+
+    # the scan mode against the batched mode on the same blocks
+    head = blocks[:SCAN5P_BLOCKS]
+    pipe_s = Pipeline(cfg, scan_mode="scan")
+    st0 = pipe_s.init_state()
+    reset(counters)
+    t0 = time.perf_counter()
+    st_s, out_s = pipe_s.process_blocks(st0, head)
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t0
+    launches = read(counters)
+    by_path["config5 particle scan process_blocks"] = launches
+    expect_launches("config5 particle scan process_blocks", launches,
+                    {k: SCAN5P_BLOCKS for k in PARTICLE_STEP})
+    st_b, out_b = pipe.process_blocks(pipe.init_state(), head)
+    compare_outs("config5 particle scan vs batched", out_s, out_b,
+                 PARTICLE_TOL)
+    particle_keys_equal("config5 particle scan vs batched", st_s, st_b)
+    doa_gap = (out_s["doa"] - out_b["doa"]).abs().max().item()
+    print(f"config5 particle Pipeline(scan_mode=scan) process_blocks over "
+          f"{SCAN5P_BLOCKS} blocks: {scan_s:.3f} s wall "
+          f"({SCAN5P_BLOCKS * bl / scan_s:.6g} samples/s); launches "
+          f"{launches}; equal to the batched mode on the same blocks "
+          f"(audio 5e-4, doa within 1e-4 rad: max {doa_gap:.3e}; keys "
+          "equal)")
+
+    # process_block: latency, against process_blocks; then run
+    lat = blocks[:BLOCKS5]
+    launches, ev, lwall, outs, st_loop = latency_path(pipe, lat, counters)
+    by_path["config5 particle process_block"] = launches
+    expect_launches("config5 particle process_block", launches,
+                    {k: BLOCKS5 for k in PARTICLE_STEP})
+    check_finite("config5 particle process_block", outs, st_loop)
+    stacked = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+    compare_outs("config5 particle process_block vs process_blocks",
+                 stacked, pipe.process_blocks(pipe.init_state(), lat)[1],
+                 PARTICLE_TOL)
+    print(f"config5 particle process_block, {BLOCKS5} blocks with the "
+          f"state carried: launches {launches}; latency per block (CUDA "
+          f"events) ms median {statistics.median(ev):.4f}, p90 "
+          f"{pct(ev, 90):.4f}, max {max(ev):.4f}; host wall per block after "
+          f"synchronize ms median {statistics.median(lwall):.4f}; equal to "
+          "process_blocks on the same blocks (audio 5e-4, doa 1e-4)")
+    print_profile("one config5 particle process_block",
+                  profile(lambda: pipe.process_block(pipe.init_state(),
+                                                     lat[0])),
+                  statistics.median(ev))
+    host_x = lat.permute(1, 0, 2).reshape(lat.shape[1], -1).cpu().numpy()
+    reset(counters)
+    t0 = time.perf_counter()
+    st_run, out_run = pipe.run(host_x)
+    run_s = time.perf_counter() - t0
+    launches = read(counters)
+    by_path["config5 particle run"] = launches
+    # run's own init_state draws on the card: one split, one uniform
+    expect_launches("config5 particle run", launches, {
+        **{k: BLOCKS5 for k in PARTICLE_STEP}, "split": 1, "uniform": 1})
+    compare_outs("config5 particle run vs process_block",
+                 {k: torch.from_numpy(v) for k, v in out_run.items()},
+                 stacked, 1e-6)
+    compare_states("config5 particle run vs process_block", st_run, st_loop)
+    particle_keys_equal("config5 particle run vs process_block", st_run,
+                        st_loop)
+    print(f"config5 particle run over {BLOCKS5} blocks from host numpy: "
+          f"{run_s:.3f} s wall ({host_x.shape[1] / run_s:.6g} samples/s), "
+          f"launches {launches}, equal to the process_block loop")
+    del outs, stacked
+
+    # process_streams: S streams of two sources each
+    states = pipe.init_states(STREAMS5)
+    states, _ = pipe.process_streams(states, x5_streams[:, :, :bl])
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(STREAM_CALLS)]
+    outs = []
+    reset(counters)
+    events[0].record()
+    for k in range(1, STREAM_CALLS):
+        states, o = pipe.process_streams(
+            states, x5_streams[:, :, k * bl:(k + 1) * bl])
+        events[k].record()
+        outs.append(o)
+    torch.cuda.synchronize()
+    launches = read(counters)
+    by_path["config5 particle process_streams"] = launches
+    calls = STREAM_CALLS - 1
+    expect_launches("config5 particle process_streams", launches,
+                    {k: calls for k in PARTICLE_STEP})
+    check_finite("config5 particle process_streams", outs, states)
+    sms = [events[k].elapsed_time(events[k + 1]) for k in range(calls)]
+    st1 = pipe.init_state()
+    for k in range(STREAM_CALLS):
+        st1, o1 = pipe.process_block(st1,
+                                     x5_streams[0, :, k * bl:(k + 1) * bl])
+    compare_outs("config5 particle stream 0 vs process_block",
+                 {k: v[0] for k, v in outs[-1].items()}, o1, PARTICLE_TOL)
+    print(f"config5 particle process_streams, S = {STREAMS5} streams of two "
+          f"sources, {calls} timed calls: launches {launches}; ms per call "
+          f"{[round(t, 3) for t in sms]}; samples/s (all streams) "
+          f"{STREAMS5 * bl * calls / (sum(sms) * 1e-3):.6g}; stream 0 equal "
+          "to process_block alone (audio 5e-4, doa 1e-4)")
+    return blocks[:SCAN5P_BLOCKS]
+
+
+def particle_sharded(cfg5, blocks, counters, by_path):
+    """Phase 4o, in phase 4l's one-rank NCCL group:
+    ``ShardedPipeline(config5 particle, make_mesh(1, 1))`` process_blocks
+    over ``blocks`` and process_block over 4 of them, counted and held to
+    ``Pipeline`` on the same blocks."""
+    import torch
+    from mcax_torch.dist import mesh as mesh_mod
+    from mcax_torch.dist.sharded import ShardedPipeline
+    from mcax_torch.pipeline import Pipeline
+    cfg = particle_config(cfg5)
+    pipe = Pipeline(cfg)
+    sp = ShardedPipeline(cfg, mesh_mod.make_mesh(1, 1))
+    st = sp.init_state()
+    reset(counters)
+    t0 = time.perf_counter()
+    st, o = sp.process_blocks(st, blocks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read(counters)
+    by_path["config5 particle sharded 1x1 process_blocks"] = launches
+    expect_launches("config5 particle sharded 1x1 process_blocks", launches, {
+        k: 1 for k in ("stft_fused_planes", "srp_power_fused",
+                       "block_prefixes_rows", "weights_blocks_fused",
+                       "irdft_rows", "particle_draws")})
+    st_p, o_p = pipe.process_blocks(pipe.init_state(), blocks)
+    compare_outs("config5 particle sharded 1x1 vs Pipeline",
+                 sp.gather_outputs(o), o_p, PARTICLE_TOL)
+    particle_keys_equal("config5 particle sharded 1x1 vs Pipeline", st, st_p)
+    nb = 4
+    st, st_p = sp.init_state(), pipe.init_state()
+    reset(counters)
+    outs = []
+    for i in range(nb):
+        st, o = sp.process_block(st, blocks[i])
+        outs.append(sp.gather_outputs(o))
+    torch.cuda.synchronize()
+    launches = read(counters)
+    by_path["config5 particle sharded 1x1 process_block"] = launches
+    expect_launches("config5 particle sharded 1x1 process_block", launches,
+                    {k: nb for k in PARTICLE_STEP})
+    for i in range(nb):
+        st_p, o_p = pipe.process_block(st_p, blocks[i])
+        compare_outs(f"config5 particle sharded 1x1 process_block {i}",
+                     outs[i], o_p, PARTICLE_TOL)
+    particle_keys_equal("config5 particle sharded 1x1 process_block", st,
+                        st_p)
+    print(f"config5 particle ShardedPipeline 1x1 (NCCL, one rank): "
+          f"process_blocks over {blocks.shape[0]} blocks {wall:.3f} s wall, "
+          f"launches {by_path['config5 particle sharded 1x1 process_blocks']}"
+          f"; process_block over {nb} blocks, launches {launches}; both "
+          "equal to Pipeline on the same blocks (audio 5e-4, doa 1e-4, keys "
+          "equal)")
+
+
 def chain_config(base, algo, look_deg=None):
     """``base`` with synthesis on, running ``algo`` (looking at
     ``look_deg`` when given), as the reference's tests build these chains."""
@@ -1964,6 +2310,7 @@ def main() -> int:
              "mvdr_group_kernel", "cps_gather_kernel")).items():
         print(f"nvcc.log, {name}: " + " | ".join(lines))
     check_mvdr_c16(pipe5, blocks5[:BLOCKS], x5_streams, recs, PEAKS)
+    recs.update(check_particle_draws(PEAKS))
     ring_recs, ring_paths = check_ring_kernel(repo, PEAKS)
     recs.update(ring_recs)
     for name, r in recs.items():
@@ -2001,7 +2348,8 @@ def main() -> int:
                  "irdft_rows": "irdft_rows", "rdft_rows": "rdft_rows",
                  "cps_phat": "cps_phat_gather",
                  "srp_power_cps": "srp_power_cps",
-                 "halo_ring": "ring_push_right"}
+                 "halo_ring": "ring_push_right",
+                 "particle_draws": "particle_draws"}
     by_path = dict(ring_paths)
 
     # -- phase 4a: config4 process_blocks, the main path -------------------
@@ -2310,6 +2658,10 @@ def main() -> int:
           "equal to process_block alone")
     del outs, states
 
+    # -- phase 4o: config5 with the particle smoother ----------------------
+    # (its ShardedPipeline in phase 4l's one-rank group)
+    blocks5p = particle_paths(cfg5, x5_streams, counters, by_path)
+
     # -- phase 4h: config2 process_blocks, B = 512 -------------------------
     launches, ms2, win2, outs, st2 = drive_batched(pipe2, blocks2, counters)
     by_path["config2 process_blocks"] = launches
@@ -2447,7 +2799,9 @@ def main() -> int:
 
     # -- phase 4l: ShardedPipeline on a one-rank NCCL group ----------------
     sharded_path(cfg, stream_blocks, lat_blocks, outs_m, outs4k, counters,
-                 by_path)
+                 by_path, then=lambda: particle_sharded(
+                     cfg5, blocks5p, counters, by_path))
+    del blocks5p
     del outs_m, outs4k
 
     # -- phase 4m: config4 Pipeline(scan_mode="scan").process_blocks -----

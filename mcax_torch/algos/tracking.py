@@ -14,8 +14,13 @@ call (each row is independent), only the association loops over B, and the
 nearest-grid lookup runs batched after the loop.  Nothing synchronises with
 the host: no ``.item()``, no Python branch on a tensor's value.
 
-The particle smoother (``mcax/algos/particle.py``) draws from
-``jax.random`` and is not ported (ROADMAP.md, Queue 1).
+The particle smoother (``particle_track_block``, ``particle_track_blocks``)
+replaces the EMA update with one particle cloud a source
+(``algos/particle.py``).  ``particle_track_blocks`` runs B blocks of one
+stream as ``track_blocks`` does: the peaks of all B surfaces in one batched
+call and every draw of the B blocks in one ``particle_draws`` call (one
+kernel launch on the card); only the association, the masked surface and
+the filter's update, resample and estimate loop over B.
 """
 
 from __future__ import annotations
@@ -24,6 +29,9 @@ import math
 from typing import NamedTuple, Tuple
 
 import torch
+
+from mcax_torch.algos import particle
+from mcax_torch.kernels import threefry
 
 # Python floats, as in the reference: combined with a float32 tensor they
 # round to float32 there (jnp's weak scalars) and here alike
@@ -146,3 +154,89 @@ def track_blocks(state: TrackState, power_mean: torch.Tensor,
         conf.append(state.confidence)
     angles = torch.stack(angles)
     return state, nearest_grid(angles, azimuths_rad), angles, torch.stack(conf)
+
+
+def _particle_step(pstate: particle.ParticleState, power_mean: torch.Tensor,
+                   peak_idx: torch.Tensor, azimuths_rad: torch.Tensor,
+                   suppress_bins: int, step_std_rad: float,
+                   resample_threshold: float, noise: torch.Tensor,
+                   u: torch.Tensor):
+    """One block of particle tracking from the block's peaks [..., S]
+    (strongest first) and its unit draws: (state, doa [..., S], confidence
+    [..., S]); the key is left as it is."""
+    s = peak_idx.shape[-1]
+    g = power_mean.shape[-1]
+    peak_angles = azimuths_rad[peak_idx]
+    est, _ = particle.estimate(pstate)                     # [..., S] means
+    # greedy peak -> cloud association (strongest peak claims nearest cloud)
+    clouds = torch.arange(s, device=est.device)
+    claimed = torch.zeros(est.shape, dtype=torch.bool, device=est.device)
+    cloud_peak = torch.zeros_like(peak_idx)
+    for k in range(s):
+        d = circular_distance(est, peak_angles[..., k:k + 1])
+        d = torch.where(claimed, math.inf, d)
+        onehot = clouds == torch.argmin(d, dim=-1, keepdim=True)
+        cloud_peak = torch.where(onehot, peak_idx[..., k:k + 1], cloud_peak)
+        claimed = claimed | onehot
+    # per-cloud surface: suppress every OTHER cloud's peak neighbourhood
+    offs = torch.arange(g, device=power_mean.device)
+    dist = torch.abs(torch.remainder(offs - cloud_peak[..., None] + g // 2, g)
+                     - g // 2)                              # [..., S, G]
+    near = dist <= suppress_bins
+    rival_near = near.any(dim=-2, keepdim=True) & ~near
+    floor = power_mean.amin(dim=-1, keepdim=True)[..., None]  # [..., 1, 1]
+    masked = torch.where(rival_near, floor, power_mean[..., None, :])
+    return particle.step(pstate, masked, azimuths_rad, step_std_rad,
+                         resample_threshold, noise, u)
+
+
+def particle_track_block(pstate: particle.ParticleState,
+                         power_mean: torch.Tensor, azimuths_rad: torch.Tensor,
+                         suppress_bins: int, step_std_rad: float,
+                         resample_threshold: float):
+    """One block of particle-filter tracking (the particle smoother).
+
+    The block's S strongest SRP peaks are greedily associated to the S
+    particle clouds (the strongest peak claims the nearest cloud estimate
+    first); each cloud then runs one predict -> reweight -> resample cycle
+    on the surface with its RIVALS' peak neighbourhoods suppressed, so two
+    clouds cannot collapse onto one loud source.  Surfaces [..., G], clouds
+    [..., S, N]; the block's draws come from one ``particle_draws`` call.
+
+    Returns (new_pstate, doa_rad [..., S], confidence [..., S], grid_idx
+    [..., S]).
+    """
+    s, n = pstate.angles.shape[-2:]
+    noise, u, key = threefry.particle_draws(pstate.key, 1, s, n)
+    idx, _ = extract_peaks(power_mean, s, suppress_bins)
+    st, doa, conf = _particle_step(pstate, power_mean, idx, azimuths_rad,
+                                   suppress_bins, step_std_rad,
+                                   resample_threshold, noise[..., 0, :, :],
+                                   u[..., 0, :])
+    return (particle.ParticleState(st.angles, st.weights, key), doa, conf,
+            nearest_grid(doa, azimuths_rad))
+
+
+def particle_track_blocks(pstate: particle.ParticleState,
+                          power_mean: torch.Tensor,
+                          azimuths_rad: torch.Tensor, suppress_bins: int,
+                          step_std_rad: float, resample_threshold: float):
+    """B consecutive blocks of one stream: surfaces [B, G], clouds [S, N].
+
+    Returns (new_pstate, grid_idx [B, S], doa [B, S], confidence [B, S]),
+    equal to B calls of ``particle_track_block``."""
+    b = power_mean.shape[0]
+    s, n = pstate.angles.shape[-2:]
+    idx, _ = extract_peaks(power_mean, s, suppress_bins)   # [B, S]
+    noise, u, key = threefry.particle_draws(pstate.key, b, s, n)
+    doa, conf = [], []
+    for i in range(b):
+        pstate, d, c = _particle_step(pstate, power_mean[i], idx[i],
+                                      azimuths_rad, suppress_bins,
+                                      step_std_rad, resample_threshold,
+                                      noise[i], u[i])
+        doa.append(d)
+        conf.append(c)
+    doa = torch.stack(doa)
+    return (particle.ParticleState(pstate.angles, pstate.weights, key),
+            nearest_grid(doa, azimuths_rad), doa, torch.stack(conf))

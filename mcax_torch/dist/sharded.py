@@ -107,7 +107,7 @@ class ShardedPipeline:
         self.st, self.sc = mesh.time_shards, mesh.channel_shards
         self.device = rank_device(device, mesh.rank)
         # the single-device plans (windows, DFT operands, GCC and SRP plans,
-        # fixed steering): the unported algos raise here, naming ROADMAP
+        # fixed steering) and the tracker's kind
         self._pipe = Pipeline(cfg, device=self.device)
         self.geom = self._pipe.geom
         c = self.geom.num_mics
@@ -253,6 +253,7 @@ class ShardedPipeline:
         spectra = self._spectra(local, state.carry[ci * cl:(ci + 1) * cl])
         plan = self._pipe.plan
         new_tail, new_cov, new_tracks = state.ola_tail, state.cov, state.tracks
+        new_particles = state.particles
         replicated = ()
         algo = a.name
         if algo == "gcc":
@@ -302,16 +303,26 @@ class ShardedPipeline:
             new_cov = cov_mod.to_planes(cov)
         elif algo == "track_mvdr":
             power = self._srp_power(spectra)
-            new_tracks, gidx = tracking.track_block(
-                state.tracks, dscan.psum_mean(power, self.mesh),
-                plan.azimuths_rad, self._pipe.suppress_bins, a.track_smooth)
+            # every rank runs the tracker on the same replicated surface
+            # with the same key: the ranks' states stay bit-identical
+            pmean = dscan.psum_mean(power, self.mesh)      # [G]
+            if self._pipe.use_particle:
+                new_particles, doa, conf, gidx = (
+                    tracking.particle_track_block(
+                        state.particles, pmean, plan.azimuths_rad,
+                        self._pipe.suppress_bins, a.particle_step_std_rad,
+                        a.particle_resample_threshold))
+            else:
+                new_tracks, gidx = tracking.track_block(
+                    state.tracks, pmean, plan.azimuths_rad,
+                    self._pipe.suppress_bins, a.track_smooth)
+                doa, conf = new_tracks.angles_rad, new_tracks.confidence
             steer = srp_mod.steering_vector(plan, gidx)    # [S, C, F]
             cov = self._cov_update(cov_mod.from_planes(state.cov), spectra)
             w = mvdr.weights(cov, steer, a.diag_load)
             audio, new_tail = self._resynth(mvdr.beamform(spectra, w),
                                             state.ola_tail)  # [S, Tl*hop]
-            out = {"audio": audio, "doa": new_tracks.angles_rad,
-                   "confidence": new_tracks.confidence}
+            out = {"audio": audio, "doa": doa, "confidence": conf}
             replicated = ("doa", "confidence")
             new_cov = cov_mod.to_planes(cov)
         else:
@@ -319,7 +330,7 @@ class ShardedPipeline:
         new_state = PipelineState(carry=new_carry,
                                   block_idx=state.block_idx + 1,
                                   ola_tail=new_tail, cov=new_cov,
-                                  tracks=new_tracks)
+                                  tracks=new_tracks, particles=new_particles)
         # per-frame outputs: the frame axis is the last
         return new_state, Shards(out, {k: None if k in replicated else -1
                                        for k in out})
@@ -471,6 +482,7 @@ class ShardedPipeline:
             return o.reshape(*o.shape[:-1], bl, t * hop).movedim(-2, 0), tail
 
         new_tail, new_cov, new_tracks = state.ola_tail, state.cov, state.tracks
+        new_particles = state.particles
         replicated = ()
         if algo == "gcc":
             out = self._pipe._gcc(spectra, per_block)
@@ -527,9 +539,16 @@ class ShardedPipeline:
             # runs replicated; each shard then steers its own blocks
             covs_c, ncov_c, carry_last, pmean_all = mvdr_chain(
                 cov_mod.from_planes(state.cov), pmean)     # [B, G]
-            new_tracks, gidx_all, angles, conf = tracking.track_blocks(
-                state.tracks, pmean_all, plan.azimuths_rad,
-                self._pipe.suppress_bins, a.track_smooth)  # [B, S] each
+            if self._pipe.use_particle:
+                new_particles, gidx_all, angles, conf = (
+                    tracking.particle_track_blocks(
+                        state.particles, pmean_all, plan.azimuths_rad,
+                        self._pipe.suppress_bins, a.particle_step_std_rad,
+                        a.particle_resample_threshold))    # [B, S] each
+            else:
+                new_tracks, gidx_all, angles, conf = tracking.track_blocks(
+                    state.tracks, pmean_all, plan.azimuths_rad,
+                    self._pipe.suppress_bins, a.track_smooth)  # [B, S] each
             y, cov, new_carry = mvdr_finish(
                 covs_c, ncov_c, carry_last, srp_mod.steering_vector(
                     plan, gidx_all[ti * bl:(ti + 1) * bl]))  # [Bl, S, T, F]
@@ -543,6 +562,6 @@ class ShardedPipeline:
         new_state = PipelineState(carry=new_carry,
                                   block_idx=state.block_idx + bl * self.st,
                                   ola_tail=new_tail, cov=new_cov,
-                                  tracks=new_tracks)
+                                  tracks=new_tracks, particles=new_particles)
         return new_state, Shards(out, {k: None if k in replicated else 0
                                        for k in out})

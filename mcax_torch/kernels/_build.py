@@ -32,7 +32,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("stft_fused.cu", "srp_fused.cu", "covprefix.cu", "mvdrsolve.cu",
            "cps.cu", "dft.cu", "fft_rows.cu", "irfft_rows.cu", "steer.cu",
-           "halo_rdma.cu")
+           "halo_rdma.cu", "threefry.cu")
 HEADERS = ("common.cuh", "gemm_rows.cuh", "gemm_tc.cuh", "rfft.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -86,6 +86,12 @@ SIGNATURES = {
     "mcax_irfft_rows": (_P, _P, _P, _L, _I, _P),
     # cps, b2, scratch (or NULL), out, M, K, G, ldb, splits, chunk, stream
     "mcax_srp_power_cps": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
+    # keys, subs, out, R, steps, stream
+    "mcax_threefry_chain": (_P, _P, _P, _I, _I, _P),
+    # keys, out, R, n, is_normal, lo, scale, stream
+    "mcax_threefry_draw": (_P, _P, _I, _L, _I, _F, _F, _P),
+    # keys, subs, noise, u, out, R, B, S, N, stream
+    "mcax_particle_draws": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # tiles (int[4]: BM, BN, BK, blocks an SM of gemm_tc.cuh)
     "mcax_gemm_tc_tiles": (_P,),
     # the ring's host entry points (dist/halo_rdma.py): slot_bytes, &buf,

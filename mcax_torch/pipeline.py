@@ -13,14 +13,15 @@ One ``Pipeline`` object per config, stateless, with all streaming state
 
 The port runs every chain of the reference — ``gcc`` (config1),
 ``delaysum`` (config2), ``srp`` (config3), ``srp_mvdr`` (config4),
-``track_mvdr`` with the EMA tracker (config5), ``srp_delaysum``, ``mvdr``
-(fixed look) and ``mask`` — through all four entry points, and
-``process_blocks`` in both of the reference's modes (``scan_mode``).  Its
-kernels (STFT from blocks and from a contiguous signal, real DFT and inverse
-real DFT of rows, fused SRP, materialised-CPS SRP, covariance prefixes, MVDR
-solve from rows and from complex covariances, PHAT cross-power) are
-hand-written CUDA on a CUDA device; on ``device="cpu"`` their plain PyTorch
-versions run.  The particle smoother is queued in ROADMAP.md.
+``track_mvdr`` (config5) with the EMA tracker or the particle smoother
+(``smoother="particle"``), ``srp_delaysum``, ``mvdr`` (fixed look) and
+``mask`` — through all four entry points, and ``process_blocks`` in both of
+the reference's modes (``scan_mode``).  Its kernels (STFT from blocks and
+from a contiguous signal, real DFT and inverse real DFT of rows, fused SRP,
+materialised-CPS SRP, covariance prefixes, MVDR solve from rows and from
+complex covariances, PHAT cross-power, and the particle smoother's
+threefry draws) are hand-written CUDA on a CUDA device; on
+``device="cpu"`` their plain PyTorch versions run.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from mcax_torch.algos import delaysum
 from mcax_torch.algos import gcc
 from mcax_torch.algos import masking
 from mcax_torch.algos import mvdr
+from mcax_torch.algos import particle
 from mcax_torch.algos import srp as srp_mod
 from mcax_torch.algos import tracking
 from mcax_torch.frames import stft as stft_mod
@@ -62,12 +64,14 @@ def check_scan_mode(scan_mode: str) -> str:
 
 
 def _map_state(fn, state: PipelineState) -> PipelineState:
-    """Apply ``fn`` to every tensor leaf of a state, the tracks' three
-    included (None stays None)."""
+    """Apply ``fn`` to every tensor leaf of a state, the tracks' and the
+    particles' three included (None stays None)."""
     new = {k: None if getattr(state, k) is None else fn(getattr(state, k))
            for k in FIELDS}
     if state.tracks is not None:
         new["tracks"] = tracking.TrackState(*map(fn, state.tracks))
+    if state.particles is not None:
+        new["particles"] = particle.ParticleState(*map(fn, state.particles))
     return dataclasses.replace(state, **new)
 
 
@@ -93,11 +97,9 @@ class Pipeline:
             raise NotImplementedError(
                 f"mcax_torch runs algo {'|'.join(_PORTED_ALGOS)} so far; "
                 f"{algo!r} ({cfg.name}) is queued in ROADMAP.md, Queue 1")
-        if algo == "track_mvdr" and cfg.algo.smoother != "ema":
-            raise NotImplementedError(
-                f"mcax_torch tracks with the EMA smoother so far; smoother="
-                f"{cfg.algo.smoother!r} is queued in ROADMAP.md, Queue 1 "
-                "(the reference's particle smoother draws from jax.random)")
+        # config5's tracker: EMA tracks, or one particle cloud a source
+        self.use_particle = (algo == "track_mvdr"
+                             and cfg.algo.smoother == "particle")
         self.device = dispatch.resolve_device(device)
         self.geom = cfg.geometry()
         self.pairs = self.geom.pairs
@@ -146,7 +148,9 @@ class Pipeline:
         return self.cfg.frames_per_block
 
     def init_state(self) -> PipelineState:
-        """A fresh state holding only the fields this algo uses."""
+        """A fresh state holding only the fields this algo uses (the
+        particle smoother's clouds drawn as the reference draws them, from
+        ``particle_seed``)."""
         cfg = self.cfg
         c = self.geom.num_mics
         lh = cfg.stft.frame_len - cfg.stft.hop
@@ -163,11 +167,16 @@ class Pipeline:
             cov=(cov_mod.init_planes(cfg.stft.num_bins, c, device=dev)
                  if algo in _COV_ALGOS else None),
             tracks=(tracking.init_tracks(cfg.algo.num_sources, dev)
-                    if tracked else None))
+                    if tracked and not self.use_particle else None),
+            particles=(particle.init(cfg.algo.num_sources,
+                                     cfg.algo.num_particles,
+                                     cfg.algo.particle_seed, dev)
+                       if self.use_particle else None))
 
     def init_states(self, num_streams: int) -> PipelineState:
         """States of ``num_streams`` independent streams: every leaf of
-        ``init_state()`` with a leading S axis."""
+        ``init_state()`` with a leading S axis (every stream the same
+        particle key, as the reference broadcasts it)."""
         return _map_state(
             lambda x: x.expand(num_streams, *x.shape).clone(),
             self.init_state())
@@ -231,6 +240,7 @@ class Pipeline:
         algo = cfg.algo.name
         a = cfg.algo
         new_tail, new_cov, new_tracks = state.ola_tail, state.cov, state.tracks
+        new_particles = state.particles
 
         def resynth(y):
             """y [S, ..., T, F] -> (audio [S, ..., T*hop], new OLA tail)."""
@@ -287,23 +297,31 @@ class Pipeline:
             new_cov = cov_mod.to_planes(cov)
         elif algo == "track_mvdr":
             power = self._srp_power(spectra_cs).view(s_, t, -1)
-            new_tracks, gidx = tracking.track_block(
-                state.tracks, power.mean(dim=1), self.plan.azimuths_rad,
-                self.suppress_bins, a.track_smooth)          # gidx [S, Src]
+            if self.use_particle:
+                new_particles, doa, conf, gidx = (
+                    tracking.particle_track_block(
+                        state.particles, power.mean(dim=1),
+                        self.plan.azimuths_rad, self.suppress_bins,
+                        a.particle_step_std_rad,
+                        a.particle_resample_threshold))      # [S, Src] each
+            else:
+                new_tracks, gidx = tracking.track_block(
+                    state.tracks, power.mean(dim=1), self.plan.azimuths_rad,
+                    self.suppress_bins, a.track_smooth)      # gidx [S, Src]
+                doa, conf = new_tracks.angles_rad, new_tracks.confidence
             steer = srp_mod.steering_vector(self.plan, gidx)  # [S, Src, C, F]
             cov = cov_update()
             w = mvdr.weights_blocks(cov, steer, a.diag_load)
             # y [S, Src, T, F]: one signal per source
             audio, new_tail = resynth(mvdr.beamform(spectra, w))
-            out = {"audio": audio, "doa": new_tracks.angles_rad,
-                   "confidence": new_tracks.confidence}
+            out = {"audio": audio, "doa": doa, "confidence": conf}
             new_cov = cov_mod.to_planes(cov)
         else:
             raise ValueError(f"unknown algo {algo!r}")
         new_state = PipelineState(carry=new_carry,
                                   block_idx=state.block_idx + 1,
                                   ola_tail=new_tail, cov=new_cov,
-                                  tracks=new_tracks)
+                                  tracks=new_tracks, particles=new_particles)
         return new_state, out
 
     def _srp_power(self, spectra_cs: torch.Tensor) -> torch.Tensor:
@@ -414,6 +432,7 @@ class Pipeline:
                 steer, a.diag_load)
 
         new_tail, new_cov, new_tracks = state.ola_tail, state.cov, state.tracks
+        new_particles = state.particles
         if algo == "gcc":
             out = self._gcc(spectra, per_block)
         elif algo == "delaysum":
@@ -460,9 +479,16 @@ class Pipeline:
         elif algo == "track_mvdr":
             power = self._srp_power(spectra)               # [B*T, G]
             pmean = power.view(b, t, -1).mean(dim=1)       # [B, G]
-            new_tracks, gidx, angles, conf = tracking.track_blocks(
-                state.tracks, pmean, self.plan.azimuths_rad,
-                self.suppress_bins, a.track_smooth)        # [B, S] each
+            if self.use_particle:
+                new_particles, gidx, angles, conf = (
+                    tracking.particle_track_blocks(
+                        state.particles, pmean, self.plan.azimuths_rad,
+                        self.suppress_bins, a.particle_step_std_rad,
+                        a.particle_resample_threshold))    # [B, S] each
+            else:
+                new_tracks, gidx, angles, conf = tracking.track_blocks(
+                    state.tracks, pmean, self.plan.azimuths_rad,
+                    self.suppress_bins, a.track_smooth)    # [B, S] each
             steer = srp_mod.steering_vector(self.plan, gidx)  # [B, S, C, F]
             w, cov = weights(steer)                        # [B, S, C, F]
             y = mvdr.beamform(blocks(), w)                 # [B, S, T, F]
@@ -476,7 +502,7 @@ class Pipeline:
         new_state = PipelineState(carry=new_carry,
                                   block_idx=state.block_idx + b,
                                   ola_tail=new_tail, cov=new_cov,
-                                  tracks=new_tracks)
+                                  tracks=new_tracks, particles=new_particles)
         return new_state, out
 
     # ------------------------------------------------------------------

@@ -12,10 +12,11 @@ from typing import Optional
 
 import torch
 
+from mcax_torch.algos.particle import ParticleState
 from mcax_torch.algos.tracking import TrackState
 
-# the tensor fields; ``tracks`` holds three more leaves (a TrackState), and
-# config5's particle smoother is not ported
+# the tensor fields; ``tracks`` holds three more leaves (a TrackState) and
+# ``particles`` three (a ParticleState: angles, weights, key)
 FIELDS = ("carry", "block_idx", "ola_tail", "cov")
 
 
@@ -26,4 +27,4 @@ class PipelineState:
     ola_tail: Optional[torch.Tensor] = None  # [(S,) frame_len - hop] OLA carry
     cov: Optional[torch.Tensor] = None       # [F, C, C, 2] float32 re/im planes
     tracks: Optional[TrackState] = None      # config5's EMA tracks, [S] each
-    particles: None = None                   # the particle smoother: not ported
+    particles: Optional[ParticleState] = None  # config5's particle smoother

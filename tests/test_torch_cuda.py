@@ -28,7 +28,11 @@ bit-equal at config1's, config4's (B = 512) and config5's shapes, with
 padded pairs, leading signals, a strided view and three bin tiles, in both
 layouts, and config4's srp="matmul" bulk through it equal to the fused
 SRP; kernel 4 on the group body with the rows loader bit-equal at config5
-B = 512, at runs cut short by the last system, and at C = 8; each streaming entry point on the card against the CPU;
+B = 512, at runs cut short by the last system, and at C = 8; the particle
+smoother's threefry draws bit-equal to their plain version at config5 B =
+512 and at 16 serving streams, and split/uniform/normal alone; each
+streaming entry point on the card against the CPU, config5's particle
+smoother on all of them;
 ShardedPipeline on a 1 x 1 mesh against Pipeline; the halo ring (kernel
 11) in 2 and 4 processes sharing the one card through CUDA IPC, against its
 plain ring over gloo, its timeout when a peer never pushes, and
@@ -50,7 +54,7 @@ from mcax_torch.convert import state_to_numpy
 from mcax_torch.algos import srp as t_srp
 from mcax_torch.frames import window as t_window
 from mcax_torch.kernels import (covprefix, cps, fft, mvdrsolve, srp_fused,
-                                steer, stft_fused)
+                                steer, stft_fused, threefry)
 
 pytestmark = pytest.mark.cuda
 
@@ -686,6 +690,101 @@ def test_streaming_entry_points_card_vs_cpu(dev, name):
                 torch.testing.assert_close(og[k], oc[k], atol=5e-4,
                                            rtol=5e-4)
     assert torch.equal(res["cuda"][1], res["cpu"][1])
+
+
+@pytest.mark.parametrize("r,blocks", [(1, 512), (16, 1)])
+def test_particle_draws_bit_equal(dev, r, blocks):
+    """config5's draws (S = 2, N = 256) of a B = 512 dispatch on one key and
+    of one block on 16 serving streams' keys: bit-equal to the plain
+    version on the card (torch elementwise kernels)."""
+    rng = np.random.default_rng(r)
+    keys = torch.from_numpy(rng.integers(0, 2 ** 32, (r, 2)).astype(
+        np.int64)).to(dev)
+    before = threefry.particle_draws.LAUNCHES
+    got = threefry.particle_draws(keys, blocks, 2, 256)
+    assert threefry.particle_draws.LAUNCHES == before + 1
+    want = threefry.particle_draws_plain(keys, blocks, 2, 256)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.equal(a, b)
+    assert torch.isfinite(got[0]).all()
+    assert float(got[1].min()) >= 0.0 and float(got[1].max()) < 1.0
+
+
+@pytest.mark.parametrize("draw", ["split", "uniform", "normal"])
+def test_threefry_draws_bit_equal(dev, draw):
+    """init's and the filter's own draws (split, uniform on [-pi, pi),
+    normal) over 3 keys: bit-equal to the plain versions on the card."""
+    rng = np.random.default_rng(7)
+    keys = torch.from_numpy(rng.integers(0, 2 ** 32, (3, 2)).astype(
+        np.int64)).to(dev)
+    fn = getattr(threefry, draw)
+    plain = getattr(threefry, draw + "_plain")
+    args = {"split": (), "uniform": ((2, 257), -np.pi, np.pi),
+            "normal": ((2, 257),)}[draw]
+    before = fn.LAUNCHES
+    got, want = fn(keys, *args), plain(keys, *args)
+    assert fn.LAUNCHES == before + 1
+    torch.cuda.synchronize()
+    for a, b in zip(got if draw == "split" else (got,),
+                    want if draw == "split" else (want,)):
+        assert torch.equal(a, b)
+
+
+def test_particle_smoother_card_vs_cpu(dev):
+    """config5 with the particle smoother on the card against the CPU:
+    process_block over 2 blocks, process_streams of 2 streams, and
+    process_blocks over 2 blocks in both modes; outputs within 5e-4 (the
+    other chains' bound on the card), carry equal, the particle key equal;
+    one particle_draws launch a block step or batched dispatch, init's
+    draws on the card (a split and a uniform), no plain draw."""
+    import dataclasses
+    from mcax_torch.config import get_config
+    from mcax_torch.pipeline import Pipeline
+    cfg = get_config("config5")
+    cfg = dataclasses.replace(cfg, algo=dataclasses.replace(
+        cfg.algo, smoother="particle"))
+    geom = cfg.geometry()
+    bl = cfg.block_len
+    x = np.stack([_plane_wave(geom, np.deg2rad(a), 2 * bl, seed=i)
+                  + _plane_wave(geom, np.deg2rad(a + 110.0), 2 * bl,
+                                seed=i + 5)
+                  for i, a in enumerate((-60.0, 20.0))])
+    blocks = np.ascontiguousarray(x[0].reshape(x.shape[1], 2, bl)
+                                  .transpose(1, 0, 2))
+    res = {}
+    for d in ("cuda", "cpu"):
+        counts = (threefry.particle_draws.LAUNCHES, threefry.split.LAUNCHES,
+                  threefry.uniform.LAUNCHES, threefry.normal.LAUNCHES)
+        pipe = Pipeline(cfg, device=d)
+        st, sts = pipe.init_state(), pipe.init_states(2)
+        outs = []
+        for b in range(2):
+            st, o = pipe.process_block(st, x[0, :, b * bl:(b + 1) * bl])
+            sts, os_ = pipe.process_streams(sts, x[:, :, b * bl:(b + 1) * bl])
+            outs.append({**o, **{"s_" + k: v for k, v in os_.items()}})
+        states = [st, sts]
+        for mode in ("batched", "scan"):
+            pm = Pipeline(cfg, device=d, scan_mode=mode)
+            sb, o = pm.process_blocks(pm.init_state(), blocks)
+            outs.append(o)
+            states.append(sb)
+        res[d] = ([{k: v.cpu() for k, v in o.items()} for o in outs],
+                  states)
+        launched = [c1 - c0 for c0, c1 in zip(counts, (
+            threefry.particle_draws.LAUNCHES, threefry.split.LAUNCHES,
+            threefry.uniform.LAUNCHES, threefry.normal.LAUNCHES))]
+        # draws: 2 blocks x 2 entry points, 1 batched, 2 scan; init: 4
+        # pipelines' init_state (init_states makes one)
+        assert launched == ([7, 4, 4, 0] if d == "cuda" else [0, 0, 0, 0])
+    for og, oc in zip(res["cuda"][0], res["cpu"][0]):
+        for k in og:
+            torch.testing.assert_close(og[k], oc[k], atol=5e-4, rtol=5e-4)
+    for sg, sc in zip(*(r[1] for r in (res["cuda"], res["cpu"]))):
+        assert torch.equal(sg.carry.cpu(), sc.carry)
+        assert torch.equal(sg.particles.key.cpu(), sc.particles.key)
+        torch.testing.assert_close(sg.particles.angles.cpu(),
+                                   sc.particles.angles, atol=5e-4, rtol=0)
 
 
 def _steer_case(m, k, g, dev, seed=10):

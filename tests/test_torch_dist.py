@@ -49,6 +49,9 @@ JOIN_S = 300            # the children's time limit, both worlds together
 CHAINS = {"srp_delaysum": ("config3", {}),
           "mvdr": ("config4", {"steer_azimuth_rad": float(np.deg2rad(37.0))}),
           "mask": ("config1", {"steer_azimuth_rad": float(np.deg2rad(37.0))})}
+# config5 with the particle smoother, as tests/unit/test_process_blocks.py
+# builds it: name -> (preset, smoother)
+SMOOTHERS = {"config5-particle": ("config5", "particle")}
 
 
 def _case(cid, name, hop, ts, cs, srp="fused", halo="ppermute",
@@ -75,6 +78,9 @@ CASES = [
     # the scan mode: the block step once per block
     _case("config4-2x2-scan", "config4", None, 2, 2, scan="scan"),
     _case("config5-2x2-scan", "config5", None, 2, 2, scan="scan"),
+    # the particle smoother: every rank runs the clouds on the replicated
+    # surface with the same key
+    _case("config5-particle-2x2", "config5-particle", None, 2, 2),
     # the remaining chains (mask needs two mics: channels unsharded)
     _case("srp_delaysum-2x2", "srp_delaysum", None, 2, 2),
     _case("mvdr-2x2", "mvdr", None, 2, 2),
@@ -109,6 +115,17 @@ BOUNDS = {
                 "ola_tail": (5e-4 + 5e-4, 5e-4 + 3e-5),
                 "tracks0": (1e-5 + 5e-4, 3e-5),
                 "tracks1": (5e-4, 1e-4 + 3e-5)},
+    # the particle smoother: tests/test_torch_particle.py's bounds (doa,
+    # confidence, angles 1e-5; weights 1e-6) + the reference's sharded
+    # particle test's (tests/dist/test_sharded.py: outputs 5e-4, angles
+    # 1e-4, the key equal); cov as config5's
+    "config5-particle": {"audio": (5e-4 + 5e-4, 5e-4 + 3e-5),
+                         "doa": (1e-5 + 5e-4, 3e-5),
+                         "confidence": (1e-5 + 5e-4, 3e-5),
+                         "cov": (5e-4, 3e-5),
+                         "ola_tail": (5e-4 + 5e-4, 5e-4 + 3e-5),
+                         "particles0": (1e-5 + 1e-4, 0),
+                         "particles1": (1e-6 + 1e-4, 0)},
     # the chains: test_torch_chains' bounds (audio, OLA tail 5e-4, grid doa
     # exact, covariance 1e-4) + the reference's 1e-4 / 3e-5
     "srp_delaysum": {"audio": (5e-4 + 1e-4, 5e-4 + 3e-5), "doa": (1e-4, 3e-5),
@@ -126,8 +143,14 @@ RDMA_BOUNDS = {"audio": (1e-4, 3e-5), "doa": (1e-4, 3e-5),
 
 
 def _config(mod, name, hop):
-    """A preset (``hop`` overriding its STFT hop) or a chain of CHAINS, from
-    ``mod`` (mcax's or the port's config module)."""
+    """A preset (``hop`` overriding its STFT hop), a chain of CHAINS or a
+    smoother of SMOOTHERS, from ``mod`` (mcax's or the port's config
+    module)."""
+    if name in SMOOTHERS:
+        base, smoother = SMOOTHERS[name]
+        cfg = mod.get_config(base)
+        return dataclasses.replace(cfg, algo=dataclasses.replace(
+            cfg.algo, smoother=smoother))
     if name in CHAINS:
         base, over = CHAINS[name]
         cfg = mod.get_config(base)
@@ -269,9 +292,9 @@ def _ring_error_message(mesh, failed_rank):
 # ---------------------------------------------------------------------------
 def _save_state(res, prefix, st):
     for k, v in state_to_numpy(st).items():
-        if k == "tracks":
+        if k in ("tracks", "particles"):
             for i, a in enumerate(v):
-                res[f"{prefix}/tracks{i}"] = a
+                res[f"{prefix}/{k}{i}"] = a
         elif v is not None:
             res[f"{prefix}/{k}"] = v
 
@@ -333,7 +356,7 @@ def _inputs():
         cfg = _config(m_config, name, None)
         g = cfg.geometry()
         n = cfg.block_len * (NBLOCKS + B)
-        if name == "config5":
+        if name.startswith("config5"):
             out[cid] = helpers.moving_sources(
                 g, [np.deg2rad(-60.0), np.deg2rad(50.0)],
                 [np.deg2rad(-30.0), np.deg2rad(80.0)], n, cfg.block_len,
@@ -430,9 +453,10 @@ def _ref_state(r, prefix, st):
         v = getattr(st, k)
         if v is not None:
             r[f"{prefix}/{k}"] = np.asarray(v)
-    if st.tracks is not None:
-        for i, a in enumerate(st.tracks):
-            r[f"{prefix}/tracks{i}"] = np.asarray(a)
+    for k in ("tracks", "particles"):
+        if getattr(st, k) is not None:
+            for i, a in enumerate(getattr(st, k)):
+                r[f"{prefix}/{k}{i}"] = np.asarray(a)
 
 
 @pytest.fixture(scope="module")
@@ -486,13 +510,13 @@ def test_sharded_matches_mcax_sharded(runs, case):
     bounds = BOUNDS[name]
     for key, w in want.items():
         field = key.split("/")[1]
-        if field in ("carry", "block_idx", "tracks2"):
+        if field in ("carry", "block_idx", "tracks2", "particles2"):
             np.testing.assert_array_equal(got[key], w, err_msg=key)
             continue
         atol, rtol = bounds[field]
         if field == "power":
             atol += 3e-5 * np.abs(w).max()
-        if name == "config5" and field == "cov":
+        if name.startswith("config5") and field == "cov":
             atol += 1e-6 * np.abs(w).max()
         _close(got[key], w, atol, rtol, key)
         if case[6] == "rdma" and field in RDMA_BOUNDS:
@@ -678,28 +702,25 @@ def test_mesh_and_pipeline_validation():
 @pytest.mark.parametrize("algo", ["srp_delaysum", "mvdr", "mask",
                                   "particle"])
 def test_unported_algos_raise(algo):
-    """Only the particle smoother is left unported: it raises, naming
-    ROADMAP.md.  The three chains ported since build, and one block of each
-    on a 1 x 1 mesh equals ``Pipeline``'s."""
+    """Every chain is ported now, the particle smoother last: each builds,
+    and one block of each on a 1 x 1 mesh equals ``Pipeline``'s (the
+    particle clouds, their key included, too)."""
     from mcax_torch.pipeline import Pipeline
-    if algo == "particle":
-        cfg = t_config.get_config("config5")
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ShardedPipeline(dataclasses.replace(cfg, algo=dataclasses.replace(
-                cfg.algo, smoother="particle")), t_mesh.make_mesh(1, 1),
-                device="cpu")
-        return
-    cfg = _config(t_config, algo, None)
+    cfg = _config(t_config, "config5-particle" if algo == "particle" else algo,
+                  None)
     sp = ShardedPipeline(cfg, t_mesh.make_mesh(1, 1), device="cpu")
     pipe = Pipeline(cfg, device="cpu")
     x = np.random.default_rng(4).standard_normal(
         (cfg.geometry().num_mics, cfg.block_len)).astype(np.float32)
-    _, o1 = pipe.process_block(pipe.init_state(), x)
-    _, o2 = sp.process_block(sp.init_state(), x)
+    s1, o1 = pipe.process_block(pipe.init_state(), x)
+    s2, o2 = sp.process_block(sp.init_state(), x)
     o2 = sp.gather_outputs(o2)
     assert sorted(o1) == sorted(o2)
     for k in o1:
         torch.testing.assert_close(o2[k], o1[k], atol=0, rtol=0)
+    if algo == "particle":
+        for a, b in zip(s2.particles, s1.particles):
+            assert torch.equal(a, b)
 
 
 def test_initialize_alone_and_pod_mesh(monkeypatch, caplog):

@@ -24,9 +24,10 @@ def test_import_loads_no_jax_and_no_mcax():
     code = ("import sys, mcax_torch, mcax_torch.pipeline, mcax_torch.convert\n"
             "from mcax_torch.kernels import (_build, covprefix, cps, fft,\n"
             "                                mvdrsolve, srp_fused, steer,\n"
-            "                                stft_fused)\n"
+            "                                stft_fused, threefry)\n"
             "from mcax_torch.algos import (covariance, delaysum, gcc,\n"
-            "                              masking, mvdr, srp, tracking)\n"
+            "                              masking, mvdr, particle, srp,\n"
+            "                              tracking)\n"
             "from mcax_torch.frames import ola, stft, window\n"
             "import mcax_torch.dist\n"
             "from mcax_torch.dist import (collectives, halo, halo_rdma,\n"
@@ -72,29 +73,34 @@ def test_pipeline_raises_without_a_card(monkeypatch):
 @pytest.mark.parametrize("name", ["srp_delaysum", "mvdr", "mask",
                                   "config5 particle"])
 def test_unported_algos_raise(name):
-    """Only the particle smoother is left unported: it raises, naming
-    ROADMAP.md.  The chains ported since (on config4's array) build on the
-    CPU only when asked, with all four entry points."""
+    """Every chain is ported now, config5's particle smoother last: the
+    chains (on config4's array) and config5 with the particle smoother
+    build on the CPU only when asked, with all four entry points, and one
+    block gives finite audio (one signal a source for config5)."""
     import dataclasses
     from mcax_torch.config import get_config
     from mcax_torch.pipeline import Pipeline
     if name == "config5 particle":
         cfg = get_config("config5")
-        algo = dataclasses.replace(cfg.algo, smoother="particle")
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            Pipeline(dataclasses.replace(cfg, algo=algo), device="cpu")
-        return
-    cfg = get_config("config4")
-    cfg = dataclasses.replace(cfg, algo=dataclasses.replace(cfg.algo,
-                                                            name=name))
+        cfg = dataclasses.replace(cfg, algo=dataclasses.replace(
+            cfg.algo, smoother="particle"))
+        shape = (cfg.algo.num_sources, cfg.block_len)
+    else:
+        cfg = get_config("config4")
+        cfg = dataclasses.replace(cfg, algo=dataclasses.replace(cfg.algo,
+                                                                name=name))
+        shape = (cfg.block_len,)
     pipe = Pipeline(cfg, device="cpu")
     for entry in ("process_block", "process_blocks", "process_streams",
                   "init_states", "run"):
         assert callable(getattr(pipe, entry))
     st, out = pipe.process_block(pipe.init_state(),
-                                 torch.zeros(8, cfg.block_len))
-    assert out["audio"].shape == (cfg.block_len,)
+                                 torch.zeros(pipe.geom.num_mics,
+                                             cfg.block_len))
+    assert out["audio"].shape == shape
     assert torch.isfinite(out["audio"]).all()
+    if name == "config5 particle":
+        assert st.tracks is None and st.particles.key.dtype == torch.int64
 
 
 @pytest.mark.parametrize("name", ["config1", "config2", "config3", "config4",

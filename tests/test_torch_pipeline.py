@@ -6,6 +6,8 @@ with the test suite's MCAX_BACKEND=xla (fp32 on the CPU); the port runs on
 device="cpu" (its kernels' plain versions).  Bounds are the reference's own
 batched-vs-scan bounds (tests/unit/test_process_blocks.py)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -156,5 +158,16 @@ def test_state_conversion_round_trip():
     back = state_to_numpy(state_from_numpy(leaves, "cpu"))
     for k in FIELDS:
         np.testing.assert_array_equal(back[k], leaves[k])
-    with pytest.raises(NotImplementedError):
+    # config5's particle clouds round-trip too (the key as mcax's uint32)
+    cfg5 = t_config.get_config("config5")
+    cfg5 = dataclasses.replace(cfg5, algo=dataclasses.replace(
+        cfg5.algo, smoother="particle"))
+    st5 = TPipeline(cfg5, device="cpu").init_state()
+    leaves5 = state_to_numpy(st5)
+    angles, weights, key = leaves5["particles"]
+    assert key.dtype == np.uint32 and angles.shape == (2, 256)
+    back = state_from_numpy(leaves5, "cpu")
+    for a, b in zip(back.particles, st5.particles):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="particles"):
         state_from_numpy(dict(leaves, particles=np.zeros(2)), "cpu")
