@@ -141,6 +141,26 @@ on the first that fails:
           and, in phase l's group, ``ShardedPipeline`` 1 x 1 on one NCCL
           rank, batched over 64 blocks and 4 block steps, against
           ``Pipeline``;
+       p. the CLI (``mcax_torch.cli.run``) on a config4 int16 WAV of 136
+          blocks of a plane wave at 40 degrees: in this process with
+          ``--blocks-per-dispatch 32 --pipeline-depth 2``, a checkpoint
+          every 32 blocks, CSV, WAV and metrics (kernels 1, 3, 4 four
+          times, 2 and 7 twelve, 5 and 6 eight: four groups through
+          ``process_blocks``, a tail of 8 through ``process_block``), its
+          CSV text and WAV bit-equal to ``Pipeline`` driven directly with
+          the same grouping on the blocks ``io.stream.block_iterator``
+          yields, every block's DOA within 2 degrees; the same with
+          ``--pipeline-depth 1`` and with ``--reader numpy`` (profiled:
+          the device's busy share of the CLI's wall time) bit-equal;
+          ``--mesh 1x1`` rows equal and audio within 5e-4 plus one LSB;
+          ``python -m mcax_torch.cli.run`` as a child with ``--throttle``,
+          killed by SIGKILL once its first checkpoint exists and resumed:
+          WAV and CSV rows bit-equal to the uninterrupted run from that
+          block on; config5 through the CLI over 16 blocks, EMA and
+          ``--set algo.smoother=particle``, tracks within 5 degrees of
+          the two sources from block 4; the CLI's samples/s over its
+          wall time and median ``latency_s`` beside ``process_blocks`` at
+          B = 32 on the same blocks;
   5. run each path on the card and on the CPU (the plain versions) on a
      small input and hold them to the slice's parity bounds (config4
      ``process_blocks`` on the main path's first 4 blocks, the other paths
@@ -194,6 +214,19 @@ RING_PIPE_BLOCKS = 4    # the ring's path on the 2 x 1 mesh: blocks a dispatch
 SCAN_BLOCKS = 64        # config4 scan-mode process_blocks
 MASK_DEG = 90.0         # the mask chain's look and source (broadside)
 SCAN_DISPATCHES = 4     # 1 warm-up + 3 timed
+# phase 4p, the CLI on the card: a config4 int16 WAV of CLI_BLOCKS blocks
+# through ``mcax_torch.cli.run.main`` in groups of CLI_GROUP (4 groups
+# through process_blocks and a tail of 8 through process_block), a
+# checkpoint every CLI_GROUP blocks (a multiple of the group, so a resume
+# regroups nothing); config5 through the CLI over CLI5_BLOCKS blocks, tracks
+# checked from CLI5_FROM_BLOCK on
+CLI_BLOCKS = 136
+CLI_GROUP = 32
+CLI_DEPTH = 2
+CLI_PEAK = 0.9          # the WAVs' peak level (full scale 1)
+CLI_THROTTLE_S = 3.0    # the killed run's sleep after each group
+CLI5_BLOCKS = 16
+CLI5_FROM_BLOCK = 4
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, full power limit):
 # fp32 on the CUDA cores and memory bandwidth.
@@ -1326,13 +1359,14 @@ def rate_line(name, ms, window_ms, per_disp):
             f"{max(rates):.6g})")
 
 
-def profile(fn):
-    """``fn()`` once under torch.profiler (after one call outside it):
-    (device milliseconds by kernel name largest first, device kernel
-    count); empty if the profiler saw no device."""
+def profile(fn, warm: bool = True):
+    """``fn()`` once under torch.profiler (after one call outside it, when
+    ``warm``): (device milliseconds by kernel name largest first, device
+    kernel count); empty if the profiler saw no device."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
@@ -2203,6 +2237,307 @@ def chain_path(name, pipe, blocks, src_deg, counters, by_path):
           + (", doa equal" if extra else "") + ")")
 
 
+def cli_rows_text(algo, outs_by_block, cfg):
+    """The CLI's CSV text for per-block outputs (numpy dicts, in order)."""
+    from mcax_torch.cli import run as cli_run
+    lines = ["block,frame_or_source,doa_deg,score"]
+    for b, o in enumerate(outs_by_block):
+        lines += [",".join(str(v) for v in row)
+                  for row in cli_run._doa_rows(algo, o, cfg, b)]
+    return "\n".join(lines) + "\n"
+
+
+def cli_direct(pipe, blocks_np, group):
+    """``Pipeline`` driven as the CLI groups the blocks: full groups of
+    ``group`` through process_blocks, the tail one block at a time.
+    Returns the per-block outputs as numpy dicts."""
+    import torch
+    st, outs = pipe.init_state(), []
+    n_full = len(blocks_np) // group * group
+    for g in range(0, n_full, group):
+        st, o = pipe.process_blocks(st, torch.from_numpy(
+            np.stack(blocks_np[g:g + group])).to(pipe.device))
+        host = {k: v.cpu().numpy() for k, v in o.items()}
+        outs += [{k: v[i] for k, v in host.items()} for i in range(group)]
+    for blk in blocks_np[n_full:]:
+        st, o = pipe.process_block(st, torch.from_numpy(blk).to(pipe.device))
+        outs.append({k: v.cpu().numpy() for k, v in o.items()})
+    return outs
+
+
+def run_cli(args, counters=None):
+    """``mcax_torch.cli.run.main(args)`` in this process, fenced: (wall
+    seconds, launches or None).  A non-zero exit fails the phase."""
+    import torch
+    from mcax_torch.cli import run as cli_run
+    torch.cuda.synchronize()
+    if counters is not None:
+        reset(counters)
+    t0 = time.perf_counter()
+    rc = cli_run.main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"mcax_torch.cli.run {args}: exit {rc}")
+    return wall, (read(counters) if counters is not None else None)
+
+
+def kill_and_resume(repo, wav, tmp, cfg, full_wav, full_csv):
+    """``python -m mcax_torch.cli.run`` as a child, killed with SIGKILL as
+    soon as its first checkpoint exists, then resumed: the resumed WAV must
+    equal the tail of the uninterrupted run bit for bit, and its CSV rows
+    its rows from the same block on.  Returns the resume's block."""
+    import json
+    import os
+    import signal
+    from mcax_torch.io.wav import read_wav
+    ck, out = os.path.join(tmp, "kill.npz"), os.path.join(tmp, "kill.wav")
+    res_wav = os.path.join(tmp, "resumed.wav")
+    res_csv = os.path.join(tmp, "resumed.csv")
+    base = [sys.executable, "-m", "mcax_torch.cli.run", wav, "--config",
+            cfg.name, "--blocks-per-dispatch", str(CLI_GROUP),
+            "--checkpoint", ck, "--checkpoint-every", str(CLI_GROUP)]
+    child = subprocess.Popen(base + ["--wav-out", out, "--throttle",
+                                     str(CLI_THROTTLE_S)], cwd=repo,
+                             stdout=subprocess.DEVNULL,
+                             stderr=subprocess.PIPE)
+    try:
+        deadline = time.monotonic() + 300
+        while not os.path.exists(ck) and child.poll() is None:
+            if time.monotonic() > deadline:
+                raise AssertionError("no checkpoint within 300 s")
+            time.sleep(0.05)
+        if child.poll() is not None:
+            raise AssertionError(
+                f"the run ended (exit {child.returncode}) before it could be "
+                f"killed: {child.stderr.read().decode()[-2000:]}")
+        child.send_signal(signal.SIGKILL)
+        child.wait(timeout=60)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    with np.load(ck) as z:
+        cursor = json.loads(bytes(z["__meta__"]).decode())["sample_cursor"]
+    start = cursor // cfg.block_len
+    if not 0 < start < CLI_BLOCKS or start % CLI_GROUP:
+        raise AssertionError(f"checkpoint at block {start}")
+    if os.path.exists(out):
+        raise AssertionError("the killed run wrote its WAV")
+    proc = subprocess.run(base + ["--resume", "--wav-out", res_wav,
+                                  "--doa-out", res_csv], cwd=repo,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"resume exit {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    _, full = read_wav(full_wav)
+    _, res = read_wav(res_wav)
+    if not np.array_equal(res, full[:, cursor:]):
+        raise AssertionError("the resumed WAV differs from the tail of the "
+                             "uninterrupted run")
+    want = [r for r in full_csv.splitlines()[1:]
+            if int(r.split(",")[0]) >= start]
+    got = open(res_csv).read().splitlines()[1:]
+    if got != want:
+        raise AssertionError("the resumed CSV rows differ from the "
+                             "uninterrupted run's")
+    return start
+
+
+def cli_tracks(path, sources_deg, from_block):
+    """Worst error of config5's CSV tracks against two sources (either
+    pairing), over the blocks from ``from_block`` on."""
+    rows = [r.split(",") for r in open(path).read().splitlines()[1:]]
+    doa = {}
+    for b, s, d, _ in rows:
+        doa.setdefault(int(b), [None, None])[int(s)] = float(d)
+    d = np.asarray([doa[b] for b in sorted(doa) if b >= from_block])
+    a, b = sources_deg
+    one = np.maximum(circ_deg(d[:, 0], a), circ_deg(d[:, 1], b))
+    two = np.maximum(circ_deg(d[:, 0], b), circ_deg(d[:, 1], a))
+    return float(np.minimum(one, two).max()), len(doa)
+
+
+def cli_path(repo, smi, counters, by_path):
+    """Phase 4p: the CLI on the card, in process and as a child process."""
+    import json
+    import os
+    import tempfile
+    import torch
+    from mcax_torch.config import get_config
+    from mcax_torch.io import stream as stream_mod
+    from mcax_torch.io.wav import read_wav, write_wav
+    from mcax_torch.pipeline import Pipeline
+    from mcax_torch.io import native
+    t0 = time.perf_counter()
+    native.library()                  # the host library's one-time build
+    native_s = time.perf_counter() - t0
+    cfg = get_config("config4")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe = Pipeline(cfg)              # what each CLI run builds first
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    bl = cfg.block_len
+    n = CLI_BLOCKS * bl
+    with tempfile.TemporaryDirectory() as tmp:
+        def at(name):
+            return os.path.join(tmp, name)
+
+        x = plane_wave(pipe.geom, SOURCE_DEG, n, SEED + 20, "cpu")
+        write_wav(at("in.wav"), cfg.sample_rate,
+                  (x * (CLI_PEAK / x.abs().max())).numpy())
+        del x
+        base = [at("in.wav"), "--config", "config4", "--blocks-per-dispatch",
+                str(CLI_GROUP)]
+
+        def outs_of(tag):
+            return ["--doa-out", at(f"{tag}.csv"), "--wav-out",
+                    at(f"{tag}.wav"), "--metrics", at(f"{tag}.jsonl")]
+
+        # the run held to everything else, pipelined, with checkpoints
+        wall, launches = run_cli(
+            base + outs_of("a") + ["--pipeline-depth", str(CLI_DEPTH),
+                                   "--checkpoint", at("a.npz"),
+                                   "--checkpoint-every", str(CLI_GROUP)],
+            counters)
+        by_path["cli config4"] = launches
+        groups, tail = divmod(CLI_BLOCKS, CLI_GROUP)
+        expect_launches("cli config4", launches, {
+            "stft_fused_from_blocks": groups, "block_prefixes_rows": groups,
+            "weights_blocks_fused_rows": groups,
+            "srp_power_fused": groups + tail, "irdft_rows": groups + tail,
+            "stft_fused_planes": tail, "weights_blocks_fused": tail})
+        csv_a = open(at("a.csv")).read()
+        wav_a = open(at("a.wav"), "rb").read()
+        recs = [json.loads(r) for r in open(at("a.jsonl"))]
+        if [r["block"] for r in recs] != list(range(CLI_BLOCKS)):
+            raise AssertionError("cli metrics: blocks out of order")
+        # Pipeline driven directly, grouped as the CLI groups, on the
+        # blocks the block iterator yields
+        blocks_np = list(stream_mod.block_iterator(at("in.wav"), bl, 8))
+        direct = cli_direct(pipe, blocks_np, CLI_GROUP)
+        if cli_rows_text(cfg.algo.name, direct, cfg) != csv_a:
+            raise AssertionError("cli CSV differs from Pipeline driven "
+                                 "directly")
+        write_wav(at("direct.wav"), cfg.sample_rate,
+                  np.concatenate([o["audio"] for o in direct], -1))
+        if open(at("direct.wav"), "rb").read() != wav_a:
+            raise AssertionError("cli WAV differs from Pipeline driven "
+                                 "directly")
+        off = np.asarray([abs((float(r.split(",")[2]) - SOURCE_DEG + 180.0)
+                              % 360.0 - 180.0)
+                          for r in csv_a.splitlines()[1:]])
+        if not np.all(off <= 2.0):
+            raise AssertionError(f"cli block DOA off by up to {off.max():.2f}"
+                                 " deg")
+        # the synchronous loop and the numpy reader: bit-equal; the numpy
+        # run is profiled (the same device work as run a)
+        run_cli(base + outs_of("d1") + ["--pipeline-depth", "1"])
+        prof_wall = [0.0]
+
+        def numpy_run():
+            prof_wall[0] = run_cli(base + outs_of("np") + [
+                "--reader", "numpy", "--pipeline-depth", str(CLI_DEPTH)])[0]
+
+        prof = profile(numpy_run, warm=False)
+        # where the host's time goes: run a once more under cProfile
+        import cProfile
+        import pstats
+        host = cProfile.Profile()
+        host.enable()
+        host_wall = run_cli(base + outs_of("cp") + [
+            "--pipeline-depth", str(CLI_DEPTH)])[0]
+        host.disable()
+        host_top = sorted(pstats.Stats(host).stats.items(),
+                          key=lambda kv: -kv[1][2])[:10]
+        for tag in ("d1", "np", "cp"):
+            if (open(at(f"{tag}.csv")).read() != csv_a
+                    or open(at(f"{tag}.wav"), "rb").read() != wav_a):
+                raise AssertionError(f"cli run {tag} differs from run a")
+        # --mesh 1x1: ShardedPipeline without a process group
+        _, launches = run_cli(base + outs_of("m") + ["--mesh", "1x1"],
+                              counters)
+        by_path["cli config4 --mesh 1x1"] = launches
+        if open(at("m.csv")).read() != csv_a:
+            raise AssertionError("cli --mesh 1x1 DOA rows differ")
+        _, wm = read_wav(at("m.wav"))
+        _, wa = read_wav(at("a.wav"))
+        err = float(np.abs(wm - wa).max())
+        if not err <= 5e-4 + 1.0 / 32768.0:
+            raise AssertionError(f"cli --mesh 1x1 WAV off by {err:.3e}")
+        start = kill_and_resume(str(repo), at("in.wav"), tmp, cfg, at("a.wav"),
+                                csv_a)
+        # config5 through the CLI: EMA and the particle smoother
+        cfg5 = get_config("config5")
+        g5 = cfg5.geometry()
+        x5 = plane_waves(g5, SOURCES5_DEG, CLI5_BLOCKS * cfg5.block_len,
+                         SEED + 21, "cpu").sum(0)
+        write_wav(at("in5.wav"), cfg5.sample_rate,
+                  (x5 * (CLI_PEAK / x5.abs().max())).numpy())
+        errs5 = {}
+        for smoother in ("ema", "particle"):
+            _, launches = run_cli(
+                [at("in5.wav"), "--config", "config5", "--set",
+                 f"algo.smoother={smoother}", "--doa-out",
+                 at(f"c5{smoother}.csv"), "--wav-out",
+                 at(f"c5{smoother}.wav")], counters)
+            by_path[f"cli config5 {smoother}"] = launches
+            err5, nb5 = cli_tracks(at(f"c5{smoother}.csv"), SOURCES5_DEG,
+                                   CLI5_FROM_BLOCK)
+            if nb5 != CLI5_BLOCKS or not err5 <= 5.0:
+                raise AssertionError(f"cli config5 {smoother}: tracks off "
+                                     f"by {err5:.2f} deg ({nb5} blocks)")
+            errs5[smoother] = err5
+        # process_blocks alone at B = CLI_GROUP on the same blocks, on the
+        # card: 1 warm-up + timed dispatches
+        blocks_dev = torch.from_numpy(np.stack(blocks_np)).to(pipe.device)
+        dispatches = CLI_BLOCKS // CLI_GROUP
+        launches, ms, win, _, _ = drive_batched(pipe, blocks_dev, counters,
+                                                dispatches, CLI_GROUP)
+        by_path[f"config4 process_blocks B={CLI_GROUP} (cli blocks)"] = launches
+        del blocks_dev
+    lat = statistics.median(r["latency_s"] for r in recs)
+    by_name, count = prof
+    busy = sum(v for _, v in by_name)
+    pb_rate = CLI_GROUP * bl * (dispatches - 1) / (win * 1e-3)
+    cli_rate = n / wall
+    print(f"cli (phase 4p), {smi}: python -m mcax_torch.cli.run config4, "
+          f"{CLI_BLOCKS} blocks of an int16 WAV ({n} frames x 8 channels), "
+          f"--blocks-per-dispatch {CLI_GROUP} --pipeline-depth {CLI_DEPTH}, "
+          f"a checkpoint every {CLI_GROUP} blocks, CSV + WAV + metrics: "
+          f"wall {wall:.4f} s (of which Pipeline(config4)'s plans, timed "
+          f"alone before: {plan_s:.4f} s; the native reader's one-time g++ "
+          f"build, {native_s:.2f} s, done before), samples/s "
+          f"{cli_rate:.6g}; median latency_s "
+          f"{lat:.6f}; launches {by_path['cli config4']}; CSV and WAV "
+          "bit-equal to Pipeline driven directly, to --pipeline-depth 1 "
+          "and to --reader numpy; --mesh 1x1 rows equal, WAV within "
+          f"{err:.3e}; SIGKILL after the checkpoint at block {start} and "
+          "resume: WAV and rows bit-equal to the uninterrupted run; config5 "
+          f"tracks within {errs5['ema']:.2f} (EMA) and "
+          f"{errs5['particle']:.2f} (particle) deg from block "
+          f"{CLI5_FROM_BLOCK}")
+    if by_name:
+        print(f"cli (phase 4p) device time, one run (--reader numpy, "
+              f"profiled, wall {prof_wall[0]:.4f} s): {count} device "
+              f"kernels, busy {busy:.3f} ms = {100.0 * busy / (wall * 1e3):.2f}"
+              " % of the unprofiled run's wall; by kernel: "
+              + "; ".join(f"{k} {v:.3f} ms" for k, v in by_name[:8]))
+    else:
+        print("cli (phase 4p) device time: not measured (the profiler "
+              "recorded no device activity)")
+    print(f"cli (phase 4p) host time, one run under cProfile (wall "
+          f"{host_wall:.4f} s), the 10 largest own times: " + "; ".join(
+              f"{fn} ({Path(file).name}:{line}) {v[2]:.4f} s"
+              for (file, line, fn), v in host_top))
+    print(f"cli (phase 4p) beside it: config4 process_blocks at B = "
+          f"{CLI_GROUP} on the same blocks on the card, {dispatches - 1} "
+          f"timed dispatches: samples/s {pb_rate:.6g} (per dispatch ms "
+          f"{[round(t, 4) for t in ms]}); the CLI runs at "
+          f"{100.0 * cli_rate / pb_rate:.2f} % of it")
+
+
 def main() -> int:
     try:
         import torch
@@ -2842,6 +3177,9 @@ def main() -> int:
             SEED + 16, dev), cfg1.block_len), MASK_DEG)}
     for name, (cfg_c, blocks_c, src_c) in chains.items():
         chain_path(name, Pipeline(cfg_c), blocks_c, src_c, counters, by_path)
+
+    # -- phase 4p: the CLI on the card ---------------------------------------
+    cli_path(repo, smi, counters, by_path)
 
     # -- phase 5: the card against the CPU on small inputs -----------------
     x_small = {

@@ -15,14 +15,18 @@ Layer map (as in mcax):
   frames/    windowing, framing, STFT/iSTFT, overlap-add.
   algos/     GCC-PHAT, SRP-PHAT, covariance, MVDR.
   pipeline   the config-driven streaming block processor.
+  dist/      the sharded pipeline over a time x channel mesh of processes.
+  io/        WAV read/write, the native block reader, the block feeder.
+  utils/     checkpoints and per-block metrics.
+  cli/       ``python -m mcax_torch.cli.run``: WAV in; DOA, audio, metrics
+             out.
 """
 
 import torch
 
 from mcax_torch import config as config
 from mcax_torch import geometry as geometry
-
-__version__ = "0.1.0"
+from mcax_torch.version import __version__ as __version__
 
 # Every product on the path is fp32, as on the reference's CPU path: TF32
 # keeps ~3 decimal digits, which the parity bounds do not allow.

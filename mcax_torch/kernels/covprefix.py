@@ -11,6 +11,9 @@ directly.
     hand-written kernels (``csrc/covprefix.cu``: per-block partials in
     parallel over (bin tile, chunk of blocks), then a scan over the chunks),
     on CPU tensors it runs the plain version;
+  * ``block_prefixes_fused`` — the same recursion as complex prefix
+    covariances [B, F, C, C] (the reference's drop-in for
+    ``covariance.block_prefixes``): the wrapper, then rows to complex;
   * ``plan_chunks`` — how many consecutive blocks a chunk takes.
   * ``block_prefixes_rows_plain`` — the same function in plain PyTorch: one
     weighted einsum for all per-block partials and a loop over blocks for
@@ -177,3 +180,12 @@ def block_prefixes_rows(spectra: torch.Tensor, cov0: Optional[torch.Tensor],
 
 
 block_prefixes_rows.LAUNCHES = 0
+
+
+def block_prefixes_fused(spectra: torch.Tensor, cov0: Optional[torch.Tensor],
+                         forget: float, frames_per_block: int
+                         ) -> torch.Tensor:
+    """Complex spectra [C, M, F] -> complex64 prefix covariances
+    [B, F, C, C] through ``block_prefixes_rows`` (its kernel on the card)."""
+    return rows_to_complex(block_prefixes_rows(spectra, cov0, forget,
+                                               frames_per_block))

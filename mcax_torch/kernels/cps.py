@@ -22,6 +22,9 @@ running its plain version on CPU tensors:
     operation order of the reference kernel (``_cps_phat_kernel``); both
     kernels perform exactly these IEEE operations, so both are bit-equal to
     their plain versions.
+  * ``cps_phat_planes(spec_re, spec_im, pairs)`` — the reference's
+    real/imaginary-plane entry: ``cps_phat_gather`` on the complex spectra,
+    returned as the (g_re, g_im) planes.
   * ``cross_power``, ``phat_weight`` and ``cps_weighted`` (scot | roth |
     cc) — plain PyTorch, as the reference leaves them to XLA.
 
@@ -258,3 +261,13 @@ def cps_weighted(spectra: torch.Tensor, pairs, weighting: str = "phat",
         return g / (s_ii + eps)
     s_jj = torch.index_select(auto, -3, j)
     return g / (torch.sqrt(s_ii * s_jj) + eps)
+
+
+def cps_phat_planes(spec_re: torch.Tensor, spec_im: torch.Tensor, pairs,
+                    eps: float = DEFAULT_PHAT_EPS):
+    """Real/imaginary spectra planes [..., C, T, F] -> the PHAT cross-power
+    planes (g_re, g_im), each float32 [..., P, T, F], through
+    ``cps_phat_gather`` (its kernel on the card)."""
+    g = cps_phat(torch.complex(spec_re.float(), spec_im.float()), pairs,
+                 eps=eps)
+    return g.real, g.imag

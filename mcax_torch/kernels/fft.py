@@ -429,3 +429,23 @@ def irfft(y: torch.Tensor, a2: torch.Tensor,
     [..., N] float32, with the synthesis window folded into ``a2`` and
     carried by ``op`` (``fft_operand``; None for a column selection)."""
     return irdft_rows(y, a2, op)
+
+
+def rfft_matmul(x: torch.Tensor, window=None) -> torch.Tensor:
+    """Real DFT over the last axis as a product with the DFT matrices
+    (any window folded in): [..., N] -> complex64 [..., N//2+1].  The
+    reference leaves this to XLA; here it is ``torch.matmul`` in fp32."""
+    n = x.shape[-1]
+    wr, wi = (torch.from_numpy(m).to(x.device)
+              for m in _fwd_matrices(n, n // 2 + 1, window))
+    x = x.float()
+    return torch.complex(torch.matmul(x, wr), torch.matmul(x, wi))
+
+
+def irfft_matmul(y: torch.Tensor, n: int, window=None) -> torch.Tensor:
+    """Inverse real DFT of half spectra [..., F] to [..., n] float32 (any
+    synthesis window folded in), as ``torch.matmul`` in fp32."""
+    ar, ai = (torch.from_numpy(m).to(y.device)
+              for m in _inv_matrices(n, y.shape[-1], window))
+    return (torch.matmul(y.real.float(), ar)
+            + torch.matmul(y.imag.float(), ai))

@@ -15,6 +15,9 @@ spectrum (CPS).
     ``csrc/gemm_tc.cuh``: 3xTF32 tensor-core tiles), which reads the complex
     CPS [M, K] as 2K floats a row and takes one product with B', split over
     2K as ``split_k_plan`` says; on CPU tensors it runs the plain version.
+  * ``srp_power`` — the reference's entry on PHAT CPS [..., P, T, F] and
+    steering matrices: the reshape to [M, P*F] rows, then
+    ``srp_power_cps``.
   * ``srp_power_cps_plain`` / ``srp_power_flat`` — the same function in plain
     PyTorch, two fp32 matmuls (the reference's ``srp_power_flat``); the fused
     SRP kernel's plain version ends with it too.
@@ -203,3 +206,22 @@ def _check_tiles() -> None:
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def srp_power(g_phat: torch.Tensor, e_re, e_im) -> torch.Tensor:
+    """Steered response power.
+
+    Args:
+      g_phat: complex64 [..., P, T, F] PHAT-weighted cross-power spectra.
+      e_re, e_im: [P*F, G] steering matrices (``steering_matrices``; numpy
+        or tensors).
+    Returns:
+      float32 power [..., T, G], through ``srp_power_cps`` (its kernel on
+      the card).
+    """
+    *lead, p, t, f = g_phat.shape
+    rows = g_phat.movedim(-2, -3).reshape(-1, p * f).contiguous()
+    b2 = stacked_steering(np.asarray(torch.as_tensor(e_re).cpu()),
+                          np.asarray(torch.as_tensor(e_im).cpu()),
+                          g_phat.device)
+    return srp_power_cps(rows, b2).view(*lead, t, b2.shape[1])

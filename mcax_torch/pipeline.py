@@ -27,6 +27,7 @@ threefry draws) are hand-written CUDA on a CUDA device; on
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -63,7 +64,7 @@ def check_scan_mode(scan_mode: str) -> str:
     return scan_mode
 
 
-def _map_state(fn, state: PipelineState) -> PipelineState:
+def map_state(fn, state: PipelineState) -> PipelineState:
     """Apply ``fn`` to every tensor leaf of a state, the tracks' and the
     particles' three included (None stays None)."""
     new = {k: None if getattr(state, k) is None else fn(getattr(state, k))
@@ -177,7 +178,7 @@ class Pipeline:
         """States of ``num_streams`` independent streams: every leaf of
         ``init_state()`` with a leading S axis (every stream the same
         particle key, as the reference broadcasts it)."""
-        return _map_state(
+        return map_state(
             lambda x: x.expand(num_streams, *x.shape).clone(),
             self.init_state())
 
@@ -207,9 +208,9 @@ class Pipeline:
             raise ValueError(f"expected samples {list(expect)}, got "
                              f"{list(samples.shape)} (mis-sized blocks "
                              "would shift the stream)")
-        states = _map_state(lambda x: x[None], state)
+        states = map_state(lambda x: x[None], state)
         new, out = self._block_step(states, samples[None])
-        return (_map_state(lambda x: x[0], new),
+        return (map_state(lambda x: x[0], new),
                 {k: v[0] for k, v in out.items()})
 
     def process_streams(self, states: PipelineState, samples) -> Tuple[
@@ -528,3 +529,14 @@ class Pipeline:
         state, outs = self._blocks_scan(
             state, padded.view(c, nblocks, b).transpose(0, 1))
         return state, {k: v.cpu().numpy() for k, v in outs.items()}
+
+
+def get_pipeline(name: str, device=None) -> Pipeline:
+    """The pipeline of a preset, one object per (name, device): the plans
+    and constants on the device are built once."""
+    return _cached_pipeline(name, dispatch.resolve_device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_pipeline(name: str, device: torch.device) -> Pipeline:
+    return Pipeline(cfg_mod.get_config(name), device=device)

@@ -1,0 +1,63 @@
+"""Per-block metrics and logging — counterpart of ``mcax/utils/metrics.py``.
+
+A JSONL metrics stream (block latency, real-time factor, DOA) and a logger,
+the callback equivalent a downstream consumer can tail.  ``BlockTimer``
+synchronises a CUDA device on entry and exit: the card runs asynchronously
+to the host, so an unfenced wall clock would measure only the enqueue.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import time
+from typing import Any, Dict, IO, Optional
+
+import torch
+
+log = logging.getLogger("mcax_torch")
+
+
+class JsonlWriter:
+    """Append-only JSONL metrics sink (one dict per block)."""
+
+    def __init__(self, path: Optional[str]):
+        self._f: Optional[IO[str]] = open(path, "a") if path else None
+
+    def write(self, record: Dict[str, Any]) -> None:
+        if self._f is None:
+            return
+        self._f.write(json.dumps(record, default=float) + "\n")
+
+    def close(self) -> None:
+        if self._f is not None:
+            self._f.flush()
+            self._f.close()
+            self._f = None
+
+
+class BlockTimer:
+    """Tracks block wall-times and real-time factor; with a CUDA ``device``
+    the card is synchronised on entry and on exit."""
+
+    def __init__(self, sample_rate: float, block_len: int, device=None):
+        self.sample_rate = sample_rate
+        self.block_len = block_len
+        self.device = None if device is None else torch.device(device)
+        self._t0 = 0.0
+
+    def _fence(self) -> None:
+        if self.device is not None and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def __enter__(self):
+        self._fence()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self._fence()
+        self.elapsed = time.perf_counter() - self._t0
+        audio_s = self.block_len / self.sample_rate
+        self.realtime_factor = audio_s / self.elapsed if self.elapsed > 0 else 0.0
+        return False

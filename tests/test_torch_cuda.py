@@ -41,7 +41,13 @@ peer stalls past the timeout; and, on a
 machine with four cards (they skip on fewer), ShardedPipeline 2 x 2 over
 NCCL, one process a card, against Pipeline on one card, and
 ShardedPipeline(halo="rdma") against halo="ppermute" with one push timed
-against NCCL's."""
+against NCCL's.  The CLI on the card (pipelined host copies on a side
+stream) against the CLI on the CPU on config2 and config4, depth 1 against
+3 bit-equal; the filters and the public functions off the pipelines' path
+(block_prefixes_fused, cps_phat_planes, srp_power, rfft_matmul,
+irfft_matmul, get_pipeline) card against CPU; and, on four cards,
+``torchrun --nproc-per-node 4 -m mcax_torch.cli.run --mesh 2x2`` against
+``--mesh 1x1``."""
 
 import time
 
@@ -1276,3 +1282,169 @@ def test_rdma_halo_on_four_cards(dev, tmp_path):
     print(f"one push of a {RING_SHAPES[0]} fp32 payload along a ring of 4 "
           f"cards, ms per push by rank (mean of {PUSHES}): {times}; its "
           f"bound over NVLink one way {nbytes / NVLINK_BYTES_S * 1e3:.3g} ms")
+
+
+# ---------------------------------------------------------------------------
+# The CLI, the filters and the public functions off the pipelines' path
+# ---------------------------------------------------------------------------
+
+def _cli_wav(tmp_path, name, nblocks, seed=3):
+    from mcax_torch.config import get_config
+    from mcax_torch.io.wav import write_wav
+    cfg = get_config(name)
+    x = _plane_wave(cfg.geometry(), np.deg2rad(40.0),
+                    nblocks * cfg.block_len + 777, seed)
+    path = str(tmp_path / f"{name}.wav")
+    write_wav(path, cfg.sample_rate, 0.9 * x / np.abs(x).max())
+    return path, cfg
+
+
+@pytest.mark.parametrize("name,bound", [("config2", 2e-5),
+                                        ("config4", 5e-4)])
+def test_cli_card_vs_cpu(dev, tmp_path, name, bound):
+    """The CLI on the card (pipelined copies on a side stream into pinned
+    memory, with checkpoints) against the CLI on the CPU: DOA rows equal
+    on a clean source, audio within the config's bound plus one LSB, the
+    final checkpoints' carry equal; and depth 1 against depth 3 on the card
+    bit-equal."""
+    from mcax_torch.cli import run as cli_run
+    from mcax_torch.io.wav import read_wav
+    from mcax_torch.pipeline import Pipeline
+    from mcax_torch.utils import checkpoint as ckpt
+    path, cfg = _cli_wav(tmp_path, name, 9)
+    res = {}
+    for tag, extra in (("cuda", ["--pipeline-depth", "3"]),
+                       ("cuda1", ["--pipeline-depth", "1"]),
+                       ("cpu", ["--device", "cpu"])):
+        o = {k: str(tmp_path / f"{tag}.{k}") for k in ("csv", "wav", "npz")}
+        assert cli_run.main([path, "--config", name, "--doa-out", o["csv"],
+                             "--wav-out", o["wav"], "--checkpoint",
+                             o["npz"], "--checkpoint-every", "4", *extra]) == 0
+        st, cursor, _ = ckpt.load(o["npz"],
+                                  Pipeline(cfg, device="cpu").init_state(),
+                                  cfg.config_hash())
+        res[tag] = (open(o["csv"]).read(), read_wav(o["wav"])[1], st.carry,
+                    open(o["wav"], "rb").read())
+        assert cursor == 10 * cfg.block_len
+    assert res["cuda"][0] == res["cuda1"][0]
+    assert res["cuda"][3] == res["cuda1"][3]
+    if name == "config4":
+        assert res["cuda"][0] == res["cpu"][0]
+    np.testing.assert_allclose(res["cuda"][1], res["cpu"][1], rtol=0,
+                               atol=bound + 1.0 / 32768.0)
+    assert torch.equal(res["cuda"][2], res["cpu"][2])
+
+
+def test_filters_card_vs_cpu(dev):
+    from scipy import signal as sps
+    from mcax_torch.frames import filters as flt
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((3, 5000)).astype(np.float32)
+    taps = sps.firwin(31, 0.3).astype(np.float32)
+    b, a = flt.butter_lowpass_sos(1500.0, 16000.0)
+    cases = {"fir": lambda v: flt.fir_apply(v, taps),
+             "pre": lambda v: flt.preemphasis(v, 0.97),
+             "biquad": lambda v: flt.biquad_apply(v, b, a)}
+    for name, fn in cases.items():
+        yg, cg = fn(torch.from_numpy(x).to(dev))
+        yc, cc = fn(torch.from_numpy(x))
+        assert yg.device.type == "cuda"
+        torch.testing.assert_close(yg.cpu(), yc, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(cg.cpu(), cc, atol=1e-5, rtol=1e-5)
+    w = flt.mel_filterbank(512, 40, 16000.0)
+    ps = torch.from_numpy(rng.uniform(0, 1, (7, 257)).astype(np.float32))
+    torch.testing.assert_close(flt.mel_energies(ps.to(dev), w).cpu(),
+                               flt.mel_energies(ps, w), atol=1e-5, rtol=1e-5)
+
+
+def test_public_functions_card_vs_cpu(dev):
+    """Each public function off the pipelines' path launches its kernel on
+    the card and agrees with its CPU version: block_prefixes_fused (kernel
+    3, 2e-4), cps_phat_planes (kernel 9, 1e-6: the reference's bound; the
+    CPU's vectorised division rounds apart), srp_power (kernel 10,
+    1e-4 of the largest power), rfft_matmul / irfft_matmul (3e-6 of the
+    largest); get_pipeline caches per device; BlockTimer fences the card."""
+    from mcax_torch.config import get_config
+    from mcax_torch.frames import window as win_mod
+    from mcax_torch.pipeline import get_pipeline
+    rng = np.random.default_rng(12)
+    spec = _rng_complex(rng, (8, 3 * 24, 513), "cpu")
+    before = covprefix.block_prefixes_rows.LAUNCHES
+    got = covprefix.block_prefixes_fused(spec.to(dev), None, 0.95, 24)
+    assert covprefix.block_prefixes_rows.LAUNCHES == before + 1
+    torch.testing.assert_close(got.cpu(), covprefix.block_prefixes_fused(
+        spec, None, 0.95, 24), atol=2e-4, rtol=2e-4)
+    re = torch.from_numpy(rng.standard_normal((8, 5, 257)).astype(np.float32))
+    im = torch.from_numpy(rng.standard_normal((8, 5, 257)).astype(np.float32))
+    pairs = np.asarray([(i, j) for i in range(8) for j in range(i + 1, 8)],
+                       np.int32)
+    before = cps.cps_phat_gather.LAUNCHES
+    gr, gi = cps.cps_phat_planes(re.to(dev), im.to(dev), pairs)
+    assert cps.cps_phat_gather.LAUNCHES == before + 1
+    wr, wi = cps.cps_phat_planes(re, im, pairs)
+    torch.testing.assert_close(gr.cpu(), wr, atol=1e-6, rtol=0)
+    torch.testing.assert_close(gi.cpu(), wi, atol=1e-6, rtol=0)
+    cfg = get_config("config3")
+    e_re, e_im = steer.steering_matrices(
+        cfg.geometry(), np.deg2rad(np.arange(360.0)), 512)
+    g = torch.complex(wr, wi)[None].repeat(2, 1, 1, 1)     # [2, P, T, F]
+    before = steer.srp_power_cps.LAUNCHES
+    pg = steer.srp_power(g.to(dev), e_re, e_im)
+    assert steer.srp_power_cps.LAUNCHES == before + 1
+    pc = steer.srp_power(g, e_re, e_im)
+    assert pg.shape == pc.shape == (2, 5, 360)
+    torch.testing.assert_close(pg.cpu(), pc, rtol=0,
+                               atol=1e-4 * pc.abs().max().item())
+    x = torch.from_numpy(rng.standard_normal((4, 1024)).astype(np.float32))
+    w = win_mod.hann(1024)
+    yg, yc = fft.rfft_matmul(x.to(dev), w), fft.rfft_matmul(x, w)
+    torch.testing.assert_close(yg.cpu(), yc, rtol=0,
+                               atol=3e-6 * yc.abs().max().item())
+    bg, bc = fft.irfft_matmul(yc.to(dev), 1024), fft.irfft_matmul(yc, 1024)
+    torch.testing.assert_close(bg.cpu(), bc, rtol=0,
+                               atol=3e-6 * bc.abs().max().item())
+    p = get_pipeline("config4")
+    assert p.device.type == "cuda" and p is get_pipeline("config4")
+    assert get_pipeline("config4", device="cpu") is not p
+    from mcax_torch.utils.metrics import BlockTimer
+    with BlockTimer(48000, 12288, device=dev) as t:    # fenced on the card
+        p.process_block(p.init_state(), torch.zeros(8, 12288, device=dev))
+    assert t.elapsed > 0.0 and t.realtime_factor > 0.0
+
+
+def test_cli_mesh_two_by_two_on_four_cards(dev, tmp_path):
+    """``torchrun --nproc-per-node 4 -m mcax_torch.cli.run --mesh 2x2`` on
+    config4 (NCCL, one process a card) against ``--mesh 1x1`` on one card:
+    DOA rows equal on a clean source, audio within 5e-4 (the card) + 1e-4
+    (the reference's sharded bound) + one LSB, and only rank 0 wrote."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    from mcax_torch.cli import run as cli_run
+    from mcax_torch.io.wav import read_wav
+    from mcax_torch.kernels import _build
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 cards (one process a card)")
+    _build.library()                 # build once, before the ranks load it
+    path, cfg = _cli_wav(tmp_path, "config4", 10)
+    root = Path(__file__).resolve().parents[1]
+    m = {k: str(tmp_path / f"mesh.{k}") for k in ("csv", "wav", "jsonl")}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "4", "-m", "mcax_torch.cli.run", path,
+         "--config", "config4", "--mesh", "2x2", "--doa-out", m["csv"],
+         "--wav-out", m["wav"], "--metrics", m["jsonl"]], cwd=root,
+        capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    one = {k: str(tmp_path / f"one.{k}") for k in ("csv", "wav")}
+    assert cli_run.main([path, "--config", "config4", "--mesh", "1x1",
+                         "--doa-out", one["csv"], "--wav-out",
+                         one["wav"]]) == 0
+    assert open(m["csv"]).read() == open(one["csv"]).read()
+    np.testing.assert_allclose(read_wav(m["wav"])[1], read_wav(one["wav"])[1],
+                               rtol=0, atol=6e-4 + 1.0 / 32768.0)
+    assert len(open(m["jsonl"]).read().splitlines()) == 11   # rank 0 only
+    print(f"cli --mesh 2x2 on 4 cards: {wall:.1f} s of wall, the "
+          "processes' start and the build included")

@@ -20,7 +20,8 @@ _MCAX_KNOB = re.compile(
 
 def test_import_loads_no_jax_and_no_mcax():
     """Importing every module of the port loads neither JAX nor mcax, and
-    builds no kernel (the build happens at the first launch)."""
+    builds neither a kernel nor the native host library (each is built at
+    its first use)."""
     code = ("import sys, mcax_torch, mcax_torch.pipeline, mcax_torch.convert\n"
             "from mcax_torch.kernels import (_build, covprefix, cps, fft,\n"
             "                                mvdrsolve, srp_fused, steer,\n"
@@ -32,9 +33,16 @@ def test_import_loads_no_jax_and_no_mcax():
             "import mcax_torch.dist\n"
             "from mcax_torch.dist import (collectives, halo, halo_rdma,\n"
             "                             mesh, multihost, scan, sharded)\n"
+            "import mcax_torch.cli, mcax_torch.io, mcax_torch.utils\n"
+            "from mcax_torch import version\n"
+            "from mcax_torch.cli import run\n"
+            "from mcax_torch.io import native, stream, wav\n"
+            "from mcax_torch.utils import checkpoint, metrics\n"
+            "from mcax_torch.frames import filters\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'mcax'))\n"
-            "built = _build.library.cache_info().currsize\n"
+            "built = (_build.library.cache_info().currsize\n"
+            "         + native.library.cache_info().currsize)\n"
             "print(bad, built)\n"
             "sys.exit(1 if bad or built else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -45,7 +53,10 @@ def test_import_loads_no_jax_and_no_mcax():
 def _port_sources():
     files = sorted((ROOT / "mcax_torch").rglob("*.py"))
     assert len(files) >= 16, files
-    return files + [ROOT / "chip_smoke.py", ROOT / "time_kernels.py"]
+    examples = sorted((ROOT / "examples_torch").glob("*.py"))
+    assert len(examples) == 4, examples
+    return files + examples + [ROOT / "chip_smoke.py",
+                               ROOT / "time_kernels.py"]
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -57,6 +68,20 @@ def test_source_imports_nothing_of_jax_or_mcax(path):
     # the port reads no MCAX_* knob (tests set MCAX_BACKEND=xla for the
     # reference, and it must not reach the port)
     assert not _MCAX_KNOB.findall(text), path
+
+
+def test_cli_fails_without_a_card():
+    """``python -m mcax_torch.cli.run`` with no card and no ``--device cpu``
+    exits non-zero with resolve_device's message."""
+    import os
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-m", "mcax_torch.cli.run",
+                           "in.wav", "--config", "config4"], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0
+    assert "no CUDA device is visible" in proc.stderr, proc.stderr
+    assert "--device cpu" in proc.stderr
 
 
 def test_pipeline_raises_without_a_card(monkeypatch):
