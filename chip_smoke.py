@@ -53,11 +53,18 @@ on the first that fails:
      (kernel 11) in 2 x 1 and 2 x 2 meshes of processes that all share the
      one card (spawned, joined over gloo on a FileStore, each mapping its
      neighbours' buffers through CUDA IPC): 16 pushes a rank of config4
-     2 x 2's halo and spill payloads, mixed, with no host synchronisation
+     2 x 2's halo (its strided [4, 512] slice of a [4, 6144] shard, read
+     in place) and spill payloads, mixed, with no host synchronisation
      between them, each bit-equal to the plain ring over gloo, one counted
      launch a push, and one push's time (the processes' contexts
      time-slice the card, so it is the scheduler's time, not the
-     kernel's); then, on the 2 x 1 mesh, the ring's own path: config4
+     kernel's); 4 halo pushes under torch.profiler on ring index 0: one
+     device kernel a push (``ring_push``), no copy before it, no
+     ``ring_put`` or ``ring_wait``; a push captured in a
+     ``torch.cuda.CUDAGraph`` and replayed 4 times, bit-equal to 4 eager
+     pushes; on the 2 x 1 mesh the ping-pong's half round trip (the
+     scheduler's time on one card, not the link's); then, on the 2 x 1
+     mesh, the ring's own path: config4
      ``ShardedPipeline(halo="rdma")`` (collectives over gloo on CUDA
      tensors), two ``process_block`` calls and a batched and a scan-mode
      ``process_blocks`` of 4 blocks, each counted (the ring: 2 a block
@@ -205,12 +212,23 @@ STREAMS5 = 16           # config5 process_streams path
 SCENE5P_BLOCKS = 32
 PARTICLE_FROM_BLOCK = 0
 SCAN5P_BLOCKS = 64      # the particle scan mode's blocks, against batched
+# pass 1 of the draws: dependent integer operations a threefry2x32
+# evaluation on its chain (20 rounds x 2 + 5 key injections), the latency
+# of one (IADD3, LOP3, SHF: 4 cycles on Hopper, an assumption: no
+# microbenchmark here), and the calls timed while the SM clock is read
+THREEFRY_CHAIN_OPS = 45
+INT_LATENCY_CYCLES = 4
+PASS1_CLOCK_CALLS = 4000
 
 RING_MESHES = ((2, 1), (2, 2))   # kernel 11: processes sharing the card
 RING_SHAPES = ((4, 512), (512,))  # config4 2 x 2's halo and OLA spill
 RING_EPOCHS = 16        # counted pushes a rank, sizes mixed
 RING_TIMED = 32         # timed pushes a rank, each alone
 RING_PIPE_BLOCKS = 4    # the ring's path on the 2 x 1 mesh: blocks a dispatch
+RING_SHARD = 6144       # the halo's shard: samples a channel (config4 2 x 2)
+RING_PROFILED = 4       # halo pushes under the profiler
+RING_REPLAYS = 4        # a captured push's replays
+RING_BOUNCES = 16       # ping-pong bounces on one card (time-sliced)
 SCAN_BLOCKS = 64        # config4 scan-mode process_blocks
 MASK_DEG = 90.0         # the mask chain's look and source (broadside)
 SCAN_DISPATCHES = 4     # 1 warm-up + 3 timed
@@ -1220,6 +1238,16 @@ def check_particle_draws(peaks):
             library_ms=None, bound_ms=bound[0], bound_by=bound[1])
 
     bulk = measure(1, BLOCKS)
+    # pass 1's floor: its chain of 2B dependent threefry2x32 evaluations
+    # (the split's second evaluation is off the chain), each 20 rounds of
+    # two dependent integer operations (the add, then the xor after the
+    # rotation) and 5 key injections of one, at the SM clock read while
+    # pass 1 runs
+    keys = keys_of(1)
+    mhz = sm_clock_mhz(lambda: threefry._launch_chain(keys, 2 * BLOCKS),
+                       PASS1_CLOCK_CALLS)
+    chain_ms = (2 * BLOCKS * THREEFRY_CHAIN_OPS * INT_LATENCY_CYCLES
+                / (mhz * 1e3))
     rec = dict(
         route="cuda", source="mcax_torch/csrc/threefry.cu",
         replaces="jax.random (threefry2x32) in "
@@ -1231,7 +1259,13 @@ def check_particle_draws(peaks):
         bound=(bulk["bound_ms"], bulk["bound_by"]), shape=bulk["shape"],
         design=f"pass 1 (the serial chain of {2 * BLOCKS} splits on one "
         f"thread) {100.0 * bulk['pass1_ms'] / bulk['ms']:.1f} % of the "
-        "call",
+        f"call, {bulk['pass1_ms'] / chain_ms:.2f}x its chain's latency "
+        f"floor {chain_ms:.4f} ms ({2 * BLOCKS} evaluations x "
+        f"{THREEFRY_CHAIN_OPS} dependent integer operations x "
+        f"{INT_LATENCY_CYCLES} cycles, an assumed latency, not measured, "
+        f"at {mhz:.0f} MHz, the SM clock "
+        "nvidia-smi read while pass 1 ran)",
+        design_bound=(chain_ms, "latency of pass 1's chain"),
         at_r16=measure(16, 1))
     keys = keys_of(3)
     for name, args in (("split", ()), ("uniform", ((2, 256), -np.pi, np.pi)),
@@ -1253,6 +1287,35 @@ def check_particle_draws(peaks):
           "and normal bit-equal; pass 1 alone "
           f"{bulk['pass1_ms']:.4f} ms of {bulk['ms']:.4f} ms")
     return {"particle_draws": rec}
+
+
+def sm_clock_mhz(fn, calls: int) -> float:
+    """The highest SM clock (MHz) ``nvidia-smi`` reads every 20 ms while
+    ``calls`` calls of ``fn`` run back to back on the card.  The card is
+    named to ``nvidia-smi`` by torch's UUID of it: ``nvidia-smi``'s own
+    indices ignore ``CUDA_VISIBLE_DEVICES``."""
+    import torch
+    uuid = str(torch.cuda.get_device_properties(
+        torch.cuda.current_device()).uuid)
+    if not uuid.startswith(("GPU-", "MIG-")):
+        uuid = "GPU-" + uuid
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits", "-i", uuid, "-lms", "20"], stdout=subprocess.PIPE,
+        text=True)
+    try:
+        time.sleep(0.5)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(0.1)
+    finally:
+        smi.terminate()
+        out, _ = smi.communicate(timeout=30)
+    mhz = [float(v) for v in out.split() if v.replace(".", "").isdigit()]
+    if not mhz:
+        raise RuntimeError(f"nvidia-smi read no SM clock of {uuid}")
+    return max(mhz)
 
 
 def circ_deg(a, b):
@@ -1733,15 +1796,85 @@ def sharded_path(cfg, stream_blocks, lat_blocks, outs_m, outs_k, counters,
             dist.destroy_process_group()
 
 
-def ring_payload(rank: int, epoch: int):
+def ring_payload(rank: int, epoch: int, dev="cpu"):
     """Kernel 11's payload of one rank and push: distinct exact floats, of
-    config4 2 x 2's halo shape [4, 512] or, every third push, its spill's
-    [512] (the two sizes interleave, each on its own ring)."""
+    config4 2 x 2's halo shape [4, 512], the strided tail of a [4, 6144]
+    shard as ``halo.left_halo`` passes it, or, every third push, its
+    spill's [512], contiguous (the two sizes interleave, each on its own
+    ring).  This and ``ring_graph`` repeat ``tests/test_torch_cuda.py``'s
+    ``_ring_payload`` and its "graph" mode: this script runs from a bare
+    checkout with no test tree on its path and imports nothing of it."""
     import torch
     shape = RING_SHAPES[int(epoch % 3 == 2)]
     n = int(np.prod(shape))
-    return (torch.arange(n, dtype=torch.float32) + 1e4 * epoch
-            + 1e6 * rank).view(shape)
+    x = (torch.arange(n, dtype=torch.float32) + 1e4 * epoch
+         + 1e6 * rank).view(shape).to(dev)
+    if len(shape) == 1:
+        return x
+    shard = torch.full((shape[0], RING_SHARD), -1.0, device=dev)
+    shard[:, -shape[1]:] = x
+    return shard[:, -shape[1]:]
+
+
+def ring_graph(rank, m):
+    """Phase 3: RING_REPLAYS eager pushes of the halo's strided payload,
+    then one push captured in a ``torch.cuda.CUDAGraph`` and replayed on
+    the same payloads (copied into the captured source); returns the
+    replays that differ from the eager pushes."""
+    import torch
+    from mcax_torch.dist import halo_rdma
+    xs = [ring_payload(rank, 3 * k, "cuda") for k in range(RING_REPLAYS)]
+    eager = [halo_rdma.ring_push_right(x, m) for x in xs]
+    src = ring_payload(rank, 0, "cuda")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = halo_rdma.ring_push_right(src, m)
+    unequal = []
+    for k, x in enumerate(xs):
+        src.copy_(x)
+        graph.replay()
+        if not torch.equal(out, eager[k]):
+            unequal.append(k)
+    return unequal
+
+
+def ring_profile(rank, m):
+    """Phase 3: the device kernels of RING_PROFILED halo pushes through
+    ``halo.push_right(impl="rdma")`` of the strided payload, under
+    torch.profiler on ring index 0 (the others push unprofiled), in a
+    second profiler session (the first, of one push, brings the tracer up)
+    and after a marker fill: their names, the marker's left out (one
+    kernel a push, no copy before it).  Every rank waits at a barrier
+    until the profiler runs, and again until every push is done, so no
+    push waits on a peer's profiler past the ring's timeout."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from mcax_torch.dist import halo
+    x = ring_payload(rank, 0, "cuda")
+    marker = torch.empty(1, device="cuda")
+
+    def pushes(k):
+        dist.barrier()
+        for _ in range(k):
+            halo.push_right(x, m, impl="rdma")
+        torch.cuda.synchronize()
+        dist.barrier()
+
+    pushes(1)
+    names = []
+    for k in (1, RING_PROFILED):
+        if m.ti != 0:
+            pushes(k)
+            continue
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            marker.fill_(0.0)
+            pushes(k)
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "FillFunctor" not in e.name]
+    return names
 
 
 def ring_pipeline(m, dev):
@@ -1803,11 +1936,14 @@ def ring_pipeline(m, dev):
 def ring_worker(rank, world, ts, repo, store_path, out_path):
     """Phase 3, kernel 11: one rank of a ts x (world/ts) mesh of processes
     that share card 0 (joined over gloo on a FileStore).  RING_EPOCHS
-    counted pushes with no host synchronisation between them, each held
-    bit-equal to the plain ring on CPU copies; then RING_TIMED pushes, each
-    alone (the halo's size), timed with CUDA events after a barrier; the
-    plain ring's host time on the halo's pushes; on the 2 x 1 mesh, the
-    ring's pipeline (``ring_pipeline``).
+    counted pushes (the halo's strided slices and the spills) with no host
+    synchronisation between them, each held bit-equal to the plain ring on
+    CPU copies; then RING_TIMED pushes, each alone (the halo's size), timed
+    with CUDA events after a barrier; the plain ring's host time on the
+    halo's pushes; the device kernels of RING_PROFILED pushes
+    (``ring_profile``); a push captured in a CUDA graph against eager
+    pushes (``ring_graph``); on the 2 x 1 mesh, the ping-pong's half round
+    trip and the ring's pipeline (``ring_pipeline``).
     Writes a JSON record to ``out_path % rank``."""
     sys.path.insert(0, repo)
     import torch
@@ -1819,7 +1955,7 @@ def ring_worker(rank, world, ts, repo, store_path, out_path):
                             world_size=world, rank=rank)
     try:
         m = mesh_mod.make_mesh(ts, world // ts)
-        xs = [ring_payload(rank, e).cuda() for e in range(RING_EPOCHS)]
+        xs = [ring_payload(rank, e, "cuda") for e in range(RING_EPOCHS)]
         halo_rdma.ring_push_right.LAUNCHES = 0
         got = [halo_rdma.ring_push_right(x, m) for x in xs]
         halo_rdma.check_errors()
@@ -1845,6 +1981,10 @@ def ring_worker(rank, world, ts, repo, store_path, out_path):
             end.record()
             torch.cuda.synchronize()
             ms.append(start.elapsed_time(end))
+        kernels = ring_profile(rank, m)
+        graph_unequal = ring_graph(rank, m)
+        floor_ms = (halo_rdma.pingpong(m, RING_BOUNCES) if world == 2
+                    else None)
         pipeline = (ring_pipeline(m, torch.device("cuda", 0))
                     if (ts, world) == (2, 2) else {})
         halo_rdma.check_errors()
@@ -1852,7 +1992,8 @@ def ring_worker(rank, world, ts, repo, store_path, out_path):
         with open(out_path % rank, "w") as f:
             json.dump(dict(launches=launches, unequal=unequal,
                            max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                           pipeline=pipeline), f)
+                           kernels=kernels, graph_unequal=graph_unequal,
+                           floor_ms=floor_ms, pipeline=pipeline), f)
     finally:
         dist.destroy_process_group()
 
@@ -1895,6 +2036,10 @@ def check_ring_kernel(repo, peaks):
                 raise AssertionError(f"ring {ts}x{cs} rank {r}: "
                                      f"{q['launches']} launches counted for "
                                      f"{RING_EPOCHS} pushes")
+            if q["graph_unequal"]:
+                raise AssertionError(f"ring {ts}x{cs} rank {r}: graph "
+                                     f"replays {q['graph_unequal']} differ "
+                                     "from the eager pushes")
             ms += q["ms"]
             plain += q["plain_ms"]
             err = max(err, q["max_abs_err"])
@@ -1914,6 +2059,26 @@ def check_ring_kernel(repo, peaks):
                       in res[0]["pipeline"].items())
                   + "; every call's gathered outputs equal to Pipeline "
                   "(6e-4, doa equal)")
+        names = res[0]["kernels"]
+        if (len(names) != RING_PROFILED
+                or any("ring_push" not in k for k in names)):
+            raise AssertionError(f"ring {ts}x{cs}: {RING_PROFILED} halo "
+                                 f"pushes ran device kernels {names}, not "
+                                 "one ring_push each")
+        print(f"kernel halo_ring {ts}x{cs}: {RING_PROFILED} pushes of the "
+              "halo's strided [4, 512] slice of a [4, 6144] shard through "
+              f"halo.push_right(impl='rdma') ran {len(names)} device "
+              "kernels (torch.profiler, ring index 0), one ring_push a "
+              "push, no copy; a push captured in a CUDA graph and "
+              f"replayed {RING_REPLAYS} times bit-equal to eager pushes on "
+              "every rank")
+        if res[0]["floor_ms"] is not None:
+            print(f"halo ring ping-pong {ts}x{cs} (ring indices 0 and 1, "
+                  f"{RING_BOUNCES} bounces of one word): half the round "
+                  f"trip {res[0]['floor_ms']:.4f} ms on index 0, "
+                  f"{res[1]['floor_ms']:.4f} on index 1; the processes "
+                  "share one card, so this is the scheduler's time between "
+                  "their contexts, not the link's")
         mesh_ms = [t for q in res for t in q["ms"]]
         print(f"kernel halo_ring {ts}x{cs} ({world} processes sharing the "
               f"card, their contexts time-sliced): {RING_EPOCHS} pushes a "

@@ -6,47 +6,67 @@
 // the overlap-add spill of the sharded pipeline (MCAX_HALO=rdma in mcax).
 //
 // What it computes.  Each rank of a ring of n processes along one mesh axis
-// holds a payload of `nbytes` (the left halo [C_l, frame_len - hop] or the
-// OLA spill, fp32, a few KiB); after one push every rank holds its LEFT
-// neighbour's payload (rank 0 receives rank n-1's: the ring wraps).
+// holds an fp32 payload of `rows` x `row_elems` elements, row r starting
+// r * row_stride elements after the first (the left halo, the strided
+// [C_l, frame_len - hop] tail of a [C_l, N] shard, read in place; or the
+// OLA spill), a few KiB; after one push every rank holds its LEFT
+// neighbour's payload, contiguous (rank 0 receives rank n-1's: the ring
+// wraps).
 //
-// What bounds it on this card.  The payload crosses the link once: nbytes
-// over NVLink's 450 GB/s one way (a few ns for 8 KiB), so a push is all
-// latency — two launches, the fences, and the wait for the peer to arrive.
-// On ONE card shared by several processes (no MPS) the contexts time-slice,
-// and a wait only ends when the peer's context gets its slice: that time is
-// the scheduler's, not the kernel's.
+// What bounds it on this card.  The payload crosses NVLink once, its bytes
+// over 450 GB/s one way: 1.8e-5 ms for config4 2 x 2's 8 KiB halo.  A push
+// is all latency, and its design floor is one store's one-way trip over
+// NVLink, measured by mcax_ring_pingpong below (a word bounced between two
+// cards, half the round trip).  On ONE card shared by several processes
+// (no MPS) the contexts time-slice, and a wait ends only when the peer's
+// context gets its slice: that time is the scheduler's, not the kernel's.
 //
-// Design.  Every rank allocates one receive buffer with cudaMalloc (an IPC
-// handle names a whole allocation, so not torch's caching allocator) and
-// shares it with cudaIpcGetMemHandle; each rank maps its right neighbour's
-// (to store the payload and publish it) and its left neighbour's (to
-// acknowledge) with cudaIpcOpenMemHandle.  Layout of a buffer:
+// Design: one launch a push, one block, no fence on the data path.
+// Every rank allocates one receive buffer with cudaMalloc (an IPC handle
+// names a whole allocation, so not torch's caching allocator) and shares it
+// with cudaIpcGetMemHandle; each rank maps its right neighbour's (to store
+// the payload) and its left neighbour's (to acknowledge) with
+// cudaIpcOpenMemHandle.  Layout of a buffer:
 //
-//   [slot 0: slot_bytes][slot 1: slot_bytes][flag u64 | pad | ack u64 | pad]
+//   [slot 0: slot_bytes][slot 1: slot_bytes][ack | pad | epoch | pad | ping]
 //
-// `flag` is written by the left neighbour (the last epoch it stored here),
-// `ack` by the right neighbour (the last epoch it consumed from the slot this
-// rank stored into it).  Push number e (epochs count from 1, per buffer):
+// A slot holds one 8-byte word a payload element: the element's 32 bits
+// low, the push's epoch (its low 32 bits) high, as NCCL's LL protocol tags
+// its lines.  `ack` is written by the right neighbour (the last epoch it
+// consumed from the slot this rank stores into); `epoch` is this rank's own
+// count of pushes on the ring, kept on the card, so every push of a ring
+// launches with the same arguments and can be captured in a CUDA graph;
+// `ping` is the ping-pong's word.  Push number e (epochs count from 1):
 //
-//   put  (one block): wait until own ack >= e - 2 (the right neighbour has
-//        consumed the slot's previous payload: the reuse hazard of one rank
-//        running ahead), store the payload into the right neighbour's slot
-//        e % 2, __threadfence_system(), then publish e into its flag with a
-//        system-scope release store;
-//   wait (one block): poll own flag with acquire loads and __nanosleep
-//        back-off until it reads >= e, copy slot e % 2 into the output
-//        (cache-volatile loads), then acknowledge e into the left
-//        neighbour's ack with a system-scope release store.
+//   thread 0 reads e - 1 from `epoch` (a plain load: the ring's previous
+//   launch, on the same stream, wrote it) and waits until its own `ack` >=
+//   e - 2 (the right neighbour has consumed the slot's previous payload;
+//   only push e + 2 waits on push e's acknowledgement, so it stays off the
+//   critical path).  Then every thread reads its elements (4 bytes a
+//   thread, in place from the strided rows) and stores each, tagged, into
+//   the right neighbour's slot e % 2 with one aligned 8-byte relaxed store
+//   at system scope; no fence and no flag follow.  Every thread then polls
+//   its own words of its own slot e % 2 (relaxed 8-byte loads at system
+//   scope, 8 in flight a thread) until their tags read e, and writes their
+//   data to `out`.  After the block's reads (__syncthreads) thread 0
+//   acknowledges e into the left neighbour's `ack` with a system-scope
+//   release store and bumps `epoch`.
 //
-// Both launch on the caller's stream, one after the other, with no host
-// synchronisation.  Every spin is bounded by the global nanosecond timer
-// (wall time, which keeps running while another context holds the card): on
-// timeout the kernel writes an error code into a word of host-mapped memory,
-// which the wrapper reads without synchronising and raises on, and a failed
-// wait fills its output with NaN.  Once the word is set every later launch
-// on the ring returns at once, so a lost peer costs one timeout, not one per
-// push.
+// The tag makes each word its own flag: this relies on the card writing an
+// aligned 8-byte store over NVLink as one transaction, so a reader never
+// sees a new tag beside old data, as NCCL's LL protocol does.  Buffers are
+// zeroed and epochs start at 1, so a stale word (tag e - 2, or 0) never
+// matches.  `out` is a fresh tensor, never a slot: slot e % 2 is rewritten
+// by push e + 2 while the caller may still hold push e's result.
+//
+// Polling sleeps a fixed 32 ns between rounds (one block spins; no back-off
+// that could leave a landed payload unread for microseconds), and every
+// wait is bounded by the global nanosecond timer (wall time, which keeps
+// running while another context holds the card), one timeout a push: on
+// timeout the kernel writes an error code into a word of host-mapped
+// memory, which the wrapper reads without synchronising and raises on, and
+// fills `out` with NaN.  Once the word is set every later launch on the ring
+// returns at once (NaN), so a lost peer costs one timeout, not one per push.
 #include "common.cuh"
 
 #include <cuda/atomic>
@@ -55,19 +75,20 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr long long CTRL_BYTES = 256;   // flag at +0, ack at +128
+constexpr int WORDS = 8;                // words a thread polls at once
+constexpr long long CTRL_BYTES = 256;   // ack +0, epoch +64, ping +128
+constexpr int ACK = 0, EPOCH = 64, PING = 128;
+constexpr unsigned SLEEP_NS = 32;
+constexpr unsigned NAN_BITS = 0x7fc00000u;
 
 using SysU64 = cuda::atomic_ref<unsigned long long, cuda::thread_scope_system>;
 using SysInt = cuda::atomic_ref<int, cuda::thread_scope_system>;
 
-__device__ __forceinline__ unsigned long long* flag_of(char* base,
-                                                       long long slot_bytes) {
-  return reinterpret_cast<unsigned long long*>(base + 2 * slot_bytes);
-}
-
-__device__ __forceinline__ unsigned long long* ack_of(char* base,
-                                                      long long slot_bytes) {
-  return reinterpret_cast<unsigned long long*>(base + 2 * slot_bytes + 128);
+__host__ __device__ inline unsigned long long* ctrl_word(char* base,
+                                                         long long slot_bytes,
+                                                         int offset) {
+  return reinterpret_cast<unsigned long long*>(base + 2 * slot_bytes +
+                                               offset);
 }
 
 __device__ __forceinline__ unsigned long long now_ns() {
@@ -76,82 +97,133 @@ __device__ __forceinline__ unsigned long long now_ns() {
   return t;
 }
 
-// Thread 0 only: spin until *word >= want.  False, with `code` in *err, on
-// timeout; false at once if an earlier launch on the ring already failed.
-__device__ bool spin_until(unsigned long long* word, unsigned long long want,
-                           int* err, int code, long long timeout_ns) {
-  SysInt e(*err);
-  if (e.load(cuda::memory_order_relaxed) != 0) return false;
-  SysU64 w(*word);
-  const unsigned long long t0 = now_ns();
-  unsigned ns = 32;
-  while (w.load(cuda::memory_order_acquire) < want) {
-    if ((long long)(now_ns() - t0) > timeout_ns) {
-      e.store(code, cuda::memory_order_release);
-      return false;
+__device__ __forceinline__ bool late(unsigned long long t0,
+                                     long long timeout_ns) {
+  return (long long)(now_ns() - t0) > timeout_ns;
+}
+
+// One aligned 8-byte store, and load, at system scope, relaxed: one
+// transaction each, over NVLink when the address is a peer's.
+__device__ __forceinline__ void store_word(unsigned long long* p,
+                                           unsigned long long v) {
+  asm volatile("st.relaxed.sys.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long load_word(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.sys.global.u64 %0, [%1];"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__global__ void __launch_bounds__(THREADS) ring_push(
+    const float* __restrict__ src, long long rows, long long row_elems,
+    long long row_stride, unsigned* __restrict__ out, char* local,
+    char* right, char* left, long long slot_bytes, int* err,
+    long long timeout_ns) {
+  __shared__ unsigned long long s_epoch, s_t0;
+  __shared__ int s_go, s_failed;
+  const long long n = rows * row_elems;
+  if (threadIdx.x == 0) {
+    const unsigned long long e = *ctrl_word(local, slot_bytes, EPOCH) + 1;
+    const unsigned long long t0 = now_ns();
+    SysInt error(*err);
+    int go = error.load(cuda::memory_order_relaxed) == 0;
+    // slot e % 2 of the right neighbour is free once it acked e - 2
+    SysU64 ack(*ctrl_word(local, slot_bytes, ACK));
+    while (go && ack.load(cuda::memory_order_acquire) + 2 < e) {
+      if (late(t0, timeout_ns)) {
+        error.store(1, cuda::memory_order_relaxed);
+        go = 0;
+      } else {
+        __nanosleep(SLEEP_NS);
+      }
     }
-    __nanosleep(ns);
-    if (ns < 4096) ns *= 2;
-  }
-  return true;
-}
-
-// The block copies nbytes (a multiple of 4; both pointers 16-byte aligned):
-// 16 bytes a thread while they last, then 4.  `fresh` reads past the caches
-// (the slot was written by another process since this SM last looked).
-template <bool fresh>
-__device__ void copy_block(const char* src, char* dst, long long nbytes) {
-  const long long n16 = nbytes / 16;
-  const uint4* s4 = reinterpret_cast<const uint4*>(src);
-  uint4* d4 = reinterpret_cast<uint4*>(dst);
-  for (long long i = threadIdx.x; i < n16; i += THREADS)
-    d4[i] = fresh ? __ldcv(s4 + i) : s4[i];
-  const unsigned* s1 = reinterpret_cast<const unsigned*>(src + 16 * n16);
-  unsigned* d1 = reinterpret_cast<unsigned*>(dst + 16 * n16);
-  for (long long i = threadIdx.x; i < (nbytes - 16 * n16) / 4; i += THREADS)
-    d1[i] = fresh ? __ldcv(s1 + i) : s1[i];
-}
-
-__global__ void __launch_bounds__(THREADS) ring_put(
-    const char* __restrict__ src, char* right, char* local, long long nbytes,
-    long long slot_bytes, unsigned long long epoch, int* err,
-    long long timeout_ns) {
-  __shared__ int go;
-  if (threadIdx.x == 0) {
-    // slot epoch % 2 of the right neighbour is free once it acked epoch - 2
-    go = spin_until(ack_of(local, slot_bytes), epoch > 2 ? epoch - 2 : 0,
-                    err, 1, timeout_ns);
+    s_epoch = e;
+    s_t0 = t0;
+    s_go = go;
+    s_failed = !go;
   }
   __syncthreads();
-  if (!go) return;
-  copy_block<false>(src, right + (epoch & 1) * slot_bytes, nbytes);
-  __threadfence_system();
-  __syncthreads();
-  if (threadIdx.x == 0)
-    SysU64(*flag_of(right, slot_bytes)).store(epoch,
-                                              cuda::memory_order_release);
-}
-
-__global__ void __launch_bounds__(THREADS) ring_wait(
-    char* local, char* left, char* __restrict__ out, long long nbytes,
-    long long slot_bytes, unsigned long long epoch, int* err,
-    long long timeout_ns) {
-  __shared__ int go;
-  if (threadIdx.x == 0)
-    go = spin_until(flag_of(local, slot_bytes), epoch, err, 2, timeout_ns);
-  __syncthreads();
-  if (!go) {
-    unsigned* o = reinterpret_cast<unsigned*>(out);
-    for (long long i = threadIdx.x; i < nbytes / 4; i += THREADS)
-      o[i] = 0x7fc00000u;                            // NaN: nothing arrived
-    return;
+  const unsigned long long e = s_epoch;
+  if (s_go) {
+    const unsigned long long tag = (e & 0xffffffffull) << 32;
+    unsigned long long* to =
+        reinterpret_cast<unsigned long long*>(right + (e & 1) * slot_bytes);
+    for (long long i = threadIdx.x; i < n; i += THREADS) {
+      const long long r = i / row_elems;
+      store_word(to + i, tag | __float_as_uint(
+                                   src[r * row_stride + (i - r * row_elems)]));
+    }
+    const unsigned long long* slot =
+        reinterpret_cast<const unsigned long long*>(local +
+                                                    (e & 1) * slot_bytes);
+    const unsigned long long t0 = s_t0;
+    bool ok = true;
+    for (long long i0 = threadIdx.x; ok && i0 < n;
+         i0 += (long long)WORDS * THREADS) {
+      unsigned pending = 0;
+#pragma unroll
+      for (int k = 0; k < WORDS; ++k)
+        if (i0 + (long long)k * THREADS < n) pending |= 1u << k;
+      while (pending) {
+        unsigned long long w[WORDS];
+#pragma unroll
+        for (int k = 0; k < WORDS; ++k)
+          w[k] = (pending >> k & 1) ? load_word(slot + i0 + k * THREADS) : 0;
+#pragma unroll
+        for (int k = 0; k < WORDS; ++k)
+          if ((pending >> k & 1) && (w[k] & ~0xffffffffull) == tag) {
+            out[i0 + k * THREADS] = (unsigned)w[k];
+            pending &= ~(1u << k);
+          }
+        if (!pending) break;
+        if (late(t0, timeout_ns)) {
+          ok = false;
+        } else {
+          __nanosleep(SLEEP_NS);
+        }
+        if (!ok) break;
+      }
+    }
+    if (!ok) {
+      SysInt(*err).store(2, cuda::memory_order_relaxed);
+      s_failed = 1;
+    }
   }
-  copy_block<true>(local + (epoch & 1) * slot_bytes, out, nbytes);
   __syncthreads();                                   // every read is done
-  if (threadIdx.x == 0) {
-    __threadfence_system();
-    SysU64(*ack_of(left, slot_bytes)).store(epoch, cuda::memory_order_release);
+  if (s_failed) {
+    for (long long i = threadIdx.x; i < n; i += THREADS)
+      out[i] = NAN_BITS;                             // nothing (whole) came
+  } else if (threadIdx.x == 0) {
+    SysU64(*ctrl_word(left, slot_bytes, ACK))
+        .store(e, cuda::memory_order_release);
   }
+  if (threadIdx.x == 0) *ctrl_word(local, slot_bytes, EPOCH) = e;
+}
+
+// One thread bounces a word with the peer n times: the server stores
+// base + i into the peer's word and waits for its own to read it back, the
+// other waits and answers.  No sleep: the spin is the measurement.
+__global__ void ring_pingpong(unsigned long long* mine,
+                              unsigned long long* theirs, long long n,
+                              int serve, unsigned long long base, int* done,
+                              long long timeout_ns) {
+  const unsigned long long t0 = now_ns();
+  long long i = 0;
+  for (; i < n; ++i) {
+    const unsigned long long v = base + i + 1;
+    if (serve) store_word(theirs, v);
+    bool gone = false;
+    while (!gone && load_word(mine) < v) gone = late(t0, timeout_ns);
+    if (gone) break;
+    if (!serve) store_word(theirs, v);
+  }
+  *done = (int)i;
 }
 
 }  // namespace
@@ -197,22 +269,35 @@ MCAX_API int mcax_ring_error_free(void* host) {
   return (int)cudaFreeHost(host);
 }
 
-// One push: the put into `right` (the right neighbour's mapped buffer),
-// then the wait on `local` into `out`, acknowledged into `left`.  src and
-// out: nbytes (a multiple of 4), 16-byte aligned; epoch >= 1, one more than
-// the ring's previous push.
-MCAX_API int mcax_ring_push(const void* src, void* out, void* local,
-                            void* right, void* left, long long nbytes,
-                            long long slot_bytes, unsigned long long epoch,
-                            void* err, long long timeout_ns, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  ring_put<<<1, THREADS, 0, s>>>(
-      static_cast<const char*>(src), static_cast<char*>(right),
-      static_cast<char*>(local), nbytes, slot_bytes, epoch,
+// One push, one launch: src's rows (rows x row_elems fp32, row r at
+// r * row_stride elements) tagged into `right` (the right neighbour's
+// mapped buffer), the left neighbour's payload from `local` into `out`
+// (rows * row_elems, contiguous), acknowledged into `left`.
+MCAX_API int mcax_ring_push(const void* src, long long rows,
+                            long long row_elems, long long row_stride,
+                            void* out, void* local, void* right, void* left,
+                            long long slot_bytes, void* err,
+                            long long timeout_ns, void* stream) {
+  ring_push<<<1, THREADS, 0, (cudaStream_t)stream>>>(
+      static_cast<const float*>(src), rows, row_elems, row_stride,
+      static_cast<unsigned*>(out), static_cast<char*>(local),
+      static_cast<char*>(right), static_cast<char*>(left), slot_bytes,
       static_cast<int*>(err), timeout_ns);
-  ring_wait<<<1, THREADS, 0, s>>>(
-      static_cast<char*>(local), static_cast<char*>(left),
-      static_cast<char*>(out), nbytes, slot_bytes, epoch,
-      static_cast<int*>(err), timeout_ns);
+  return (int)cudaGetLastError();
+}
+
+// The link's latency floor: `n` bounces of one word between this rank's
+// buffer (`local`) and a neighbour's mapped one (`remote`), both of a ring
+// with slots of `slot_bytes`; `serve` starts them; `base` is the count of
+// earlier bounces on these words; the bounces completed go to `done` (an
+// int on the card).  For measurement only: no pipeline path launches it.
+MCAX_API int mcax_ring_pingpong(void* local, void* remote,
+                                long long slot_bytes, long long n, int serve,
+                                unsigned long long base, void* done,
+                                long long timeout_ns, void* stream) {
+  ring_pingpong<<<1, 1, 0, (cudaStream_t)stream>>>(
+      ctrl_word(static_cast<char*>(local), slot_bytes, PING),
+      ctrl_word(static_cast<char*>(remote), slot_bytes, PING), n, serve,
+      base, static_cast<int*>(done), timeout_ns);
   return (int)cudaGetLastError();
 }

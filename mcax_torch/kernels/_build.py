@@ -102,9 +102,11 @@ SIGNATURES = {
     "mcax_ring_free": (_P,),
     "mcax_ring_error_alloc": (_PP, _PP),
     "mcax_ring_error_free": (_P,),
-    # src, out, local, right, left, nbytes, slot_bytes, epoch, err,
-    # timeout_ns, stream
-    "mcax_ring_push": (_P, _P, _P, _P, _P, _L, _L, _U, _P, _L, _P),
+    # src, rows, row_elems, row_stride, out, local, right, left,
+    # slot_bytes, err, timeout_ns, stream
+    "mcax_ring_push": (_P, _L, _L, _L, _P, _P, _P, _P, _L, _P, _L, _P),
+    # local, remote, slot_bytes, n, serve, base, done, timeout_ns, stream
+    "mcax_ring_pingpong": (_P, _P, _L, _L, _I, _U, _P, _L, _P),
 }
 
 

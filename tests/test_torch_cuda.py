@@ -34,14 +34,19 @@ smoother's threefry draws bit-equal to their plain version at config5 B =
 streaming entry point on the card against the CPU, config5's particle
 smoother on all of them;
 ShardedPipeline on a 1 x 1 mesh against Pipeline; the halo ring (kernel
-11) in 2 and 4 processes sharing the one card through CUDA IPC, against its
-plain ring over gloo, its timeout when a peer never pushes, and
+11) in 2 and 4 processes sharing the one card through CUDA IPC, on the
+halo's strided slices and contiguous spills, against its plain ring over
+gloo, a push captured in a CUDA graph and replayed against eager pushes,
+its timeout when a peer never pushes, and
 ShardedPipeline(halo="rdma") 2 x 1 over gloo raising on every rank when a
 peer stalls past the timeout; and, on a
 machine with four cards (they skip on fewer), ShardedPipeline 2 x 2 over
 NCCL, one process a card, against Pipeline on one card, and
-ShardedPipeline(halo="rdma") against halo="ppermute" with one push timed
-against NCCL's.  The CLI on the card (pipelined host copies on a side
+ShardedPipeline(halo="rdma") against halo="ppermute", then
+``time_ring.py``'s numbers printed: one push alone and back to back, its
+host enqueue and device time, NCCL's ring and open chain, the NVLink
+ping-pong floor, and the sharded step with each halo against Pipeline on
+one card.  The CLI on the card (pipelined host copies on a side
 stream) against the CLI on the CPU on config2 and config4, depth 1 against
 3 bit-equal; the filters and the public functions off the pipelines' path
 (block_prefixes_fused, cps_phat_planes, srp_power, rfft_matmul,
@@ -1008,15 +1013,23 @@ def _spawn(fn, nprocs, args, limit_s):
 # ---------------------------------------------------------------------------
 RING_EPOCHS = 16
 RING_SHAPES = ((4, 512), (512,))          # config4 2 x 2's halo and spill
+RING_SHARD = 6144                         # its shard's samples a channel
+RING_REPLAYS = 4
 
 
-def _ring_payload(rank, epoch):
+def _ring_payload(rank, epoch, dev="cpu"):
     """Distinct exact floats per rank and epoch; every third epoch pushes
-    the spill's size, the others the halo's."""
+    the spill's size (contiguous), the others the halo's: the strided
+    [4, 512] tail of a [4, 6144] shard, as ``halo.left_halo`` passes it."""
     shape = RING_SHAPES[int(epoch % 3 == 2)]
     n = int(np.prod(shape))
-    return (torch.arange(n, dtype=torch.float32) + 1e4 * epoch
-            + 1e6 * rank).view(shape)
+    x = (torch.arange(n, dtype=torch.float32) + 1e4 * epoch
+         + 1e6 * rank).view(shape).to(dev)
+    if len(shape) == 1:
+        return x
+    shard = torch.full((shape[0], RING_SHARD), -1.0, device=dev)
+    shard[:, -shape[1]:] = x
+    return shard[:, -shape[1]:]
 
 
 def _ring_worker(rank, world, ts, store_path, out_dir, mode):
@@ -1030,7 +1043,8 @@ def _ring_worker(rank, world, ts, store_path, out_dir, mode):
         m = mesh.make_mesh(ts, world // ts)
         res = {}
         if mode == "ring":
-            xs = [_ring_payload(rank, e).cuda() for e in range(RING_EPOCHS)]
+            xs = [_ring_payload(rank, e, "cuda") for e in range(RING_EPOCHS)]
+            res["strided"] = sum(not x.is_contiguous() for x in xs)
             before = halo_rdma.ring_push_right.LAUNCHES
             # no host synchronisation between the pushes: a rank may run
             # ahead, which the slots' acknowledgements must absorb
@@ -1041,12 +1055,34 @@ def _ring_worker(rank, world, ts, store_path, out_dir, mode):
                 e for e, (g, x) in enumerate(zip(got, xs))
                 if not torch.equal(g.cpu(), halo_rdma.ring_push_right_plain(
                     x.cpu(), m))]
+        elif mode == "graph":
+            # RING_REPLAYS eager pushes, then one push captured in a CUDA
+            # graph (its epoch lives on the card) replayed on the same
+            # payloads, copied into the captured strided source
+            xs = [_ring_payload(rank, 3 * k, "cuda")
+                  for k in range(RING_REPLAYS)]
+            eager = [halo_rdma.ring_push_right(x, m) for x in xs]
+            src = _ring_payload(rank, 0, "cuda")
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = halo_rdma.ring_push_right(src, m)
+            replayed = []
+            for x in xs:
+                src.copy_(x)
+                graph.replay()
+                replayed.append(out.clone())
+            halo_rdma.check_errors()
+            res["unequal"] = [k for k, (a, b) in enumerate(zip(eager,
+                                                               replayed))
+                              if not torch.equal(a, b)]
+            res["moved"] = not torch.equal(replayed[0], replayed[1])
         else:
             # ring index 1 makes its buffers and never pushes; index 0's
             # push must time out, fill its output with NaN and raise
             x = torch.ones(RING_SHAPES[0], device="cuda")
             halo_rdma.ring(m, mesh.TIME_AXIS, x.numel() * 4, x.device)
             if m.ti == 0:
+                t0 = time.monotonic()
                 out = halo_rdma.ring_push_right(x, m, timeout_s=1.0)
                 for key in ("check_errors", "next_push"):
                     try:
@@ -1058,6 +1094,7 @@ def _ring_worker(rank, world, ts, store_path, out_dir, mode):
                     except RuntimeError as e:
                         res[key] = str(e)
                 res["nan"] = bool(torch.isnan(out).all())
+                res["seconds"] = time.monotonic() - t0
         halo_rdma.release()
         with open(f"{out_dir}/rank{rank}.json", "w") as f:
             json.dump(res, f)
@@ -1068,10 +1105,10 @@ def _ring_worker(rank, world, ts, store_path, out_dir, mode):
 @pytest.mark.parametrize("ts,cs", [(2, 1), (2, 2), (4, 1)])
 def test_halo_ring_on_one_card(dev, tmp_path, ts, cs):
     """Kernel 11 in ts x cs processes on one card: 16 pushes a rank with no
-    host synchronisation between them, the halo's and the spill's sizes
-    mixed, each bit-equal to the plain ring (the left time neighbour's
-    payload at the same channel position, shard 0 shard ts-1's); one
-    counted launch a push."""
+    host synchronisation between them, the halo's size (its strided slice
+    of a shard, read in place) and the spill's mixed, each bit-equal to the
+    plain ring (the left time neighbour's payload at the same channel
+    position, shard 0 shard ts-1's); one counted launch a push."""
     import json
     _spawn(_ring_worker, ts * cs,
            (ts * cs, ts, str(tmp_path / "store"), str(tmp_path), "ring"),
@@ -1079,18 +1116,34 @@ def test_halo_ring_on_one_card(dev, tmp_path, ts, cs):
     for r in range(ts * cs):
         res = json.loads((tmp_path / f"rank{r}.json").read_text())
         assert res["launches"] == RING_EPOCHS, (r, res)
+        assert res["strided"] > 0, (r, res)
         assert res["unequal"] == [], (r, res)
 
 
+def test_halo_ring_push_replays_from_a_cuda_graph(dev, tmp_path):
+    """One push captured in a ``torch.cuda.CUDAGraph`` on the 2 x 1 mesh of
+    processes sharing the card, replayed 4 times on 4 payloads (each copied
+    into the captured strided source): bit-equal to 4 eager pushes of the
+    same payloads (the epoch is counted on the card, so a replay is a new
+    push)."""
+    import json
+    _spawn(_ring_worker, 2, (2, 2, str(tmp_path / "store"), str(tmp_path),
+                             "graph"), 300)
+    for r in range(2):
+        res = json.loads((tmp_path / f"rank{r}.json").read_text())
+        assert res["unequal"] == [] and res["moved"], (r, res)
+
+
 def test_halo_ring_times_out_when_a_peer_never_pushes(dev, tmp_path):
-    """A lost peer never hangs the run: the wait gives up after its timeout,
-    its output is NaN, and the error is raised, by ``check_errors`` and by
-    the ring's next push."""
+    """A lost peer never hangs the run: the wait gives up after its one
+    timeout, its output is NaN, and the error is raised, by
+    ``check_errors`` and by the ring's next push."""
     import json
     _spawn(_ring_worker, 2, (2, 2, str(tmp_path / "store"), str(tmp_path),
                              "timeout"), 120)
     res = json.loads((tmp_path / "rank0.json").read_text())
     assert res["nan"], res
+    assert res["seconds"] < 30, res
     for key in ("check_errors", "next_push"):
         assert "did not arrive" in res[key], res
 
@@ -1154,13 +1207,13 @@ def test_halo_ring_pipeline_raises_when_a_peer_stalls(dev, tmp_path):
 # Four cards: ShardedPipeline(halo="rdma") over NCCL, one process a card.
 # ---------------------------------------------------------------------------
 FOUR_CARD_RDMA = (("config2", 4, 1), ("config4", 2, 2))
-PUSHES = 200                         # timed pushes per implementation
 NVLINK_BYTES_S = 450e9               # NVLink 4, one way (H100 data sheet)
 
 
 def _four_card_rdma_worker(rank, store_path, out_dir):
+    import json
     import torch.distributed as dist
-    from mcax_torch.dist import halo, halo_rdma, mesh, multihost
+    from mcax_torch.dist import halo_rdma, mesh, multihost
     from mcax_torch.dist.sharded import ShardedPipeline
     store = dist.FileStore(store_path, 4)
     if not multihost.initialize(store=store, world_size=4, rank=rank):
@@ -1191,29 +1244,13 @@ def _four_card_rdma_worker(rank, store_path, out_dir):
                     res[f"{tag}/launches"] = np.asarray(
                         halo_rdma.ring_push_right.LAUNCHES - before)
         halo_rdma.check_errors()
-        # one push of config4 2 x 2's halo payload along the 4-ring: the
-        # kernel, NCCL's batch_isend_irecv ring (the plain version on the
-        # card) and the open chain (halo="ppermute")
-        m = mesh.make_mesh(4, 1)
-        payload = torch.randn(RING_SHAPES[0], device="cuda")
-        for impl, fn in (
-                ("rdma", lambda: halo_rdma.ring_push_right(payload, m)),
-                ("nccl_ring", lambda: halo_rdma.ring_push_right_plain(
-                    payload, m)),
-                ("nccl_chain", lambda: halo.push_right(payload, m))):
-            for _ in range(20):
-                fn()
-            torch.cuda.synchronize()
-            dist.barrier()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(PUSHES):
-                fn()
-            end.record()
-            torch.cuda.synchronize()
-            res[f"push_ms/{impl}"] = np.asarray(start.elapsed_time(end)
-                                                / PUSHES)
+        # the push alone and back to back, its host enqueue and device
+        # time, NCCL's ring and open chain, the ping-pong floor; then the
+        # sharded step with each halo against Pipeline on one card
+        import time_ring
+        timing = {"push": time_ring.push_times(mesh.make_mesh(4, 1)),
+                  "steps": time_ring.step_times()}
+        res["timing"] = np.asarray(json.dumps(timing))
         halo_rdma.release()
         np.savez(f"{out_dir}/rank{rank}.npz", **res)
     finally:
@@ -1225,8 +1262,9 @@ def test_rdma_halo_on_four_cards(dev, tmp_path):
     scan modes on four cards: bit-equal to halo="ppermute", within the
     card's 5e-4 plus the reference's 1e-4 of Pipeline on one card, carry and
     block index equal; 2 ring launches per block step and per batched
-    dispatch on every rank.  Prints one push's time: the kernel against
-    NCCL's ring and open chain."""
+    dispatch on every rank.  Prints ``time_ring.py``'s push timings (the
+    kernel against NCCL's ring and open chain, the ping-pong floor) and its
+    sharded-step timings with each halo against Pipeline on one card."""
     from mcax_torch.pipeline import Pipeline
     if torch.cuda.device_count() < 4:
         pytest.skip("needs 4 cards (one process a card)")
@@ -1276,12 +1314,18 @@ def test_rdma_halo_on_four_cards(dev, tmp_path):
                 else:
                     np.testing.assert_allclose(got[k], w, atol=6e-4,
                                                rtol=6e-4, err_msg=k)
-    times = {impl: [float(rk[f"push_ms/{impl}"]) for rk in ranks]
-             for impl in ("rdma", "nccl_ring", "nccl_chain")}
-    nbytes = 4 * int(np.prod(RING_SHAPES[0]))
-    print(f"one push of a {RING_SHAPES[0]} fp32 payload along a ring of 4 "
-          f"cards, ms per push by rank (mean of {PUSHES}): {times}; its "
-          f"bound over NVLink one way {nbytes / NVLINK_BYTES_S * 1e3:.3g} ms")
+    import json
+    nbytes = 4 * RING_SHAPES[0][0] * RING_SHAPES[0][1]
+    for r, rk in enumerate(ranks):
+        # rank 0 in full, the others without the by-kernel breakdowns
+        timing = json.loads(str(rk["timing"]))
+        for part in ("push", "steps"):
+            for case, t in timing[part].items():
+                if r and isinstance(t, dict):
+                    t = {k: v for k, v in t.items() if "kernels" not in k}
+                print(f"rank {r} {part} {case}: {json.dumps(t)}")
+    print(f"one push's bound: {nbytes} B one way over NVLink "
+          f"{nbytes / NVLINK_BYTES_S * 1e3:.3g} ms")
 
 
 # ---------------------------------------------------------------------------

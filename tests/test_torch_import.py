@@ -56,7 +56,8 @@ def _port_sources():
     examples = sorted((ROOT / "examples_torch").glob("*.py"))
     assert len(examples) == 4, examples
     return files + examples + [ROOT / "chip_smoke.py",
-                               ROOT / "time_kernels.py"]
+                               ROOT / "time_kernels.py",
+                               ROOT / "time_ring.py"]
 
 
 @pytest.mark.parametrize("path", _port_sources(),
