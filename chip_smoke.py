@@ -11,7 +11,7 @@ on the first that fails:
   1. print the card's name and power limit (``nvidia-smi``);
   2. build the port's CUDA kernels from ``mcax_torch/csrc`` with ``nvcc``
      (into ``build/``) and print the build seconds;
-  3. hold each of the twelve kernels against its plain PyTorch version on
+  3. hold each of the fourteen kernels against its plain PyTorch version on
      the card, on the inputs its path gives it (kernels 1-4: config4
      ``process_blocks`` at B = 512; the STFT of a contiguous signal and the
      MVDR solve from complex covariances: config4 ``process_streams`` at
@@ -74,7 +74,15 @@ on the first that fails:
      kernel) bit-equal at config5's bulk dispatch (one key, B = 512, S = 2,
      N = 256) and at 16 serving streams' one block, with its pass 1 (the
      serial key chain) timed alone, and split, uniform and normal
-     bit-equal;
+     bit-equal; the trackers' scans over blocks (``track.track_scan``,
+     ``track.particle_scan``: the reference's ``lax.scan``, the port's own
+     kernels) on config5's surfaces at B = 512 and at 16 serving streams'
+     one block: the EMA tracker bit-equal, the particle smoother within
+     its rule (each block from the kernel's clouds within 1e-6 of the
+     plain block, a resample pick differing only within 4 ulp of a cumsum
+     boundary; doa and confidence over the dispatch within 1e-4; B block
+     calls bit-equal to the batched call), each timed beside its plain
+     version, its byte bound and its serial chain's floor;
   4. drive every ported path through the user's entry points, with every
      kernel's launch count set to 0 just before each path and read just
      after, on synthetic plane waves from seeded numpy generators:
@@ -219,6 +227,20 @@ SCAN5P_BLOCKS = 64      # the particle scan mode's blocks, against batched
 THREEFRY_CHAIN_OPS = 45
 INT_LATENCY_CYCLES = 4
 PASS1_CLOCK_CALLS = 4000
+# the trackers' scans (csrc/track.cu): the serial chain of a block, in
+# dependent operations, and the latencies assumed for them (no
+# microbenchmark here): track_scan's association and update of one peak
+# (the distance's wrap, the argmin, the error's wrap, the EMA, the new
+# angle's wrap: 14 float operations, fmodf counted as one, 4 cycles each);
+# particle_scan's 7 dependent warp reductions (min, the masked surface's
+# sum and squares, the weights' sum and squares, the cumsum, the estimate)
+# of 5 shuffle rounds and a broadcast each, 30 cycles a shuffle; the calls
+# timed while the SM clock is read
+TRACK_CHAIN_OPS = 14
+FLOAT_LATENCY_CYCLES = 4
+PARTICLE_CHAIN_SHUFFLES = 42
+SHUFFLE_LATENCY_CYCLES = 30
+TRACK_CLOCK_CALLS = 2000
 
 RING_MESHES = ((2, 1), (2, 2))   # kernel 11: processes sharing the card
 RING_SHAPES = ((4, 512), (512,))  # config4 2 x 2's halo and OLA spill
@@ -1289,6 +1311,230 @@ def check_particle_draws(peaks):
     return {"particle_draws": rec}
 
 
+def config5_surfaces(pipe5, blocks5):
+    """config5's mean SRP surfaces of ``blocks5`` [B, G], as its
+    ``process_blocks`` makes them from a fresh state."""
+    from mcax_torch.kernels import stft_fused
+    cfg = pipe5.cfg
+    b, t = blocks5.shape[0], cfg.frames_per_block
+    spectra, _ = stft_fused.stft_fused_from_blocks(
+        blocks5, pipe5.init_state().carry, pipe5._w2, pipe5._fft_op,
+        cfg.stft.hop)
+    return pipe5._srp_power(spectra).view(b, t, -1).mean(dim=1)
+
+
+def particle_step_deviation(pipe, state, surf, noise, u, got):
+    """One block of the particle filter from ``state`` ([R, S, N] clouds)
+    on surfaces [R, G] with its draws: the plain version against the
+    kernel's ``got`` (angles, weights [R, S, N]).  Returns (the largest
+    deviation of angles and weights, the resample picks that differ); a
+    pick may differ only where its position lies within 4 ulp of a
+    boundary of the plain version's cumsum, else it raises."""
+    import torch
+    from mcax_torch.algos import particle
+    from mcax_torch.kernels import track
+    a = pipe.cfg.algo
+    az = pipe.plan.azimuths_rad
+    n = state.angles.shape[-1]
+    pa, pw, _, _, _ = track.particle_scan_plain(
+        state.angles, state.weights, surf[:, None], az, pipe.suppress_bins,
+        a.particle_step_std_rad, a.particle_resample_threshold,
+        noise[:, None], u[:, None])
+    st = particle.ParticleState(state.angles, state.weights, None)
+    idx, _ = track.extract_peaks(surf, pa.shape[-2], pipe.suppress_bins)
+    masked = track.rival_masked(particle.estimate(st)[0], surf, idx, az,
+                                pipe.suppress_bins)
+    st = particle.update(particle.predict(st, a.particle_step_std_rad, noise),
+                         masked, az)
+    cum = torch.cumsum(st.weights.double(), -1).float()
+    pos = u[..., None] / n + torch.arange(n, dtype=torch.float32,
+                                           device=u.device) / n
+    off = (pa - got[0]).abs() > 1e-6
+    ci = cum.view(torch.int32).long()
+    pi = pos.contiguous().view(torch.int32).long()
+    ulps = (ci[..., None, :] - pi[..., :, None]).abs().amin(-1)
+    if bool((off & (ulps > 4)).any()):
+        raise AssertionError("particle_scan: a resample pick differs from "
+                             "the plain version's away from a cumsum "
+                             "boundary")
+    keep = ~off
+    dev = max(float(((pa - got[0]).abs() * keep).max()),
+              float(((pw - got[1]).abs() * keep).max()))
+    if dev > 1e-6:
+        raise AssertionError(f"particle_scan: one block off its plain "
+                             f"version by {dev:.3e} (bound 1e-6)")
+    return dev, int(off.sum())
+
+
+def check_track_kernels(pipe5, blocks5, peaks):
+    """Phase 3, the trackers' scans (``kernels/track.py``,
+    ``csrc/track.cu``; the reference's ``lax.scan`` over blocks, no Pallas
+    kernel) on config5's real surfaces (``process_blocks``' at B = 512 on
+    one stream, and 16 of them as 16 serving streams' one block):
+    ``track_scan`` bit-equal to its plain version; ``particle_scan`` (the
+    clouds of ``init_state`` / ``init_states(16)``, the draws of
+    ``particle_draws``) within the particle tests' rule: each block from
+    the kernel's own clouds before it within 1e-6 of one plain block, a
+    resample pick differing only within 4 ulp of a cumsum boundary; over
+    the dispatch doa and confidence within PARTICLE_TOL; the batched call
+    bit-equal to B calls of one block.  Times kernel, plain version, the
+    byte bound and the serial chain's design floor (assumed latencies at
+    the SM clock read while the kernel runs)."""
+    import torch
+    from mcax_torch.algos import particle
+    from mcax_torch.kernels import threefry, track
+    from mcax_torch.pipeline import Pipeline
+    cfg = pipe5.cfg
+    surf = config5_surfaces(pipe5, blocks5)                # [B, G]
+    az = pipe5.plan.azimuths_rad
+    sup = pipe5.suppress_bins
+    b, g = surf.shape
+    recs = {}
+
+    def flat(out):
+        return [*out[0], *out[1:]] if isinstance(out[0], tuple) else out
+
+    def floor_ms(fn, per_block_cycles, nb):
+        mhz = sm_clock_mhz(fn, TRACK_CLOCK_CALLS)
+        return nb * per_block_cycles / (mhz * 1e3), mhz
+
+    # the EMA tracker
+    def ema_args(r, nb):
+        tr = (pipe5.init_states(r) if r > 1 else pipe5.init_state()).tracks
+        p = surf[:r, None] if r > 1 else surf[:nb]
+        return (*tr, p.contiguous(), az, sup, cfg.algo.track_smooth)
+
+    ema = {}
+    for r, nb in ((1, b), (16, 1)):
+        args = ema_args(r, nb)
+        got, want = track.track_scan(*args), track.track_scan_plain(*args)
+        torch.cuda.synchronize()
+        for x, y in zip(flat(got), flat(want)):
+            if x.shape != y.shape or not torch.equal(x, y):
+                raise AssertionError(f"track_scan R = {r}, B = {nb}: not "
+                                     "bit-equal to its plain version")
+        s = args[0].shape[-1]
+        bound = bound_ms(0.0, 4.0 * r * nb * g + 4.0 * g + 18.0 * r * s
+                         + 16.0 * r * nb * s, peaks)
+        ema[r] = dict(
+            shape=[r, nb, s, g], max_abs_err=0.0,
+            ms=time_ms(lambda: track.track_scan(*args)),
+            plain_ms=time_ms(lambda: track.track_scan_plain(*args), reps=2),
+            library_ms=None, bound_ms=bound[0], bound_by=bound[1])
+    args = ema_args(1, b)
+    s = args[0].shape[-1]
+    fl, mhz = floor_ms(lambda: track.track_scan(*args),
+                       s * TRACK_CHAIN_OPS * FLOAT_LATENCY_CYCLES, b)
+    recs["track_scan"] = dict(
+        route="cuda", source="mcax_torch/csrc/track.cu",
+        replaces="jax.lax.scan of track_block, mcax/pipeline.py:331-338 "
+        "(mcax/algos/tracking.py:150)",
+        max_abs_err=0.0, ms=ema[1]["ms"], plain_ms=ema[1]["plain_ms"],
+        library_ms=None, library_call="none: no PyTorch call computes the "
+        "tracker's recursion",
+        bound=(ema[1]["bound_ms"], ema[1]["bound_by"]), shape=ema[1]["shape"],
+        design=f"serial chain floor {fl:.4f} ms ({b} blocks x {s} peaks x "
+        f"{TRACK_CHAIN_OPS} dependent float operations x "
+        f"{FLOAT_LATENCY_CYCLES} cycles, an assumed latency, not measured, "
+        f"at {mhz:.0f} MHz, the SM clock nvidia-smi read while it ran); "
+        f"kernel {ema[1]['ms'] / fl:.2f}x the floor",
+        design_bound=(fl, "latency of the association's chain"),
+        at_r16=ema[16])
+    print(f"kernel track_scan: bit-equal to its plain version on config5's "
+          f"surfaces at R = 1, B = {b} and R = 16, B = 1")
+
+    # the particle smoother
+    pipe = Pipeline(particle_config(cfg), device=pipe5.device)
+    a = pipe.cfg.algo
+    part = {}
+    worst = dict(doa=0.0, confidence=0.0, step=0.0, picks=0)
+    for r, nb in ((1, b), (16, 1)):
+        st = (pipe.init_states(r) if r > 1 else pipe.init_state()).particles
+        p = (surf[:r, None] if r > 1 else surf[:nb]).contiguous()
+        sn = st.angles.shape[-2:]
+        noise, u, _ = threefry.particle_draws(st.key, nb, *sn)
+        args = (st.angles, st.weights, p, az, sup, a.particle_step_std_rad,
+                a.particle_resample_threshold, noise, u)
+        got = track.particle_scan(*args)
+        want = track.particle_scan_plain(*args)
+        for name, x, y in (("doa", got[3], want[3]),
+                           ("confidence", got[4], want[4])):
+            err = float((x - y).abs().max())
+            worst[name] = max(worst[name], err)
+            if not err <= PARTICLE_TOL[name]:
+                raise AssertionError(f"particle_scan R = {r}, B = {nb}: "
+                                     f"{name} off its plain version by "
+                                     f"{err:.3e} (bound "
+                                     f"{PARTICLE_TOL[name]})")
+        # block by block from the kernel's own clouds: equal to the batched
+        # call bit for bit, and each block within the rule of the plain one
+        one = (st.angles[None], st.weights[None]) if r == 1 else (
+            st.angles, st.weights)
+        p3 = p[None] if r == 1 else p
+        nz3, u3 = (noise[None], u[None]) if r == 1 else (noise, u)
+        for k in range(nb):
+            step = track.particle_scan(*one, p3[:, k:k + 1], az, sup,
+                                       a.particle_step_std_rad,
+                                       a.particle_resample_threshold,
+                                       nz3[:, k:k + 1], u3[:, k:k + 1])
+            dev_k, picks = particle_step_deviation(
+                pipe, particle.ParticleState(*one, None), p3[:, k],
+                nz3[:, k], u3[:, k], step[:2])
+            worst["step"] = max(worst["step"], dev_k)
+            worst["picks"] += picks
+            for x, y in zip(step[2:], got[2:]):
+                y = y[None] if r == 1 else y
+                if not torch.equal(x[:, 0], y[:, k]):
+                    raise AssertionError("particle_scan: block calls differ "
+                                         "from the batched call")
+            one = step[:2]
+        for x, y in zip(one, got[:2]):
+            if not torch.equal(x.view(y.shape), y):
+                raise AssertionError("particle_scan: block calls' clouds "
+                                     "differ from the batched call's")
+        s_, n_ = sn
+        bound = bound_ms(0.0, 4.0 * r * nb * (g + s_ * n_ + s_)
+                         + 4.0 * g + 16.0 * r * s_ * n_
+                         + 16.0 * r * nb * s_, peaks)
+        part[r] = dict(
+            shape=[r, nb, s_, n_, g],
+            max_abs_err=max(worst["doa"], worst["confidence"]),
+            ms=time_ms(lambda: track.particle_scan(*args)),
+            plain_ms=time_ms(lambda: track.particle_scan_plain(*args),
+                             reps=2),
+            library_ms=None, bound_ms=bound[0], bound_by=bound[1])
+        if r == 1:
+            bulk_args = args
+    fl, mhz = floor_ms(lambda: track.particle_scan(*bulk_args),
+                       PARTICLE_CHAIN_SHUFFLES * SHUFFLE_LATENCY_CYCLES, b)
+    recs["particle_scan"] = dict(
+        route="cuda", source="mcax_torch/csrc/track.cu",
+        replaces="jax.lax.scan of particle_track_block, "
+        "mcax/pipeline.py:321-329 (mcax/algos/tracking.py:101)",
+        max_abs_err=part[1]["max_abs_err"], ms=part[1]["ms"],
+        plain_ms=part[1]["plain_ms"], library_ms=None,
+        library_call="none: no PyTorch call computes the filter's "
+        "recursion", bound=(part[1]["bound_ms"], part[1]["bound_by"]),
+        shape=part[1]["shape"],
+        design=f"serial chain floor {fl:.4f} ms ({b} blocks x "
+        f"{PARTICLE_CHAIN_SHUFFLES} dependent warp shuffles (7 reductions "
+        f"of 5 rounds and a broadcast) x {SHUFFLE_LATENCY_CYCLES} cycles, an "
+        f"assumed latency, not measured, at {mhz:.0f} MHz, the SM clock "
+        f"nvidia-smi read while it ran); kernel "
+        f"{part[1]['ms'] / fl:.2f}x the floor",
+        design_bound=(fl, "latency of the filter's reductions"),
+        at_r16=part[16])
+    print(f"kernel particle_scan: within the rule of its plain version on "
+          f"config5's surfaces at R = 1, B = {b} and R = 16, B = 1: over "
+          f"the dispatch doa {worst['doa']:.3e}, confidence "
+          f"{worst['confidence']:.3e} (bound {PARTICLE_TOL['doa']}); one "
+          f"block from the kernel's clouds: angles and weights "
+          f"{worst['step']:.3e} (bound 1e-6), {worst['picks']} resample "
+          "picks differing within 4 ulp of a cumsum boundary; B block calls "
+          "bit-equal to the batched call")
+    return recs
+
+
 def sm_clock_mhz(fn, calls: int) -> float:
     """The highest SM clock (MHz) ``nvidia-smi`` reads every 20 ms while
     ``calls`` calls of ``fn`` run back to back on the card.  The card is
@@ -1338,7 +1584,8 @@ def launch_counters():
     """Every kernel wrapper of the port, each with its ``LAUNCHES`` count."""
     from mcax_torch.dist import halo_rdma
     from mcax_torch.kernels import (covprefix, cps, fft, mvdrsolve,
-                                    srp_fused, steer, stft_fused, threefry)
+                                    srp_fused, steer, stft_fused, threefry,
+                                    track)
     return (stft_fused.stft_fused_from_blocks, srp_fused.srp_power_fused,
             covprefix.block_prefixes_rows,
             mvdrsolve.weights_blocks_fused_rows,
@@ -1346,7 +1593,8 @@ def launch_counters():
             fft.irdft_rows, fft.rdft_rows, cps.cps_phat_gather,
             cps.cps_phat_pairs, steer.srp_power_cps,
             halo_rdma.ring_push_right, threefry.particle_draws,
-            threefry.split, threefry.uniform, threefry.normal)
+            threefry.split, threefry.uniform, threefry.normal,
+            track.track_scan, track.particle_scan)
 
 
 def reset(counters):
@@ -2109,9 +2357,10 @@ PARTICLE_TOL = {"audio": 5e-4, "doa": 1e-4, "confidence": 1e-4}
 # smoother's draws with them
 PARTICLE_BULK = ("stft_fused_from_blocks", "srp_power_fused",
                  "block_prefixes_rows", "weights_blocks_fused_rows",
-                 "irdft_rows", "particle_draws")
+                 "irdft_rows", "particle_draws", "particle_scan")
 PARTICLE_STEP = ("stft_fused_planes", "srp_power_fused",
-                 "weights_blocks_fused", "irdft_rows", "particle_draws")
+                 "weights_blocks_fused", "irdft_rows", "particle_draws",
+                 "particle_scan")
 
 
 def particle_config(cfg5):
@@ -2300,7 +2549,7 @@ def particle_sharded(cfg5, blocks, counters, by_path):
     expect_launches("config5 particle sharded 1x1 process_blocks", launches, {
         k: 1 for k in ("stft_fused_planes", "srp_power_fused",
                        "block_prefixes_rows", "weights_blocks_fused",
-                       "irdft_rows", "particle_draws")})
+                       "irdft_rows", "particle_draws", "particle_scan")})
     st_p, o_p = pipe.process_blocks(pipe.init_state(), blocks)
     compare_outs("config5 particle sharded 1x1 vs Pipeline",
                  sp.gather_outputs(o), o_p, PARTICLE_TOL)
@@ -2648,6 +2897,13 @@ def cli_path(repo, smi, counters, by_path):
                  at(f"c5{smoother}.csv"), "--wav-out",
                  at(f"c5{smoother}.wav")], counters)
             by_path[f"cli config5 {smoother}"] = launches
+            # the tracker once a dispatch of the CLI's default 4 blocks
+            tracker = "track_scan" if smoother == "ema" else "particle_scan"
+            other = "particle_scan" if smoother == "ema" else "track_scan"
+            if (launches[tracker] != CLI5_BLOCKS // 4
+                    or launches[other] != 0):
+                raise AssertionError(f"cli config5 {smoother}: tracker "
+                                     f"launches {launches}")
             err5, nb5 = cli_tracks(at(f"c5{smoother}.csv"), SOURCES5_DEG,
                                    CLI5_FROM_BLOCK)
             if nb5 != CLI5_BLOCKS or not err5 <= 5.0:
@@ -2811,6 +3067,7 @@ def main() -> int:
         print(f"nvcc.log, {name}: " + " | ".join(lines))
     check_mvdr_c16(pipe5, blocks5[:BLOCKS], x5_streams, recs, PEAKS)
     recs.update(check_particle_draws(PEAKS))
+    recs.update(check_track_kernels(pipe5, blocks5[:BLOCKS], PEAKS))
     ring_recs, ring_paths = check_ring_kernel(repo, PEAKS)
     recs.update(ring_recs)
     for name, r in recs.items():
@@ -2849,7 +3106,8 @@ def main() -> int:
                  "cps_phat": "cps_phat_gather",
                  "srp_power_cps": "srp_power_cps",
                  "halo_ring": "ring_push_right",
-                 "particle_draws": "particle_draws"}
+                 "particle_draws": "particle_draws",
+                 "track_scan": "track_scan", "particle_scan": "particle_scan"}
     by_path = dict(ring_paths)
 
     # -- phase 4a: config4 process_blocks, the main path -------------------
@@ -3054,7 +3312,8 @@ def main() -> int:
     expect_launches("config5 process_blocks", launches, {
         k: DISPATCHES5 for k in ("stft_fused_from_blocks", "srp_power_fused",
                                  "block_prefixes_rows",
-                                 "weights_blocks_fused_rows", "irdft_rows")})
+                                 "weights_blocks_fused_rows", "irdft_rows",
+                                 "track_scan")})
     doa5 = torch.cat([o["doa"] for o in outs])             # [D*B, 2]
     off5 = track_error_deg(doa5[4:], SOURCES5_DEG)
     if not np.all(off5 <= 5.0):
@@ -3080,7 +3339,8 @@ def main() -> int:
     by_path["config5 process_block"] = launches
     expect_launches("config5 process_block", launches, {
         k: BLOCKS5 for k in ("stft_fused_planes", "srp_power_fused",
-                             "weights_blocks_fused", "irdft_rows")})
+                             "weights_blocks_fused", "irdft_rows",
+                             "track_scan")})
     check_finite("config5 process_block", outs, st_loop)
     st_b, out_b = pipe5.process_blocks(pipe5.init_state(), lat5)
     stacked = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
@@ -3108,7 +3368,8 @@ def main() -> int:
     by_path["config5 run"] = read(counters)
     expect_launches("config5 run", by_path["config5 run"], {
         k: BLOCKS5 for k in ("stft_fused_planes", "srp_power_fused",
-                             "weights_blocks_fused", "irdft_rows")})
+                             "weights_blocks_fused", "irdft_rows",
+                             "track_scan")})
     compare_outs("config5 run vs process_block",
                  {k: torch.from_numpy(v) for k, v in out_run.items()},
                  stacked, 1e-6)
@@ -3136,7 +3397,8 @@ def main() -> int:
     calls = STREAM_CALLS - 1
     expect_launches("config5 process_streams", launches, {
         k: calls for k in ("stft_fused_planes", "srp_power_fused",
-                           "weights_blocks_fused", "irdft_rows")})
+                           "weights_blocks_fused", "irdft_rows",
+                           "track_scan")})
     sms5 = [events[k].elapsed_time(events[k + 1]) for k in range(calls)]
     off = track_error_deg(outs[-1]["doa"], pairs5)
     if not np.all(off <= 5.0):

@@ -78,13 +78,18 @@ def update(state: ParticleState, power: torch.Tensor,
     da = azimuths[1] - azimuths[0]
     idx = torch.clamp(torch.round((_wrap(state.angles) - a0) / da).long(),
                       0, g - 1)                              # [..., S, N]
+    # the std accumulated in float64, rounded once: torch's CPU kernel does
+    # so for float32 (bit-equal there); on the card it makes the result
+    # independent of the reduction's order (csrc/track.cu agrees)
     if power.ndim == state.angles.ndim - 1:                  # shared [..., G]
         p = torch.gather(power.unsqueeze(-2).expand(*idx.shape[:-1], g), -1,
                          idx)
-        scale = torch.std(power, dim=-1, correction=0)[..., None, None]
+        scale = torch.std(power.double(), dim=-1,
+                          correction=0).float()[..., None, None]
     else:                                                    # [..., S, G]
         p = torch.gather(power, -1, idx)
-        scale = torch.std(power, dim=-1, correction=0, keepdim=True)
+        scale = torch.std(power.double(), dim=-1, correction=0,
+                          keepdim=True).float()
     p = p - p.amax(dim=-1, keepdim=True)
     like = torch.exp(p / torch.clamp_min(temperature * scale + 1e-12, 1e-12))
     w = state.weights * like
@@ -109,7 +114,9 @@ def resample(state: ParticleState, u: Optional[torch.Tensor] = None
         u = threefry.uniform(sub, s)
     steps = torch.arange(n, dtype=torch.float32, device=u.device) / n
     positions = u[..., None] / n + steps                     # [..., S, N]
-    cum = torch.cumsum(state.weights, dim=-1)
+    # float64 running sums rounded to float32, as torch's CPU cumsum takes
+    # them (bit-equal there); on the card independent of the scan's order
+    cum = torch.cumsum(state.weights.double(), dim=-1).float()
     idx = torch.clamp(torch.searchsorted(cum, positions.contiguous()), 0,
                       n - 1)
     angles = torch.gather(state.angles, -1, idx)

@@ -32,7 +32,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("stft_fused.cu", "srp_fused.cu", "covprefix.cu", "mvdrsolve.cu",
            "cps.cu", "dft.cu", "fft_rows.cu", "irfft_rows.cu", "steer.cu",
-           "halo_rdma.cu", "threefry.cu")
+           "halo_rdma.cu", "threefry.cu", "track.cu")
 HEADERS = ("common.cuh", "gemm_rows.cuh", "gemm_tc.cuh", "rfft.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -92,6 +92,15 @@ SIGNATURES = {
     "mcax_threefry_draw": (_P, _P, _I, _L, _I, _F, _F, _P),
     # keys, subs, noise, u, out, R, B, S, N, stream
     "mcax_particle_draws": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # ang0, conf0, init0, power, az, ang1, conf1, init1, grid, ang_b,
+    # conf_b, R, B, S, G, sup, pi, two_pi, keep, cs, cs1, stream
+    "mcax_track_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                        _I, _I, _I, _F, _F, _F, _F, _F, _P),
+    # ang0, w0, power, az, noise, u, ang1, w1, grid, doa_b, conf_b, R, B, S,
+    # N, G, sup, pi, two_pi, step, thr, eps, inv_n, w_reset, stream
+    "mcax_particle_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                           _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F,
+                           _P),
     # tiles (int[4]: BM, BN, BK, blocks an SM of gemm_tc.cuh)
     "mcax_gemm_tc_tiles": (_P,),
     # the ring's host entry points (dist/halo_rdma.py): slot_bytes, &buf,

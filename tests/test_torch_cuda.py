@@ -30,7 +30,12 @@ layouts, and config4's srp="matmul" bulk through it equal to the fused
 SRP; kernel 4 on the group body with the rows loader bit-equal at config5
 B = 512, at runs cut short by the last system, and at C = 8; the particle
 smoother's threefry draws bit-equal to their plain version at config5 B =
-512 and at 16 serving streams, and split/uniform/normal alone; each
+512 and at 16 serving streams, and split/uniform/normal alone; the
+trackers' scans (``track_scan`` bit-equal to its plain version at R = 1
+and 16, B = 1, 7 and 512 on ties, peaks at +-pi and unset tracks;
+``particle_scan`` within the particle tests' rule, its B block calls
+bit-equal to the batched call; each once a config5 dispatch and a block
+step); each
 streaming entry point on the card against the CPU, config5's particle
 smoother on all of them;
 ShardedPipeline on a 1 x 1 mesh against Pipeline; the halo ring (kernel
@@ -740,6 +745,236 @@ def test_threefry_draws_bit_equal(dev, draw):
     for a, b in zip(got if draw == "split" else (got,),
                     want if draw == "split" else (want,)):
         assert torch.equal(a, b)
+
+
+def _track_surfaces(seed, r, b, g=360):
+    """[r, b, g] float32 config5-like surfaces: a floor and two drifting
+    bumps, the first stream's across +-pi; one surface flat (every bin
+    ties), one with two equal maxima, one peaked exactly at +-pi."""
+    rng = np.random.default_rng(seed)
+    deg = np.arange(g) * (360.0 / g) - 180.0
+    p = rng.uniform(0.0, 0.2, (r, b, g))
+    for i in range(r):
+        for a0, da in ((175.0 + 40.0 * i, 2.0), (-70.0 + 30.0 * i, -3.0)):
+            a = a0 + da * np.arange(b)
+            d = np.abs((deg[None] - a[:, None] + 180.0) % 360.0 - 180.0)
+            p[i] += rng.uniform(0.5, 2.0, (b, 1)) * np.exp(-0.5 * (d / 5.0)
+                                                            ** 2)
+    p = p.astype(np.float32)
+    if b > 2:
+        p[0, 1] = p[0, 1].max()
+        p[-1, 2, 17] = p[-1, 2, 300] = p[-1, 2].max() + 1.0
+        p[0, 0, 0] = p[0, 0, g - 1] = p[0, 0].max() + 0.5
+    return p
+
+
+@pytest.mark.parametrize("r,b", [(1, 1), (1, 7), (1, 512), (16, 1),
+                                 (16, 7), (16, 512), (1, 1100), (3, 1100)])
+def test_track_scan_bit_equal(dev, r, b):
+    """config5's EMA tracker (G = 360, S = 2, 20 suppressed bins) over B
+    blocks of R streams, from tracks partly set (one near -pi) and partly
+    not, on surfaces with ties and peaks at +-pi: bit-equal to the plain
+    version on the card, one launch.  B = 1100 crosses two of the kernel's
+    chunks of 512 blocks."""
+    from mcax_torch.kernels import track
+    rng = np.random.default_rng(r + b)
+    angles = np.zeros((r, 2), np.float32)
+    angles[1:, 0] = np.float32(-np.pi) + rng.uniform(0.0, 0.02, r - 1)
+    conf = np.where(angles != 0, 0.5, 0.0).astype(np.float32)
+    inited = angles != 0
+    az = torch.from_numpy(t_geo.azimuth_grid(360).astype(np.float32)).to(dev)
+    args = [torch.from_numpy(x).to(dev) for x in (angles, conf, inited)]
+    args += [torch.from_numpy(_track_surfaces(r * 100 + b, r, b)).to(dev),
+             az, 20, 0.7]
+    before = track.track_scan.LAUNCHES
+    got = track.track_scan(*args)
+    assert track.track_scan.LAUNCHES == before + 1
+    want = track.track_scan_plain(*args)
+    torch.cuda.synchronize()
+    for x, y in zip([*got[0], *got[1:]], [*want[0], *want[1:]]):
+        assert x.shape == y.shape and x.dtype == y.dtype and torch.equal(x, y)
+
+
+def particle_block_boundaries(angles, weights, surf, az, noise, u, sup,
+                              step):
+    """Where one block of the plain particle filter turns on a last bit,
+    from clouds [..., S, N] on surfaces [..., G] with the block's draws
+    (noise [..., S, N], u [..., S]), on the tensors' device: (near_cum,
+    near_half), bool [..., S, N] each.  near_cum: the position particle n's
+    resample pick searches lies within 4 ulp of a boundary of the plain
+    version's cumsum, so the pick may differ (tests/test_torch_particle.py's
+    rule).  near_half: the particle's grid coordinate (wrap(a) - a0) / da
+    lies within 4 ulp of a half-integer, so round() may take either bin.
+    tests/test_torch_track_scan.py holds the plain version to mcax by it."""
+    from mcax_torch.algos import particle
+    from mcax_torch.kernels import track
+    n = angles.shape[-1]
+    st = particle.ParticleState(angles, weights, None)
+    idx, _ = track.extract_peaks(surf, angles.shape[-2], sup)
+    masked = track.rival_masked(particle.estimate(st)[0], surf, idx, az, sup)
+    st = particle.predict(st, step, noise)
+    q = (particle._wrap(st.angles) - az[0]) / (az[1] - az[0])
+    st = particle.update(st, masked, az)
+    cum = torch.cumsum(st.weights.double(), -1).float()
+    pos = u[..., None] / n + torch.arange(n, dtype=torch.float32,
+                                           device=u.device) / n
+    near_cum = _ulps(pos[..., :, None], cum[..., None, :]).amin(-1) <= 4
+    return near_cum, _ulps(q, torch.floor(q) + 0.5) <= 4
+
+
+def _ulps(x, y):
+    """|x - y| in float32 ulps, elementwise and broadcast (for values of
+    one sign)."""
+    return (x.contiguous().view(torch.int32).long()
+            - y.contiguous().view(torch.int32).long()).abs()
+
+
+def _particle_case(dev, r, b, seed):
+    rng = np.random.default_rng(seed)
+    angles = rng.uniform(-np.pi, np.pi, (r, 2, 256)).astype(np.float32)
+    w = rng.uniform(0.0, 1.0, (r, 2, 256)) ** 4
+    w = (w / w.sum(-1, keepdims=True)).astype(np.float32)
+    keys = torch.from_numpy(rng.integers(0, 2 ** 32, (r, 2)).astype(
+        np.int64)).to(dev)
+    noise, u, _ = threefry.particle_draws(keys, b, 2, 256)
+    az = torch.from_numpy(t_geo.azimuth_grid(360).astype(np.float32)).to(dev)
+    return [torch.from_numpy(angles).to(dev), torch.from_numpy(w).to(dev),
+            torch.from_numpy(_track_surfaces(seed, r, b)).to(dev), az, 20,
+            0.05, 0.5, noise, u]
+
+
+@pytest.mark.parametrize("r,b", [(1, 1), (1, 512), (16, 1), (16, 33),
+                                 (1, 1100), (3, 1100)])
+def test_particle_scan_within_the_rule(dev, r, b):
+    """config5's particle smoother (N = 256) over B blocks of R streams on
+    the card: B calls of one block bit-equal to the batched call (one
+    launch each); each block from the kernel's own clouds within 1e-6 of
+    the plain version's block, a resample pick differing only where its
+    position lies within 4 ulp of a boundary of the plain cumsum.  The
+    plain version running free beside it: doa and confidence within 1e-4
+    a block until the two chains part, which they may only at such a pick
+    (the sums' last bits decide it; the chains then follow different
+    particles, as tests/test_torch_track_scan.py's free run against mcax).
+    B = 1100 crosses two of the kernel's chunks of 512 blocks."""
+    from mcax_torch.kernels import track
+    args = _particle_case(dev, r, b, 40 + r + b)
+    before = track.particle_scan.LAUNCHES
+    got = track.particle_scan(*args)
+    assert track.particle_scan.LAUNCHES == before + 1
+    angles, weights, surf, az, sup, step, thr, noise, u = args
+    one = free = (angles, weights)
+    parted, worst = None, 0.0
+    for k in range(b):
+        blk = (surf[:, k:k + 1], az, sup, step, thr, noise[:, k:k + 1],
+               u[:, k:k + 1])
+        out = track.particle_scan(*one, *blk)
+        for x, y in zip(out[2:], got[2:]):
+            assert torch.equal(x[:, 0], y[:, k])
+        plain = track.particle_scan_plain(*one, *blk)
+        near, _ = particle_block_boundaries(*one, surf[:, k], az,
+                                            noise[:, k], u[:, k], sup, step)
+        off = (out[0] - plain[0]).abs() > 1e-6
+        assert not bool((off & ~near).any()), k
+        assert float(((out[1] - plain[1]).abs() * ~off).max()) <= 1e-6
+        if parted is None:
+            fp = track.particle_scan_plain(*free, *blk)
+            near, _ = particle_block_boundaries(*free, surf[:, k], az,
+                                                noise[:, k], u[:, k], sup,
+                                                step)
+            off = (out[0] - fp[0]).abs() > 1e-6
+            assert not bool((off & ~near).any()), k
+            if bool(off.any()):
+                parted = k
+            else:
+                err = max(float((out[i] - fp[i]).abs().max()) for i in (3, 4))
+                assert err <= 1e-4, k
+                worst = max(worst, err)
+            free = fp[:2]
+        one = out[:2]
+    print(f"particle_scan R = {r}, B = {b}: doa and confidence off the plain "
+          f"version by at most {worst:.3e}; the chains part at a cumsum "
+          f"boundary at block {parted}")
+    for x, y in zip(one, got[:2]):
+        assert torch.equal(x, y)
+
+
+def test_track_scans_reject_shapes_past_their_limits(dev):
+    """The wrappers' limits are the library's: its entries refuse
+    MAX_SOURCES + 1 sources and MAX_PARTICLES + 1 particles
+    (cudaErrorInvalidValue), and particle_scan at 8 clouds of 1024
+    particles launches on the widest grid whose particle_smem fits
+    particle_smem_limit (so particle_smem does not undercount the kernel's
+    shared memory) and raises one grid point wider."""
+    from mcax_torch.kernels import _build, track
+    lib, stream = _build.library(), _build.stream_of(torch.zeros(1,
+                                                                 device=dev))
+    ptrs = (0,) * 11
+    assert lib.mcax_track_scan(*ptrs, 1, 1, track.MAX_SOURCES + 1, 360, 20,
+                               *(1.0,) * 5, stream) == 1
+    assert lib.mcax_particle_scan(*ptrs, 1, 1, track.MAX_SOURCES + 1, 256,
+                                  360, 20, *(1.0,) * 7, stream) == 1
+    assert lib.mcax_particle_scan(*ptrs, 1, 1, 2, track.MAX_PARTICLES + 1,
+                                  360, 20, *(1.0,) * 7, stream) == 1
+    z = torch.zeros((1, track.MAX_SOURCES + 1), device=dev)
+    p = torch.zeros((1, 1, 360), device=dev)
+    az = torch.linspace(-3.0, 3.0, 360, device=dev)
+    with pytest.raises(ValueError, match="tracks a stream"):
+        track.track_scan(z, z, z.bool(), p, az, 20, 0.7)
+    n = track.MAX_PARTICLES + 1
+    a = torch.zeros((1, 2, n), device=dev)
+    with pytest.raises(ValueError, match="particles"):
+        track.particle_scan(a, a, p, az, 20, 0.05, 0.5,
+                            torch.zeros((1, 1, 2, n), device=dev),
+                            torch.zeros((1, 1, 2), device=dev))
+    s, n = track.MAX_SOURCES, track.MAX_PARTICLES
+    limit = track.particle_smem_limit(torch.device(dev))
+    g = 2
+    while track.particle_smem(s, n, g + 1) <= limit:
+        g += 1
+    print(f"particle_scan at S = {s}, N = {n}: G <= {g} "
+          f"({track.particle_smem(s, n, g)} of {limit} bytes)")
+    a = torch.zeros((1, s, n), device=dev)
+    w = torch.full((1, s, n), 1.0 / n, device=dev)
+    for grid in (g, g + 1):
+        args = (a, w, torch.zeros((1, 1, grid), device=dev),
+                torch.linspace(-3.0, 3.0, grid, device=dev), 20, 0.05, 0.5,
+                torch.zeros((1, 1, s, n), device=dev),
+                torch.zeros((1, 1, s), device=dev))
+        if grid == g:
+            out = track.particle_scan(*args)
+            torch.cuda.synchronize()
+            assert bool(torch.isfinite(out[3]).all())
+        else:
+            with pytest.raises(ValueError, match="shared memory"):
+                track.particle_scan(*args)
+
+
+@pytest.mark.parametrize("smoother", ["ema", "particle"])
+def test_track_scan_once_a_dispatch_and_a_block(dev, smoother):
+    """config5: one tracker launch a process_blocks dispatch (batched), a
+    block step, and a block of the scan mode; none of the other
+    tracker's."""
+    import dataclasses
+    from mcax_torch.config import get_config
+    from mcax_torch.kernels import track
+    from mcax_torch.pipeline import Pipeline
+    cfg = get_config("config5")
+    cfg = dataclasses.replace(cfg, algo=dataclasses.replace(
+        cfg.algo, smoother=smoother))
+    fn, other = ((track.track_scan, track.particle_scan) if smoother == "ema"
+                 else (track.particle_scan, track.track_scan))
+    x = _plane_wave(cfg.geometry(), np.deg2rad(30.0), 4 * cfg.block_len, 3)
+    blocks = torch.from_numpy(np.ascontiguousarray(
+        x.reshape(x.shape[0], 4, -1).transpose(1, 0, 2))).to(dev)
+    for mode, want in (("batched", 1), ("scan", 4)):
+        pipe = Pipeline(cfg, device=dev, scan_mode=mode)
+        counts = (fn.LAUNCHES, other.LAUNCHES)
+        pipe.process_blocks(pipe.init_state(), blocks)
+        assert (fn.LAUNCHES - counts[0], other.LAUNCHES - counts[1]) == (
+            want, 0)
+    counts = (fn.LAUNCHES, other.LAUNCHES)
+    pipe.process_block(pipe.init_state(), blocks[0])
+    assert (fn.LAUNCHES - counts[0], other.LAUNCHES - counts[1]) == (1, 0)
 
 
 def test_particle_smoother_card_vs_cpu(dev):
