@@ -1,0 +1,10 @@
+"""Torch's kernel launches (inside an ``aten::`` operation) in
+``mcax_torch.process_block``, a block, from the profiler's trace of the
+traced blocks (``harness.spans``)."""
+
+from harness import spans
+
+
+def read(run):
+    st = spans.of_run(run, "process_block")
+    return None if st is None else sum(st.glue.values()) / run.calls

@@ -1580,23 +1580,6 @@ def track_error_deg(doa_rad, sources_deg):
     return np.minimum(one, two)[..., 0]
 
 
-def launch_counters():
-    """Every kernel wrapper of the port, each with its ``LAUNCHES`` count."""
-    from mcax_torch.dist import halo_rdma
-    from mcax_torch.kernels import (covprefix, cps, fft, mvdrsolve,
-                                    srp_fused, steer, stft_fused, threefry,
-                                    track)
-    return (stft_fused.stft_fused_from_blocks, srp_fused.srp_power_fused,
-            covprefix.block_prefixes_rows,
-            mvdrsolve.weights_blocks_fused_rows,
-            stft_fused.stft_fused_planes, mvdrsolve.weights_blocks_fused,
-            fft.irdft_rows, fft.rdft_rows, cps.cps_phat_gather,
-            cps.cps_phat_pairs, steer.srp_power_cps,
-            halo_rdma.ring_push_right, threefry.particle_draws,
-            threefry.split, threefry.uniform, threefry.normal,
-            track.track_scan, track.particle_scan)
-
-
 def reset(counters):
     for fn in counters:
         fn.LAUNCHES = 0
@@ -2139,6 +2122,7 @@ def ring_pipeline(m, dev):
     from mcax_torch.config import get_config
     from mcax_torch.dist.sharded import ShardedPipeline
     from mcax_torch.pipeline import Pipeline
+    from mcax_torch.utils.metrics import launch_counters
     counters = launch_counters()
     cfg = get_config(CONFIG)
     pipe = Pipeline(cfg, device=dev)
@@ -2978,6 +2962,7 @@ def main() -> int:
     from mcax_torch.config import apply_overrides, get_config
     from mcax_torch.kernels import _build, stft_fused
     from mcax_torch.pipeline import Pipeline
+    from mcax_torch.utils.metrics import launch_counters
 
     # -- phase 1: the card ---------------------------------------------------
     smi = nvidia_smi_line()

@@ -48,6 +48,7 @@ from mcax_torch.kernels import dispatch
 from mcax_torch.kernels import fft as kfft
 from mcax_torch.kernels import stft_fused
 from mcax_torch.state import FIELDS, PipelineState
+from mcax_torch.utils.metrics import span
 
 _SYNTH_ALGOS = ("delaysum", "srp_delaysum", "mvdr", "srp_mvdr", "track_mvdr",
                 "mask")
@@ -201,17 +202,18 @@ class Pipeline:
         delaysum, [S, T*hop] and ``doa``/``confidence`` [S] per source for
         track_mvdr, ``tdoa`` [P, T] for gcc, ...).  The multi-stream step at
         S = 1."""
-        samples = torch.as_tensor(samples, dtype=torch.float32,
-                                  device=self.device)
-        expect = (self.geom.num_mics, self.cfg.block_len)
-        if tuple(samples.shape) != expect:
-            raise ValueError(f"expected samples {list(expect)}, got "
-                             f"{list(samples.shape)} (mis-sized blocks "
-                             "would shift the stream)")
-        states = map_state(lambda x: x[None], state)
-        new, out = self._block_step(states, samples[None])
-        return (map_state(lambda x: x[0], new),
-                {k: v[0] for k, v in out.items()})
+        with span("mcax_torch.process_block"):
+            samples = torch.as_tensor(samples, dtype=torch.float32,
+                                      device=self.device)
+            expect = (self.geom.num_mics, self.cfg.block_len)
+            if tuple(samples.shape) != expect:
+                raise ValueError(f"expected samples {list(expect)}, got "
+                                 f"{list(samples.shape)} (mis-sized blocks "
+                                 "would shift the stream)")
+            states = map_state(lambda x: x[None], state)
+            new, out = self._block_step(states, samples[None])
+            return (map_state(lambda x: x[0], new),
+                    {k: v[0] for k, v in out.items()})
 
     def process_streams(self, states: PipelineState, samples) -> Tuple[
             PipelineState, Dict[str, torch.Tensor]]:
@@ -219,24 +221,28 @@ class Pipeline:
         states from ``init_states(S)``.  Every output gains a leading S
         axis; the per-stream math is ``process_block``'s, batched: one launch
         of each kernel serves all S streams."""
-        return self._block_step(states, self._check_samples(samples, "S"))
+        with span("mcax_torch.process_streams"):
+            return self._block_step(states,
+                                    self._check_samples(samples, "S"))
 
     def _block_step(self, state: PipelineState, samples: torch.Tensor):
         """The block step over a leading stream axis: state leaves [S, ...],
-        samples [S, C, L]."""
+        samples [S, C, L].  Each stage runs in a ``mcax_torch.<stage>``
+        span (README.md, Tracing)."""
         cfg = self.cfg
         hop = cfg.stft.hop
         s_, c, _ = samples.shape
         t = cfg.frames_per_block
-        # channel-major [C, S, N]: the concatenation is the one copy, and
-        # the spectra come out [C, S, T, F], which the SRP kernel reads as
-        # [C, S*T, F] without a transpose
-        x = torch.cat([state.carry.transpose(0, 1),
-                       samples.transpose(0, 1)], dim=-1)
-        new_carry = x[..., t * hop:].transpose(0, 1).contiguous()
-        spectra_cs = stft_mod.stft(x, self._w2, self._fft_op,
-                                   hop)                    # [C, S, T, F]
-        spectra = spectra_cs.transpose(0, 1)               # [S, C, T, F]
+        with span("mcax_torch.analysis"):
+            # channel-major [C, S, N]: the concatenation is the one copy,
+            # and the spectra come out [C, S, T, F], which the SRP kernel
+            # reads as [C, S*T, F] without a transpose
+            x = torch.cat([state.carry.transpose(0, 1),
+                           samples.transpose(0, 1)], dim=-1)
+            new_carry = x[..., t * hop:].transpose(0, 1).contiguous()
+            spectra_cs = stft_mod.stft(x, self._w2, self._fft_op,
+                                       hop)                # [C, S, T, F]
+            spectra = spectra_cs.transpose(0, 1)           # [S, C, T, F]
 
         algo = cfg.algo.name
         a = cfg.algo
@@ -245,78 +251,94 @@ class Pipeline:
 
         def resynth(y):
             """y [S, ..., T, F] -> (audio [S, ..., T*hop], new OLA tail)."""
-            frames = stft_mod.istft_frames(y, self._a2,
-                                           self._ifft_op)   # [S, ..., T, L]
-            return streaming_overlap_add(frames, hop, state.ola_tail)
+            with span("mcax_torch.synthesis"):
+                frames = stft_mod.istft_frames(y, self._a2,
+                                               self._ifft_op)  # [S, ..., T, L]
+                return streaming_overlap_add(frames, hop, state.ola_tail)
 
-        def cov_update():
-            return cov_mod.update(cov_mod.from_planes(state.cov), spectra,
-                                  a.cov_forget)            # [S, F, C, C]
+        def weights(steer):
+            """(w [S, (Src,) C, F], the new covariance planes)."""
+            with span("mcax_torch.mvdr"):
+                cov = cov_mod.update(cov_mod.from_planes(state.cov), spectra,
+                                     a.cov_forget)         # [S, F, C, C]
+                w = mvdr.weights_blocks(cov, steer, a.diag_load)
+                return w, cov_mod.to_planes(cov)
 
         if algo == "gcc":
             out = self._gcc(spectra, lambda v: v)
         elif algo == "delaysum":
-            audio, new_tail = resynth(delaysum.beamform(
-                spectra, self.fixed_steer))                # y [S, T, F]
+            with span("mcax_torch.beamform"):
+                y = delaysum.beamform(spectra, self.fixed_steer)  # [S, T, F]
+            audio, new_tail = resynth(y)
             out = {"audio": audio}
         elif algo == "mask":
-            audio, new_tail = resynth(masking.mask_block(
-                spectra, self.mask_phase, a.mask_threshold_rad,
-                a.mask_sharpness))
+            with span("mcax_torch.beamform"):
+                y = masking.mask_block(spectra, self.mask_phase,
+                                       a.mask_threshold_rad,
+                                       a.mask_sharpness)
+            audio, new_tail = resynth(y)
             out = {"audio": audio}
         elif algo == "srp":
             power = self._srp_power(spectra_cs).view(s_, t, -1)   # [S, T, G]
-            az, pk = srp_mod.argmax_doa(power, self.plan,
-                                        interpolate=a.srp_interpolate)
+            with span("mcax_torch.doa"):
+                az, pk = srp_mod.argmax_doa(power, self.plan,
+                                            interpolate=a.srp_interpolate)
             out = {"doa": az, "power": pk}
         elif algo == "srp_delaysum":
             power = self._srp_power(spectra_cs).view(s_, t, -1)
-            gidx = torch.argmax(power.mean(dim=1), dim=-1)        # [S]
-            steer = srp_mod.steering_vector(self.plan, gidx)      # [S, C, F]
-            audio, new_tail = resynth(delaysum.beamform(spectra, steer))
-            out = {"audio": audio, "doa": self.plan.azimuths_rad[gidx]}
+            with span("mcax_torch.doa"):
+                gidx = torch.argmax(power.mean(dim=1), dim=-1)    # [S]
+                steer = srp_mod.steering_vector(self.plan, gidx)  # [S, C, F]
+                doa = self.plan.azimuths_rad[gidx]
+            with span("mcax_torch.beamform"):
+                y = delaysum.beamform(spectra, steer)
+            audio, new_tail = resynth(y)
+            out = {"audio": audio, "doa": doa}
         elif algo == "mvdr":
-            cov = cov_update()
             # mcax's weights per stream; the solve kernel with B = S
-            w = mvdr.weights_blocks(
-                cov, self.fixed_steer.expand(s_, *self.fixed_steer.shape),
-                a.diag_load)                                      # [S, C, F]
-            audio, new_tail = resynth(mvdr.beamform(spectra, w))
+            w, new_cov = weights(self.fixed_steer.expand(
+                s_, *self.fixed_steer.shape))                     # [S, C, F]
+            with span("mcax_torch.beamform"):
+                y = mvdr.beamform(spectra, w)
+            audio, new_tail = resynth(y)
             out = {"audio": audio}
-            new_cov = cov_mod.to_planes(cov)
         elif algo == "srp_mvdr":
             power = self._srp_power(spectra_cs).view(s_, t, -1)
-            gidx = torch.argmax(power.mean(dim=1), dim=-1)        # [S]
-            steer = srp_mod.steering_vector(self.plan, gidx)      # [S, C, F]
-            cov = cov_update()
-            w = mvdr.weights_blocks(cov, steer, a.diag_load)
-            audio, new_tail = resynth(mvdr.beamform(spectra, w))  # y [S, T, F]
-            az_f, _ = srp_mod.argmax_doa(
-                power, self.plan, interpolate=a.srp_interpolate)
-            out = {"audio": audio, "doa": self.plan.azimuths_rad[gidx],
-                   "doa_frame": az_f}
-            new_cov = cov_mod.to_planes(cov)
+            with span("mcax_torch.doa"):
+                gidx = torch.argmax(power.mean(dim=1), dim=-1)    # [S]
+                steer = srp_mod.steering_vector(self.plan, gidx)  # [S, C, F]
+                az_f, _ = srp_mod.argmax_doa(
+                    power, self.plan, interpolate=a.srp_interpolate)
+                doa = self.plan.azimuths_rad[gidx]
+            w, new_cov = weights(steer)
+            with span("mcax_torch.beamform"):
+                y = mvdr.beamform(spectra, w)                     # [S, T, F]
+            audio, new_tail = resynth(y)
+            out = {"audio": audio, "doa": doa, "doa_frame": az_f}
         elif algo == "track_mvdr":
             power = self._srp_power(spectra_cs).view(s_, t, -1)
-            if self.use_particle:
-                new_particles, doa, conf, gidx = (
-                    tracking.particle_track_block(
-                        state.particles, power.mean(dim=1),
+            with span("mcax_torch.track"):
+                if self.use_particle:
+                    new_particles, doa, conf, gidx = (
+                        tracking.particle_track_block(
+                            state.particles, power.mean(dim=1),
+                            self.plan.azimuths_rad, self.suppress_bins,
+                            a.particle_step_std_rad,
+                            a.particle_resample_threshold))  # [S, Src] each
+                else:
+                    new_tracks, gidx = tracking.track_block(
+                        state.tracks, power.mean(dim=1),
                         self.plan.azimuths_rad, self.suppress_bins,
-                        a.particle_step_std_rad,
-                        a.particle_resample_threshold))      # [S, Src] each
-            else:
-                new_tracks, gidx = tracking.track_block(
-                    state.tracks, power.mean(dim=1), self.plan.azimuths_rad,
-                    self.suppress_bins, a.track_smooth)      # gidx [S, Src]
-                doa, conf = new_tracks.angles_rad, new_tracks.confidence
-            steer = srp_mod.steering_vector(self.plan, gidx)  # [S, Src, C, F]
-            cov = cov_update()
-            w = mvdr.weights_blocks(cov, steer, a.diag_load)
-            # y [S, Src, T, F]: one signal per source
-            audio, new_tail = resynth(mvdr.beamform(spectra, w))
+                        a.track_smooth)                      # gidx [S, Src]
+                    doa, conf = new_tracks.angles_rad, new_tracks.confidence
+                steer = srp_mod.steering_vector(self.plan,
+                                                gidx)      # [S, Src, C, F]
+            w, new_cov = weights(steer)
+            with span("mcax_torch.beamform"):
+                # y [S, Src, T, F]: one signal per source
+                y = mvdr.beamform(spectra, w)
+            audio, new_tail = resynth(y)
             out = {"audio": audio, "doa": doa, "confidence": conf}
-            new_cov = cov_mod.to_planes(cov)
         else:
             raise ValueError(f"unknown algo {algo!r}")
         new_state = PipelineState(carry=new_carry,
@@ -327,29 +349,32 @@ class Pipeline:
 
     def _srp_power(self, spectra_cs: torch.Tensor) -> torch.Tensor:
         """[C, ..., F] channel-major spectra -> power [M, G] (M frames)."""
-        c, f = spectra_cs.shape[0], spectra_cs.shape[-1]
-        return srp_mod.srp_surface(spectra_cs.reshape(c, -1, f), self.plan,
-                                   eps=self.cfg.algo.phat_eps,
-                                   method=self.srp)
+        with span("mcax_torch.srp"):
+            c, f = spectra_cs.shape[0], spectra_cs.shape[-1]
+            return srp_mod.srp_surface(spectra_cs.reshape(c, -1, f),
+                                       self.plan, eps=self.cfg.algo.phat_eps,
+                                       method=self.srp)
 
     def _gcc(self, spectra: torch.Tensor, per_block) -> Dict[str, torch.Tensor]:
         """GCC outputs from spectra [..., C, M, F], each passed through
-        ``per_block`` ([..., M] -> the mode's layout)."""
+        ``per_block`` ([..., M] -> the mode's layout): GCC's DOA stage."""
         a = self.cfg.algo
-        if a.gcc_bands:
-            res = gcc.gcc_phat_multiband(spectra, self.gplan, eps=a.phat_eps,
-                                         interpolate=a.interpolate,
-                                         weighting=a.gcc_weighting)
-            # "peak" stays [..., P, T] like the full-band path's
-            return {"tdoa": per_block(res["tdoa_fused"]),
-                    "doa": per_block(res["doa_fused"]),
-                    "tdoa_band": per_block(res["tdoa"]),
-                    "peak_band": per_block(res["peak"]),
-                    "peak": per_block(res["peak"].amax(dim=-3))}
-        res = gcc.gcc_phat_block(spectra, self.gplan, eps=a.phat_eps,
-                                 interpolate=a.interpolate,
-                                 weighting=a.gcc_weighting)
-        return {k: per_block(res[k]) for k in ("tdoa", "doa", "peak")}
+        with span("mcax_torch.doa"):
+            if a.gcc_bands:
+                res = gcc.gcc_phat_multiband(spectra, self.gplan,
+                                             eps=a.phat_eps,
+                                             interpolate=a.interpolate,
+                                             weighting=a.gcc_weighting)
+                # "peak" stays [..., P, T] like the full-band path's
+                return {"tdoa": per_block(res["tdoa_fused"]),
+                        "doa": per_block(res["doa_fused"]),
+                        "tdoa_band": per_block(res["tdoa"]),
+                        "peak_band": per_block(res["peak"]),
+                        "peak": per_block(res["peak"].amax(dim=-3))}
+            res = gcc.gcc_phat_block(spectra, self.gplan, eps=a.phat_eps,
+                                     interpolate=a.interpolate,
+                                     weighting=a.gcc_weighting)
+            return {k: per_block(res[k]) for k in ("tdoa", "doa", "peak")}
 
     # ------------------------------------------------------------------
     # Throughput mode: one batched step over B consecutive blocks.
@@ -372,10 +397,11 @@ class Pipeline:
         ``scan_mode="scan"`` runs the block step once per block, in order,
         and stacks the outputs (``lax.scan(_block_step)`` in the reference).
         """
-        samples = self._check_samples(samples, "B").contiguous()
-        if self.scan_mode == "scan":
-            return self._blocks_scan(state, samples)
-        return self._blocks_batched(state, samples)
+        with span("mcax_torch.process_blocks"):
+            samples = self._check_samples(samples, "B").contiguous()
+            if self.scan_mode == "scan":
+                return self._blocks_scan(state, samples)
+            return self._blocks_batched(state, samples)
 
     def _blocks_scan(self, state: PipelineState, samples: torch.Tensor):
         """``process_block`` on each [C, L] block of ``samples`` in order,
@@ -388,24 +414,27 @@ class Pipeline:
                        if outs else {})
 
     def _blocks_batched(self, state: PipelineState, samples: torch.Tensor):
+        """One step over all B blocks, its stages in ``_block_step``'s
+        spans."""
         cfg = self.cfg
         hop = cfg.stft.hop
         b, c, block_len = samples.shape
         t = cfg.frames_per_block
         bt = b * t
 
-        if cfg.stft.frame_len == 2 * hop and block_len % hop == 0:
-            # blocks-native analysis: the kernel reads the [B, C, L] input
-            # directly, carry and block seams included
-            spectra, new_carry = stft_fused.stft_fused_from_blocks(
-                samples, state.carry, self._w2, self._fft_op,
-                hop)                                       # [C, B*T, F]
-        else:
-            flat = samples.permute(1, 0, 2).reshape(c, b * block_len)
-            x = torch.cat([state.carry, flat], dim=-1)
-            new_carry = x[:, bt * hop:].clone()
-            spectra = stft_mod.stft(x, self._w2, self._fft_op,
-                                    hop)                   # [C, B*T, F]
+        with span("mcax_torch.analysis"):
+            if cfg.stft.frame_len == 2 * hop and block_len % hop == 0:
+                # blocks-native analysis: the kernel reads the [B, C, L]
+                # input directly, carry and block seams included
+                spectra, new_carry = stft_fused.stft_fused_from_blocks(
+                    samples, state.carry, self._w2, self._fft_op,
+                    hop)                                   # [C, B*T, F]
+            else:
+                flat = samples.permute(1, 0, 2).reshape(c, b * block_len)
+                x = torch.cat([state.carry, flat], dim=-1)
+                new_carry = x[:, bt * hop:].clone()
+                spectra = stft_mod.stft(x, self._w2, self._fft_op,
+                                        hop)               # [C, B*T, F]
         algo = cfg.algo.name
         a = cfg.algo
 
@@ -416,88 +445,104 @@ class Pipeline:
         def resynth(y):
             """y [..., B*T, F] -> (audio [B, ..., T*hop], new OLA tail):
             OLA over the whole contiguous frame stream, split per block."""
-            frames = stft_mod.istft_frames(y, self._a2,
-                                           self._ifft_op)   # [..., B*T, L]
-            full, tail = streaming_overlap_add(frames, hop, state.ola_tail)
-            return full.view(*full.shape[:-1], b, t * hop).movedim(-2, 0), tail
+            with span("mcax_torch.synthesis"):
+                frames = stft_mod.istft_frames(y, self._a2,
+                                               self._ifft_op)  # [..., B*T, L]
+                full, tail = streaming_overlap_add(frames, hop,
+                                                   state.ola_tail)
+                return (full.view(*full.shape[:-1], b, t * hop).movedim(-2, 0),
+                        tail)
 
         def blocks():
             """[C, B*T, F] -> [B, C, T, F] (a view)."""
             return spectra.view(c, b, t, -1).permute(1, 0, 2, 3)
 
         def weights(steer):
-            """(w [B, (S,) C, F], the last block's covariance): the
+            """(w [B, (S,) C, F], the last block's covariance planes): the
             covariance kernel's rows feed the solve kernel."""
-            return mvdr.weights_and_cov_from_spectra(
-                spectra, cov_mod.from_planes(state.cov), a.cov_forget, t,
-                steer, a.diag_load)
+            with span("mcax_torch.mvdr"):
+                w, cov = mvdr.weights_and_cov_from_spectra(
+                    spectra, cov_mod.from_planes(state.cov), a.cov_forget, t,
+                    steer, a.diag_load)
+                return w, cov_mod.to_planes(cov)
 
         new_tail, new_cov, new_tracks = state.ola_tail, state.cov, state.tracks
         new_particles = state.particles
         if algo == "gcc":
             out = self._gcc(spectra, per_block)
         elif algo == "delaysum":
-            y = delaysum.beamform(spectra, self.fixed_steer)   # [B*T, F]
+            with span("mcax_torch.beamform"):
+                y = delaysum.beamform(spectra, self.fixed_steer)  # [B*T, F]
             audio, new_tail = resynth(y)
             out = {"audio": audio}
         elif algo == "mask":
-            audio, new_tail = resynth(masking.mask_block(
-                spectra, self.mask_phase, a.mask_threshold_rad,
-                a.mask_sharpness))                         # y [B*T, F]
+            with span("mcax_torch.beamform"):
+                y = masking.mask_block(spectra, self.mask_phase,
+                                       a.mask_threshold_rad,
+                                       a.mask_sharpness)  # [B*T, F]
+            audio, new_tail = resynth(y)
             out = {"audio": audio}
         elif algo == "srp":
             power = self._srp_power(spectra)               # [B*T, G]
-            az, pk = srp_mod.argmax_doa(power, self.plan,
-                                        interpolate=a.srp_interpolate)
-            out = {"doa": per_block(az), "power": per_block(pk)}
+            with span("mcax_torch.doa"):
+                az, pk = srp_mod.argmax_doa(power, self.plan,
+                                            interpolate=a.srp_interpolate)
+                out = {"doa": per_block(az), "power": per_block(pk)}
         elif algo == "srp_delaysum":
             power = self._srp_power(spectra)               # [B*T, G]
-            gidx = torch.argmax(power.view(b, t, -1).mean(dim=1), dim=-1)
-            steer = srp_mod.steering_vector(self.plan, gidx)  # [B, C, F]
-            y = delaysum.beamform(blocks(), steer)         # [B, T, F]
-            audio, new_tail = resynth(y.reshape(bt, -1))
-            out = {"audio": audio, "doa": self.plan.azimuths_rad[gidx]}
+            with span("mcax_torch.doa"):
+                gidx = torch.argmax(power.view(b, t, -1).mean(dim=1), dim=-1)
+                steer = srp_mod.steering_vector(self.plan, gidx)  # [B, C, F]
+                doa = self.plan.azimuths_rad[gidx]
+            with span("mcax_torch.beamform"):
+                y = delaysum.beamform(blocks(), steer)     # [B, T, F]
+                y = y.reshape(bt, -1)
+            audio, new_tail = resynth(y)
+            out = {"audio": audio, "doa": doa}
         elif algo == "mvdr":
-            w, cov = weights(self.fixed_steer.expand(
+            w, new_cov = weights(self.fixed_steer.expand(
                 b, *self.fixed_steer.shape))               # [B, C, F]
-            y = mvdr.beamform(blocks(), w)                 # [B, T, F]
-            audio, new_tail = resynth(y.reshape(bt, -1))
+            with span("mcax_torch.beamform"):
+                y = mvdr.beamform(blocks(), w).reshape(bt, -1)  # [B*T, F]
+            audio, new_tail = resynth(y)
             out = {"audio": audio}
-            new_cov = cov_mod.to_planes(cov)
         elif algo == "srp_mvdr":
             power = self._srp_power(spectra)               # [B*T, G]
-            pmean = power.view(b, t, -1).mean(dim=1)       # [B, G]
-            gidx = torch.argmax(pmean, dim=-1)             # [B]
-            steer = srp_mod.steering_vector(self.plan, gidx)  # [B, C, F]
-            w, cov = weights(steer)                        # [B, C, F]
-            y = mvdr.beamform(blocks(), w)                 # [B, T, F]
-            audio, new_tail = resynth(y.reshape(bt, -1))
-            az_f, _ = srp_mod.argmax_doa(
-                power, self.plan, interpolate=a.srp_interpolate)
-            out = {"audio": audio, "doa": self.plan.azimuths_rad[gidx],
-                   "doa_frame": per_block(az_f)}
-            new_cov = cov_mod.to_planes(cov)
+            with span("mcax_torch.doa"):
+                pmean = power.view(b, t, -1).mean(dim=1)   # [B, G]
+                gidx = torch.argmax(pmean, dim=-1)         # [B]
+                steer = srp_mod.steering_vector(self.plan, gidx)  # [B, C, F]
+                az_f, _ = srp_mod.argmax_doa(
+                    power, self.plan, interpolate=a.srp_interpolate)
+                doa, doa_frame = self.plan.azimuths_rad[gidx], per_block(az_f)
+            w, new_cov = weights(steer)                    # [B, C, F]
+            with span("mcax_torch.beamform"):
+                y = mvdr.beamform(blocks(), w).reshape(bt, -1)  # [B*T, F]
+            audio, new_tail = resynth(y)
+            out = {"audio": audio, "doa": doa, "doa_frame": doa_frame}
         elif algo == "track_mvdr":
             power = self._srp_power(spectra)               # [B*T, G]
-            pmean = power.view(b, t, -1).mean(dim=1)       # [B, G]
-            if self.use_particle:
-                new_particles, gidx, angles, conf = (
-                    tracking.particle_track_blocks(
-                        state.particles, pmean, self.plan.azimuths_rad,
-                        self.suppress_bins, a.particle_step_std_rad,
-                        a.particle_resample_threshold))    # [B, S] each
-            else:
-                new_tracks, gidx, angles, conf = tracking.track_blocks(
-                    state.tracks, pmean, self.plan.azimuths_rad,
-                    self.suppress_bins, a.track_smooth)    # [B, S] each
-            steer = srp_mod.steering_vector(self.plan, gidx)  # [B, S, C, F]
-            w, cov = weights(steer)                        # [B, S, C, F]
-            y = mvdr.beamform(blocks(), w)                 # [B, S, T, F]
-            # per-source contiguous frame streams [S, B*T, F]
-            y_s = y.transpose(0, 1).reshape(y.shape[1], bt, -1)
-            audio, new_tail = resynth(y_s)                 # [B, S, T*hop]
+            with span("mcax_torch.track"):
+                pmean = power.view(b, t, -1).mean(dim=1)   # [B, G]
+                if self.use_particle:
+                    new_particles, gidx, angles, conf = (
+                        tracking.particle_track_blocks(
+                            state.particles, pmean, self.plan.azimuths_rad,
+                            self.suppress_bins, a.particle_step_std_rad,
+                            a.particle_resample_threshold))  # [B, S] each
+                else:
+                    new_tracks, gidx, angles, conf = tracking.track_blocks(
+                        state.tracks, pmean, self.plan.azimuths_rad,
+                        self.suppress_bins, a.track_smooth)  # [B, S] each
+                steer = srp_mod.steering_vector(self.plan,
+                                                gidx)      # [B, S, C, F]
+            w, new_cov = weights(steer)                    # [B, S, C, F]
+            with span("mcax_torch.beamform"):
+                y = mvdr.beamform(blocks(), w)             # [B, S, T, F]
+                # per-source contiguous frame streams [S, B*T, F]
+                y = y.transpose(0, 1).reshape(y.shape[1], bt, -1)
+            audio, new_tail = resynth(y)                   # [B, S, T*hop]
             out = {"audio": audio, "doa": angles, "confidence": conf}
-            new_cov = cov_mod.to_planes(cov)
         else:
             raise ValueError(f"unknown algo {algo!r}")
         new_state = PipelineState(carry=new_carry,

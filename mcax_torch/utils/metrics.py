@@ -4,16 +4,23 @@ A JSONL metrics stream (block latency, real-time factor, DOA) and a logger,
 the callback equivalent a downstream consumer can tail.  ``BlockTimer``
 synchronises a CUDA device on entry and exit: the card runs asynchronously
 to the host, so an unfenced wall clock would measure only the enqueue.
+
+``span(name)`` marks a stage of the pipeline's steps on ``torch.profiler``'s
+host timeline, beside the kernels it launches; ``launch_counters()`` lists
+every kernel wrapper of the port, each counting its launches in
+``LAUNCHES``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import time
 from typing import Any, Dict, IO, Optional
 
 import torch
+from torch.autograd.profiler import record_function
 
 log = logging.getLogger("mcax_torch")
 
@@ -61,3 +68,32 @@ class BlockTimer:
         audio_s = self.block_len / self.sample_rate
         self.realtime_factor = audio_s / self.elapsed if self.elapsed > 0 else 0.0
         return False
+
+
+_profiling = torch._C._autograd._profiler_enabled
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``record_function(name)`` while a torch profiler records, else one
+    shared null context: off the profiler a span costs one check (~1 us),
+    not a ``RecordFunction`` (~18 us an enter and exit)."""
+    return record_function(name) if _profiling() else _NO_SPAN
+
+
+def launch_counters() -> tuple:
+    """Every kernel wrapper of the port, each with its ``LAUNCHES`` count
+    (imported on the call: importing this module loads no kernel)."""
+    from mcax_torch.dist import halo_rdma
+    from mcax_torch.kernels import (covprefix, cps, fft, mvdrsolve,
+                                    srp_fused, steer, stft_fused, threefry,
+                                    track)
+    return (stft_fused.stft_fused_from_blocks, srp_fused.srp_power_fused,
+            covprefix.block_prefixes_rows,
+            mvdrsolve.weights_blocks_fused_rows,
+            stft_fused.stft_fused_planes, mvdrsolve.weights_blocks_fused,
+            fft.irdft_rows, fft.rdft_rows, cps.cps_phat_gather,
+            cps.cps_phat_pairs, steer.srp_power_cps,
+            halo_rdma.ring_push_right, threefry.particle_draws,
+            threefry.split, threefry.uniform, threefry.normal,
+            track.track_scan, track.particle_scan)
