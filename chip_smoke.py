@@ -92,9 +92,12 @@ on the first that fails:
           samples/s; then one dispatch's device time by kernel from
           ``torch.profiler``;
        b. config4 ``process_block`` over 64 consecutive blocks (the latency
-          path): CUDA-event and host wall latency per block, one launch of
-          each of its kernels per block, every block's DOA within 2 degrees,
-          and the 64 blocks against ``process_blocks`` on the same blocks;
+          path): CUDA-event and host wall latency per block; the warm-up
+          block runs each step kernel eagerly and captures it as a CUDA
+          graph (two launches of each), and each timed block is one replay
+          of that graph (no launch from the host); every block's DOA within
+          2 degrees, and the 64 blocks against ``process_blocks`` on the
+          same blocks;
           then ``run`` once over the same signal, from the host;
        c. config4 ``process_streams`` at S = 64 streams at distinct
           azimuths: one launch of each kernel per call, each stream's DOA
@@ -135,8 +138,9 @@ on the first that fails:
           halo="ppermute") and with scan_mode="scan" (equal to phase k);
           the group is destroyed after;
        m. config4 ``Pipeline(scan_mode="scan").process_blocks`` at B = 64
-          over a few dispatches: one launch of each block-step kernel per
-          block, the first dispatch equal to phase b on the same blocks
+          over a few dispatches: each block-step kernel launched twice from
+          the host (the first block eager, then captured; the others
+          replays), the first dispatch equal to phase b on the same blocks
           (audio 5e-4, doa equal, carry bit-equal), samples/s beside phase
           a's;
        n. the ``srp_delaysum`` (config3's array), ``mvdr`` (config4's,
@@ -150,9 +154,10 @@ on the first that fails:
           per dispatch, tracks within 5 degrees from PARTICLE_FROM_BLOCK on,
           samples/s, host wall, a profile); the scan mode on the first 64
           blocks against the batched mode (audio 5e-4, doa 1e-4, keys
-          equal); ``process_block`` over 16 blocks (latency, one draw a
-          block) against ``process_blocks``; ``run`` over them (init's
-          split and uniform on the card); ``process_streams`` at S = 16;
+          equal); ``process_block`` over 16 blocks (latency; the warm-up
+          captures, the draws inside the graph; the rest replays) against
+          ``process_blocks``; ``run`` over them (init's split and uniform on
+          the card, the steps replays); ``process_streams`` at S = 16;
           and, in phase l's group, ``ShardedPipeline`` 1 x 1 on one NCCL
           rank, batched over 64 blocks and 4 block steps, against
           ``Pipeline``;
@@ -1598,6 +1603,25 @@ def expect_launches(path, launches, want):
                              f"{want} (others 0)")
 
 
+# a block-step kernel's launches over any number of process_block calls on a
+# card pipeline that has run none: the first call runs the step eagerly, then
+# captures it as a CUDA graph (two launches on the host); the others replay
+# the graph (none)
+CAPTURE_LAUNCHES = 2
+
+
+def graph_replays() -> int:
+    from mcax_torch import pipeline as pipeline_mod
+    return pipeline_mod.GRAPH_REPLAYS
+
+
+def expect_replays(path, before, n):
+    """``n`` graph replays since ``before``, a ``graph_replays()``."""
+    got = graph_replays() - before
+    if got != n:
+        raise AssertionError(f"{path}: {got} graph replays over {n} blocks")
+
+
 def check_every_kernel_launched(kernels):
     for k in kernels:
         if not k["launches"]:
@@ -1755,16 +1779,25 @@ def compare_states(what, got, want, cov_scaled=False):
 
 def latency_path(pipe, blocks, counters):
     """Phase 4b: config4 process_block over consecutive blocks [N, C, L]
-    with the state carried, each block synchronised.  Returns (launches,
-    CUDA-event ms per block, host wall ms per block, outputs, state)."""
+    with the state carried, each block synchronised, on a pipeline whose
+    ``process_block`` has not run.  Returns (launches, CUDA-event ms per
+    block, host wall ms per block, outputs, state).  The launches are
+    counted from the warm-up block on: it runs the step eagerly and
+    captures it (``CAPTURE_LAUNCHES`` of each step kernel), and each timed
+    block is one replay (checked here), which launches nothing from the
+    host."""
     import torch
     st = pipe.init_state()
+    torch.cuda.synchronize()
+    reset(counters)
+    replays = graph_replays()
     pipe.process_block(st, blocks[0])                      # warm-up
     torch.cuda.synchronize()
+    expect_replays("process_block warm-up (the capture)", replays, 0)
     starts = [torch.cuda.Event(enable_timing=True) for _ in blocks]
     ends = [torch.cuda.Event(enable_timing=True) for _ in blocks]
     wall, outs = [], []
-    reset(counters)
+    replays = graph_replays()
     for i in range(blocks.shape[0]):
         t0 = time.perf_counter()
         starts[i].record()
@@ -1774,6 +1807,7 @@ def latency_path(pipe, blocks, counters):
         wall.append((time.perf_counter() - t0) * 1e3)
         outs.append(out)
     launches = read(counters)
+    expect_replays("process_block", replays, blocks.shape[0])
     ev = [s.elapsed_time(e) for s, e in zip(starts, ends)]
     return launches, ev, wall, outs, st
 
@@ -2420,7 +2454,7 @@ def particle_paths(cfg5, x5_streams, counters, by_path):
     launches = read(counters)
     by_path["config5 particle scan process_blocks"] = launches
     expect_launches("config5 particle scan process_blocks", launches,
-                    {k: SCAN5P_BLOCKS for k in PARTICLE_STEP})
+                    {k: CAPTURE_LAUNCHES for k in PARTICLE_STEP})
     st_b, out_b = pipe.process_blocks(pipe.init_state(), head)
     compare_outs("config5 particle scan vs batched", out_s, out_b,
                  PARTICLE_TOL)
@@ -2438,7 +2472,7 @@ def particle_paths(cfg5, x5_streams, counters, by_path):
     launches, ev, lwall, outs, st_loop = latency_path(pipe, lat, counters)
     by_path["config5 particle process_block"] = launches
     expect_launches("config5 particle process_block", launches,
-                    {k: BLOCKS5 for k in PARTICLE_STEP})
+                    {k: CAPTURE_LAUNCHES for k in PARTICLE_STEP})
     check_finite("config5 particle process_block", outs, st_loop)
     stacked = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
     compare_outs("config5 particle process_block vs process_blocks",
@@ -2456,14 +2490,17 @@ def particle_paths(cfg5, x5_streams, counters, by_path):
                   statistics.median(ev))
     host_x = lat.permute(1, 0, 2).reshape(lat.shape[1], -1).cpu().numpy()
     reset(counters)
+    replays = graph_replays()
     t0 = time.perf_counter()
     st_run, out_run = pipe.run(host_x)
     run_s = time.perf_counter() - t0
     launches = read(counters)
     by_path["config5 particle run"] = launches
-    # run's own init_state draws on the card: one split, one uniform
-    expect_launches("config5 particle run", launches, {
-        **{k: BLOCKS5 for k in PARTICLE_STEP}, "split": 1, "uniform": 1})
+    # run's own init_state draws on the card: one split, one uniform; its
+    # block steps replay the graph latency_path captured
+    expect_launches("config5 particle run", launches,
+                    {"split": 1, "uniform": 1})
+    expect_replays("config5 particle run", replays, BLOCKS5)
     compare_outs("config5 particle run vs process_block",
                  {k: torch.from_numpy(v) for k, v in out_run.items()},
                  stacked, 1e-6)
@@ -2623,7 +2660,7 @@ def chain_path(name, pipe, blocks, src_deg, counters, by_path):
         o_b.append(o)
     by_path[f"{name} process_block"] = read(counters)
     expect_launches(f"{name} process_block", by_path[f"{name} process_block"],
-                    {k: 4 for k in step})
+                    {k: CAPTURE_LAUNCHES for k in step})
     compare_outs(f"{name} process_block vs process_blocks",
                  {k: torch.stack([o[k] for o in o_b]) for k in o_b[0]}, o_a,
                  5e-4, exact=("doa",))
@@ -2801,11 +2838,12 @@ def cli_path(repo, smi, counters, by_path):
             counters)
         by_path["cli config4"] = launches
         groups, tail = divmod(CLI_BLOCKS, CLI_GROUP)
+        cap = CAPTURE_LAUNCHES if tail else 0    # the tail's process_block
         expect_launches("cli config4", launches, {
             "stft_fused_from_blocks": groups, "block_prefixes_rows": groups,
             "weights_blocks_fused_rows": groups,
-            "srp_power_fused": groups + tail, "irdft_rows": groups + tail,
-            "stft_fused_planes": tail, "weights_blocks_fused": tail})
+            "srp_power_fused": groups + cap, "irdft_rows": groups + cap,
+            "stft_fused_planes": cap, "weights_blocks_fused": cap})
         csv_a = open(at("a.csv")).read()
         wav_a = open(at("a.wav"), "rb").read()
         recs = [json.loads(r) for r in open(at("a.jsonl"))]
@@ -3127,8 +3165,8 @@ def main() -> int:
                                                      counters)
     by_path["config4 process_block"] = launches
     expect_launches("config4 process_block", launches, {
-        k: LATENCY_BLOCKS for k in ("stft_fused_planes", "srp_power_fused",
-                                    "weights_blocks_fused", "irdft_rows")})
+        k: CAPTURE_LAUNCHES for k in ("stft_fused_planes", "srp_power_fused",
+                                      "weights_blocks_fused", "irdft_rows")})
     off = doa_error_deg(torch.stack([o["doa"] for o in outs]), SOURCE_DEG)
     if not np.all(off <= 2.0):
         raise AssertionError(f"process_block DOA off the source by up to "
@@ -3154,13 +3192,14 @@ def main() -> int:
                   statistics.median(ev))
     host_x = lat_blocks.permute(1, 0, 2).reshape(c, -1).cpu().numpy()
     reset(counters)
+    replays = graph_replays()
     t0 = time.perf_counter()
     st_run, out_run = pipe.run(host_x)
     run_s = time.perf_counter() - t0
     by_path["config4 run"] = read(counters)
-    expect_launches("config4 run", by_path["config4 run"], {
-        k: LATENCY_BLOCKS for k in ("stft_fused_planes", "srp_power_fused",
-                                    "weights_blocks_fused", "irdft_rows")})
+    # run's block steps replay the graph latency_path captured
+    expect_launches("config4 run", by_path["config4 run"], {})
+    expect_replays("config4 run", replays, LATENCY_BLOCKS)
     compare_outs("run vs process_block",
                  {k: torch.from_numpy(v) for k, v in out_run.items()},
                  stacked, 1e-6, exact=("doa", "doa_frame"))
@@ -3244,8 +3283,9 @@ def main() -> int:
         o_b.append(o)
     by_path["config1 process_block"] = read(counters)
     expect_launches("config1 process_block", by_path["config1 process_block"],
-                    {"stft_fused_planes": 4, "cps_phat_gather": 4,
-                     "irdft_rows": 4})
+                    {k: CAPTURE_LAUNCHES for k in (
+                        "stft_fused_planes", "cps_phat_gather",
+                        "irdft_rows")})
     # TDOA to the reference's own 1e-6; the DOA's arccos amplifies a TDOA
     # difference ~5000-fold at this baseline, and the peak is a sum of 257
     # products whose order may differ with the matmul's row count
@@ -3323,9 +3363,9 @@ def main() -> int:
     launches, ev5, lwall5, outs, st_loop = latency_path(pipe5, lat5, counters)
     by_path["config5 process_block"] = launches
     expect_launches("config5 process_block", launches, {
-        k: BLOCKS5 for k in ("stft_fused_planes", "srp_power_fused",
-                             "weights_blocks_fused", "irdft_rows",
-                             "track_scan")})
+        k: CAPTURE_LAUNCHES for k in ("stft_fused_planes", "srp_power_fused",
+                                      "weights_blocks_fused", "irdft_rows",
+                                      "track_scan")})
     check_finite("config5 process_block", outs, st_loop)
     st_b, out_b = pipe5.process_blocks(pipe5.init_state(), lat5)
     stacked = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
@@ -3347,14 +3387,14 @@ def main() -> int:
                   statistics.median(ev5))
     host_x = lat5.permute(1, 0, 2).reshape(lat5.shape[1], -1).cpu().numpy()
     reset(counters)
+    replays = graph_replays()
     t0 = time.perf_counter()
     st_run, out_run = pipe5.run(host_x)
     run_s = time.perf_counter() - t0
     by_path["config5 run"] = read(counters)
-    expect_launches("config5 run", by_path["config5 run"], {
-        k: BLOCKS5 for k in ("stft_fused_planes", "srp_power_fused",
-                             "weights_blocks_fused", "irdft_rows",
-                             "track_scan")})
+    # run's block steps replay the graph latency_path captured
+    expect_launches("config5 run", by_path["config5 run"], {})
+    expect_replays("config5 run", replays, BLOCKS5)
     compare_outs("config5 run vs process_block",
                  {k: torch.from_numpy(v) for k, v in out_run.items()},
                  stacked, 1e-6)
@@ -3429,7 +3469,8 @@ def main() -> int:
         o_b.append(o)
     by_path["config2 process_block"] = read(counters)
     expect_launches("config2 process_block", by_path["config2 process_block"],
-                    {"stft_fused_planes": 4, "irdft_rows": 4})
+                    {k: CAPTURE_LAUNCHES for k in ("stft_fused_planes",
+                                                   "irdft_rows")})
     compare_outs("config2 process_block vs process_blocks",
                  {k: torch.stack([o[k] for o in o_b]) for k in o_b[0]}, o_a,
                  2e-5)
@@ -3517,9 +3558,9 @@ def main() -> int:
                                                        counters)
     by_path["config4 matmul process_block"] = launches
     expect_launches("config4 matmul process_block", launches, {
-        k: LATENCY_BLOCKS for k in ("stft_fused_planes", "cps_phat_gather",
-                                    "srp_power_cps", "weights_blocks_fused",
-                                    "irdft_rows")})
+        k: CAPTURE_LAUNCHES for k in ("stft_fused_planes", "cps_phat_gather",
+                                      "srp_power_cps", "weights_blocks_fused",
+                                      "irdft_rows")})
     off = doa_error_deg(torch.stack([o["doa"] for o in outs4k]), SOURCE_DEG)
     if not np.all(off <= 2.0):
         raise AssertionError(f"srp=matmul process_block DOA off the source "
@@ -3557,9 +3598,8 @@ def main() -> int:
         pipe_s, stream_blocks, counters, SCAN_DISPATCHES, SCAN_BLOCKS)
     by_path["config4 scan process_blocks"] = launches
     expect_launches("config4 scan process_blocks", launches, {
-        k: SCAN_DISPATCHES * SCAN_BLOCKS
-        for k in ("stft_fused_planes", "srp_power_fused",
-                  "weights_blocks_fused", "irdft_rows")})
+        k: CAPTURE_LAUNCHES for k in ("stft_fused_planes", "srp_power_fused",
+                                      "weights_blocks_fused", "irdft_rows")})
     check_finite("config4 scan process_blocks", outs, sts)
     # the first dispatch's blocks are phase 4b's, from the same state
     compare_outs("scan process_blocks vs process_block", outs[0],

@@ -58,6 +58,10 @@ _PORTED_ALGOS = ("gcc", "delaysum", "srp", "srp_mvdr", "track_mvdr",
                  "srp_delaysum", "mvdr", "mask")
 SCAN_MODES = ("batched", "scan")
 
+# block steps served by replaying a captured CUDA graph (process_block on
+# the card, every call after a pipeline's first)
+GRAPH_REPLAYS = 0
+
 
 def check_scan_mode(scan_mode: str) -> str:
     if scan_mode not in SCAN_MODES:
@@ -75,6 +79,96 @@ def map_state(fn, state: PipelineState) -> PipelineState:
     if state.particles is not None:
         new["particles"] = particle.ParticleState(*map(fn, state.particles))
     return dataclasses.replace(state, **new)
+
+
+def state_leaves(state: PipelineState) -> list:
+    """Every tensor leaf of a state, in ``map_state``'s order."""
+    leaves = []
+    map_state(lambda x: leaves.append(x) or x, state)
+    return leaves
+
+
+def copy_leaves(dst: list, src: list) -> None:
+    """``dst[i].copy_(src[i])`` for each tensor, after checking that the two
+    lists hold as many tensors of the same shapes and dtypes (``copy_``
+    would broadcast or cast where the step would not)."""
+    if len(dst) != len(src):
+        raise ValueError(f"expected {len(dst)} tensors (the state's leaves "
+                         f"and the block), got {len(src)}: a state of "
+                         "another algo")
+    for d, s in zip(dst, src):
+        if d.shape != s.shape or d.dtype != s.dtype:
+            raise ValueError(f"expected a leaf {d.dtype} {list(d.shape)}, "
+                             f"got {s.dtype} {list(s.shape)}")
+    for d, s in zip(dst, src):
+        d.copy_(s)
+
+
+def _unbatched(new: PipelineState, out: Dict[str, torch.Tensor]):
+    """A step's result at S = 1 without its stream axis (views)."""
+    return (map_state(lambda x: x[0], new),
+            {k: v[0] for k, v in out.items()})
+
+
+def _owned(new: PipelineState, out: Dict[str, torch.Tensor]):
+    """Copies of a step's result."""
+    return map_state(torch.clone, new), {k: v.clone() for k, v in out.items()}
+
+
+class _StepGraph:
+    """``Pipeline._block_step`` at S = 1, captured as a CUDA graph.
+
+    The graph reads a static block [1, C, L] and a static state of [1, ...]
+    leaves (``inputs``: their [C, L] and [...] views) and writes its result
+    into buffers of its own memory pool.  A replay copies the caller's
+    block and state leaves in, launches the graph, and clones the outputs
+    and the new state out, so nothing a caller holds is written by a later
+    replay."""
+
+    def __init__(self, graph, inputs: list, result):
+        self.graph, self.inputs, self.result = graph, inputs, result
+
+    def replay(self, state: PipelineState, samples: torch.Tensor):
+        global GRAPH_REPLAYS
+        copy_leaves(self.inputs, state_leaves(state) + [samples])
+        with span("mcax_torch.graph_replay"):
+            self.graph.replay()
+        GRAPH_REPLAYS += 1
+        return _owned(*self.result)
+
+
+def _capture(pipe: "Pipeline", state: PipelineState, samples: torch.Tensor):
+    """(the ``_StepGraph`` of ``pipe``'s block step on buffers shaped as
+    ``state`` and ``samples`` [C, L], the step's result on them): one eager
+    run, which also makes cuBLAS's handles and workspaces and any lazy plan
+    outside the capture, then the capture, into a memory pool of the
+    graph's own.  ``capture_begin`` and ``capture_end`` rather than
+    ``torch.cuda.graph``, which empties the allocator's caches first: a
+    process that has run batched steps would give their memory back to the
+    driver and allocate it again."""
+    dev = pipe.device
+    static = map_state(lambda x: torch.empty_like(x[None]), state)
+    block = torch.empty((1, *samples.shape), dtype=torch.float32, device=dev)
+    inputs = [x[0] for x in state_leaves(static)] + [block[0]]
+    copy_leaves(inputs, state_leaves(state) + [samples])
+    main = torch.cuda.current_stream(dev)
+    side = torch.cuda.Stream(dev)     # the default stream cannot capture
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        eager = _unbatched(*pipe._block_step(static, block))
+    main.wait_stream(side)
+    first = _owned(*eager)
+    # the clones have read the eager run's buffers before they are freed
+    main.synchronize()
+    del eager
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        try:
+            result = _unbatched(*pipe._block_step(static, block))
+        finally:
+            graph.capture_end()
+    return _StepGraph(graph, inputs, result), first
 
 
 class Pipeline:
@@ -144,6 +238,7 @@ class Pipeline:
         self._ifft_op = (kfft.fft_operand(s.frame_len, self.win_s,
                                           self.device)
                          if algo in _SYNTH_ALGOS else None)
+        self._graph: Optional[_StepGraph] = None   # process_block's, on a card
 
     @property
     def frames_per_block(self) -> int:
@@ -201,19 +296,41 @@ class Pipeline:
         ``mcax`` (``doa`` [T] for srp, ``audio`` [T*hop] for srp_mvdr and
         delaysum, [S, T*hop] and ``doa``/``confidence`` [S] per source for
         track_mvdr, ``tdoa`` [P, T] for gcc, ...).  The multi-stream step at
-        S = 1."""
+        S = 1.
+
+        On a CUDA card the step is a CUDA graph.  The first call on a
+        pipeline runs the step eagerly (its answer) and captures it; every
+        later call copies ``samples`` (host or device) and the state's
+        leaves into the graph's input buffers, replays the graph (one
+        launch, counted in ``GRAPH_REPLAYS``, inside a
+        ``mcax_torch.graph_replay`` span) and returns copies of its outputs
+        and new state, which the caller owns: no later call writes them.
+        A state whose leaves differ in number, shape or dtype from the
+        first call's raises.  Every call of one pipeline shares those input
+        buffers, and a call's copies and replay are queued on torch's
+        current stream: issue one pipeline's calls from one thread on one
+        stream, or synchronise between calls made on different streams;
+        give each concurrent stream or thread a pipeline of its own.  The
+        first call costs an eager step, a capture and the graph's memory
+        pool, more than the eager step alone, so a pipeline that sees a
+        single block gains nothing.  On the CPU every call runs the step
+        eagerly."""
         with span("mcax_torch.process_block"):
-            samples = torch.as_tensor(samples, dtype=torch.float32,
-                                      device=self.device)
+            samples = torch.as_tensor(samples, dtype=torch.float32)
             expect = (self.geom.num_mics, self.cfg.block_len)
             if tuple(samples.shape) != expect:
                 raise ValueError(f"expected samples {list(expect)}, got "
                                  f"{list(samples.shape)} (mis-sized blocks "
                                  "would shift the stream)")
+            if self.device.type == "cuda":
+                if self._graph is None:
+                    self._graph, first = _capture(self, state, samples)
+                    return first
+                return self._graph.replay(state, samples)
             states = map_state(lambda x: x[None], state)
-            new, out = self._block_step(states, samples[None])
-            return (map_state(lambda x: x[0], new),
-                    {k: v[0] for k, v in out.items()})
+            new, out = self._block_step(states,
+                                        samples.to(self.device)[None])
+            return _unbatched(new, out)
 
     def process_streams(self, states: PipelineState, samples) -> Tuple[
             PipelineState, Dict[str, torch.Tensor]]:

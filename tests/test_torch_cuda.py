@@ -37,7 +37,10 @@ and 16, B = 1, 7 and 512 on ties, peaks at +-pi and unset tracks;
 bit-equal to the batched call; each once a config5 dispatch and a block
 step); each
 streaming entry point on the card against the CPU, config5's particle
-smoother on all of them;
+smoother on all of them; process_block's CUDA graph (the first call eager
+and captured, then replays) bit-equal to the eager step over 16 blocks on
+configs 1-5, the particle smoother and srp="matmul", its results the
+caller's (unchanged by later replays);
 ShardedPipeline on a 1 x 1 mesh against Pipeline; the halo ring (kernel
 11) in 2 and 4 processes sharing the one card through CUDA IPC, on the
 halo's strided slices and contiguous spills, against its plain ring over
@@ -708,6 +711,57 @@ def test_streaming_entry_points_card_vs_cpu(dev, name):
     assert torch.equal(res["cuda"][1], res["cpu"][1])
 
 
+GRAPH_BLOCKS = 16
+
+
+@pytest.mark.parametrize("name,srp,smoother", [
+    ("config1", "fused", "ema"), ("config2", "fused", "ema"),
+    ("config3", "fused", "ema"), ("config4", "fused", "ema"),
+    ("config4", "matmul", "ema"), ("config5", "fused", "ema"),
+    ("config5", "fused", "particle")])
+def test_process_block_graph_equals_eager(dev, name, srp, smoother):
+    """process_block on the card (the first call eager and captured, the
+    other 15 replays of the CUDA graph) against process_streams at S = 1
+    (the eager block step on the same shapes) over 16 consecutive blocks
+    of two sources: every output and every state leaf torch.equal, block
+    after block.  Block 4's state and outputs, held by the caller, are
+    unchanged by three more calls: the returned tensors are not the
+    graph's buffers."""
+    import dataclasses
+    from mcax_torch import pipeline as t_pipeline
+    from mcax_torch.config import get_config
+    from mcax_torch.pipeline import Pipeline, state_leaves
+    cfg = get_config(name)
+    cfg = dataclasses.replace(cfg, algo=dataclasses.replace(
+        cfg.algo, smoother=smoother))
+    geom, bl = cfg.geometry(), cfg.block_len
+    n = GRAPH_BLOCKS * bl
+    x = torch.from_numpy(_plane_wave(geom, np.deg2rad(35.0), n, 4)
+                         + _plane_wave(geom, np.deg2rad(-110.0), n, 5)
+                         ).to(dev)
+    pipe = Pipeline(cfg, device=dev, srp=srp)
+    st, sts = pipe.init_state(), pipe.init_states(1)
+    replays = t_pipeline.GRAPH_REPLAYS
+    for b in range(GRAPH_BLOCKS):
+        blk = x[:, b * bl:(b + 1) * bl]
+        st, out = pipe.process_block(st, blk)
+        sts, outs = pipe.process_streams(sts, blk[None])
+        assert sorted(out) == sorted(outs)
+        for k in out:
+            assert torch.equal(out[k], outs[k][0]), (b, k)
+        got, want = state_leaves(st), state_leaves(sts)
+        assert len(got) == len(want)
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert torch.equal(g, w[0]), (b, i)
+        if b == 4:
+            held = got + list(out.values())
+            copies = [v.clone() for v in held]
+        if b == 7:
+            for i, (h, c) in enumerate(zip(held, copies)):
+                assert torch.equal(h, c), i
+    assert t_pipeline.GRAPH_REPLAYS == replays + GRAPH_BLOCKS - 1
+
+
 @pytest.mark.parametrize("r,blocks", [(1, 512), (16, 1)])
 def test_particle_draws_bit_equal(dev, r, blocks):
     """config5's draws (S = 2, N = 256) of a B = 512 dispatch on one key and
@@ -951,10 +1005,12 @@ def test_track_scans_reject_shapes_past_their_limits(dev):
 
 @pytest.mark.parametrize("smoother", ["ema", "particle"])
 def test_track_scan_once_a_dispatch_and_a_block(dev, smoother):
-    """config5: one tracker launch a process_blocks dispatch (batched), a
-    block step, and a block of the scan mode; none of the other
+    """config5: one tracker launch a process_blocks dispatch (batched) and
+    an eager block step; a pipeline's first block step, eager and then
+    captured, launches twice, and its replays none; none of the other
     tracker's."""
     import dataclasses
+    from mcax_torch import pipeline as t_pipeline
     from mcax_torch.config import get_config
     from mcax_torch.kernels import track
     from mcax_torch.pipeline import Pipeline
@@ -966,15 +1022,21 @@ def test_track_scan_once_a_dispatch_and_a_block(dev, smoother):
     x = _plane_wave(cfg.geometry(), np.deg2rad(30.0), 4 * cfg.block_len, 3)
     blocks = torch.from_numpy(np.ascontiguousarray(
         x.reshape(x.shape[0], 4, -1).transpose(1, 0, 2))).to(dev)
-    for mode, want in (("batched", 1), ("scan", 4)):
+    # the scan mode's 4 block steps: the first runs eagerly and is captured
+    # (2 launches on the host), the other 3 replay the graph (none)
+    for mode, want, replays in (("batched", 1, 0), ("scan", 2, 3)):
         pipe = Pipeline(cfg, device=dev, scan_mode=mode)
-        counts = (fn.LAUNCHES, other.LAUNCHES)
+        counts = (fn.LAUNCHES, other.LAUNCHES, t_pipeline.GRAPH_REPLAYS)
         pipe.process_blocks(pipe.init_state(), blocks)
-        assert (fn.LAUNCHES - counts[0], other.LAUNCHES - counts[1]) == (
-            want, 0)
-    counts = (fn.LAUNCHES, other.LAUNCHES)
-    pipe.process_block(pipe.init_state(), blocks[0])
-    assert (fn.LAUNCHES - counts[0], other.LAUNCHES - counts[1]) == (1, 0)
+        assert (fn.LAUNCHES - counts[0], other.LAUNCHES - counts[1],
+                t_pipeline.GRAPH_REPLAYS - counts[2]) == (want, 0, replays)
+    # a new pipeline's first block step: eager and captured, then a replay
+    pipe = Pipeline(cfg, device=dev)
+    for want, replays in ((2, 0), (0, 1)):
+        counts = (fn.LAUNCHES, other.LAUNCHES, t_pipeline.GRAPH_REPLAYS)
+        pipe.process_block(pipe.init_state(), blocks[0])
+        assert (fn.LAUNCHES - counts[0], other.LAUNCHES - counts[1],
+                t_pipeline.GRAPH_REPLAYS - counts[2]) == (want, 0, replays)
 
 
 def test_particle_smoother_card_vs_cpu(dev):
@@ -1020,7 +1082,9 @@ def test_particle_smoother_card_vs_cpu(dev):
         launched = [c1 - c0 for c0, c1 in zip(counts, (
             threefry.particle_draws.LAUNCHES, threefry.split.LAUNCHES,
             threefry.uniform.LAUNCHES, threefry.normal.LAUNCHES))]
-        # draws: 2 blocks x 2 entry points, 1 batched, 2 scan; init: 4
+        # draws: 2 blocks x 2 entry points, 1 batched, 2 scan (on the card
+        # a pipeline's first process_block draws twice, eager and captured,
+        # and its replay draws on the card without a launch); init: 4
         # pipelines' init_state (init_states makes one)
         assert launched == ([7, 4, 4, 0] if d == "cuda" else [0, 0, 0, 0])
     for og, oc in zip(res["cuda"][0], res["cpu"][0]):
@@ -1120,6 +1184,8 @@ def test_sharded_one_by_one_equals_pipeline(dev, name):
     blocks = x[:, 2 * bl:].reshape(-1, 2, bl).transpose(0, 1)
     s1, o1 = pipe.process_blocks(s1, blocks)
     s2, o2 = sp.process_blocks(s2, blocks)
+    # pipe's first block step twice (eager, captured), its second a
+    # replay; sp's 2 steps; 1 dispatch each
     assert steer.srp_power_cps.LAUNCHES == before + 6
     o2 = sp.gather_outputs(o2)
     for k in o1:

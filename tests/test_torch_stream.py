@@ -1,6 +1,8 @@
 """The streaming entry points of the port against mcax's: ``process_block``
 and ``run`` (config4), a state handed across the packages mid-stream,
-``process_streams`` (config3 and config4), and the shape checks.
+``process_streams`` (config3 and config4), the shape checks, and the CUDA
+graph's copy-in of a state (``copy_leaves``; the graph itself runs only on
+the card: ``tests/test_torch_cuda.py``).
 
 Full config widths, a few blocks.  The reference runs with the suite's
 MCAX_BACKEND=xla (fp32 on the CPU); the port runs on device="cpu" (its
@@ -16,6 +18,7 @@ from mcax import config as m_config
 from mcax.pipeline import Pipeline as MPipeline
 from mcax.state import PipelineState as MState
 from mcax_torch import config as t_config
+from mcax_torch import pipeline as t_pipeline
 from mcax_torch.convert import FIELDS, state_from_numpy, state_to_numpy
 from mcax_torch.pipeline import Pipeline as TPipeline
 from tests import helpers
@@ -77,14 +80,17 @@ def c4():
 
 
 def test_config4_process_block_matches_mcax(c4):
+    """On the CPU every block runs the step eagerly: no graph replays."""
     pipe = TPipeline(t_config.get_config("config4"), device="cpu")
     st = pipe.init_state()
     bl = c4["bl"]
+    replays = t_pipeline.GRAPH_REPLAYS
     for b in range(NB):
         st, out = pipe.process_block(st, c4["x"][:, b * bl:(b + 1) * bl])
         _check_out(out, c4["outs"][b])
         _check_state(st, c4["states"][b])
     assert abs(np.rad2deg(float(out["doa"])) - SOURCE_DEG) < 2.0
+    assert t_pipeline.GRAPH_REPLAYS == replays and pipe._graph is None
 
 
 def test_config4_run_matches_mcax(c4):
@@ -222,6 +228,28 @@ def test_streaming_shape_errors(name):
                              np.zeros((c, bl), np.float32))
     with pytest.raises(ValueError, match="channels"):
         pipe.run(np.zeros((c + 1, bl), np.float32))
+
+
+@pytest.mark.parametrize("name", ["config1", "config4", "config5"])
+def test_copy_leaves_into_a_state_of_the_same_layout(name):
+    """The graph's copy-in (``copy_leaves``): a state's leaves copied into
+    buffers of the same layout; a leaf missing, or of another shape or
+    dtype, raises before anything is copied."""
+    pipe = TPipeline(t_config.get_config(name), device="cpu")
+    src = t_pipeline.state_leaves(pipe.init_state())
+    src = [(v + 1 if v.is_floating_point() else v + 3) for v in src]
+    dst = [torch.zeros_like(v) for v in src]
+    want = [v.clone() for v in dst]
+    bad = [src[:-1], [src[0][..., :-1]] + src[1:],
+           [src[0].double()] + src[1:]]
+    for leaves in bad:
+        with pytest.raises(ValueError, match="expected"):
+            t_pipeline.copy_leaves(dst, leaves)
+        for d, w in zip(dst, want):
+            assert torch.equal(d, w)
+    t_pipeline.copy_leaves(dst, src)
+    for d, v in zip(dst, src):
+        assert torch.equal(d, v)
 
 
 def test_state_conversion_of_streams_and_unused_fields():
