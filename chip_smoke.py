@@ -82,7 +82,15 @@ on the first that fails:
      plain block, a resample pick differing only within 4 ulp of a cumsum
      boundary; doa and confidence over the dispatch within 1e-4; B block
      calls bit-equal to the batched call), each timed beside its plain
-     version, its byte bound and its serial chain's floor;
+     version, its byte bound and its serial chain's floor; and kernels 2,
+     3, 4 and 6 at the ``locata_em32.bulk`` cell's shapes (em32's 32
+     capsules, B = 512, M = 12 288, F = 513, P = 496) on a scene of two
+     static sources: the fused SRP's grouped layout within 1e-4 of the
+     largest power of its plain version (computed a chunk of frames at a
+     time), the argmax losing at most 1e-4 of the peak, two calls
+     bit-equal; the covariance prefixes within 2e-4; both MVDR solve
+     layouts bit-equal (the rows at B = 512, the complex covariances of 16
+     streams); each timed;
   4. drive every ported path through the user's entry points, with every
      kernel's launch count set to 0 just before each path and read just
      after, on synthetic plane waves from seeded numpy generators:
@@ -181,6 +189,15 @@ on the first that fails:
           the two sources from block 4; the CLI's samples/s over its
           wall time and median ``latency_s`` beside ``process_blocks`` at
           B = 32 on the same blocks;
+       q. LOCATA's em32 (``benchmark/configs/locata_em32.json``: 32
+          capsules, config5's chain at 48 kHz) on phase 3's scene of two
+          static sources at -60 and 60 degrees, tiled: ``process_blocks``
+          at B = 512 (the fused SRP's grouped layout, counted in
+          ``srp_power_fused.LAUNCHES_GROUPED``, and its other kernels once
+          per dispatch, the other layout never; tracks within 5 degrees
+          after block 4; samples/s, a profile) and ``process_block`` over
+          8 blocks (the warm-up captures, the rest replay; equal to
+          ``process_blocks``);
   5. run each path on the card and on the CPU (the plain versions) on a
      small input and hold them to the slice's parity bounds (config4
      ``process_blocks`` on the main path's first 4 blocks, the other paths
@@ -272,6 +289,13 @@ CLI_PEAK = 0.9          # the WAVs' peak level (full scale 1)
 CLI_THROTTLE_S = 3.0    # the killed run's sleep after each group
 CLI5_BLOCKS = 16
 CLI5_FROM_BLOCK = 4
+# LOCATA's em32 (phase 4q): batched dispatches of BLOCKS blocks (1 warm-up
+# + 2 timed, each made as its own scene), process_block's blocks, and the
+# frames a chunk of the plain fused SRP (its CPS [M, P, F] is 25 GB at a
+# whole dispatch)
+EM32_DISPATCHES = 3
+EM32_BLOCKS = 8
+EM32_PLAIN_FRAMES = 1024
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, full power limit):
 # fp32 on the CUDA cores and memory bandwidth.
@@ -1154,34 +1178,36 @@ def check_steer_kernel(pipe_m, spec4, peaks):
     return {"srp_power_cps": rec}
 
 
-def check_mvdr_c16(pipe5, blocks5, x5_streams, recs, peaks):
-    """Phase 3, kernels 4 and 6 at C = 16 on config5's shapes (the rows
-    layout from config5's covariance prefixes at B = 512, the complex
-    layout from S = 16 streams' covariances), two sources each: bit-equal
-    to their plain versions.  Adds an ``at_c16`` record to each."""
+def check_mvdr_wide(pipe, blocks, x_streams, sources_deg, recs, peaks):
+    """Phase 3, kernels 4 and 6 past C = 8, on the shapes of a pipeline of
+    two sources (config5's C = 16, em32's C = 32): the rows layout from its
+    covariance prefixes over ``blocks`` (B = 512), the complex layout from
+    S = 16 streams' covariances after their second block, each bit-equal
+    to its plain version.  Adds an ``at_c<C>`` record to each."""
     import torch
     from mcax_torch.algos import covariance as cov_mod
     from mcax_torch.algos import srp
     from mcax_torch.kernels import covprefix, mvdrsolve, stft_fused
-    cfg = pipe5.cfg
+    cfg = pipe.cfg
     hop, t, f = cfg.stft.hop, cfg.frames_per_block, cfg.stft.num_bins
-    b, c, bl = blocks5.shape
+    b, c, bl = blocks.shape
+    at = f"at_c{c}"
     lam, delta = cfg.algo.cov_forget, cfg.algo.diag_load
     grid = torch.tensor([int(np.argmin(np.abs(
-        (np.rad2deg(pipe5.srp_plan.azimuths_rad) - a + 180.0) % 360.0
-        - 180.0))) for a in SOURCES5_DEG], device=blocks5.device)
+        (np.rad2deg(pipe.srp_plan.azimuths_rad) - a + 180.0) % 360.0
+        - 180.0))) for a in sources_deg], device=blocks.device)
 
     def record(name, fn, plain, args, nb, steer, library=None):
         w = fn(*args)
         want = plain(*args)
         torch.cuda.synchronize()
         if not torch.equal(w, want):
-            raise AssertionError(f"{name} at C = 16: not bit-equal to its "
+            raise AssertionError(f"{name} at C = {c}: not bit-equal to its "
                                  "plain version (max abs err "
                                  f"{(w - want).abs().max().item():.3e})")
-        check_mvdr(f"{name} at C = 16", w, want, steer)
+        check_mvdr(f"{name} at C = {c}", w, want, steer)
         bound = mvdr_bound(nb, f, c, steer.numel(), peaks)
-        recs[name]["at_c16"] = dict(
+        recs[name][at] = dict(
             shape=list(steer.shape), max_abs_err=0.0,
             ms=time_ms(lambda: fn(*args)),
             plain_ms=time_ms(lambda: plain(*args), reps=3),
@@ -1189,30 +1215,31 @@ def check_mvdr_c16(pipe5, blocks5, x5_streams, recs, peaks):
             bound_ms=bound[0], bound_by=bound[1])
 
     spec, _ = stft_fused.stft_fused_from_blocks(
-        blocks5, torch.zeros((c, hop), device=blocks5.device), pipe5._w2,
-        pipe5._fft_op, hop)
-    cov0 = cov_mod.from_planes(pipe5.init_state().cov)
+        blocks, torch.zeros((c, hop), device=blocks.device), pipe._w2,
+        pipe._fft_op, hop)
+    cov0 = cov_mod.from_planes(pipe.init_state().cov)
     rows = covprefix.block_prefixes_rows(spec, cov0, lam, t)
-    steer = srp.steering_vector(pipe5.plan, grid.expand(b, 2))
+    del spec
+    steer = srp.steering_vector(pipe.plan, grid.expand(b, 2))
     loaded = cov_mod.loaded(covprefix.rows_to_complex(rows), delta)
     d = steer.permute(0, 3, 2, 1)                          # [B, F, C, 2]
     record("mvdr_solve_rows", mvdrsolve.weights_blocks_fused_rows,
            mvdrsolve.weights_blocks_fused_rows_plain, (rows, steer, delta),
            b, steer, library=lambda: torch.linalg.solve(loaded, d))
-    del loaded, d
-    print(f"kernel mvdr_solve_rows at C = 16 on the group body (rows "
-          f"loader): {recs['mvdr_solve_rows']['at_c16']['ms']:.4f} ms a "
-          "call; the one-thread body it replaced took 0.673 ms there "
-          "(PERF.md, not this run)")
+    del loaded, d, rows
+    print(f"kernel mvdr_solve_rows at C = {c} on the group body (rows "
+          f"loader): {recs['mvdr_solve_rows'][at]['ms']:.4f} ms a call"
+          + ("; the one-thread body it replaced took 0.673 ms there "
+             "(PERF.md, not this run)" if c == 16 else ""))
 
-    s_ = x5_streams.shape[0]
-    x = torch.cat([x5_streams[:, :, bl - hop:bl], x5_streams[:, :, bl:2 * bl]],
+    s_ = x_streams.shape[0]
+    x = torch.cat([x_streams[:, :, bl - hop:bl], x_streams[:, :, bl:2 * bl]],
                   dim=-1).transpose(0, 1).contiguous()    # [C, S, N]
-    spectra = stft_fused.stft_fused_planes(x, pipe5._w2, pipe5._fft_op,
+    spectra = stft_fused.stft_fused_planes(x, pipe._w2, pipe._fft_op,
                                            hop).transpose(0, 1)
-    covs = cov_mod.update(cov_mod.from_planes(pipe5.init_states(s_).cov),
+    covs = cov_mod.update(cov_mod.from_planes(pipe.init_states(s_).cov),
                           spectra, lam).contiguous()
-    steer = srp.steering_vector(pipe5.plan, grid.expand(s_, 2))
+    steer = srp.steering_vector(pipe.plan, grid.expand(s_, 2))
     loaded = cov_mod.loaded(covs, delta)
     d = steer.permute(0, 3, 2, 1)                          # [S, F, C, 2]
     record("mvdr_solve_complex", mvdrsolve.weights_blocks_fused,
@@ -1586,12 +1613,12 @@ def track_error_deg(doa_rad, sources_deg):
 
 
 def reset(counters):
-    for fn in counters:
-        fn.LAUNCHES = 0
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
 
 
 def read(counters):
-    return {fn.__name__: fn.LAUNCHES for fn in counters}
+    return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
 
 
 def expect_launches(path, launches, want):
@@ -2793,6 +2820,207 @@ def cli_tracks(path, sources_deg, from_block):
     return float(np.minimum(one, two).max()), len(doa)
 
 
+def em32_pipeline(repo, dev):
+    """Phase 4q's pipeline: LOCATA's em32 as the benchmark's configuration
+    file holds it (``benchmark/configs/locata_em32.json``, its ``run``
+    block: the fused SRP, the batched mode), on ``dev``."""
+    bench = str(repo / "benchmark")
+    if bench not in sys.path:
+        sys.path.insert(0, bench)
+    from harness import program
+    return program.pipeline(json.loads(
+        (repo / "benchmark" / "configs" / "locata_em32.json").read_text()),
+        dev)
+
+
+def em32_scene(pipe, dev):
+    """[BLOCKS, 32, L] blocks of the two static sources of SOURCES5_DEG on
+    the em32, and [STREAMS5, 32, 2 L] streams of two sources each (the
+    azimuth pairs of config5's streams).  ``plane_waves`` delays by a
+    circular FFT, so the blocks are periodic: tiled, they stay a continuous
+    scene."""
+    bl = pipe.cfg.block_len
+    blocks = to_blocks(plane_waves(pipe.geom, SOURCES5_DEG, BLOCKS * bl,
+                                   SEED + 18, dev).sum(0), bl)
+    az = [a for i in range(STREAMS5)
+          for a in (-150.0 + 18.75 * i,
+                    (-150.0 + 18.75 * i + 110.0 + 180.0) % 360.0 - 180.0)]
+    streams = plane_waves(pipe.geom, az, 2 * bl, SEED + 19, dev)
+    return blocks, streams.view(STREAMS5, 2, *streams.shape[1:]).sum(1)
+
+
+def check_em32_kernels(pipe, blocks, x_streams, recs, peaks):
+    """Phase 4q, the kernels at the ``locata_em32.bulk`` cell's shapes (C =
+    32, B = 512, M = 12 288, F = 513, P = 496): the fused SRP's grouped
+    layout against its plain version (computed EM32_PLAIN_FRAMES frames at
+    a time) within 1e-4 of the largest power, the argmax losing at most
+    1e-4 of the peak, two calls bit-equal, counted in
+    ``LAUNCHES_GROUPED``; the covariance prefixes within 2e-4 and two calls
+    bit-equal; both MVDR solve layouts bit-equal (``check_mvdr_wide``);
+    each timed.  Adds the record ``srp_fused_grouped`` and ``at_c32``
+    records to ``cov_prefixes``, ``mvdr_solve_rows`` and
+    ``mvdr_solve_complex``."""
+    import torch
+    from mcax_torch.algos import covariance as cov_mod
+    from mcax_torch.kernels import covprefix, srp_fused, stft_fused
+    cfg = pipe.cfg
+    hop, t, f = cfg.stft.hop, cfg.frames_per_block, cfg.stft.num_bins
+    b, c, _ = blocks.shape
+    m = b * t
+    dev = blocks.device
+    spec, _ = stft_fused.stft_fused_from_blocks(
+        blocks, torch.zeros((c, hop), device=dev), pipe._w2, pipe._fft_op,
+        hop)
+    plan = pipe.plan
+    p, g = plan.tau_pg.shape
+    eps = cfg.algo.phat_eps
+    args = (spec, plan.pairs, plan.tau_pg, plan.omega, eps, plan.valid)
+
+    def fused():
+        return srp_fused.srp_power_fused(*args, plan.omega_step)
+
+    def plain():
+        return torch.cat([srp_fused.srp_power_fused_plain(
+            spec[:, r:r + EM32_PLAIN_FRAMES].contiguous(), *args[1:])
+            for r in range(0, m, EM32_PLAIN_FRAMES)])
+
+    before = (srp_fused.srp_power_fused.LAUNCHES,
+              srp_fused.srp_power_fused.LAUNCHES_GROUPED)
+    power, again = fused(), fused()
+    if (srp_fused.srp_power_fused.LAUNCHES,
+            srp_fused.srp_power_fused.LAUNCHES_GROUPED) != (before[0],
+                                                            before[1] + 2):
+        raise AssertionError("srp_fused at C = 32: two calls did not launch "
+                             "the grouped layout twice and the other never")
+    want = plain()
+    torch.cuda.synchronize()
+    if not torch.equal(power, again):
+        raise AssertionError("srp_fused_grouped: two calls on the same "
+                             "inputs differ")
+    scale = want.abs().max().item()
+    err = (power - want).abs().max().item()
+    if not err / scale <= 1e-4:
+        raise AssertionError(f"srp_fused_grouped: scaled error "
+                             f"{err / scale:.3e} > 1e-4")
+    rows_i = torch.arange(m, device=dev)
+    loss = (want[rows_i, want.argmax(-1)]
+            - want[rows_i, power.argmax(-1)]).max().item()
+    if not loss <= 1e-4 * scale:
+        raise AssertionError(f"srp_fused_grouped: argmax loses {loss:.3e} "
+                             f"of peak power (> 1e-4 * {scale:.3e})")
+    del power, again, want
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits, per = srp_fused.split_plan(m, f, p, g, c, sms)
+    slices = -(-f // srp_fused.KB) * p
+    recs["srp_fused_grouped"] = dict(
+        route="cuda",
+        source="mcax_torch/csrc/srp_fused.cu (srp_fused_kernel_grouped)",
+        replaces="mcax/kernels/srp_fused.py:293", max_abs_err=err,
+        scaled_err=err / scale, shape=[c, m, f, p, g],
+        ms=time_ms(fused), plain_ms=time_ms(plain, reps=1),
+        library_ms=None,
+        library_call="none: the materialised chain (srp='matmul') would "
+                     "hold a 25 GB CPS at these shapes",
+        bound=bound_ms(4.0 * m * p * f * g,
+                       8.0 * c * m * f + 4.0 * m * g + 4.0 * p * (g + 3)
+                       + 4.0 * f, peaks),
+        design_bound=(3 * 4.0 * m * p * f * g / TF32_PEAK * 1e3,
+                      "3xTF32 operations"),
+        design=f"em32 B = {b}: two groups of {srp_fused.GROUP} channels "
+               f"staged, pairs in group-pair order; split-K S = {splits} "
+               f"(runs of {per} of {slices} slices), "
+               f"{-(-m // srp_fused.BM) * -(-g // srp_fused.BN) * splits} "
+               f"blocks, {srp_fused.blocks_per_sm(c)} an SM")
+
+    cov0 = cov_mod.from_planes(pipe.init_state().cov)
+    lam = cfg.algo.cov_forget
+    _, err = check_cov_prefixes(f"em32 B = {b}", spec, cov0, lam, t)
+    bound = cov_prefix_bound(c, b, t, f, peaks)
+    rec = recs["cov_prefixes"]
+    rec["at_c32"] = dict(
+        shape=[c, b, t, f], max_abs_err=err,
+        ms=time_ms(lambda: covprefix.block_prefixes_rows(spec, cov0, lam, t)),
+        plain_ms=time_ms(lambda: covprefix.block_prefixes_rows_plain(
+            spec, cov0, lam, t), reps=1),
+        library_ms=None, bound_ms=bound[0], bound_by=bound[1])
+    rec["design"] += "; " + cov_prefix_plan(c, b, t, f, dev)
+    del spec
+    check_mvdr_wide(pipe, blocks, x_streams, SOURCES5_DEG, recs, peaks)
+    g_rec = recs["srp_fused_grouped"]
+    print(f"kernels at em32 B = {b} (C = {c}, P = {p}): srp_fused_grouped "
+          f"{g_rec['ms']:.3f} ms (scaled error {g_rec['scaled_err']:.3e}, "
+          f"plain {g_rec['plain_ms']:.1f} ms), cov_prefixes "
+          f"{rec['at_c32']['ms']:.3f} ms, mvdr_solve_rows "
+          f"{recs['mvdr_solve_rows']['at_c32']['ms']:.4f} ms, "
+          f"mvdr_solve_complex (S = {STREAMS5}) "
+          f"{recs['mvdr_solve_complex']['at_c32']['ms']:.4f} ms; within "
+          "1e-4 / 2e-4 / bit-equal / bit-equal of their plain versions")
+
+
+EM32_BULK = ("stft_fused_from_blocks", "srp_power_fused_grouped",
+             "block_prefixes_rows", "weights_blocks_fused_rows",
+             "irdft_rows", "track_scan")
+EM32_STEP = ("stft_fused_planes", "srp_power_fused_grouped",
+             "weights_blocks_fused", "irdft_rows", "track_scan")
+
+
+def em32_paths(pipe, blocks, counters, by_path):
+    """Phase 4q, the em32's entry points on the tiled scene: ``process_blocks``
+    over EM32_DISPATCHES dispatches of BLOCKS blocks (each kernel of
+    EM32_BULK once a dispatch, the grouped SRP counted apart and the other
+    layout never; tracks within 5 degrees of the sources after block 4;
+    samples/s and a profile), then ``process_block`` over EM32_BLOCKS
+    blocks (the warm-up captures, the rest replay) held to
+    ``process_blocks`` on the same blocks."""
+    import torch
+    bl = pipe.cfg.block_len
+    tiled = blocks.repeat(EM32_DISPATCHES, 1, 1)
+    launches, ms, win, outs, st = drive_batched(pipe, tiled, counters,
+                                                EM32_DISPATCHES)
+    del tiled
+    by_path["locata_em32 process_blocks"] = launches
+    expect_launches("locata_em32 process_blocks", launches,
+                    {k: EM32_DISPATCHES for k in EM32_BULK})
+    doa = torch.cat([o["doa"] for o in outs])              # [D*B, 2]
+    off = track_error_deg(doa[4:], SOURCES5_DEG)
+    if not np.all(off <= 5.0):
+        raise AssertionError(f"locata_em32 tracks off the sources by up to "
+                             f"{off.max():.2f} deg after block 4")
+    check_finite("locata_em32 process_blocks", outs, st)
+    if tuple(outs[0]["audio"].shape) != (BLOCKS, 2, bl):
+        raise AssertionError(f"locata_em32 audio "
+                             f"{list(outs[0]['audio'].shape)}")
+    print(rate_line(f"locata_em32 process_blocks, B = {BLOCKS}", ms, win,
+                    BLOCKS * bl)
+          + f"; launches {launches}; tracks within {off.max():.2f} deg of "
+          f"{list(SOURCES5_DEG)} after block 4")
+    del outs
+    print_profile("one locata_em32 process_blocks dispatch (B = 512)",
+                  profile(lambda: pipe.process_blocks(pipe.init_state(),
+                                                      blocks)),
+                  statistics.median(ms))
+
+    lat = blocks[:EM32_BLOCKS]
+    launches, ev, wall, outs, st_loop = latency_path(pipe, lat, counters)
+    by_path["locata_em32 process_block"] = launches
+    expect_launches("locata_em32 process_block", launches,
+                    {k: CAPTURE_LAUNCHES for k in EM32_STEP})
+    check_finite("locata_em32 process_block", outs, st_loop)
+    st_b, out_b = pipe.process_blocks(pipe.init_state(), lat)
+    stacked = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+    compare_outs("locata_em32 process_block vs process_blocks", stacked,
+                 out_b, {"audio": 5e-4, "doa": 1e-5, "confidence": 1e-4})
+    compare_states("locata_em32 process_block vs process_blocks", st_loop,
+                   st_b, cov_scaled=True)
+    print(f"locata_em32 process_block, {EM32_BLOCKS} blocks with the state "
+          f"carried: launches {launches}; latency per block (CUDA events) "
+          f"ms median {statistics.median(ev):.4f}, max {max(ev):.4f}; host "
+          f"wall per block after synchronize ms median "
+          f"{statistics.median(wall):.4f}; equal to process_blocks on the "
+          "same blocks (audio 5e-4, tracks 1e-5, carry bit-equal, cov 1e-6 "
+          "of scale)")
+
+
 def cli_path(repo, smi, counters, by_path):
     """Phase 4p: the CLI on the card, in process and as a child process."""
     import json
@@ -3084,11 +3312,17 @@ def main() -> int:
         pipe, pipe_m, spec4, pipe5, blocks5, pipe3h, blocks3), PEAKS)
     del spec4
     for name, lines in kernel_registers(
-            ("srp_fused_kernel", "irfft_rows_kernel", "cov_partials_kernel",
+            ("srp_fused_kernel_grouped", "srp_fused_kernel",
+             "irfft_rows_kernel", "cov_partials_kernel",
              "cov_carries_kernel", "cov_fixup_kernel", "mvdr_solve_kernel",
              "mvdr_group_kernel", "cps_gather_kernel")).items():
         print(f"nvcc.log, {name}: " + " | ".join(lines))
-    check_mvdr_c16(pipe5, blocks5[:BLOCKS], x5_streams, recs, PEAKS)
+    check_mvdr_wide(pipe5, blocks5[:BLOCKS], x5_streams, SOURCES5_DEG, recs,
+                    PEAKS)
+    pipe_e = em32_pipeline(repo, dev)
+    blocks_e, streams_e = em32_scene(pipe_e, dev)
+    check_em32_kernels(pipe_e, blocks_e, streams_e, recs, PEAKS)
+    del streams_e
     recs.update(check_particle_draws(PEAKS))
     recs.update(check_track_kernels(pipe5, blocks5[:BLOCKS], PEAKS))
     ring_recs, ring_paths = check_ring_kernel(repo, PEAKS)
@@ -3121,6 +3355,7 @@ def main() -> int:
     counters = launch_counters()
     kernel_of = {"stft_from_blocks": "stft_fused_from_blocks",
                  "srp_fused": "srp_power_fused",
+                 "srp_fused_grouped": "srp_power_fused_grouped",
                  "cov_prefixes": "block_prefixes_rows",
                  "mvdr_solve_rows": "weights_blocks_fused_rows",
                  "stft_planes": "stft_fused_planes",
@@ -3632,6 +3867,10 @@ def main() -> int:
 
     # -- phase 4p: the CLI on the card ---------------------------------------
     cli_path(repo, smi, counters, by_path)
+
+    # -- phase 4q: LOCATA's em32 ---------------------------------------------
+    em32_paths(pipe_e, blocks_e, counters, by_path)
+    del blocks_e
 
     # -- phase 5: the card against the CPU on small inputs -----------------
     x_small = {

@@ -135,10 +135,14 @@ def device_plan(plan: SrpPlan, pairs: np.ndarray, device: torch.device,
     def put(a, dtype):
         return torch.as_tensor(np.ascontiguousarray(a)).to(device, dtype)
 
+    # the fused kernel's order of the pairs (grouped past 25 channels); the
+    # surface sums over them in any order
+    order = (srp_fused.pair_order(pairs, num_mics)
+             if check_method(method) == "fused" else np.arange(len(pairs)))
     return DevicePlan(
-        pairs=put(pairs, torch.int32),
+        pairs=put(pairs[order], torch.int32),
         valid=torch.ones(pairs.shape[0], dtype=torch.int32, device=device),
-        tau_pg=put(plan.tau_pg, torch.float32),
+        tau_pg=put(plan.tau_pg[order], torch.float32),
         omega=put(plan.omega, torch.float32),
         steer=torch.complex(put(plan.steer_re, torch.float32),
                             put(plan.steer_im, torch.float32)),
@@ -155,10 +159,11 @@ def device_plan(plan: SrpPlan, pairs: np.ndarray, device: torch.device,
 
 def pair_shard(dplan: DevicePlan, plan: SrpPlan, method: str, shards: int,
                index: int) -> DevicePlan:
-    """Shard ``index`` of ``shards``' slice of the pair axis: the pairs are
-    padded to a multiple of ``shards`` with pairs (0, 0) that carry zero
-    steering (``valid`` 0, zero TDOA and zero B' rows), so their power is
-    0 under either kernel.  One shard holds every pair, unpadded."""
+    """Shard ``index`` of ``shards``' slice of the pair axis (of the
+    plan's pairs, in its order): the pairs are padded to a multiple of
+    ``shards`` with pairs (0, 0) that carry zero steering (``valid`` 0,
+    zero TDOA and zero B' rows), so their power is 0 under either kernel.
+    One shard holds every pair, unpadded."""
     p, g = plan.tau_pg.shape
     f = plan.omega.shape[0]
     pl = -(-p // shards)
@@ -171,6 +176,7 @@ def pair_shard(dplan: DevicePlan, plan: SrpPlan, method: str, shards: int,
         return out[sl]
 
     pairs = padded(dplan.pairs.cpu().numpy())
+    tau_pg = padded(dplan.tau_pg.cpu().numpy())
     b2 = None
     if check_method(method) == "matmul":
         e_re = padded(plan.e_re.reshape(p, f, g)).reshape(pl * f, g)
@@ -179,7 +185,7 @@ def pair_shard(dplan: DevicePlan, plan: SrpPlan, method: str, shards: int,
     return dataclasses.replace(
         dplan, pairs=torch.from_numpy(pairs).to(dev),
         valid=torch.from_numpy(padded(np.ones(p, np.int32))).to(dev),
-        tau_pg=torch.from_numpy(padded(plan.tau_pg)).to(dev), b2=b2)
+        tau_pg=torch.from_numpy(tau_pg).to(dev), b2=b2)
 
 
 def srp_surface(spectra: torch.Tensor, plan: DevicePlan,

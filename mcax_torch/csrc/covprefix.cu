@@ -286,11 +286,13 @@ int layout(int C, int T, int* out) {
   return (int)e;
 }
 
-// The instantiation for C channels: exact at 8 and 16, else the smallest
+// The instantiation for C channels: exact at 8, 16 and 32 (em32's 32
+// capsules: 8.17 against 12.58 ms at B = 512, bit-equal), else the smallest
 // KC >= C with C at run time.
 #define MCAX_COV_DISPATCH(fn, ...)                          \
   (C == 8    ? fn<8, 8>(__VA_ARGS__)                        \
    : C == 16 ? fn<16, 16>(__VA_ARGS__)                      \
+   : C == 32 ? fn<32, 32>(__VA_ARGS__)                      \
    : C < 8   ? fn<8, 0>(__VA_ARGS__)                        \
    : C < 16  ? fn<16, 0>(__VA_ARGS__)                       \
              : fn<32, 0>(__VA_ARGS__))

@@ -30,26 +30,29 @@
 //     from the rows layout, consecutive threads on consecutive bins so every
 //     rows read and weight write is coalesced, the thread's working set in
 //     registers, the loops unrolled, 128 threads a block.
-//   * mvdr_group_kernel (kernel 6, and kernel 4 at C = 16): a group of C
-//     lanes per (block, bin), lane i holding row i of the lower triangle in
-//     registers (2C floats), 32/C systems a warp, 128 threads a block.  A
+//   * mvdr_group_kernel (kernel 6, and kernel 4 at C = 16 and 32): a group
+//     of C lanes per (block, bin), lane i holding row i of the lower
+//     triangle in registers (2C floats), 32/C systems a warp (one at C =
+//     32), 128 threads a block.  A
 //     loader, a template parameter, gives each lane its row:
 //       - ComplexRows (kernel 6): the group's C x C matrix is C^2
 //         contiguous float2, so a warp stages its systems with 16-byte
 //         coalesced loads through shared memory (rows padded to 2C+2
 //         floats: conflict-free 8-byte reads) before each lane takes its
 //         row; a block is one pass of 128/C systems.
-//       - RowsLoader (kernel 4 at C = 16): a block takes a run of 32
-//         consecutive systems s = b*F + f (a run may cross from block b to
-//         b+1) and stages the C^2 rows the solve reads (real (i, k), k <= i,
-//         and imaginary (i, k), k < i) of those systems with 4-byte cp.async
-//         copies, one warp-wide 128-byte read of a row's 32 bins at a time
-//         (zero past the last system); 32 KB at C = 16.  The rows sit in
-//         shared memory column by column of the triangle, a row's 32
-//         systems XOR-swizzled by (slot * 32/C) mod 32, so both the staging
-//         (one slot, 32 systems) and the lanes' reads (one k, the C rows of
-//         a column, 32/C systems) are conflict-free.  The block then runs
-//         the body in 32 / (128/C) passes over the run.
+//       - RowsLoader (kernel 4 at C = 16 and 32): a block takes a run of
+//         Run consecutive systems s = b*F + f (a run may cross from block
+//         b to b+1) and stages the C^2 rows the solve reads (real (i, k),
+//         k <= i, and imaginary (i, k), k < i) of those systems with
+//         4-byte cp.async copies (zero past the last system).  Run is 32
+//         at C = 16 (32 KB: a warp-wide 128-byte read of a row's 32 bins at
+//         a time); at C = 32 a run of 32 would be 128 KB and one block (4
+//         warps) an SM, so it is RUN32 = 8 systems (32 KB).  The rows sit
+//         in shared memory column by column of the triangle, a row's run
+//         XOR-swizzled by slot, so both the staging and the lanes' reads
+//         (one k, the C rows of a column, 32/C systems) are
+//         conflict-free.  The block then runs the body in Run / (128/C)
+//         passes over the run.
 //     The trace is gathered by __shfl_sync in the order j = 0..C-1.  For
 //     column j, lane j makes the pivot and its reciprocal and broadcasts
 //     it, lanes i > j scale L[i,j], and each lane i updates its own R[i,k],
@@ -259,28 +262,35 @@ struct ComplexRows {
 };
 
 // The loader of the covariance-prefix rows [B, 2C^2, F]: a block takes a
-// run of kSystems = 32 consecutive systems s = b*F + f.  ``stage`` copies
-// the C^2 rows the solve reads into shared memory, one slot a row: real
-// (i, k), k <= i, in slots 0..kTri-1 and imaginary (i, k), k < i, after
-// them, each part column by column of the triangle.  Warp w takes the
-// slots w, w+4, ... of each part, lane j system run0 + j: 4-byte cp.async
-// copies, one 128-byte read of a row's run per warp instruction (a run
-// that crosses a block reads two pieces), zero past the last system.
-// System j of slot t sits at t*32 + (j ^ swz(t)), swz(t) = (t*32/C) mod 32:
-// the staging writes one slot's 32 systems (a permutation of the banks),
-// and a lanes' read takes, for one k, the consecutive slots of a column
-// (distinct multiples of 32/C) for the warp's 32/C systems (j differing
-// below 32/C): both conflict-free.
-template <int C>
+// run of kSystems = Run consecutive systems s = b*F + f (32; RUN32 at C =
+// 32).  ``stage`` copies the C^2 rows the solve reads into shared
+// memory, one slot a row: real (i, k), k <= i, in slots 0..kTri-1 and
+// imaginary (i, k), k < i, after them, each part column by column of the
+// triangle.  Thread t takes system j = t % Run of the slots t / Run,
+// t / Run + kStep, ... (kStep = 128 / Run) of each part: 4-byte cp.async
+// copies, so a warp instruction copies 32/Run slots' runs (at Run = 32 one
+// 128-byte read of a row's run; a run that crosses a block reads two
+// pieces), zero past the last system.  System j of slot t sits at t*Run +
+// (j ^ swz(t)), swz(t) = ((t*32/C) / (32/Run)) mod Run: the staging writes
+// 32/Run consecutive slots' runs (32 consecutive words, the runs permuted
+// within), and a lanes' read takes, for one k, the consecutive slots of a
+// column for the warp's 32/C systems (j differing below 32/C): both
+// conflict-free at Run = 32 (C = 8, 16, 32) and at Run = 8 or 16 (C = 32,
+// one system a warp: t mod 32 -> bank is one to one).
+template <int C, int Run = 32>
 struct RowsLoader {
-  static constexpr int kSystems = 32;
+  static_assert(Run == 32 || (C == 32 && (Run == 8 || Run == 16)),
+                "runs of 32 systems, or of 8 or 16 at C = 32");
+  static constexpr int kSystems = Run;
+  static constexpr int kStep = GROUP_THREADS / Run;
   static constexpr int kTri = C * (C + 1) / 2;
   static constexpr int kSmemFloats = C * C * kSystems;
   const float* rows;
   long long systems;
   int F;
   __device__ static int at(int slot, int j) {
-    return slot * kSystems + (j ^ ((slot * (32 / C)) & 31));
+    return slot * kSystems +
+           (j ^ (((slot * (32 / C)) / (32 / Run)) & (kSystems - 1)));
   }
   __device__ static int re_slot(int i, int k) {
     return k * C - k * (k - 1) / 2 + (i - k);
@@ -289,8 +299,8 @@ struct RowsLoader {
     return kTri + k * (C - 1) - k * (k - 1) / 2 + (i - k - 1);
   }
   __device__ void stage(long long run0, float* sm) const {
-    const int warp = threadIdx.x >> 5;
-    const int j = threadIdx.x & 31;
+    const int first = threadIdx.x / Run;
+    const int j = threadIdx.x % Run;
     const long long s = run0 + j;
     const int bytes = s < systems ? 4 : 0;
     const float* src = rows;                       // read nothing past the end
@@ -299,16 +309,16 @@ struct RowsLoader {
       src = rows + b * 2 * C * C * F + (s - b * F);
     }
     // real (i, k): column k holds i = k..C-1
-    for (int slot = warp, i = warp, k = 0; slot < kTri; slot += 4) {
+    for (int slot = first, i = first, k = 0; slot < kTri; slot += kStep) {
       mcax::cp_async4(sm + at(slot, j), src + (long long)(i * C + k) * F,
                       bytes);
-      for (i += 4; k < C && i >= C; ++k) i -= C - k - 1;
+      for (i += kStep; k < C && i >= C; ++k) i -= C - k - 1;
     }
     // imaginary (i, k): column k holds i = k+1..C-1
-    for (int t = warp, i = warp + 1, k = 0; t < C * C - kTri; t += 4) {
+    for (int t = first, i = first + 1, k = 0; t < C * C - kTri; t += kStep) {
       mcax::cp_async4(sm + at(kTri + t, j),
                       src + (long long)(C * C + i * C + k) * F, bytes);
-      for (i += 4; k < C && i >= C; ++k) i -= C - k - 2;
+      for (i += kStep; k < C && i >= C; ++k) i -= C - k - 2;
     }
     mcax::cp_async_commit();
     mcax::cp_async_wait<0>();
@@ -324,6 +334,14 @@ struct RowsLoader {
     }
   }
 };
+
+// The run of kernel 4's rows loader at C = 32: 8 systems (32 KB, five
+// blocks an SM by registers) solve em32's B = 512 in 6.5 ms, against
+// 9.3-10.6 ms at 16 and 23.0 ms at 32 (128 KB of rows: one block, 4 warps,
+// an SM), bit-equal.
+constexpr int RUN32 = 8;
+template <int C>
+constexpr int kRowsRun = C == 32 ? RUN32 : 32;
 
 // Dynamic shared memory of mvdr_group_kernel: the loader's, then the
 // steering and the weights of a pass's systems, [C][DS] float2.
@@ -477,6 +495,8 @@ template <int C, class Loader>
 int launch_group(const Loader& loader, long long systems, const void* steer,
                  void* w, int B, int S, int F, float load_scale,
                  cudaStream_t stream) {
+  static_assert(GroupShape<C, Loader>::kSmemBytes <= 48 * 1024,
+                "within a block's default dynamic shared memory");
   const unsigned blocks =
       (unsigned)mcax::ceil_div(systems, Loader::kSystems);
   mvdr_group_kernel<C, Loader><<<blocks, GROUP_THREADS,
@@ -490,8 +510,8 @@ template <int C>
 int launch_rows_group(const float* rows, const void* steer, void* w, int B,
                       int S, int F, float load_scale, cudaStream_t stream) {
   const long long systems = (long long)B * F;
-  return launch_group<C>(RowsLoader<C>{rows, systems, F}, systems, steer, w,
-                         B, S, F, load_scale, stream);
+  return launch_group<C>(RowsLoader<C, kRowsRun<C>>{rows, systems, F},
+                         systems, steer, w, B, S, F, load_scale, stream);
 }
 
 template <int C>
@@ -506,8 +526,8 @@ int launch_complex_group(const void* covs, const void* steer, void* w, int B,
 }  // namespace
 
 // rows [B, 2C^2, F], steer complex64 [B, S, C, F], w complex64 [B, S, C, F];
-// load_scale = float32(delta / C).  C must be 8 (one thread a system) or 16
-// (the group body).
+// load_scale = float32(delta / C).  C must be 8 (one thread a system), 16
+// or 32 (the group body).
 MCAX_API int mcax_mvdr_solve_rows(const float* rows, const void* steer,
                                   void* w, int B, int S, int C, int F,
                                   float load_scale, void* stream) {
@@ -523,11 +543,13 @@ MCAX_API int mcax_mvdr_solve_rows(const float* rows, const void* steer,
     }
     case 16:
       return launch_rows_group<16>(rows, steer, w, B, S, F, load_scale, st);
+    case 32:
+      return launch_rows_group<32>(rows, steer, w, B, S, F, load_scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// The same arguments, always on the group body (C = 8 or 16): the
+// The same arguments, always on the group body (C = 8, 16 or 32): the
 // comparison of the two bodies at C = 8.
 MCAX_API int mcax_mvdr_solve_rows_group(const float* rows, const void* steer,
                                         void* w, int B, int S, int C, int F,
@@ -537,12 +559,14 @@ MCAX_API int mcax_mvdr_solve_rows_group(const float* rows, const void* steer,
     case 8: return launch_rows_group<8>(rows, steer, w, B, S, F, load_scale, st);
     case 16:
       return launch_rows_group<16>(rows, steer, w, B, S, F, load_scale, st);
+    case 32:
+      return launch_rows_group<32>(rows, steer, w, B, S, F, load_scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // covs complex64 [B, F, C, C] (16-byte aligned), steer and w as above.
-// C must be 8 or 16.
+// C must be 8, 16 or 32.
 MCAX_API int mcax_mvdr_solve_complex(const void* covs, const void* steer,
                                      void* w, int B, int S, int C, int F,
                                      float load_scale, void* stream) {
@@ -552,6 +576,8 @@ MCAX_API int mcax_mvdr_solve_complex(const void* covs, const void* steer,
       return launch_complex_group<8>(covs, steer, w, B, S, F, load_scale, st);
     case 16:
       return launch_complex_group<16>(covs, steer, w, B, S, F, load_scale, st);
+    case 32:
+      return launch_complex_group<32>(covs, steer, w, B, S, F, load_scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

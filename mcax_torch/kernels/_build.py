@@ -57,7 +57,11 @@ SIGNATURES = {
     # eps, domega, splits, per, stream
     "mcax_srp_power_fused": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _F, _F, _I, _I, _P),
-    # layout (int[6]: BM, BN, KB, tile bytes, channel bytes, blocks an SM)
+    # the same
+    "mcax_srp_power_fused_grouped": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                     _I, _I, _F, _F, _I, _I, _P),
+    # layout (int[7]: BM, BN, KB, tile bytes, channel bytes, blocks an SM,
+    # the grouped layout's group)
     "mcax_srp_fused_layout": (_P,),
     # spec, cov0 (or NULL), out, carry (or NULL), C, B, T, F, lam, decay,
     # chunk_len, chunks, stream

@@ -12,10 +12,11 @@ denominator guard |d^H z| > 1e-12 (else 1e-12 + 0j).  Two layouts of R:
     the multi-stream step with B = S).
 
 Each wrapper launches a hand-written kernel (``csrc/mvdrsolve.cu``, built
-for C = 8 and C = 16) on CUDA tensors: the rows layout one thread per
-(block, bin) at C = 8 and, at C = 16, a group of C lanes per (block, bin),
-lane i holding row i of the factor (the rows staged for a run of 32
-systems at a time); the complex layout that group body at both C.  All
+for C = 8, 16 and 32) on CUDA tensors: the rows layout one thread per
+(block, bin) at C = 8 and, at C = 16 and 32, a group of C lanes per
+(block, bin), lane i holding row i of the factor (the rows staged for a
+run of 32 systems at a time); the complex layout that group body at every
+C.  All
 perform ``_solve_math``'s IEEE operations in its order, so all are
 bit-equal to the plain version, which the wrapper runs on CPU tensors:
 ``*_plain`` is ``_solve_math`` (the reference's unrolled solve, operation
@@ -33,9 +34,9 @@ import torch
 from mcax_torch.kernels import _build
 from mcax_torch.kernels import dispatch
 
-# C values the kernels are instantiated for (csrc/mvdrsolve.cu): config4's
-# and config5's.
-KERNEL_CHANNELS = (8, 16)
+# C values the kernels are instantiated for (csrc/mvdrsolve.cu): config4's,
+# config5's and the 32-capsule em32's.
+KERNEL_CHANNELS = (8, 16, 32)
 
 
 def _solve_math(c: int, s: int, delta: float, re, im, dget, wset):
@@ -180,8 +181,9 @@ def weights_blocks_fused_rows(cov_rows: torch.Tensor, steer: torch.Tensor,
 
 def _launch_rows_group(cov_rows: torch.Tensor, steer: torch.Tensor,
                        diag_load: float) -> torch.Tensor:
-    """``weights_blocks_fused_rows`` on the group body at either C (the
-    wrapper takes it at C = 16 only): CUDA tensors."""
+    """``weights_blocks_fused_rows`` on the group body at any of
+    ``KERNEL_CHANNELS`` (the wrapper takes it at C = 16 and 32): CUDA
+    tensors."""
     return _solve_rows(cov_rows, steer, diag_load,
                        "mcax_mvdr_solve_rows_group")
 

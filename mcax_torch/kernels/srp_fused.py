@@ -10,7 +10,12 @@
     of (bin chunk, pair) slices split as ``split_plan`` says; on CPU
     tensors it runs the plain version.  A thread's 8 bins' phasors come
     from two sincosf by complex products on omega's uniform ramp (the
-    plan's ``omega_step``).
+    plan's ``omega_step``).  Past ``MAX_CHANNELS`` it launches the grouped
+    layout (``srp_fused_kernel_grouped``), which stages two groups of
+    ``GROUP`` channels of a bin chunk at a time instead of all C; the pairs
+    sorted by ``pair_order`` restage a group once per group pair and chunk.
+    Its launches count in ``srp_power_fused.LAUNCHES``, the grouped
+    layout's in ``srp_power_fused.LAUNCHES_GROUPED``.
   * ``srp_power_fused_plain`` — the same function in plain PyTorch: the
     materialised CPS (``cps.cps_phat_pairs_plain``), the steering matrices made
     from the same fp32 phases with the same range reduction, and
@@ -80,9 +85,9 @@ def srp_power_fused_plain(spectra: torch.Tensor, pairs: torch.Tensor,
 # The kernel's layout (csrc/srp_fused.cu, on csrc/gemm_tc.cuh): output
 # frames and grid points a block, complex bins a K slice (one pair's 16
 # bins: 32 floats of the interleaved product), the shared memory of the A
-# and B tiles and of one staged channel, and the blocks an SM at most (the
-# body's register bound).  The first launch checks them against the built
-# kernel's (_check_layout).
+# and B tiles and of one staged channel, the blocks an SM at most (the
+# body's register bound) and GROUP (below).  The first launch checks them
+# against the built kernel's (_check_layout).
 BM, BN, KB = ksteer.BM, ksteer.BN, ksteer.BK // 2
 TILE_BYTES = (BM * (ksteer.BK + 8) + ksteer.BK * (BN + 4)) * 4
 CHANNEL_BYTES = BM * KB * 8
@@ -99,17 +104,35 @@ SM_SMEM, BLOCK_SMEM, RESERVED_SMEM = 233472, 232448, 1024
 CARD_SLICES_PER_S = 6.0e7
 
 
+# The most channels the kernel stages at once (all of a chunk's, up to C =
+# 25), and the grouped layout's group past it (csrc/srp_fused.cu's GROUP):
+# two groups of 5 channels (109 KB) keep two blocks an SM.  At em32's B =
+# 512 (C = 32) groups of 3, 4 and 5 took 127.3, 125.4 and 124.4 ms, groups
+# of 6 to 12 (one block an SM) 178.9-181.8 ms on an H100 SXM at 700 W.
+MAX_CHANNELS = (BLOCK_SMEM - TILE_BYTES) // CHANNEL_BYTES
+GROUP = 5
+
+
 def blocks_per_sm(c: int) -> int:
     """Blocks an SM holds at C channels (shared memory and the register
-    bound); raises when one block's staging does not fit."""
-    smem = TILE_BYTES + c * CHANNEL_BYTES
-    if smem > BLOCK_SMEM:
-        raise ValueError(f"the fused SRP kernel stages every channel of a "
-                         f"bin chunk in shared memory: C = {c} needs {smem} "
-                         f"bytes, more than a block's {BLOCK_SMEM} (at most "
-                         f"{(BLOCK_SMEM - TILE_BYTES) // CHANNEL_BYTES} "
-                         "channels; srp='matmul' takes any C)")
+    bound) on the layout ``srp_power_fused`` takes at C: every channel of a
+    chunk staged, or past ``MAX_CHANNELS`` two groups."""
+    staged = 2 * GROUP if c > MAX_CHANNELS else c
+    smem = TILE_BYTES + staged * CHANNEL_BYTES
     return min(BLOCKS_PER_SM, SM_SMEM // (smem + RESERVED_SMEM))
+
+
+def pair_order(pairs: np.ndarray, c: int) -> np.ndarray:
+    """The order in which the kernel takes ``pairs`` [P, 2] at C channels:
+    as given up to ``MAX_CHANNELS``, else sorted (stably) by the groups of
+    their two channels, so that the grouped layout restages a group once
+    per group pair and chunk.  The surface is a sum over pairs, so any
+    order gives it; the plan (``algos.srp.device_plan``) sorts its pairs
+    and their TDOAs by this."""
+    pairs = np.asarray(pairs)
+    if c <= MAX_CHANNELS:
+        return np.arange(len(pairs))
+    return np.lexsort((pairs[:, 1] // GROUP, pairs[:, 0] // GROUP))
 
 
 @functools.lru_cache(maxsize=256)
@@ -151,47 +174,62 @@ def srp_power_fused(spectra: torch.Tensor, pairs: torch.Tensor,
                          "(srp='matmul' takes any omega)")
     if not dispatch.use_kernel(spectra, pairs, tau, omega, valid):
         return srp_power_fused_plain(spectra, pairs, tau, omega, eps, valid)
-    return _launch(spectra, pairs, tau, omega, eps, valid, omega_step,
-                   *split_plan(m, f, p, g, c, ksteer._sm_count(spectra.device)))
+    splits, per = split_plan(m, f, p, g, c, ksteer._sm_count(spectra.device))
+    return _launch(spectra, pairs, tau, omega, eps, valid, omega_step, splits,
+                   per, grouped=c > MAX_CHANNELS)
 
 
 def _launch(spectra, pairs, tau, omega, eps, valid, omega_step: float,
-            splits: int, per: int) -> torch.Tensor:
+            splits: int, per: int, grouped: bool = False) -> torch.Tensor:
     """The kernel on CUDA tensors with its K slices split into ``splits``
-    runs of ``per`` (``split_plan``)."""
+    runs of ``per`` (``split_plan``): the layout that stages every channel
+    of a chunk (at most ``MAX_CHANNELS``), or with ``grouped`` the grouped
+    layout (any C)."""
     c, m, f, p, g = _shape(spectra, pairs, tau, omega, valid)
     _build.check_tensor("spectra", spectra, torch.complex64, (c, m, f))
     _build.check_tensor("pairs", pairs, torch.int32, (p, 2))
     _build.check_tensor("valid", valid, torch.int32, (p,))
     _build.check_tensor("tau", tau, torch.float32, (p, g))
     _build.check_tensor("omega", omega, torch.float32, (f,))
-    blocks_per_sm(c)
+    if not grouped and c > MAX_CHANNELS:
+        raise ValueError(f"the fused SRP kernel stages every channel of a "
+                         f"bin chunk in shared memory, at most "
+                         f"{MAX_CHANNELS}, got C = {c} (the grouped layout "
+                         "takes any C)")
     _check_layout()
     out = torch.empty((m, g), dtype=torch.float32, device=spectra.device)
     if m == 0 or g == 0:
         return out
     scratch = (torch.empty((splits, m, g), dtype=torch.float32,
                            device=spectra.device) if splits > 1 else None)
-    code = _build.library().mcax_srp_power_fused(
-        spectra.data_ptr(), pairs.data_ptr(), valid.data_ptr(),
-        tau.data_ptr(), omega.data_ptr(),
-        scratch.data_ptr() if scratch is not None else None, out.data_ptr(),
-        c, m, f, p, g, float(eps), float(omega_step), splits, per,
-        _build.stream_of(spectra))
-    _build.check_launch("srp_fused", code)
-    srp_power_fused.LAUNCHES += 1
+    lib = _build.library()
+    args = (spectra.data_ptr(), pairs.data_ptr(), valid.data_ptr(),
+            tau.data_ptr(), omega.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None,
+            out.data_ptr(), c, m, f, p, g, float(eps), float(omega_step))
+    if grouped:
+        code = lib.mcax_srp_power_fused_grouped(*args, splits, per,
+                                                _build.stream_of(spectra))
+        _build.check_launch("srp_fused_grouped", code)
+        srp_power_fused.LAUNCHES_GROUPED += 1
+    else:
+        code = lib.mcax_srp_power_fused(*args, splits, per,
+                                        _build.stream_of(spectra))
+        _build.check_launch("srp_fused", code)
+        srp_power_fused.LAUNCHES += 1
     return out
 
 
 srp_power_fused.LAUNCHES = 0
+srp_power_fused.LAUNCHES_GROUPED = 0
 
 
 @functools.lru_cache(maxsize=None)
 def _check_layout() -> None:
     """Raise unless the built kernel's layout is the planner's."""
-    got = (ctypes.c_int * 6)()
+    got = (ctypes.c_int * 7)()
     _build.library().mcax_srp_fused_layout(got)
-    want = (BM, BN, KB, TILE_BYTES, CHANNEL_BYTES, BLOCKS_PER_SM)
+    want = (BM, BN, KB, TILE_BYTES, CHANNEL_BYTES, BLOCKS_PER_SM, GROUP)
     if tuple(got) != want:
         raise RuntimeError(f"csrc/srp_fused.cu's layout {tuple(got)} is not "
                            f"kernels/srp_fused.py's {want}")

@@ -7,8 +7,8 @@ to the host, so an unfenced wall clock would measure only the enqueue.
 
 ``span(name)`` marks a stage of the pipeline's steps on ``torch.profiler``'s
 host timeline, beside the kernels it launches; ``launch_counters()`` lists
-every kernel wrapper of the port, each counting its launches in
-``LAUNCHES``.
+every kernel launch count of the port: each kernel wrapper's ``LAUNCHES``
+(and the fused SRP's grouped layout's).
 """
 
 from __future__ import annotations
@@ -81,19 +81,26 @@ def span(name: str):
     return record_function(name) if _profiling() else _NO_SPAN
 
 
-def launch_counters() -> tuple:
-    """Every kernel wrapper of the port, each with its ``LAUNCHES`` count
-    (imported on the call: importing this module loads no kernel)."""
+def launch_counters() -> dict:
+    """Every kernel launch count of the port: {name: (wrapper, attribute)},
+    each wrapper's ``LAUNCHES`` under its own name, and the fused SRP's
+    grouped layout (``srp_power_fused.LAUNCHES_GROUPED``) under
+    ``srp_power_fused_grouped`` (imported on the call: importing this
+    module loads no kernel)."""
     from mcax_torch.dist import halo_rdma
     from mcax_torch.kernels import (covprefix, cps, fft, mvdrsolve,
                                     srp_fused, steer, stft_fused, threefry,
                                     track)
-    return (stft_fused.stft_fused_from_blocks, srp_fused.srp_power_fused,
-            covprefix.block_prefixes_rows,
-            mvdrsolve.weights_blocks_fused_rows,
-            stft_fused.stft_fused_planes, mvdrsolve.weights_blocks_fused,
-            fft.irdft_rows, fft.rdft_rows, cps.cps_phat_gather,
-            cps.cps_phat_pairs, steer.srp_power_cps,
-            halo_rdma.ring_push_right, threefry.particle_draws,
-            threefry.split, threefry.uniform, threefry.normal,
-            track.track_scan, track.particle_scan)
+    wrappers = (stft_fused.stft_fused_from_blocks, srp_fused.srp_power_fused,
+                covprefix.block_prefixes_rows,
+                mvdrsolve.weights_blocks_fused_rows,
+                stft_fused.stft_fused_planes, mvdrsolve.weights_blocks_fused,
+                fft.irdft_rows, fft.rdft_rows, cps.cps_phat_gather,
+                cps.cps_phat_pairs, steer.srp_power_cps,
+                halo_rdma.ring_push_right, threefry.particle_draws,
+                threefry.split, threefry.uniform, threefry.normal,
+                track.track_scan, track.particle_scan)
+    counters = {fn.__name__: (fn, "LAUNCHES") for fn in wrappers}
+    counters["srp_power_fused_grouped"] = (srp_fused.srp_power_fused,
+                                           "LAUNCHES_GROUPED")
+    return counters

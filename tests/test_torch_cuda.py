@@ -27,8 +27,11 @@ and one block); the PHAT cross-power with the pair gather in the kernel
 bit-equal at config1's, config4's (B = 512) and config5's shapes, with
 padded pairs, leading signals, a strided view and three bin tiles, in both
 layouts, and config4's srp="matmul" bulk through it equal to the fused
-SRP; kernel 4 on the group body with the rows loader bit-equal at config5
-B = 512, at runs cut short by the last system, and at C = 8; the particle
+SRP; kernel 2 past 25 channels (the grouped layout, em32's 32 capsules)
+against its plain version, and which layout a call launches by C; kernel 4
+on the group body with the rows loader bit-equal at config5 B = 512, at
+runs cut short by the last system, at C = 8 and at em32's C = 32 (B = 512),
+kernel 6 at C = 32; the particle
 smoother's threefry draws bit-equal to their plain version at config5 B =
 512 and at 16 serving streams, and split/uniform/normal alone; the
 trackers' scans (``track_scan`` bit-equal to its plain version at R = 1
@@ -39,7 +42,7 @@ step); each
 streaming entry point on the card against the CPU, config5's particle
 smoother on all of them; process_block's CUDA graph (the first call eager
 and captured, then replays) bit-equal to the eager step over 16 blocks on
-configs 1-5, the particle smoother and srp="matmul", its results the
+configs 1-5, the particle smoother, srp="matmul" and em32, its results the
 caller's (unchanged by later replays);
 ShardedPipeline on a 1 x 1 mesh against Pipeline; the halo ring (kernel
 11) in 2 and 4 processes sharing the one card through CUDA IPC, on the
@@ -160,6 +163,90 @@ def test_srp_fused(dev, c, f, g_pts, m, invalid):
     torch.testing.assert_close(got / scale, want / scale, atol=1e-4, rtol=0)
 
 
+def _em32_config():
+    """LOCATA's em32 configuration, the benchmark's file, as a
+    ``PipelineConfig``."""
+    import json
+    import sys
+    from pathlib import Path
+    bench = Path(__file__).resolve().parents[1] / "benchmark"
+    if str(bench) not in sys.path:
+        sys.path.insert(0, str(bench))
+    from harness import program
+    return program.pipeline_config(json.loads(
+        (bench / "configs" / "locata_em32.json").read_text()))
+
+
+@pytest.mark.parametrize("c,f,m", [
+    (26, 513, 200),      # one channel past the layout that stages all C
+    (32, 513, 384),      # em32's 32 capsules, 16 blocks' frames
+    (32, 513, 24),       # em32's block step
+])
+def test_srp_fused_grouped(dev, c, f, m):
+    """Past 25 channels the wrapper takes the grouped layout (one launch
+    counted in ``LAUNCHES_GROUPED``, none in ``LAUNCHES``): within 1e-4 of the
+    largest power of the plain version, the argmax losing at most 1e-4 of
+    the peak, two calls bit-equal; the plan's pairs sorted by group pair
+    and the pairs in the order given give the same surface within 1e-4."""
+    geom = (_em32_config().geometry() if c == 32 else t_geo.ArrayGeometry(
+        positions=t_geo.circular_positions(c, 0.05), sample_rate=48000))
+    plan = t_srp.device_plan(t_srp.make_plan(geom, (f - 1) * 2, 360),
+                             geom.pairs, dev)
+    spec = _rng_complex(np.random.default_rng(c + m), (c, m, f), dev)
+    args = (spec, plan.pairs, plan.tau_pg, plan.omega, 1e-12, plan.valid)
+    before = (srp_fused.srp_power_fused.LAUNCHES,
+              srp_fused.srp_power_fused.LAUNCHES_GROUPED)
+    got = srp_fused.srp_power_fused(*args, plan.omega_step)
+    assert (srp_fused.srp_power_fused.LAUNCHES,
+            srp_fused.srp_power_fused.LAUNCHES_GROUPED) == (
+                before[0], before[1] + 1)
+    assert torch.equal(got, srp_fused.srp_power_fused(*args,
+                                                      plan.omega_step))
+    want = srp_fused.srp_power_fused_plain(*args)
+    scale = want.abs().max()
+    torch.testing.assert_close(got / scale, want / scale, atol=1e-4, rtol=0)
+    rows = torch.arange(m, device=dev)
+    loss = (want[rows, want.argmax(-1)] - want[rows, got.argmax(-1)]).max()
+    assert loss <= 1e-4 * scale
+    given = t_srp.make_plan(geom, (f - 1) * 2, 360)
+    lex = srp_fused.srp_power_fused(
+        spec, torch.from_numpy(geom.pairs).to(dev),
+        torch.from_numpy(given.tau_pg).to(dev), plan.omega, 1e-12,
+        plan.valid, plan.omega_step)
+    torch.testing.assert_close(lex / scale, want / scale, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("c", [8, 16, 25, 26, 32])
+def test_srp_fused_layout_by_channels(dev, c):
+    """Up to 25 channels a call launches the layout that stages every
+    channel (``srp_power_fused.LAUNCHES``) and never the grouped one
+    (``LAUNCHES_GROUPED``); past 25 the grouped one alone.  At 16 channels
+    the grouped layout (groups of 5: three halves restaged), launched
+    through ``_launch``, gives the other layout's surface within 1e-4."""
+    f, m = 257, 64
+    geom = t_geo.ArrayGeometry(positions=t_geo.circular_positions(c, 0.1),
+                               sample_rate=16000)
+    plan = t_srp.device_plan(t_srp.make_plan(geom, (f - 1) * 2, 360),
+                             geom.pairs, dev)
+    spec = _rng_complex(np.random.default_rng(c), (c, m, f), dev)
+    args = (spec, plan.pairs, plan.tau_pg, plan.omega, 1e-12, plan.valid)
+    before = (srp_fused.srp_power_fused.LAUNCHES,
+              srp_fused.srp_power_fused.LAUNCHES_GROUPED)
+    got = srp_fused.srp_power_fused(*args, plan.omega_step)
+    grouped = c > srp_fused.MAX_CHANNELS
+    assert (srp_fused.srp_power_fused.LAUNCHES - before[0],
+            srp_fused.srp_power_fused.LAUNCHES_GROUPED - before[1]) == (
+                (0, 1) if grouped else (1, 0))
+    if c == 16:
+        p, g = plan.tau_pg.shape
+        other = srp_fused._launch(
+            *args, plan.omega_step, *srp_fused.split_plan(m, f, p, g, c),
+            grouped=True)
+        scale = got.abs().max()
+        torch.testing.assert_close(other / scale, got / scale, atol=1e-4,
+                                   rtol=0)
+
+
 def _fused_case(dev, c, f, m, r):
     """A plane wave's spectra [C, M, F] with noise, at config-like shapes,
     and the fused SRP's plan."""
@@ -272,6 +359,7 @@ def _cov_case(dev, c, b, t, f, seeded, seed):
 @pytest.mark.parametrize("c,b,t,f,lam", [
     (8, 512, 24, 513, 0.95),    # config4 bulk
     (16, 512, 16, 257, 0.9),    # config5 bulk
+    (32, 512, 24, 513, 0.9),    # em32 bulk: the exact KC = 32 layout
 ])
 def test_cov_prefixes_at_pipeline_shapes(dev, c, b, t, f, lam):
     """The chunked scan at B = 512 (31 or 23 chunks), seeded, against the
@@ -294,6 +382,7 @@ def test_cov_prefixes_at_pipeline_shapes(dev, c, b, t, f, lam):
     (8, 64, 24, 513, 1.0, True),     # lam = 1: decay 1, weights 0
     (8, 64, 24, 65, 1e-3, True),     # decay underflows to 0
     (32, 7, 4, 20, 0.8, True),       # the widest layout (KC = 32)
+    (27, 7, 4, 20, 0.8, True),       # KC = 32 with C at run time
 ])
 def test_cov_prefixes_edge_cases(dev, c, b, t, f, lam, seeded):
     spec, cov0 = _cov_case(dev, c, b, t, f, seeded, seed=b + c)
@@ -417,6 +506,8 @@ def test_mvdr_solve_complex(dev, b, f, c, s):
     (1, 513, 8, 1),      # the block step
     (64, 513, 8, 1),     # config4 serving, S = 64 streams
     (16, 257, 16, 2),    # config5 serving, two sources
+    (1, 513, 32, 2),     # em32's block step: one system a warp
+    (16, 513, 32, 2),    # em32 serving
 ])
 def test_mvdr_solve_complex_bit_equal_near_rank_one(dev, b, f, c, s):
     """The group solve on near-rank-1 covariances (a unit-modulus source
@@ -665,17 +756,20 @@ def _near_rank_one_rows(b, f, c, s, seed, dev):
     (1, 9, 16, 1),       # fewer systems than one run
     (512, 513, 8, 1),    # config4 bulk on the group body (the comparison)
     (3, 257, 8, 1),      # ... a partial last run
+    (512, 513, 32, 2),   # em32 bulk: runs of 32 systems' rows, 128 KB
+    (5, 257, 32, 2),     # ... the last block's run holds 5
+    (1, 9, 32, 1),       # fewer systems than one run
 ])
 def test_mvdr_solve_rows_group_bit_equal(dev, b, f, c, s):
     """Kernel 4 on the group body with the rows loader (the wrapper's at
-    C = 16, ``_launch_rows_group`` at either C) on near-rank-1 scenes: the
-    plain version's IEEE operations in its order, so bit-equal."""
+    C = 16 and 32, ``_launch_rows_group`` at any C) on near-rank-1 scenes:
+    the plain version's IEEE operations in its order, so bit-equal."""
     rows, steer = _near_rank_one_rows(b, f, c, s, seed=b + c, dev=dev)
     want = mvdrsolve.weights_blocks_fused_rows_plain(rows, steer, 1e-3)
     got = mvdrsolve._launch_rows_group(rows, steer, 1e-3)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
-    if c == 16:
+    if c != 8:
         assert torch.equal(
             mvdrsolve.weights_blocks_fused_rows(rows, steer, 1e-3), want)
 
@@ -718,7 +812,7 @@ GRAPH_BLOCKS = 16
     ("config1", "fused", "ema"), ("config2", "fused", "ema"),
     ("config3", "fused", "ema"), ("config4", "fused", "ema"),
     ("config4", "matmul", "ema"), ("config5", "fused", "ema"),
-    ("config5", "fused", "particle")])
+    ("config5", "fused", "particle"), ("locata_em32", "fused", "ema")])
 def test_process_block_graph_equals_eager(dev, name, srp, smoother):
     """process_block on the card (the first call eager and captured, the
     other 15 replays of the CUDA graph) against process_streams at S = 1
@@ -726,12 +820,13 @@ def test_process_block_graph_equals_eager(dev, name, srp, smoother):
     of two sources: every output and every state leaf torch.equal, block
     after block.  Block 4's state and outputs, held by the caller, are
     unchanged by three more calls: the returned tensors are not the
-    graph's buffers."""
+    graph's buffers.  ``locata_em32``: the em32's 32 capsules (the grouped
+    SRP, kernel 6 at C = 32)."""
     import dataclasses
     from mcax_torch import pipeline as t_pipeline
     from mcax_torch.config import get_config
     from mcax_torch.pipeline import Pipeline, state_leaves
-    cfg = get_config(name)
+    cfg = _em32_config() if name == "locata_em32" else get_config(name)
     cfg = dataclasses.replace(cfg, algo=dataclasses.replace(
         cfg.algo, smoother=smoother))
     geom, bl = cfg.geometry(), cfg.block_len

@@ -157,9 +157,12 @@ def test_every_kernel_has_a_counter_and_its_sources():
     from mcax_torch.kernels import _build
     from mcax_torch.utils.metrics import launch_counters
     counters = launch_counters()
-    assert len(set(counters)) == len(counters) == 18
-    for fn in counters:
-        assert isinstance(fn.LAUNCHES, int)
+    # 18 kernel wrappers' LAUNCHES, and the fused SRP's grouped layout's
+    assert len(set(counters.values())) == len(counters) == 19
+    assert len({fn for fn, _ in counters.values()}) == 18
+    for name, (fn, attr) in counters.items():
+        assert isinstance(getattr(fn, attr), int), name
+        assert name == fn.__name__ or attr != "LAUNCHES", name
     for name in _build.SOURCES + _build.HEADERS:
         assert (_build.CSRC / name).is_file(), name
     # every C entry point the wrappers bind is defined in a source

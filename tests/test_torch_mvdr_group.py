@@ -11,17 +11,20 @@ from lane k; the forward substitution in lane k's accumulator as lane j
 broadcasts y[j]; the adjoint's terms conj(L[j,k]) z[j] formed by lanes j
 and subtracted by lane k with j ascending; d^H z's terms added with k
 ascending.  It is held bit-equal (``torch.equal``) to ``_solve_math``
-(``weights_blocks_fused_plain``) at C = 8 and 16 on near-rank-1 loaded
+(``weights_blocks_fused_plain``) at C = 8, 16 and 32 on near-rank-1 loaded
 covariances, which amplify a one-ulp difference into ~1e-3 of the weights.
 
 Kernel 4's loader (``RowsLoader``) is replayed too: a block's run of 32
-systems s = b*F + f (crossing from one block b to the next, the last run
-past the last system), the C^2 rows the solve reads staged slot by slot
-in the kernel's order (each warp's column walk of the triangle, every
-slot written once, zero past the last system, the XOR swizzle
-conflict-free for the staging and for the lanes' reads), then each pass's
+systems s = b*F + f (8 at C = 32; crossing from one block b to the next,
+the last run past the last system), the C^2 rows the solve reads staged
+slot by slot in the kernel's order (each thread's column walk of the
+triangle, every slot written once, zero past the last system, the XOR
+swizzle conflict-free for each warp instruction of the staging and for
+the lanes' reads), then each pass's
 lanes taking their rows: fed to the same body, bit-equal to
-``weights_blocks_fused_rows_plain`` at C = 16 and 8.  The plain version is
+``weights_blocks_fused_rows_plain`` at C = 16, 8 and 32 (there a run of
+8 systems, 32 KB, two passes of 4 systems, one a warp; 32 systems would
+be 128 KB, one block an SM).  The plain version is
 held to ``mcax``'s ``weights_blocks_fused_rows`` (Pallas in interpret
 mode) at C = 16 at the reference's 2e-4/2e-3, distortionless within 1e-3.
 """
@@ -139,6 +142,7 @@ def _near_rank_one(b, f, c, s, seed):
     (2, 17, 8, 1),      # config4's channels, one source
     (1, 33, 8, 3),      # the block step's B = 1, three sources
     (2, 9, 16, 2),      # config5's channels and two sources
+    (1, 5, 32, 2),      # em32's 32 capsules: one system a warp
 ])
 def test_group_schedule_bit_equal_to_solve_math(b, f, c, s):
     covs, steer = _near_rank_one(b, f, c, s, seed=c + s)
@@ -167,40 +171,46 @@ def test_near_rank_one_amplifies_an_ulp():
 
 # -- kernel 4 at C = 16: RowsLoader feeding the same body ---------------------
 
-RUN = 32                       # RowsLoader::kSystems, a block's run
-WARPS = 4                      # GROUP_THREADS / 32
+THREADS = 128                  # GROUP_THREADS
+RUN32 = 8                      # RowsLoader's run at C = 32 (RUN32)
 
 
-def _stage_slots(c, warp):
-    """(slot, row of the 2C^2) that warp ``warp`` copies, in
-    RowsLoader::stage's order: the real rows (i, k), k <= i, column by
-    column from slot 0, then the imaginary rows (i, k), k < i, from slot
-    C(C+1)/2, each walk stepping 4 slots and carrying i past C into the
-    next column."""
+def _run(c):
+    """RowsLoader::kSystems, a block's run: 32 systems, RUN32 at C = 32."""
+    return RUN32 if c == 32 else 32
+
+
+def _stage_slots(c, run, t):
+    """(slot, row of the 2C^2) that thread ``t`` copies for its system
+    t % run, in RowsLoader::stage's order: the real rows (i, k), k <= i,
+    column by column from slot 0, then the imaginary rows (i, k), k < i,
+    from slot C(C+1)/2, each walk from slot t / run stepping 128 / run
+    slots and carrying i past C into the next column."""
     tri = c * (c + 1) // 2
+    first, step = t // run, THREADS // run
     out = []
-    slot, i, k = warp, warp, 0
+    slot, i, k = first, first, 0
     while slot < tri:
         out.append((slot, i * c + k))
-        i += 4
+        i += step
         while k < c and i >= c:
             i -= c - k - 1
             k += 1
-        slot += 4
-    t, i, k = warp, warp + 1, 0
-    while t < c * c - tri:
-        out.append((tri + t, c * c + i * c + k))
-        i += 4
+        slot += step
+    t_, i, k = first, first + 1, 0
+    while t_ < c * c - tri:
+        out.append((tri + t_, c * c + i * c + k))
+        i += step
         while k < c and i >= c:
             i -= c - k - 2
             k += 1
-        t += 4
+        t_ += step
     return out
 
 
-def _at(c, slot, j):
+def _at(c, run, slot, j):
     """System j of a slot in shared memory (the XOR swizzle)."""
-    return slot * RUN + (j ^ ((slot * (32 // c)) & 31))
+    return slot * run + (j ^ (((slot * (32 // c)) // (32 // run)) & (run - 1)))
 
 
 def _re_slot(c, i, k):
@@ -214,41 +224,47 @@ def _im_slot(c, i, k):
 def _rows_loader_replay(rows):
     """RowsLoader's staging and rows, lane by lane: rows [B, 2C^2, F] ->
     lane rows re, im [B*F, lane i, k] (what each group's lanes hold after
-    the loader), checking that each block's staging writes every slot once
-    and that no warp instruction meets a bank conflict."""
+    the loader), checking that each block's staging writes every slot of
+    every system once and that no warp instruction meets a bank
+    conflict."""
     b, r2, f = rows.shape
     c = int(round((r2 // 2) ** 0.5))
+    run = _run(c)
     n = b * f
-    kpass = 128 // c
-    j = np.arange(RUN)
-    slots = [_stage_slots(c, w) for w in range(WARPS)]
-    assert sorted(s for w in slots for s, _ in w) == list(range(c * c))
-    assert sorted(r for w in slots for _, r in w) == sorted(
-        [i * c + k for i in range(c) for k in range(i + 1)]
-        + [c * c + i * c + k for i in range(c) for k in range(i)])
+    kpass = THREADS // c
+    walks = [_stage_slots(c, run, t) for t in range(THREADS)]
+    for j in range(run):
+        mine = [w for t, w in enumerate(walks) if t % run == j]
+        assert sorted(s for w in mine for s, _ in w) == list(range(c * c))
+        assert sorted(r for w in mine for _, r in w) == sorted(
+            [i * c + k for i in range(c) for k in range(i + 1)]
+            + [c * c + i * c + k for i in range(c) for k in range(i)])
+    # a warp instruction: the 32 threads of a warp at the same step
+    for w0 in range(0, THREADS, 32):
+        for step in range(max(len(walks[t]) for t in range(w0, w0 + 32))):
+            banks = [_at(c, run, walks[t][step][0], t % run) % 32
+                     for t in range(w0, w0 + 32) if step < len(walks[t])]
+            assert len(set(banks)) == len(banks)
     flat = rows.reshape(b, r2, f)
     re = torch.zeros((n, c, c))
     im = torch.zeros((n, c, c))
-    for run0 in range(0, n, RUN):
-        s = run0 + j
-        ok = s < n
-        bb, ff = np.where(ok, s // f, 0), np.where(ok, s % f, 0)
-        sm = torch.full((c * c * RUN,), float("nan"))
-        count = np.zeros(c * c * RUN, int)
-        for w in range(WARPS):
-            for slot, row in slots[w]:
-                at = np.array([_at(c, slot, jj) for jj in j])
-                assert len(set(at % 32)) == 32         # one slot: 32 banks
-                vals = flat[torch.from_numpy(bb), row, torch.from_numpy(ff)]
-                sm[torch.from_numpy(at)] = torch.where(
-                    torch.from_numpy(ok), vals, torch.zeros(()))
+    for run0 in range(0, n, run):
+        sm = torch.full((c * c * run,), float("nan"))
+        count = np.zeros(c * c * run, int)
+        for t in range(THREADS):
+            j = t % run
+            sys = run0 + j
+            for slot, row in walks[t]:
+                at = _at(c, run, slot, j)
+                sm[at] = (flat[sys // f, row, sys % f] if sys < n
+                          else torch.zeros(()))
                 count[at] += 1
         assert (count == 1).all()
-        for pas in range(RUN // kpass):
+        for pas in range(run // kpass):
             sys0 = run0 + pas * kpass
             if sys0 >= n:
                 break
-            for w in range(WARPS):
+            for w in range(THREADS // 32):
                 jw = pas * kpass + w * (32 // c)
                 for k in range(c):
                     for part, slot_of, lanes in (
@@ -256,7 +272,7 @@ def _rows_loader_replay(rows):
                                               for i in range(k, c)]),
                             ("im", _im_slot, [(g, i) for g in range(32 // c)
                                               for i in range(k + 1, c)])):
-                        at = [_at(c, slot_of(c, i, k), jw + g)
+                        at = [_at(c, run, slot_of(c, i, k), jw + g)
                               for g, i in lanes]
                         assert len({a % 32 for a in at}) == len(at)
                         for (g, i), a in zip(lanes, at):
@@ -264,6 +280,22 @@ def _rows_loader_replay(rows):
                             if sys < n:
                                 (re if part == "re" else im)[sys, i, k] = sm[a]
     return re, im
+
+
+def test_rows_loader_runs_are_the_kernels():
+    """The replay's runs are csrc/mvdrsolve.cu's: 128 threads a block, a
+    run of 32 systems at C = 8 and 16 and of RUN32 at C = 32 (32 KB of
+    rows, against 128 KB at 32 systems)."""
+    import re
+    from pathlib import Path
+    src = (Path(mvdrsolve.__file__).resolve().parent.parent / "csrc"
+           / "mvdrsolve.cu").read_text()
+    assert re.search(r"constexpr int GROUP_THREADS = (\d+);", src).group(1) \
+        == str(THREADS)
+    assert re.search(r"constexpr int RUN32 = (\d+);", src).group(1) == \
+        str(RUN32)
+    assert "kRowsRun = C == 32 ? RUN32 : 32;" in src
+    assert 32 * 32 * RUN32 * 4 == 32 * 1024
 
 
 def _near_rank_one_rows(b, f, c, s, seed):
@@ -275,6 +307,7 @@ def _near_rank_one_rows(b, f, c, s, seed):
     (2, 257, 16, 2),    # config5: runs cross a block, the last one short
     (1, 41, 16, 1),     # one block: two runs, 9 systems in the last
     (2, 33, 8, 1),      # config4's channels on the group body
+    (1, 41, 32, 2),     # em32's C = 32: five runs of 8 systems, one short
 ])
 def test_rows_loader_schedule_bit_equal_to_solve_math(b, f, c, s):
     rows, steer = _near_rank_one_rows(b, f, c, s, seed=c + f)

@@ -35,7 +35,12 @@ kernel's own bound:
     partials of ``srp_fused.split_plan`` added in split order, against
     ``srp_power_fused_plain`` and ``mcax``'s ``srp_power_fused`` within
     3e-5 of the largest power; and the planner (K covered exactly once,
-    the grid filling 132 SMs at every M the pipelines use).
+    the grid filling 132 SMs at every M the pipelines use); past 25
+    channels its grouped layout (two groups of 5 channels staged, each
+    slice's channels in them across chunks and split runs, the plan's
+    pairs sorted by group pair restaging a group once per group pair and
+    chunk) and the plan's pair order, which leaves the surface within
+    3e-5.
 """
 
 import numpy as np
@@ -460,11 +465,13 @@ def test_planner_tiles_are_the_kernels():
 
 # -- kernel 2: the fused SRP on 3xTF32 tiles, its operands made on chip ----
 
-# (C, F, P) of config4 (and config3 at hop 128: F = 257) and config5, at the
-# frames a call of each pipeline gives the kernel: config5's and config4's
+# (C, F, P) of config4 (and config3 at hop 128: F = 257) and config5, and
+# past 25 channels (the grouped layout: 26, and em32's 32), at the frames a
+# call of each pipeline gives the kernel: config5's and config4's
 # block step, config4 serving S = 64, config4 bulk B = 512, config3 hop 128
 # B = 512.
-FUSED_SHAPES = [(8, 513, 28), (8, 257, 28), (16, 257, 120)]
+FUSED_SHAPES = [(8, 513, 28), (8, 257, 28), (16, 257, 120),
+                (26, 513, 325), (32, 513, 496)]
 FUSED_FRAMES = [16, 24, 1536, 12288, 16384]
 
 
@@ -564,10 +571,114 @@ def test_fused_split_plan_covers_k_once(c, f, p, m):
 
 
 def test_fused_blocks_an_sm_and_the_channel_limit():
+    """Every channel of a chunk staged up to 25 (one block an SM past 10),
+    26 channels past a block's shared memory; past 25 the grouped layout's
+    two groups of ``GROUP`` (csrc/srp_fused.cu's constant), two blocks an
+    SM."""
+    assert srp_fused.MAX_CHANNELS == 25
+    staged = [srp_fused.TILE_BYTES + c * srp_fused.CHANNEL_BYTES
+              for c in (25, 26, 2 * srp_fused.GROUP)]
+    assert staged[0] <= srp_fused.BLOCK_SMEM < staged[1]
+    assert staged[2] <= srp_fused.BLOCK_SMEM
     assert srp_fused.blocks_per_sm(8) == 2
     assert srp_fused.blocks_per_sm(16) == 1
-    with pytest.raises(ValueError, match="channels"):
-        srp_fused.blocks_per_sm(26)
+    assert srp_fused.blocks_per_sm(25) == 1
+    assert (srp_fused.blocks_per_sm(26) == srp_fused.blocks_per_sm(32)
+            == srp_fused.blocks_per_sm(64) == 2)
+    from pathlib import Path
+    cu = Path(srp_fused.__file__).resolve().parents[1] / "csrc"
+    assert (f"constexpr int GROUP = {srp_fused.GROUP};"
+            in (cu / "srp_fused.cu").read_text())
+
+
+def _grouped_staging(pairs, c, h, per, slices):
+    """csrc/srp_fused.cu's srp_fused_kernel_grouped staging, slice by
+    slice for each split's run: the channel in each slot of X [2H] (-1
+    unstaged), checked against the channels each slice's CPS reads; returns
+    the halves staged over the whole K."""
+    p = len(pairs)
+    loads = 0
+    for beg in range(0, slices, per):
+        x = [-1] * (2 * h)
+        staged, h0, h1 = -1, -1, -1
+        for i in range(beg, min(beg + per, slices)):
+            fc, pp = divmod(i, p)
+            a, b = (int(v) for v in pairs[pp])
+            ga, gb = a // h, b // h
+            if fc != staged:
+                staged, h0, h1 = fc, -1, -1
+                x = [-1] * (2 * h)
+            load0 = h0 != ga
+            load1 = gb != ga and h1 != gb
+            if load0:
+                n = min(h, c - ga * h)
+                x[:h] = [ga * h + k if k < n else -1 for k in range(h)]
+                h0 = ga
+            if load1:
+                n = min(h, c - gb * h)
+                x[h:] = [gb * h + k if k < n else -1 for k in range(h)]
+                h1 = gb
+            loads += load0 + load1
+            assert x[a - ga * h] == a
+            assert x[(0 if gb == ga else h) + b - gb * h] == b
+    return loads
+
+
+@pytest.mark.parametrize("c", [26, 32])
+@pytest.mark.parametrize("m", [24, 12288])
+def test_fused_grouped_staging_reads_the_pairs_channels(c, m):
+    """The grouped layout's two halves hold each slice's two channels,
+    across chunks and split runs; the plan's pairs (``pair_order``: sorted
+    by group pair) restage a half once per group pair and chunk or split
+    start, against ~4x that for the pairs in the order given."""
+    f, g = 513, 360
+    h = srp_fused.GROUP
+    pairs = t_geo.all_pairs(c)
+    order = srp_fused.pair_order(pairs, c)
+    assert sorted(order.tolist()) == list(range(len(pairs)))
+    key = (pairs[order] // h).tolist()
+    assert key == sorted(key)
+    p = len(pairs)
+    nfc = -(-f // srp_fused.KB)
+    slices = nfc * p
+    s, per = srp_fused.split_plan(m, f, p, g, c, SMS)
+    sorted_loads = _grouped_staging(pairs[order], c, h, per, slices)
+    groups = -(-c // h)
+    per_chunk = groups + groups * (groups - 1) // 2
+    assert sorted_loads <= nfc * per_chunk + 2 * s
+    given = _grouped_staging(pairs, c, h, per, slices)
+    assert given >= 3 * sorted_loads
+
+
+@pytest.mark.parametrize("c,f,m", [(26, 33, 20), (32, 17, 9)])
+def test_fused_grouped_plan_matches_plain(c, f, m):
+    """Past 25 channels the plan takes its pairs and TDOAs in
+    ``pair_order``: the kernel's arithmetic on them (chunk outermost, the
+    plan's pairs within) gives the surface of the pairs in the given order
+    within 3e-5 of the largest power, and a pair shard keeps each pair's
+    own TDOA."""
+    geom, plan, spec = _fused_case(c, f, m, seed=c + f)
+    dplan = t_srp.device_plan(plan, geom.pairs, CPU)
+    order = srp_fused.pair_order(geom.pairs, c)
+    assert torch.equal(dplan.pairs, torch.from_numpy(geom.pairs[order]))
+    assert torch.equal(dplan.tau_pg, torch.from_numpy(plan.tau_pg[order]))
+    shard = t_srp.pair_shard(dplan, plan, "fused", 2, 1)
+    half = -(-geom.num_pairs // 2)
+    tail = geom.num_pairs - half
+    assert torch.equal(shard.pairs[:tail], dplan.pairs[half:])
+    assert torch.equal(shard.tau_pg[:tail], dplan.tau_pg[half:])
+    spec = torch.from_numpy(spec)
+    step = t_srp.uniform_step(plan.omega)
+    got, _ = _fused_emulation(spec, dplan.pairs, dplan.tau_pg, dplan.omega,
+                              1e-12, dplan.valid, step)
+    want = srp_fused.srp_power_fused_plain(
+        spec, torch.from_numpy(geom.pairs), torch.from_numpy(plan.tau_pg),
+        torch.from_numpy(plan.omega), 1e-12, dplan.valid)
+    scale = want.abs().max()
+    torch.testing.assert_close(got / scale, want / scale, atol=3e-5, rtol=0)
+    assert torch.equal(t_srp.srp_surface(spec, dplan), srp_fused.
+                       srp_power_fused_plain(spec, dplan.pairs, dplan.tau_pg,
+                                             dplan.omega, 1e-12, dplan.valid))
 
 
 @pytest.mark.parametrize("c,f,m,ref", [
