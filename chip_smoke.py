@@ -85,7 +85,7 @@ on the first that fails:
      version, its byte bound and its serial chain's floor; and kernels 2,
      3, 4 and 6 at the ``locata_em32.bulk`` cell's shapes (em32's 32
      capsules, B = 512, M = 12 288, F = 513, P = 496) on a scene of two
-     static sources: the fused SRP's grouped layout within 1e-4 of the
+     static sources: the fused SRP (its 6 slots shared) within 1e-4 of the
      largest power of its plain version (computed a chunk of frames at a
      time), the argmax losing at most 1e-4 of the peak, two calls
      bit-equal; the covariance prefixes within 2e-4; both MVDR solve
@@ -192,9 +192,9 @@ on the first that fails:
        q. LOCATA's em32 (``benchmark/configs/locata_em32.json``: 32
           capsules, config5's chain at 48 kHz) on phase 3's scene of two
           static sources at -60 and 60 degrees, tiled: ``process_blocks``
-          at B = 512 (the fused SRP's grouped layout, counted in
-          ``srp_power_fused.LAUNCHES_GROUPED``, and its other kernels once
-          per dispatch, the other layout never; tracks within 5 degrees
+          at B = 512 (the fused SRP, counted in
+          ``srp_power_fused.LAUNCHES``, and its other kernels once per
+          dispatch; tracks within 5 degrees
           after block 4; samples/s, a profile) and ``process_block`` over
           8 blocks (the warm-up captures, the rest replay; equal to
           ``process_blocks``);
@@ -305,7 +305,7 @@ TF32_PEAK = 495e12      # dense TF32 on the tensor cores (kernels 2, 10)
 # route, the materialised chain, the pair gather outside the kernel, the
 # other solve body, the draws' serial key chain alone
 EXTRA_MS = ("unsplit_ms", "gemm_ms", "chain_ms", "gathered_ms", "group_ms",
-            "pass1_ms")
+            "pass1_ms", "design_bound_ms")
 
 
 def nvidia_smi_line() -> str:
@@ -484,7 +484,7 @@ def check_kernels(pipe, carry0, blocks, peaks):
     # -- kernel 2: fused SRP -------------------------------------------------
     eps = cfg.algo.phat_eps
     args = (spec, plan.pairs, plan.tau_pg, plan.omega, eps, plan.valid)
-    power = srp_fused.srp_power_fused(*args, plan.omega_step)
+    power = srp_fused.srp_power_fused(*args, plan.omega_step, plan.staging)
     want = srp_fused.srp_power_fused_plain(*args)
     torch.cuda.synchronize()
     scale = want.abs().max().item()
@@ -501,8 +501,8 @@ def check_kernels(pipe, carry0, blocks, peaks):
         route="cuda", source="mcax_torch/csrc/srp_fused.cu",
         replaces="mcax/kernels/srp_fused.py:293", max_abs_err=err,
         scaled_err=err / scale,
-        ms=time_ms(lambda: srp_fused.srp_power_fused(*args,
-                                                     plan.omega_step)),
+        ms=time_ms(lambda: srp_fused.srp_power_fused(
+            *args, plan.omega_step, plan.staging)),
         plain_ms=time_ms(lambda: srp_fused.srp_power_fused_plain(*args),
                          reps=3),
         library_ms=None,
@@ -1028,12 +1028,14 @@ def check_fused_srp(rec, cases, peaks):
         c, m, f = spec.shape
         p, g = plan.tau_pg.shape
         args = (spec, plan.pairs, plan.tau_pg, plan.omega, eps, plan.valid)
-        power = srp_fused.srp_power_fused(*args, plan.omega_step)
-        again = srp_fused.srp_power_fused(*args, plan.omega_step)
+        power = srp_fused.srp_power_fused(*args, plan.omega_step, plan.staging)
+        again = srp_fused.srp_power_fused(*args, plan.omega_step,
+                                         plan.staging)
         want = srp_fused.srp_power_fused_plain(*args)
         splits, per = srp_fused.split_plan(
-            m, f, p, g, c,
+            m, f, p, g,
             torch.cuda.get_device_properties(spec.device).multi_processor_count)
+        slots = min(c, srp_fused.SLOTS)
         torch.cuda.synchronize()
         if not torch.equal(power, again):
             raise AssertionError(f"srp_fused {label}: two calls on the same "
@@ -1052,8 +1054,8 @@ def check_fused_srp(rec, cases, peaks):
         del power, again, want
         q = dict(
             shape=[c, m, f, p, g], max_abs_err=err, scaled_err=err / scale,
-            ms=time_ms(lambda: srp_fused.srp_power_fused(*args,
-                                                         plan.omega_step)),
+            ms=time_ms(lambda: srp_fused.srp_power_fused(
+                *args, plan.omega_step, plan.staging)),
             chain_ms=time_ms(lambda: srp.srp_surface(spec, plan_m, eps,
                                                      method="matmul")),
             plain_ms=time_ms(lambda: srp_fused.srp_power_fused_plain(*args),
@@ -1062,8 +1064,10 @@ def check_fused_srp(rec, cases, peaks):
             bound=bound_ms(4.0 * m * p * f * g,
                            8.0 * c * m * f + 4.0 * m * g
                            + 4.0 * p * (g + 3) + 4.0 * f, peaks),
-            design=f"{label}: split-K S = {splits} (runs of {per} of "
-                   f"{-(-f // srp_fused.KB) * p} slices), "
+            design=f"{label}: {slots} channel slots (staging table), "
+                   f"column tile {srp_fused.BN}, split-K S = "
+                   f"{splits} (runs of {per} of {-(-f // srp_fused.KB) * p} "
+                   "slices), "
                    f"{-(-m // srp_fused.BM) * -(-g // srp_fused.BN) * splits}"
                    f" blocks, 3xTF32 bound "
                    f"{3 * 4.0 * m * p * f * g / TF32_PEAK * 1e3:.4f} ms")
@@ -2851,15 +2855,14 @@ def em32_scene(pipe, dev):
 
 def check_em32_kernels(pipe, blocks, x_streams, recs, peaks):
     """Phase 4q, the kernels at the ``locata_em32.bulk`` cell's shapes (C =
-    32, B = 512, M = 12 288, F = 513, P = 496): the fused SRP's grouped
-    layout against its plain version (computed EM32_PLAIN_FRAMES frames at
-    a time) within 1e-4 of the largest power, the argmax losing at most
-    1e-4 of the peak, two calls bit-equal, counted in
-    ``LAUNCHES_GROUPED``; the covariance prefixes within 2e-4 and two calls
-    bit-equal; both MVDR solve layouts bit-equal (``check_mvdr_wide``);
-    each timed.  Adds the record ``srp_fused_grouped`` and ``at_c32``
-    records to ``cov_prefixes``, ``mvdr_solve_rows`` and
-    ``mvdr_solve_complex``."""
+    32, B = 512, M = 12 288, F = 513, P = 496): the fused SRP against its
+    plain version (computed EM32_PLAIN_FRAMES frames at a time) within 1e-4
+    of the largest power, the argmax losing at most 1e-4 of the peak, two
+    calls bit-equal, each counted in ``LAUNCHES``; the covariance prefixes
+    within 2e-4 and two calls bit-equal; both MVDR solve layouts bit-equal
+    (``check_mvdr_wide``); each timed.  Adds ``at_em32`` to the record
+    ``srp_fused`` and ``at_c32`` records to ``cov_prefixes``,
+    ``mvdr_solve_rows`` and ``mvdr_solve_complex``."""
     import torch
     from mcax_torch.algos import covariance as cov_mod
     from mcax_torch.kernels import covprefix, srp_fused, stft_fused
@@ -2877,60 +2880,55 @@ def check_em32_kernels(pipe, blocks, x_streams, recs, peaks):
     args = (spec, plan.pairs, plan.tau_pg, plan.omega, eps, plan.valid)
 
     def fused():
-        return srp_fused.srp_power_fused(*args, plan.omega_step)
+        return srp_fused.srp_power_fused(*args, plan.omega_step,
+                                         plan.staging)
 
     def plain():
         return torch.cat([srp_fused.srp_power_fused_plain(
             spec[:, r:r + EM32_PLAIN_FRAMES].contiguous(), *args[1:])
             for r in range(0, m, EM32_PLAIN_FRAMES)])
 
-    before = (srp_fused.srp_power_fused.LAUNCHES,
-              srp_fused.srp_power_fused.LAUNCHES_GROUPED)
+    before = srp_fused.srp_power_fused.LAUNCHES
     power, again = fused(), fused()
-    if (srp_fused.srp_power_fused.LAUNCHES,
-            srp_fused.srp_power_fused.LAUNCHES_GROUPED) != (before[0],
-                                                            before[1] + 2):
-        raise AssertionError("srp_fused at C = 32: two calls did not launch "
-                             "the grouped layout twice and the other never")
+    if srp_fused.srp_power_fused.LAUNCHES != before + 2:
+        raise AssertionError("srp_fused at C = 32: two calls did not count "
+                             "two launches")
     want = plain()
     torch.cuda.synchronize()
     if not torch.equal(power, again):
-        raise AssertionError("srp_fused_grouped: two calls on the same "
+        raise AssertionError("srp_fused at em32: two calls on the same "
                              "inputs differ")
     scale = want.abs().max().item()
     err = (power - want).abs().max().item()
     if not err / scale <= 1e-4:
-        raise AssertionError(f"srp_fused_grouped: scaled error "
+        raise AssertionError(f"srp_fused at em32: scaled error "
                              f"{err / scale:.3e} > 1e-4")
     rows_i = torch.arange(m, device=dev)
     loss = (want[rows_i, want.argmax(-1)]
             - want[rows_i, power.argmax(-1)]).max().item()
     if not loss <= 1e-4 * scale:
-        raise AssertionError(f"srp_fused_grouped: argmax loses {loss:.3e} "
+        raise AssertionError(f"srp_fused at em32: argmax loses {loss:.3e} "
                              f"of peak power (> 1e-4 * {scale:.3e})")
     del power, again, want
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits, per = srp_fused.split_plan(m, f, p, g, c, sms)
+    splits, per = srp_fused.split_plan(m, f, p, g, sms)
     slices = -(-f // srp_fused.KB) * p
-    recs["srp_fused_grouped"] = dict(
-        route="cuda",
-        source="mcax_torch/csrc/srp_fused.cu (srp_fused_kernel_grouped)",
-        replaces="mcax/kernels/srp_fused.py:293", max_abs_err=err,
-        scaled_err=err / scale, shape=[c, m, f, p, g],
-        ms=time_ms(fused), plain_ms=time_ms(plain, reps=1),
-        library_ms=None,
-        library_call="none: the materialised chain (srp='matmul') would "
-                     "hold a 25 GB CPS at these shapes",
-        bound=bound_ms(4.0 * m * p * f * g,
-                       8.0 * c * m * f + 4.0 * m * g + 4.0 * p * (g + 3)
-                       + 4.0 * f, peaks),
-        design_bound=(3 * 4.0 * m * p * f * g / TF32_PEAK * 1e3,
-                      "3xTF32 operations"),
-        design=f"em32 B = {b}: two groups of {srp_fused.GROUP} channels "
-               f"staged, pairs in group-pair order; split-K S = {splits} "
-               f"(runs of {per} of {slices} slices), "
-               f"{-(-m // srp_fused.BM) * -(-g // srp_fused.BN) * splits} "
-               f"blocks, {srp_fused.blocks_per_sm(c)} an SM")
+    bound = bound_ms(4.0 * m * p * f * g,
+                     8.0 * c * m * f + 4.0 * m * g + 4.0 * p * (g + 3)
+                     + 4.0 * f, peaks)
+    e_rec = dict(
+        shape=[c, m, f, p, g], max_abs_err=err, scaled_err=err / scale,
+        ms=time_ms(fused), plain_ms=time_ms(plain, reps=1), library_ms=None,
+        bound_ms=bound[0], bound_by=bound[1],
+        design_bound_ms=3 * 4.0 * m * p * f * g / TF32_PEAK * 1e3)
+    recs["srp_fused"]["at_em32"] = e_rec
+    design = (f"em32 B = {b}: {srp_fused.SLOTS} channel slots shared "
+              f"(staging table), pairs in group-pair order; split-K S = "
+              f"{splits} (runs of {per} of {slices} slices), "
+              f"{-(-m // srp_fused.BM) * -(-g // srp_fused.BN) * splits} "
+              f"blocks of column tile {srp_fused.BN}, "
+              f"{srp_fused.BLOCKS_PER_SM} an SM; no library call (the "
+              "materialised chain, srp='matmul', would hold a 25 GB CPS)")
 
     cov0 = cov_mod.from_planes(pipe.init_state().cov)
     lam = cfg.algo.cov_forget
@@ -2946,10 +2944,10 @@ def check_em32_kernels(pipe, blocks, x_streams, recs, peaks):
     rec["design"] += "; " + cov_prefix_plan(c, b, t, f, dev)
     del spec
     check_mvdr_wide(pipe, blocks, x_streams, SOURCES5_DEG, recs, peaks)
-    g_rec = recs["srp_fused_grouped"]
-    print(f"kernels at em32 B = {b} (C = {c}, P = {p}): srp_fused_grouped "
-          f"{g_rec['ms']:.3f} ms (scaled error {g_rec['scaled_err']:.3e}, "
-          f"plain {g_rec['plain_ms']:.1f} ms), cov_prefixes "
+    print(f"kernels at em32 B = {b} (C = {c}, P = {p}): srp_fused "
+          f"{e_rec['ms']:.3f} ms (scaled error {e_rec['scaled_err']:.3e}, "
+          f"plain {e_rec['plain_ms']:.1f} ms, 3xTF32 bound "
+          f"{e_rec['design_bound_ms']:.3f} ms; {design}), cov_prefixes "
           f"{rec['at_c32']['ms']:.3f} ms, mvdr_solve_rows "
           f"{recs['mvdr_solve_rows']['at_c32']['ms']:.4f} ms, "
           f"mvdr_solve_complex (S = {STREAMS5}) "
@@ -2957,18 +2955,18 @@ def check_em32_kernels(pipe, blocks, x_streams, recs, peaks):
           "1e-4 / 2e-4 / bit-equal / bit-equal of their plain versions")
 
 
-EM32_BULK = ("stft_fused_from_blocks", "srp_power_fused_grouped",
+EM32_BULK = ("stft_fused_from_blocks", "srp_power_fused",
              "block_prefixes_rows", "weights_blocks_fused_rows",
              "irdft_rows", "track_scan")
-EM32_STEP = ("stft_fused_planes", "srp_power_fused_grouped",
+EM32_STEP = ("stft_fused_planes", "srp_power_fused",
              "weights_blocks_fused", "irdft_rows", "track_scan")
 
 
 def em32_paths(pipe, blocks, counters, by_path):
     """Phase 4q, the em32's entry points on the tiled scene: ``process_blocks``
     over EM32_DISPATCHES dispatches of BLOCKS blocks (each kernel of
-    EM32_BULK once a dispatch, the grouped SRP counted apart and the other
-    layout never; tracks within 5 degrees of the sources after block 4;
+    EM32_BULK once a dispatch; tracks within 5 degrees of the sources after
+    block 4;
     samples/s and a profile), then ``process_block`` over EM32_BLOCKS
     blocks (the warm-up captures, the rest replay) held to
     ``process_blocks`` on the same blocks."""
@@ -3312,7 +3310,7 @@ def main() -> int:
         pipe, pipe_m, spec4, pipe5, blocks5, pipe3h, blocks3), PEAKS)
     del spec4
     for name, lines in kernel_registers(
-            ("srp_fused_kernel_grouped", "srp_fused_kernel",
+            ("srp_fused_kernel",
              "irfft_rows_kernel", "cov_partials_kernel",
              "cov_carries_kernel", "cov_fixup_kernel", "mvdr_solve_kernel",
              "mvdr_group_kernel", "cps_gather_kernel")).items():
@@ -3355,7 +3353,6 @@ def main() -> int:
     counters = launch_counters()
     kernel_of = {"stft_from_blocks": "stft_fused_from_blocks",
                  "srp_fused": "srp_power_fused",
-                 "srp_fused_grouped": "srp_power_fused_grouped",
                  "cov_prefixes": "block_prefixes_rows",
                  "mvdr_solve_rows": "weights_blocks_fused_rows",
                  "stft_planes": "stft_fused_planes",

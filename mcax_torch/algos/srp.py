@@ -98,6 +98,9 @@ class DevicePlan:
     omega_step: float = 0.0        # omega's uniform step (uniform_step)
     band_mask: Optional[torch.Tensor] = None   # [F] float32
     b2: Optional[torch.Tensor] = None          # [2*P*F, G] "matmul" only
+    # [P, TABLE_WORDS] int32, the fused kernel's staging of its pairs'
+    # channels (kernels/srp_fused.py, staging_table); "fused" only
+    staging: Optional[torch.Tensor] = None
 
 
 METHODS = ("fused", "matmul")
@@ -135,10 +138,11 @@ def device_plan(plan: SrpPlan, pairs: np.ndarray, device: torch.device,
     def put(a, dtype):
         return torch.as_tensor(np.ascontiguousarray(a)).to(device, dtype)
 
-    # the fused kernel's order of the pairs (grouped past 25 channels); the
+    # the fused kernel's order of the pairs (grouped past MAX_CHANNELS); the
     # surface sums over them in any order
-    order = (srp_fused.pair_order(pairs, num_mics)
-             if check_method(method) == "fused" else np.arange(len(pairs)))
+    fused = check_method(method) == "fused"
+    order = (srp_fused.pair_order(pairs, num_mics) if fused
+             else np.arange(len(pairs)))
     return DevicePlan(
         pairs=put(pairs[order], torch.int32),
         valid=torch.ones(pairs.shape[0], dtype=torch.int32, device=device),
@@ -153,8 +157,10 @@ def device_plan(plan: SrpPlan, pairs: np.ndarray, device: torch.device,
         omega_step=uniform_step(plan.omega),
         band_mask=(None if plan.band_mask is None
                    else put(plan.band_mask, torch.float32)),
-        b2=(ksteer.stacked_steering(plan.e_re, plan.e_im, device)
-            if check_method(method) == "matmul" else None))
+        b2=(None if fused else
+            ksteer.stacked_steering(plan.e_re, plan.e_im, device)),
+        staging=(put(srp_fused.staging_table(pairs[order], num_mics),
+                     torch.int32) if fused else None))
 
 
 def pair_shard(dplan: DevicePlan, plan: SrpPlan, method: str, shards: int,
@@ -182,10 +188,14 @@ def pair_shard(dplan: DevicePlan, plan: SrpPlan, method: str, shards: int,
         e_re = padded(plan.e_re.reshape(p, f, g)).reshape(pl * f, g)
         e_im = padded(plan.e_im.reshape(p, f, g)).reshape(pl * f, g)
         b2 = ksteer.stacked_steering(e_re, e_im, dev)
+    staging = None
+    if check_method(method) == "fused":
+        staging = torch.from_numpy(srp_fused.staging_table(
+            pairs, plan.steer_re.shape[1])).to(dev)
     return dataclasses.replace(
         dplan, pairs=torch.from_numpy(pairs).to(dev),
         valid=torch.from_numpy(padded(np.ones(p, np.int32))).to(dev),
-        tau_pg=torch.from_numpy(tau_pg).to(dev), b2=b2)
+        tau_pg=torch.from_numpy(tau_pg).to(dev), b2=b2, staging=staging)
 
 
 def srp_surface(spectra: torch.Tensor, plan: DevicePlan,
@@ -209,7 +219,7 @@ def srp_surface(spectra: torch.Tensor, plan: DevicePlan,
         spectra = spectra * plan.band_mask                 # masked bins -> 0
     return srp_fused.srp_power_fused(spectra, plan.pairs, plan.tau_pg,
                                      plan.omega, eps, plan.valid,
-                                     plan.omega_step)
+                                     plan.omega_step, plan.staging)
 
 
 def argmax_doa(power: torch.Tensor, plan: DevicePlan,

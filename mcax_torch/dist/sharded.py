@@ -107,8 +107,10 @@ class ShardedPipeline:
         self.st, self.sc = mesh.time_shards, mesh.channel_shards
         self.device = rank_device(device, mesh.rank)
         # the single-device plans (windows, DFT operands, GCC and SRP plans,
-        # fixed steering) and the tracker's kind
-        self._pipe = Pipeline(cfg, device=self.device)
+        # fixed steering) and the tracker's kind; the SRP plan in the
+        # method's pair order (the fused kernel's sorted past its channel
+        # slots, the matmul operand's as given), which pair_shard slices
+        self._pipe = Pipeline(cfg, device=self.device, srp=self.srp)
         self.geom = self._pipe.geom
         c = self.geom.num_mics
         if c % self.sc:

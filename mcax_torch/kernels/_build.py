@@ -33,7 +33,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("stft_fused.cu", "srp_fused.cu", "covprefix.cu", "mvdrsolve.cu",
            "cps.cu", "dft.cu", "fft_rows.cu", "irfft_rows.cu", "steer.cu",
            "halo_rdma.cu", "threefry.cu", "track.cu")
-HEADERS = ("common.cuh", "gemm_rows.cuh", "gemm_tc.cuh", "rfft.cuh")
+HEADERS = ("common.cuh", "gemm_rows.cuh", "gemm_tc.cuh", "rfft.cuh",
+           "wgmma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")
@@ -53,15 +54,14 @@ SIGNATURES = {
     "mcax_stft_fft_from_blocks": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x, w2, out, R, N, hop, F, ldw, stream
     "mcax_stft_planes": (_P, _P, _P, _L, _I, _I, _I, _I, _P),
-    # spec, pairs, valid, tau, omega, scratch (or NULL), out, C, M, F, P, G,
-    # eps, domega, splits, per, stream
-    "mcax_srp_power_fused": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                             _F, _F, _I, _I, _P),
-    # the same
-    "mcax_srp_power_fused_grouped": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                     _I, _I, _F, _F, _I, _I, _P),
-    # layout (int[7]: BM, BN, KB, tile bytes, channel bytes, blocks an SM,
-    # the grouped layout's group)
+    # spec, pairs, valid, staging table, tau, omega, scratch (or NULL), out,
+    # C, M, F, P, G, eps, domega, splits, per, stream
+    "mcax_srp_power_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _F, _F, _I, _I, _P),
+    # layout (int[11]: BM, KB, B' ring bytes a column, A ring bytes, barrier
+    # bytes, map bytes a channel, slot bytes, blocks an SM, the most slots a
+    # producer group stages, the staging table's words a row, the column
+    # tile)
     "mcax_srp_fused_layout": (_P,),
     # spec, cov0 (or NULL), out, carry (or NULL), C, B, T, F, lam, decay,
     # chunk_len, chunks, stream

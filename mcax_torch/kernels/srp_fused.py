@@ -4,18 +4,19 @@
     power[m, g] = sum_p sum_{f<F} Re( PHAT(X_a X_b^*)[m, f] e^{+j omega_f tau_pg} )
 
   * ``srp_power_fused`` — the wrapper: on CUDA tensors it launches the
-    hand-written kernel (``csrc/srp_fused.cu``: ``csrc/gemm_tc.cuh``'s
-    3xTF32 tensor-core body, whose operand tiles, the CPS and the steering
-    phasors, it makes in shared memory and never materialises), with the K
-    of (bin chunk, pair) slices split as ``split_plan`` says; on CPU
-    tensors it runs the plain version.  A thread's 8 bins' phasors come
-    from two sincosf by complex products on omega's uniform ramp (the
-    plan's ``omega_step``).  Past ``MAX_CHANNELS`` it launches the grouped
-    layout (``srp_fused_kernel_grouped``), which stages two groups of
-    ``GROUP`` channels of a bin chunk at a time instead of all C; the pairs
-    sorted by ``pair_order`` restage a group once per group pair and chunk.
-    Its launches count in ``srp_power_fused.LAUNCHES``, the grouped
-    layout's in ``srp_power_fused.LAUNCHES_GROUPED``.
+    hand-written kernel (``csrc/srp_fused.cu``: 3xTF32 on Hopper's
+    warpgroup MMA, ``csrc/wgmma.cuh``; producer warpgroups make the CPS and
+    the steering operands into shared-memory rings, consumer warpgroups run
+    the products, neither operand materialised), in column tiles of ``BN``
+    with the K of (bin chunk, pair) slices split as ``split_plan`` says; on
+    CPU tensors it runs the plain version.  A
+    thread's 8 bins' phasors come from two sincosf by complex products on
+    omega's uniform ramp (the plan's ``omega_step``).  The producers stage
+    the chunk's channels in min(C, ``SLOTS``) slots as the staging table
+    says (``staging_table``, the plan's ``staging``): up to
+    ``MAX_CHANNELS`` each channel has a slot of its own, past it the
+    channels share the slots, the pairs in ``pair_order``.  Its launches
+    count in ``srp_power_fused.LAUNCHES``.
   * ``srp_power_fused_plain`` — the same function in plain PyTorch: the
     materialised CPS (``cps.cps_phat_pairs_plain``), the steering matrices made
     from the same fp32 phases with the same range reduction, and
@@ -24,6 +25,7 @@
 
 from __future__ import annotations
 
+import bisect
 import ctypes
 import functools
 
@@ -82,73 +84,207 @@ def srp_power_fused_plain(spectra: torch.Tensor, pairs: torch.Tensor,
                                  er.reshape(p * f, g), ei.reshape(p * f, g))
 
 
-# The kernel's layout (csrc/srp_fused.cu, on csrc/gemm_tc.cuh): output
-# frames and grid points a block, complex bins a K slice (one pair's 16
-# bins: 32 floats of the interleaved product), the shared memory of the A
-# and B tiles and of one staged channel, the blocks an SM at most (the
-# body's register bound) and GROUP (below).  The first launch checks them
-# against the built kernel's (_check_layout).
-BM, BN, KB = ksteer.BM, ksteer.BN, ksteer.BK // 2
-TILE_BYTES = (BM * (ksteer.BK + 8) + ksteer.BK * (BN + 4)) * 4
+# The kernel's layout (csrc/srp_fused.cu, on csrc/wgmma.cuh): output frames
+# a block (two consumer warpgroups of 64), complex bins a K slice (one
+# pair's 16 bins: 32 values of the product), the shared memory of the ring
+# of steering slices a column of the tile (2 stages of big and small planes,
+# 32 deep), of the ring of CPS slices (the same at BM frames), of the
+# barriers, of the producer warps' slot maps a channel and of one channel
+# slot (both producer groups'), the blocks an SM (512 threads at 128
+# registers), the most slots a producer group stages and the staging
+# table's words a row (below), and the column tile: wgmma's N, 120 makes the
+# presets' G = 360 three tiles with no padding.  The first launch checks
+# them against the built kernel's (_check_layout).
+BM, KB = 128, 16
+RING_BYTES_PER_COLUMN = 2 * 2 * 2 * KB * 4
+A_RING_BYTES = 2 * 2 * 2 * KB * BM * 4
+BARRIER_BYTES = 256
+MAP_BYTES = 16
 CHANNEL_BYTES = BM * KB * 8
-BLOCKS_PER_SM = ksteer.BLOCKS_PER_SM
-# H100 shared memory: an SM's 228 KB, a block's most (227 KB), and the 1 KB
-# the card reserves a block.
-SM_SMEM, BLOCK_SMEM, RESERVED_SMEM = 233472, 232448, 1024
+BLOCKS_PER_SM = 1
+BN = 120
+# H100 shared memory: a block's most (227 KB).
+BLOCK_SMEM = 232448
 # The planner's model of the card doing slices, each block slot one at a
-# time: slices a second over the whole card.  The kernel did 8.0e7 on an
-# H100 SXM at config4, B = 512 (576 tiles x 924 slices in 6.69 ms,
-# tests/test_torch_cuda.py's split sweep); 6e7 weighs the partials'
-# traffic so that the plan is the sweep's fastest split at M = 16
-# (config5), 1536 and 12 288 and within 5 % of it at 24 and 16 384.
-CARD_SLICES_PER_S = 6.0e7
+# time: slices (of a 128 x 120 tile) a second over the whole card.  The
+# kernel did 6.1e7-6.5e7 on an H100 SXM at config4's, config5's and em32's
+# B = 512 (4.35, 6.35 and 72.3 ms), and this model picks the fastest split
+# of tests/test_torch_cuda.py's sweep at M = 16, 24, 1536, 12 288, 16 384.
+CARD_SLICES_PER_S = 6.2e7
 
 
-# The most channels the kernel stages at once (all of a chunk's, up to C =
-# 25), and the grouped layout's group past it (csrc/srp_fused.cu's GROUP):
-# two groups of 5 channels (109 KB) keep two blocks an SM.  At em32's B =
-# 512 (C = 32) groups of 3, 4 and 5 took 127.3, 125.4 and 124.4 ms, groups
-# of 6 to 12 (one block an SM) 178.9-181.8 ms on an H100 SXM at 700 W.
-MAX_CHANNELS = (BLOCK_SMEM - TILE_BYTES) // CHANNEL_BYTES
-GROUP = 5
+def smem_bytes(slots: int, c: int) -> int:
+    """A block's shared memory at C channels with ``slots`` channel slots
+    beside the rings."""
+    return (BN * RING_BYTES_PER_COLUMN + A_RING_BYTES + BARRIER_BYTES
+            + -(-MAP_BYTES * c // 16) * 16 + slots * CHANNEL_BYTES)
 
 
-def blocks_per_sm(c: int) -> int:
-    """Blocks an SM holds at C channels (shared memory and the register
-    bound) on the layout ``srp_power_fused`` takes at C: every channel of a
-    chunk staged, or past ``MAX_CHANNELS`` two groups."""
-    staged = 2 * GROUP if c > MAX_CHANNELS else c
-    smem = TILE_BYTES + staged * CHANNEL_BYTES
-    return min(BLOCKS_PER_SM, SM_SMEM // (smem + RESERVED_SMEM))
+# The channel slots the producers stage (each a chunk's 16 bins of one
+# channel at the tile's 128 frames), what fits beside the rings: 6.  Up to
+# that many channels every channel of a chunk has a slot of its own
+# (``MAX_CHANNELS``); past it the channels share the slots, the pairs in
+# ``pair_order``: by groups of ``GROUP`` channels, so that two groups'
+# pairs fill the slots.
+MAX_CHANNELS = max(c for c in range(1, 64)
+                   if smem_bytes(c, c) <= BLOCK_SMEM)
+SLOTS = MAX_CHANNELS
+GROUP = SLOTS // 2
 
 
 def pair_order(pairs: np.ndarray, c: int) -> np.ndarray:
     """The order in which the kernel takes ``pairs`` [P, 2] at C channels:
     as given up to ``MAX_CHANNELS``, else sorted (stably) by the groups of
-    their two channels, so that the grouped layout restages a group once
-    per group pair and chunk.  The surface is a sum over pairs, so any
-    order gives it; the plan (``algos.srp.device_plan``) sorts its pairs
-    and their TDOAs by this."""
+    their two channels and, within a group pair, by the second channel, so
+    that the staging (``staging_table``) keeps one group's channels while
+    the other's are replaced one by one, each well before it is needed.
+    The surface is a sum over pairs, so any order gives it; the plan
+    (``algos.srp.device_plan``) sorts its pairs and their TDOAs by this."""
     pairs = np.asarray(pairs)
     if c <= MAX_CHANNELS:
         return np.arange(len(pairs))
-    return np.lexsort((pairs[:, 1] // GROUP, pairs[:, 0] // GROUP))
+    return np.lexsort((pairs[:, 1], pairs[:, 1] // GROUP,
+                       pairs[:, 0] // GROUP))
+
+
+# The staging table (``staging_table``), a row per pair: FILLS words of
+# fills to issue after its slice, a word of the pair's channels and which of
+# them no later slice of the chunk reads, and SLOTS words of what the slots
+# hold before it (what a block that starts there stages first).
+FILLS = 4
+PAIR_WORD = FILLS
+STAGED_WORDS = 8
+TABLE_WORDS = 16
+# How far ahead (slices) a fill may take the slot of an instance still to
+# be read: the latency a fill has to land in, ~16 slices of products.
+EVICT = 16
+_VALID = 1 << 31
+
+
+def _word(bits: int) -> int:
+    return (_VALID | bits) - (1 << 32)
+
+
+@functools.lru_cache(maxsize=64)
+def _staging_table(pairs: bytes, p: int, c: int) -> bytes:
+    pairs = np.frombuffer(pairs, np.int32).reshape(p, 2).tolist()
+    slots = min(c, SLOTS)
+    uses = [[] for _ in range(c)]
+    for j, (a, b) in enumerate(pairs):
+        uses[a].append(j)
+        if b != a:
+            uses[b].append(j)
+
+    def next_use(inst, t):
+        """The slice after t that next reads inst = (channel, chunk)."""
+        ch, k = inst
+        i = bisect.bisect_right(uses[ch], t - k * p)
+        return k * p + uses[ch][i] if i < len(uses[ch]) else None
+
+    resident = set()          # instances staged or in flight
+    rec = []
+    periods = 6
+    for t in range(-1, periods * p):
+        k = t // p
+        if t >= 0:
+            a, b = pairs[t % p]
+            if (a, k) not in resident or (b, k) not in resident:
+                raise RuntimeError(f"staging missed slice {t} at C = {c}")
+            before = sorted((ch, kk - k, next_use((ch, kk), t - 1) - t)
+                            for ch, kk in resident)
+            dies = [next_use((x, k), t) is None for x in (a, b)]
+            resident -= {(x, k) for x, d in zip((a, b), dies) if d}
+        fills = []
+        t2 = t + 1
+        while len(fills) < FILLS and t2 <= t + p:
+            for ch in dict.fromkeys(pairs[t2 % p]):
+                inst = (ch, t2 // p)
+                if inst in resident or len(fills) == FILLS:
+                    continue
+                victim = None
+                if len(resident) == slots:
+                    # Belady: for a slice at most EVICT ahead, the instance
+                    # read last gives up its slot
+                    victim = max(sorted(resident), key=lambda v: next_use(v, t))
+                    if t2 - t > EVICT or next_use(victim, t) <= t2:
+                        t2 = t + p
+                        break
+                    resident.remove(victim)
+                resident.add(inst)
+                fills.append((ch, inst[1] - k, victim and victim[0],
+                              victim and victim[1] - k, t2 - t))
+            t2 += 1
+        if t >= 0:
+            rec.append((dies, fills, before))
+    # the fills settle into the same actions every chunk after a few
+    last = rec[(periods - 1) * p:]
+    if rec[(periods - 2) * p:(periods - 1) * p] != last:
+        raise RuntimeError(f"no periodic staging for C = {c}, pairs {pairs}")
+    table = np.zeros((p, TABLE_WORDS), np.int64)
+    for j, (dies, fills, before) in enumerate(last):
+        a, b = pairs[j]
+        table[j, PAIR_WORD] = a | b << 8 | dies[0] << 16 | dies[1] << 17
+        for n, (ch, off, vch, voff, dist) in enumerate(fills):
+            table[j, n] = _word(
+                ch | off << 8 | dist << 19
+                | (0 if vch is None else 1 << 9 | vch << 10 | voff << 18))
+        for n, (ch, off, dist) in enumerate(before):
+            table[j, STAGED_WORDS + n] = _word(ch | off << 8 | dist << 19)
+    return table.astype(np.int32).tobytes()
+
+
+def staging_table(pairs: np.ndarray, c: int) -> np.ndarray:
+    """How the producers stage the channels of the kernel's slices
+    (chunk outermost, the pairs in the order given) in min(C, ``SLOTS``)
+    channel slots: int32 [P, TABLE_WORDS], the same every chunk.  An
+    instance is a channel's bins of one chunk.  After each slice the
+    instances no later slice reads free their slots, and free slots are
+    filled with the next instances the slices ahead need, in the order
+    they need them (for a slice at most EVICT ahead with no slot free, the
+    instance read last gives up its slot).  Up to ``MAX_CHANNELS`` channels
+    every used channel keeps a slot, refilled with the next chunk's bins
+    right after its last use in a chunk.  A fill is issued by cp.async as
+    soon as its slot is free and waited for by the first slice that reads
+    it.  Row j: words 0 .. FILLS - 1 the fills after its slice; word
+    PAIR_WORD the pair's channels a (bits 0-7) and b (8-15), which the
+    kernel checks against its pair table (a surface of NaN if they differ),
+    and whether this is the last
+    slice of the chunk to read a (bit 16) or b (bit 17); words
+    STAGED_WORDS .. the instances staged or in flight before it.  A fill:
+    bit 31 set, the channel (bits 0-7), its chunk relative to the slice's
+    (bit 8), whether it takes the slot of an instance still to be read (bit
+    9: channel bits 10-17, chunk relative to the slice's bit 18), and the
+    slices from here to its first use (bits 19-30); an instance staged: the
+    same without bits 9-18."""
+    pairs = np.ascontiguousarray(pairs, np.int32)
+    p = len(pairs)
+    if pairs.shape != (p, 2) or p < 1 or pairs.min() < 0 or pairs.max() >= c:
+        raise ValueError(f"pairs must be [P, 2] channels < {c}")
+    if c > 256 or p + FILLS >= 1 << 12:
+        raise ValueError(f"the staging table holds channels < 256 and at "
+                         f"most {(1 << 12) - FILLS - 1} pairs, got C = {c}, "
+                         f"P = {p}")
+    return np.frombuffer(_staging_table(pairs.tobytes(), p, c),
+                         np.int32).reshape(p, TABLE_WORDS).copy()
 
 
 @functools.lru_cache(maxsize=256)
-def split_plan(m: int, f: int, p: int, g: int, c: int,
+def split_plan(m: int, f: int, p: int, g: int,
                sms: int = 132) -> tuple[int, int]:
     """(S, per): the kernel's K, ceil(F / KB) bin chunks x P pairs slices,
     split into S runs of ``per`` slices (``steer.plan_splits``) so that
-    [m, g]'s tiles fill ``sms`` SMs at ``blocks_per_sm(c)`` blocks each."""
-    slots = sms * blocks_per_sm(c)
-    return ksteer.plan_splits(-(-m // BM) * -(-g // BN), -(-f // KB) * p,
-                              m * g * 4, slots, slots / CARD_SLICES_PER_S)
+    [m, g]'s tiles (``BN`` columns wide) fill ``sms`` SMs at
+    ``BLOCKS_PER_SM`` blocks each."""
+    slots = sms * BLOCKS_PER_SM
+    return ksteer.plan_splits(-(-m // BM) * -(-g // BN),
+                              -(-f // KB) * p, m * g * 4, slots,
+                              slots / CARD_SLICES_PER_S)
 
 
 def srp_power_fused(spectra: torch.Tensor, pairs: torch.Tensor,
                     tau: torch.Tensor, omega: torch.Tensor, eps: float,
-                    valid: torch.Tensor, omega_step: float) -> torch.Tensor:
+                    valid: torch.Tensor, omega_step: float,
+                    staging: torch.Tensor) -> torch.Tensor:
     """Steered power from channel-major spectra.
 
     Args:
@@ -163,6 +299,11 @@ def srp_power_fused(spectra: torch.Tensor, pairs: torch.Tensor,
         ``algos.srp.make_plan`` builds it (``DevicePlan.omega_step``).  The
         kernel makes each thread's 8 bins' phasors from two by complex
         products; the plain version reads omega alone.
+      staging: int32 [P, TABLE_WORDS], ``staging_table(pairs, C)`` on the
+        spectra's device, as ``algos.srp.device_plan`` holds it (made on
+        the host once a plan, never a call).  The kernel checks each row's
+        pair against ``pairs`` (NaN where they differ); the plain version
+        does not read it.
     Returns:
       float32 [M, G] steered response power.
     """
@@ -174,28 +315,22 @@ def srp_power_fused(spectra: torch.Tensor, pairs: torch.Tensor,
                          "(srp='matmul' takes any omega)")
     if not dispatch.use_kernel(spectra, pairs, tau, omega, valid):
         return srp_power_fused_plain(spectra, pairs, tau, omega, eps, valid)
-    splits, per = split_plan(m, f, p, g, c, ksteer._sm_count(spectra.device))
-    return _launch(spectra, pairs, tau, omega, eps, valid, omega_step, splits,
-                   per, grouped=c > MAX_CHANNELS)
+    splits, per = split_plan(m, f, p, g, ksteer._sm_count(spectra.device))
+    return _launch(spectra, pairs, tau, omega, eps, valid, omega_step,
+                   staging, splits, per)
 
 
 def _launch(spectra, pairs, tau, omega, eps, valid, omega_step: float,
-            splits: int, per: int, grouped: bool = False) -> torch.Tensor:
+            staging: torch.Tensor, splits: int, per: int) -> torch.Tensor:
     """The kernel on CUDA tensors with its K slices split into ``splits``
-    runs of ``per`` (``split_plan``): the layout that stages every channel
-    of a chunk (at most ``MAX_CHANNELS``), or with ``grouped`` the grouped
-    layout (any C)."""
+    runs of ``per`` (``split_plan``), staged as ``staging`` says."""
     c, m, f, p, g = _shape(spectra, pairs, tau, omega, valid)
     _build.check_tensor("spectra", spectra, torch.complex64, (c, m, f))
     _build.check_tensor("pairs", pairs, torch.int32, (p, 2))
     _build.check_tensor("valid", valid, torch.int32, (p,))
     _build.check_tensor("tau", tau, torch.float32, (p, g))
     _build.check_tensor("omega", omega, torch.float32, (f,))
-    if not grouped and c > MAX_CHANNELS:
-        raise ValueError(f"the fused SRP kernel stages every channel of a "
-                         f"bin chunk in shared memory, at most "
-                         f"{MAX_CHANNELS}, got C = {c} (the grouped layout "
-                         "takes any C)")
+    _build.check_tensor("staging", staging, torch.int32, (p, TABLE_WORDS))
     _check_layout()
     out = torch.empty((m, g), dtype=torch.float32, device=spectra.device)
     if m == 0 or g == 0:
@@ -204,32 +339,25 @@ def _launch(spectra, pairs, tau, omega, eps, valid, omega_step: float,
                            device=spectra.device) if splits > 1 else None)
     lib = _build.library()
     args = (spectra.data_ptr(), pairs.data_ptr(), valid.data_ptr(),
-            tau.data_ptr(), omega.data_ptr(),
+            staging.data_ptr(), tau.data_ptr(), omega.data_ptr(),
             scratch.data_ptr() if scratch is not None else None,
-            out.data_ptr(), c, m, f, p, g, float(eps), float(omega_step))
-    if grouped:
-        code = lib.mcax_srp_power_fused_grouped(*args, splits, per,
-                                                _build.stream_of(spectra))
-        _build.check_launch("srp_fused_grouped", code)
-        srp_power_fused.LAUNCHES_GROUPED += 1
-    else:
-        code = lib.mcax_srp_power_fused(*args, splits, per,
-                                        _build.stream_of(spectra))
-        _build.check_launch("srp_fused", code)
-        srp_power_fused.LAUNCHES += 1
+            out.data_ptr(), c, m, f, p, g, float(eps), float(omega_step),
+            splits, per, _build.stream_of(spectra))
+    _build.check_launch("srp_fused", lib.mcax_srp_power_fused(*args))
+    srp_power_fused.LAUNCHES += 1
     return out
 
 
 srp_power_fused.LAUNCHES = 0
-srp_power_fused.LAUNCHES_GROUPED = 0
 
 
 @functools.lru_cache(maxsize=None)
 def _check_layout() -> None:
     """Raise unless the built kernel's layout is the planner's."""
-    got = (ctypes.c_int * 7)()
+    got = (ctypes.c_int * 11)()
     _build.library().mcax_srp_fused_layout(got)
-    want = (BM, BN, KB, TILE_BYTES, CHANNEL_BYTES, BLOCKS_PER_SM, GROUP)
+    want = (BM, KB, RING_BYTES_PER_COLUMN, A_RING_BYTES, BARRIER_BYTES,
+            MAP_BYTES, CHANNEL_BYTES, BLOCKS_PER_SM, SLOTS, TABLE_WORDS, BN)
     if tuple(got) != want:
         raise RuntimeError(f"csrc/srp_fused.cu's layout {tuple(got)} is not "
                            f"kernels/srp_fused.py's {want}")

@@ -7,8 +7,7 @@ to the host, so an unfenced wall clock would measure only the enqueue.
 
 ``span(name)`` marks a stage of the pipeline's steps on ``torch.profiler``'s
 host timeline, beside the kernels it launches; ``launch_counters()`` lists
-every kernel launch count of the port: each kernel wrapper's ``LAUNCHES``
-(and the fused SRP's grouped layout's).
+every kernel launch count of the port: each kernel wrapper's ``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -83,10 +82,8 @@ def span(name: str):
 
 def launch_counters() -> dict:
     """Every kernel launch count of the port: {name: (wrapper, attribute)},
-    each wrapper's ``LAUNCHES`` under its own name, and the fused SRP's
-    grouped layout (``srp_power_fused.LAUNCHES_GROUPED``) under
-    ``srp_power_fused_grouped`` (imported on the call: importing this
-    module loads no kernel)."""
+    each wrapper's ``LAUNCHES`` under its own name (imported on the call:
+    importing this module loads no kernel)."""
     from mcax_torch.dist import halo_rdma
     from mcax_torch.kernels import (covprefix, cps, fft, mvdrsolve,
                                     srp_fused, steer, stft_fused, threefry,
@@ -100,7 +97,4 @@ def launch_counters() -> dict:
                 halo_rdma.ring_push_right, threefry.particle_draws,
                 threefry.split, threefry.uniform, threefry.normal,
                 track.track_scan, track.particle_scan)
-    counters = {fn.__name__: (fn, "LAUNCHES") for fn in wrappers}
-    counters["srp_power_fused_grouped"] = (srp_fused.srp_power_fused,
-                                           "LAUNCHES_GROUPED")
-    return counters
+    return {fn.__name__: (fn, "LAUNCHES") for fn in wrappers}

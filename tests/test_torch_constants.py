@@ -16,6 +16,7 @@ from mcax_torch import config as t_config
 from mcax_torch.algos import srp as t_srp
 from mcax_torch.frames import window as t_window
 from mcax_torch.kernels import fft as t_fft
+from mcax_torch.kernels import srp_fused
 
 torch.set_num_threads(1)
 
@@ -91,10 +92,13 @@ def test_srp_plan_config4():
         assert a.dtype == b.dtype and a.shape == b.shape, name
         np.testing.assert_array_equal(a, b, err_msg=name)
     assert got.band_mask is None and ref.band_mask is None
-    # the device plan holds the same numbers
-    dp = t_srp.device_plan(got, t_config.get_config("config4").geometry()
-                           .pairs, torch.device("cpu"))
-    np.testing.assert_array_equal(dp.tau_pg.numpy(), ref.tau_pg)
+    # the device plan holds the same numbers, the pairs and their TDOAs in
+    # the fused kernel's order (kernels/srp_fused.py, pair_order)
+    pairs = t_config.get_config("config4").geometry().pairs
+    dp = t_srp.device_plan(got, pairs, torch.device("cpu"))
+    order = srp_fused.pair_order(pairs, pairs.max() + 1)
+    np.testing.assert_array_equal(dp.pairs.numpy(), pairs[order])
+    np.testing.assert_array_equal(dp.tau_pg.numpy(), ref.tau_pg[order])
     np.testing.assert_array_equal(dp.steer.real.numpy(), ref.steer_re)
     np.testing.assert_array_equal(dp.steer.imag.numpy(), ref.steer_im)
     np.testing.assert_array_equal(dp.azimuths_rad.numpy(),

@@ -27,8 +27,9 @@ and one block); the PHAT cross-power with the pair gather in the kernel
 bit-equal at config1's, config4's (B = 512) and config5's shapes, with
 padded pairs, leading signals, a strided view and three bin tiles, in both
 layouts, and config4's srp="matmul" bulk through it equal to the fused
-SRP; kernel 2 past 25 channels (the grouped layout, em32's 32 capsules)
-against its plain version, and which layout a call launches by C; kernel 4
+SRP; kernel 2 on warpgroup MMA from 4 to 32 channels (past 6 the channels
+share its slots; em32's 32 capsules too) against its plain version, one
+launch counted a call; kernel 4
 on the group body with the rows loader bit-equal at config5 B = 512, at
 runs cut short by the last system, at C = 8 and at em32's C = 32 (B = 512),
 kernel 6 at C = 32; the particle
@@ -157,7 +158,7 @@ def test_srp_fused(dev, c, f, g_pts, m, invalid):
     valid = plan.valid.clone()
     valid[list(invalid)] = 0
     args = (spec, plan.pairs, plan.tau_pg, plan.omega, 1e-12, valid)
-    got = srp_fused.srp_power_fused(*args, plan.omega_step)
+    got = srp_fused.srp_power_fused(*args, plan.omega_step, plan.staging)
     want = srp_fused.srp_power_fused_plain(*args)
     scale = want.abs().max()
     torch.testing.assert_close(got / scale, want / scale, atol=1e-4, rtol=0)
@@ -178,30 +179,28 @@ def _em32_config():
 
 
 @pytest.mark.parametrize("c,f,m", [
-    (26, 513, 200),      # one channel past the layout that stages all C
+    (26, 513, 200),      # 26 channels sharing the slots
     (32, 513, 384),      # em32's 32 capsules, 16 blocks' frames
     (32, 513, 24),       # em32's block step
 ])
 def test_srp_fused_grouped(dev, c, f, m):
-    """Past 25 channels the wrapper takes the grouped layout (one launch
-    counted in ``LAUNCHES_GROUPED``, none in ``LAUNCHES``): within 1e-4 of the
-    largest power of the plain version, the argmax losing at most 1e-4 of
-    the peak, two calls bit-equal; the plan's pairs sorted by group pair
-    and the pairs in the order given give the same surface within 1e-4."""
+    """Past ``MAX_CHANNELS`` the channels share the kernel's slots (one
+    launch counted a call): within 1e-4 of the largest power of the plain
+    version, the argmax losing at most 1e-4 of the peak, two calls
+    bit-equal; the plan's pairs sorted by group pair and the pairs in the
+    order given (each with its own staging table) give the same surface
+    within 1e-4."""
     geom = (_em32_config().geometry() if c == 32 else t_geo.ArrayGeometry(
         positions=t_geo.circular_positions(c, 0.05), sample_rate=48000))
     plan = t_srp.device_plan(t_srp.make_plan(geom, (f - 1) * 2, 360),
                              geom.pairs, dev)
     spec = _rng_complex(np.random.default_rng(c + m), (c, m, f), dev)
     args = (spec, plan.pairs, plan.tau_pg, plan.omega, 1e-12, plan.valid)
-    before = (srp_fused.srp_power_fused.LAUNCHES,
-              srp_fused.srp_power_fused.LAUNCHES_GROUPED)
-    got = srp_fused.srp_power_fused(*args, plan.omega_step)
-    assert (srp_fused.srp_power_fused.LAUNCHES,
-            srp_fused.srp_power_fused.LAUNCHES_GROUPED) == (
-                before[0], before[1] + 1)
-    assert torch.equal(got, srp_fused.srp_power_fused(*args,
-                                                      plan.omega_step))
+    before = srp_fused.srp_power_fused.LAUNCHES
+    got = srp_fused.srp_power_fused(*args, plan.omega_step, plan.staging)
+    assert srp_fused.srp_power_fused.LAUNCHES == before + 1
+    assert torch.equal(got, srp_fused.srp_power_fused(*args, plan.omega_step,
+                                                      plan.staging))
     want = srp_fused.srp_power_fused_plain(*args)
     scale = want.abs().max()
     torch.testing.assert_close(got / scale, want / scale, atol=1e-4, rtol=0)
@@ -212,39 +211,96 @@ def test_srp_fused_grouped(dev, c, f, m):
     lex = srp_fused.srp_power_fused(
         spec, torch.from_numpy(geom.pairs).to(dev),
         torch.from_numpy(given.tau_pg).to(dev), plan.omega, 1e-12,
-        plan.valid, plan.omega_step)
+        plan.valid, plan.omega_step,
+        torch.from_numpy(srp_fused.staging_table(geom.pairs, c)).to(dev))
     torch.testing.assert_close(lex / scale, want / scale, atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("c", [8, 16, 25, 26, 32])
+@pytest.mark.parametrize("c", [4, 6, 8, 16, 25, 26, 32])
 def test_srp_fused_layout_by_channels(dev, c):
-    """Up to 25 channels a call launches the layout that stages every
-    channel (``srp_power_fused.LAUNCHES``) and never the grouped one
-    (``LAUNCHES_GROUPED``); past 25 the grouped one alone.  At 16 channels
-    the grouped layout (groups of 5: three halves restaged), launched
-    through ``_launch``, gives the other layout's surface within 1e-4."""
-    f, m = 257, 64
-    geom = t_geo.ArrayGeometry(positions=t_geo.circular_positions(c, 0.1),
-                               sample_rate=16000)
+    """The warpgroup-MMA kernel from 4 to 32 channels: each channel in a
+    slot of its own up to ``MAX_CHANNELS`` (6), past it the channels
+    sharing the slots; one launch counted a call, two calls bit-equal, each
+    within 1e-4 of the largest power of the plain version with the argmax
+    check."""
+    f, m = 513, 200
+    geom = t_geo.ArrayGeometry(positions=t_geo.circular_positions(c, 0.05),
+                               sample_rate=48000)
     plan = t_srp.device_plan(t_srp.make_plan(geom, (f - 1) * 2, 360),
                              geom.pairs, dev)
-    spec = _rng_complex(np.random.default_rng(c), (c, m, f), dev)
+    spec = _rng_complex(np.random.default_rng(c + 1), (c, m, f), dev)
     args = (spec, plan.pairs, plan.tau_pg, plan.omega, 1e-12, plan.valid)
-    before = (srp_fused.srp_power_fused.LAUNCHES,
-              srp_fused.srp_power_fused.LAUNCHES_GROUPED)
-    got = srp_fused.srp_power_fused(*args, plan.omega_step)
-    grouped = c > srp_fused.MAX_CHANNELS
-    assert (srp_fused.srp_power_fused.LAUNCHES - before[0],
-            srp_fused.srp_power_fused.LAUNCHES_GROUPED - before[1]) == (
-                (0, 1) if grouped else (1, 0))
-    if c == 16:
-        p, g = plan.tau_pg.shape
-        other = srp_fused._launch(
-            *args, plan.omega_step, *srp_fused.split_plan(m, f, p, g, c),
-            grouped=True)
-        scale = got.abs().max()
-        torch.testing.assert_close(other / scale, got / scale, atol=1e-4,
-                                   rtol=0)
+    want = srp_fused.srp_power_fused_plain(*args)
+    scale = want.abs().max()
+    rows = torch.arange(m, device=dev)
+    before = srp_fused.srp_power_fused.LAUNCHES
+    one = srp_fused.srp_power_fused(*args, plan.omega_step, plan.staging)
+    two = srp_fused.srp_power_fused(*args, plan.omega_step, plan.staging)
+    assert srp_fused.srp_power_fused.LAUNCHES == before + 2
+    assert torch.equal(one, two)
+    torch.testing.assert_close(one / scale, want / scale, atol=1e-4, rtol=0)
+    loss = (want[rows, want.argmax(-1)] - want[rows, one.argmax(-1)]).max()
+    assert loss <= 1e-4 * scale
+
+
+TF32_PROBE = r"""
+#include "wgmma.cuh"
+__global__ void round_both(const unsigned* x, unsigned* ours, unsigned* cvt,
+                           long long n) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float v = __uint_as_float(x[i]);
+  ours[i] = mcax::wg::tf32_rna(v);
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  cvt[i] = r;
+}
+extern "C" int tf32_round_both(const unsigned* x, unsigned* ours,
+                               unsigned* cvt, long long n) {
+  round_both<<<(unsigned)((n + 255) / 256), 256>>>(x, ours, cvt, n);
+  return (int)cudaDeviceSynchronize();
+}
+"""
+
+
+def test_tf32_rna_is_cvt_rna(dev, tmp_path):
+    """Kernel 2's TF32 rounding, ``wgmma.cuh``'s two-instruction
+    ``tf32_rna``, is bit-equal to ``cvt.rna.tf32.f32`` on finite inputs:
+    every sign, exponent (subnormals and FLT_MAX's among them) and top 10
+    mantissa bits, each with the 13 bits below at the rounding's edges (0,
+    1, 0xfff, 0x1000, 0x1001, 0x1fff), and 2^22 random finite patterns."""
+    import ctypes
+    import subprocess
+    from mcax_torch.kernels import _build
+    src = tmp_path / "tf32_probe.cu"
+    src.write_text(TF32_PROBE)
+    so = tmp_path / "libtf32_probe.so"
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
+                           str(_build.CSRC), "-o", str(so), str(src)],
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lib = ctypes.CDLL(str(so))
+    lib.tf32_round_both.argtypes = (ctypes.c_void_p,) * 3 + (
+        ctypes.c_longlong,)
+    high = torch.arange(1 << 19, dtype=torch.int64) << 13
+    low = torch.tensor([0, 1, 0xfff, 0x1000, 0x1001, 0x1fff])
+    edges = (high[:, None] | low[None, :]).ravel()
+    rand = torch.randint(0, 1 << 32, (1 << 22,), dtype=torch.int64,
+                         generator=torch.Generator().manual_seed(7))
+    bits = torch.cat([edges, rand])
+    bits = bits[(bits >> 23 & 0xff) != 0xff]               # finite only
+    assert (bits == 0x7f7fffff).any() and (bits == 0x00001000).any()
+    x = torch.where(bits >= 1 << 31, bits - (1 << 32), bits).to(
+        torch.int32).to(dev)
+    ours, cvt = torch.empty_like(x), torch.empty_like(x)
+    assert lib.tf32_round_both(x.data_ptr(), ours.data_ptr(),
+                               cvt.data_ptr(), x.numel()) == 0
+    differ = (ours != cvt).nonzero().ravel()
+    assert differ.numel() == 0, (
+        f"{differ.numel()} of {x.numel()} differ, e.g. "
+        + ", ".join(f"{int(x[i]) & 0xffffffff:#010x}: "
+                    f"{int(ours[i]) & 0xffffffff:#010x} vs "
+                    f"{int(cvt[i]) & 0xffffffff:#010x}" for i in differ[:4]))
 
 
 def _fused_case(dev, c, f, m, r):
@@ -281,10 +337,10 @@ def test_srp_fused_at_pipeline_frames(dev, c, f, m, r):
     peak, two calls bit-equal, one launch counted a call."""
     plan, args = _fused_case(dev, c, f, m, r)
     before = srp_fused.srp_power_fused.LAUNCHES
-    got = srp_fused.srp_power_fused(*args, plan.omega_step)
+    got = srp_fused.srp_power_fused(*args, plan.omega_step, plan.staging)
     assert srp_fused.srp_power_fused.LAUNCHES == before + 1
-    assert torch.equal(got, srp_fused.srp_power_fused(*args,
-                                                      plan.omega_step))
+    assert torch.equal(got, srp_fused.srp_power_fused(*args, plan.omega_step,
+                                                      plan.staging))
     want = srp_fused.srp_power_fused_plain(*args)
     scale = want.abs().max()
     torch.testing.assert_close(got / scale, want / scale, atol=1e-4, rtol=0)
@@ -295,28 +351,36 @@ def test_srp_fused_at_pipeline_frames(dev, c, f, m, r):
 
 @pytest.mark.parametrize("c,f,m,r", PIPELINE_FRAMES)
 def test_srp_fused_split_plan_against_a_sweep(dev, c, f, m, r):
-    """The planner's split against splits of 1 to 132 runs on the card
-    (CUDA events, 10 calls each): printed (run with -s), and the plan
-    within 10 % of the sweep's fastest."""
+    """The planner's split against splits of 1 to 132 runs on the card,
+    those that fill whole waves among them (CUDA events, 10 calls each):
+    printed (run with -s), and the plan within 10 % of the sweep's
+    fastest."""
     plan, args = _fused_case(dev, c, f, m, r)
     p, g = plan.tau_pg.shape
     slices = -(-f // srp_fused.KB) * p
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    chosen = srp_fused.split_plan(m, f, p, g, c, sms)
+    chosen = srp_fused.split_plan(m, f, p, g, sms)
 
     def time_ms(splits, per):
-        srp_fused._launch(*args, plan.omega_step, splits, per)
+        srp_fused._launch(*args, plan.omega_step, plan.staging, splits, per)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(10):
-            srp_fused._launch(*args, plan.omega_step, splits, per)
+            srp_fused._launch(*args, plan.omega_step, plan.staging, splits,
+                              per)
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / 10
 
+    # the planner's candidates: splits that fill whole waves of the SMs'
+    # one block each, and a spread of others
+    tiles = -(-m // srp_fused.BM) * -(-g // srp_fused.BN)
+    waves = [s for s in range(1, 133)
+             if tiles * s % (sms * srp_fused.BLOCKS_PER_SM) == 0]
     runs = {chosen}
-    for s in (1, 2, 3, 4, 6, 8, 11, 16, 24, 33, 44, 66, 88, 132):
+    for s in sorted({1, 2, 3, 4, 6, 8, 11, 16, 24, 33, 44, 66, 88, 132,
+                     *waves}):
         per = -(-slices // s)
         s = -(-slices // per)
         if s == 1 or s * m * g * 4 <= steer.MAX_SCRATCH_BYTES:

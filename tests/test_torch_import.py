@@ -157,8 +157,8 @@ def test_every_kernel_has_a_counter_and_its_sources():
     from mcax_torch.kernels import _build
     from mcax_torch.utils.metrics import launch_counters
     counters = launch_counters()
-    # 18 kernel wrappers' LAUNCHES, and the fused SRP's grouped layout's
-    assert len(set(counters.values())) == len(counters) == 19
+    # 18 kernel wrappers' LAUNCHES
+    assert len(set(counters.values())) == len(counters) == 18
     assert len({fn for fn, _ in counters.values()}) == 18
     for name, (fn, attr) in counters.items():
         assert isinstance(getattr(fn, attr), int), name

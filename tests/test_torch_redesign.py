@@ -26,21 +26,21 @@ kernel's own bound:
     ``srp_power_cps_plain`` within 1e-4 of the largest power with the argmax
     check, at config4's and config5's K; and the planner itself (2K covered
     exactly once, at least one wave of 132 SMs at one block's frames);
-  * kernel 2 (``csrc/srp_fused.cu`` on the same body): the K of (16-bin
-    chunk, pair) slices, chunk outermost, each slice's PHAT CPS and
-    steering made as the kernel makes them (bins past F selected to 0,
+  * kernel 2 (``csrc/srp_fused.cu``, on Hopper's warpgroup MMA): the K
+    of (16-bin chunk, pair) slices, chunk outermost, each slice's PHAT CPS
+    and steering made as the kernel makes them (bins past F selected to 0,
     NaN there included; a pair of valid 0 adding exactly 0; 8 bins'
-    phasors from two on omega's uniform ramp, and their phase error), 3xTF32
-    products summed from zero a slice and added in slice order, the
-    partials of ``srp_fused.split_plan`` added in split order, against
-    ``srp_power_fused_plain`` and ``mcax``'s ``srp_power_fused`` within
-    3e-5 of the largest power; and the planner (K covered exactly once,
-    the grid filling 132 SMs at every M the pipelines use); past 25
-    channels its grouped layout (two groups of 5 channels staged, each
-    slice's channels in them across chunks and split runs, the plan's
-    pairs sorted by group pair restaging a group once per group pair and
-    chunk) and the plan's pair order, which leaves the surface within
-    3e-5.
+    phasors from two on omega's uniform ramp, and their phase error), in
+    wgmma's 4 steps of 8, 3xTF32 a step, each slice summed from zero and
+    added in slice order, the partials of ``srp_fused.split_plan`` added in
+    split order, against ``srp_power_fused_plain`` and ``mcax``'s
+    ``srp_power_fused`` within 3e-5 of the largest power (1e-4 over the bulk
+    cells' whole K); the planner (K covered exactly once, the grid filling
+    132 SMs at every M the pipelines use, whole waves at the bulk cells',
+    the column tile from G, the layout from C); the staging table (each
+    slice's channels in their slots from any start, pair shards included;
+    the plan's pairs sorted by group pair filling far fewer slots) and the
+    plan's pair order, which leaves the surface within 3e-5.
 """
 
 import numpy as np
@@ -463,10 +463,11 @@ def test_planner_tiles_are_the_kernels():
     assert "__launch_bounds__(THREADS, BLOCKS_PER_SM)" in src
 
 
-# -- kernel 2: the fused SRP on 3xTF32 tiles, its operands made on chip ----
+# -- kernel 2: the fused SRP on warpgroup-MMA 3xTF32 tiles, its operands
+# made on chip ----------------------------------------------------------------
 
 # (C, F, P) of config4 (and config3 at hop 128: F = 257) and config5, and
-# past 25 channels (the grouped layout: 26, and em32's 32), at the frames a
+# more channels (26, and em32's 32), at the frames a
 # call of each pipeline gives the kernel: config5's and config4's
 # block step, config4 serving S = 64, config4 bulk B = 512, config3 hop 128
 # B = 512.
@@ -480,63 +481,81 @@ def _phasors(omega, tau_p, f0, f, omega_step):
     [KB, G] for bins f0 .. f0 + KB - 1, each thread's 8 bins from one
     range-reduced phasor of its first bin (omega there, 0 past F) by
     products with the step's."""
+    er, ei = _phasor_tiles(omega, tau_p[None], f0, f, omega_step)
+    return er[0], ei[0]
+
+
+def _phasor_tiles(omega, tau, f0, f, omega_step):
+    """``_phasors`` for every pair of tau [P, G] at once: [P, KB, G]."""
     kb = srp_fused.KB
-    out_r, out_i = [], []
     step_r, step_i = srp_fused.steering_planes(
-        tau_p[None], torch.tensor([omega_step], dtype=torch.float32))
+        tau, torch.tensor([omega_step], dtype=torch.float32))
+    out_r, out_i = [], []
     for k0 in range(0, kb, 8):
         f1 = f0 + k0
         om = omega[f1] if f1 < f else torch.tensor(0.0)
-        er, ei = srp_fused.steering_planes(tau_p[None], om.reshape(1))
-        er, ei = er[0, 0], ei[0, 0]
+        er, ei = srp_fused.steering_planes(tau, om.reshape(1))
         for _ in range(8):
             out_r.append(er)
             out_i.append(ei)
-            er, ei = (er * step_r[0, 0] - ei * step_i[0, 0],
-                      er * step_i[0, 0] + ei * step_r[0, 0])
-    return torch.stack(out_r), torch.stack(out_i)
+            er, ei = er * step_r - ei * step_i, er * step_i + ei * step_r
+    return torch.cat(out_r, 1), torch.cat(out_i, 1)
 
 
 def _fused_emulation(spectra, pairs, tau, omega, eps, valid, omega_step,
                      pad=0.0):
     """csrc/srp_fused.cu's arithmetic in its order: (power [M, G], the
-    largest |slice sum| of a pair of valid 0).  ``pad`` fills the staged
-    bins past F (the kernel zero-fills them; NaN shows the select)."""
+    largest |slice sum| of a pair of valid 0).  The K of (16-bin chunk,
+    pair) slices, chunk outermost; a slice's A = the PHAT CPS and B' =
+    (E_re, -E_im) in wgmma's 4 steps of 8 (a step 4 bins' real parts, then
+    their imaginary parts); a step's 3xTF32 products small*big, big*small,
+    big*big added in that order to the slice's sum, which starts at 0; the
+    slices added in order by an fp32 add into each split run's sum, the runs
+    of ``srp_fused.split_plan`` added in split order.  ``pad`` fills the
+    staged bins past F (the kernel zero-fills them; NaN shows the select)."""
     c, m, f = spectra.shape
     p, g = tau.shape
     kb = srp_fused.KB
     nfc = -(-f // kb)
     slices = nfc * p
-    splits, per = srp_fused.split_plan(m, f, p, g, c, SMS)
+    splits, per = srp_fused.split_plan(m, f, p, g, SMS)
     staged = torch.full((c, m, nfc * kb), complex(pad, pad),
                         dtype=torch.complex64)
     staged[..., :f] = spectra
     f_ok = torch.arange(nfc * kb) < f
+    pl = pairs.long()
+    vp = valid.to(torch.float32)[:, None, None]
     invalid_max = 0.0
-    out = None
-    for sp in range(splits):
-        acc = torch.zeros((m, g))
-        for i in range(sp * per, min((sp + 1) * per, slices)):
-            fc, pp = divmod(i, p)
-            sl = slice(fc * kb, (fc + 1) * kb)
-            a = staged[pairs[pp, 0], :, sl]
-            b = staged[pairs[pp, 1], :, sl]
-            zr = a.real * b.real + a.imag * b.imag
-            zi = a.imag * b.real - a.real * b.imag
-            wt = float(valid[pp]) / (torch.sqrt(zr * zr + zi * zi) + eps)
-            ok = f_ok[sl]
-            gr = torch.where(ok, zr * wt, 0.0)
-            gi = torch.where(ok, zi * wt, 0.0)
-            er, ei = _phasors(omega, tau[pp], fc * kb, f, omega_step)
-            a_t = torch.stack([gr, gi], -1).reshape(m, 2 * kb)
-            b_t = torch.stack([er, -ei], 1).reshape(2 * kb, g)
-            ab, asm = _split(a_t)
-            bb, bsm = _split(b_t)
-            part = asm @ bb + ab @ bsm + ab @ bb
+    out = acc = None
+    for fc in range(nfc):
+        sl = slice(fc * kb, (fc + 1) * kb)
+        a = staged[pl[:, 0]][:, :, sl]                    # [P, M, KB]
+        b = staged[pl[:, 1]][:, :, sl]
+        zr = a.real * b.real + a.imag * b.imag
+        zi = a.imag * b.real - a.real * b.imag
+        wt = vp / (torch.sqrt(zr * zr + zi * zi) + eps)
+        ok = f_ok[sl]
+        gr = torch.where(ok, zr * wt, 0.0)
+        gi = torch.where(ok, zi * wt, 0.0)
+        er, ei = _phasor_tiles(omega, tau, fc * kb, f, omega_step)
+        part = torch.zeros((p, m, g))
+        for s in range(4):
+            q = slice(4 * s, 4 * s + 4)
+            a8 = torch.cat([gr[:, :, q], gi[:, :, q]], -1)    # [P, M, 8]
+            b8 = torch.cat([er[:, q], -ei[:, q]], 1)          # [P, 8, G]
+            ab, asm = _split(a8)
+            bb, bsm = _split(b8)
+            part = part + asm @ bb
+            part = part + ab @ bsm
+            part = part + ab @ bb
+        for pp in range(p):
+            i = fc * p + pp
             if not valid[pp]:
-                invalid_max = max(invalid_max, float(part.abs().max()))
-            acc = acc + part
-        out = acc if out is None else out + acc
+                invalid_max = max(invalid_max, float(part[pp].abs().max()))
+            acc = part[pp] if i % per == 0 else acc + part[pp]
+            if i % per == per - 1 or i == slices - 1:
+                out = acc if out is None else out + acc
+    assert splits == -(-slices // per)
     return out, invalid_max
 
 
@@ -554,7 +573,7 @@ def _fused_case(c, f, m, g=360, seed=0, radius=0.05, fs=48000):
 @pytest.mark.parametrize("m", FUSED_FRAMES)
 def test_fused_split_plan_covers_k_once(c, f, p, m):
     g = 360
-    s, per = srp_fused.split_plan(m, f, p, g, c, SMS)
+    s, per = srp_fused.split_plan(m, f, p, g, SMS)
     slices = -(-f // srp_fused.KB) * p
     assert s >= 1 and per >= 1
     assert (s - 1) * per < slices <= s * per     # no empty run, no gap
@@ -564,95 +583,199 @@ def test_fused_split_plan_covers_k_once(c, f, p, m):
     assert (covered == 1).all()
     blocks = -(-m // srp_fused.BM) * -(-g // srp_fused.BN) * s
     assert blocks >= SMS                          # every SM has a block
-    slots = SMS * srp_fused.blocks_per_sm(c)
+    slots = SMS * srp_fused.BLOCKS_PER_SM
     if blocks > slots:
         assert blocks / (-(-blocks // slots) * slots) >= 0.9   # no tail
     assert s == 1 or s * m * g * 4 <= steer.MAX_SCRATCH_BYTES
 
 
-def test_fused_blocks_an_sm_and_the_channel_limit():
-    """Every channel of a chunk staged up to 25 (one block an SM past 10),
-    26 channels past a block's shared memory; past 25 the grouped layout's
-    two groups of ``GROUP`` (csrc/srp_fused.cu's constant), two blocks an
-    SM."""
-    assert srp_fused.MAX_CHANNELS == 25
-    staged = [srp_fused.TILE_BYTES + c * srp_fused.CHANNEL_BYTES
-              for c in (25, 26, 2 * srp_fused.GROUP)]
-    assert staged[0] <= srp_fused.BLOCK_SMEM < staged[1]
-    assert staged[2] <= srp_fused.BLOCK_SMEM
-    assert srp_fused.blocks_per_sm(8) == 2
-    assert srp_fused.blocks_per_sm(16) == 1
-    assert srp_fused.blocks_per_sm(25) == 1
-    assert (srp_fused.blocks_per_sm(26) == srp_fused.blocks_per_sm(32)
-            == srp_fused.blocks_per_sm(64) == 2)
+@pytest.mark.parametrize("m,f,p,waves", [
+    (12288, 513, 28, 11),     # config4 bulk, B = 512: 288 tiles x 5 runs
+    (8192, 257, 120, 16),     # config5 bulk: 192 tiles x 11 runs
+    (12288, 513, 496, 24),    # em32 bulk: 288 tiles x 11 runs
+])
+def test_fused_split_plan_fills_whole_waves(m, f, p, waves):
+    """At the bulk cells' frames the plan's blocks fill whole waves of the
+    SMs (one block an SM), and cover K once."""
+    g = 360
+    s, per = srp_fused.split_plan(m, f, p, g, SMS)
+    slices = -(-f // srp_fused.KB) * p
+    assert (s - 1) * per < slices <= s * per
+    blocks = -(-m // srp_fused.BM) * -(-g // srp_fused.BN) * s
+    assert blocks / (SMS * srp_fused.BLOCKS_PER_SM) <= waves
+    assert blocks / (SMS * srp_fused.BLOCKS_PER_SM) > waves - 1 + 0.9
+
+
+@pytest.mark.parametrize("g", [360, 100, 37, 128, 256, 720, 8])
+def test_fused_column_tile_from_grid(g):
+    """The column tile ``BN`` is a width wgmma takes (a multiple of 8, at
+    most 256): G = 360, the grid of every preset and cell, in three tiles
+    that pad nothing, which no other width pads less; any G in ceil(G / BN)
+    tiles, fewer than BN points padded."""
+    tile = srp_fused.BN
+    assert tile % 8 == 0 and tile <= 256
+    tiles = -(-g // tile)
+    assert 0 <= tiles * tile - g < tile
+    best = min(-(-g // n) * n for n in range(8, 257, 8))
+    if g == 360:
+        assert (tiles, tiles * tile, best) == (3, 360, 360)
+
+
+def test_fused_layout_from_channels():
+    """Every channel has a slot of its own up to ``MAX_CHANNELS``: what fits
+    a block's 227 KB beside the rings; past it the channels share ``SLOTS``
+    slots at any C the memory takes, and the pairs go in ``pair_order``.
+    One block an SM (512 threads at 128 registers).  The planner's
+    constants are csrc/srp_fused.cu's (the wrapper checks the built
+    library's at its first launch)."""
+    import re
     from pathlib import Path
-    cu = Path(srp_fused.__file__).resolve().parents[1] / "csrc"
-    assert (f"constexpr int GROUP = {srp_fused.GROUP};"
-            in (cu / "srp_fused.cu").read_text())
+    assert srp_fused.MAX_CHANNELS == srp_fused.SLOTS == 6
+    assert srp_fused.smem_bytes(6, 6) <= srp_fused.BLOCK_SMEM
+    assert srp_fused.smem_bytes(7, 7) > srp_fused.BLOCK_SMEM
+    for c in (7, 8, 16, 32, 64):
+        assert srp_fused.smem_bytes(srp_fused.SLOTS, c) \
+            <= srp_fused.BLOCK_SMEM
+    assert srp_fused.BLOCKS_PER_SM == 1
+    pairs = t_geo.all_pairs(6)
+    assert (srp_fused.pair_order(pairs, 6) == np.arange(len(pairs))).all()
+    src = (Path(srp_fused.__file__).resolve().parents[1] / "csrc"
+           / "srp_fused.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
+    assert int(consts["WG_ROWS"]) * int(consts["CONSUMERS"]) == srp_fused.BM
+    assert {k: int(consts[k]) for k in ("KB", "BARRIER_BYTES",
+                                        "SLOTS", "FILLS", "PAIR_WORD",
+                                        "STAGED_WORDS", "BN")} \
+        == {"KB": srp_fused.KB,
+            "BARRIER_BYTES": srp_fused.BARRIER_BYTES,
+            "SLOTS": srp_fused.SLOTS, "FILLS": srp_fused.FILLS,
+            "PAIR_WORD": srp_fused.PAIR_WORD,
+            "STAGED_WORDS": srp_fused.STAGED_WORDS, "BN": srp_fused.BN}
 
 
-def _grouped_staging(pairs, c, h, per, slices):
-    """csrc/srp_fused.cu's srp_fused_kernel_grouped staging, slice by
-    slice for each split's run: the channel in each slot of X [2H] (-1
-    unstaged), checked against the channels each slice's CPS reads; returns
-    the halves staged over the whole K."""
+def _word(w):
+    """A staging table word's fields (csrc/srp_fused.cu, StageWord)."""
+    w = int(w)
+    return (w & 255, w >> 8 & 1, w >> 19 & 0xfff,
+            (w >> 10 & 255, w >> 18 & 1) if w >> 9 & 1 else None)
+
+
+def _replay_staging(table, pairs, c, beg, end):
+    """csrc/srp_fused.cu's Slots of one producer group through the slices
+    [beg, end) of a run, slot by slot: each slice's two channels must sit in
+    their slots as that slice's chunk's bins, filled before it; returns the
+    fills issued."""
     p = len(pairs)
-    loads = 0
-    for beg in range(0, slices, per):
-        x = [-1] * (2 * h)
-        staged, h0, h1 = -1, -1, -1
-        for i in range(beg, min(beg + per, slices)):
-            fc, pp = divmod(i, p)
-            a, b = (int(v) for v in pairs[pp])
-            ga, gb = a // h, b // h
-            if fc != staged:
-                staged, h0, h1 = fc, -1, -1
-                x = [-1] * (2 * h)
-            load0 = h0 != ga
-            load1 = gb != ga and h1 != gb
-            if load0:
-                n = min(h, c - ga * h)
-                x[:h] = [ga * h + k if k < n else -1 for k in range(h)]
-                h0 = ga
-            if load1:
-                n = min(h, c - gb * h)
-                x[h:] = [gb * h + k if k < n else -1 for k in range(h)]
-                h1 = gb
-            loads += load0 + load1
-            assert x[a - ga * h] == a
-            assert x[(0 if gb == ga else h) + b - gb * h] == b
-    return loads
+    slots = min(c, srp_fused.SLOTS)
+    content = [None] * slots                 # (channel, chunk) filled
+    where = {}                               # (channel, chunk % 2) -> slot
+    free = set(range(slots))
+    fills = 0
+
+    def take(s, ch, k, issue):
+        nonlocal fills
+        if s is None:
+            s = min(free)
+            free.remove(s)
+        where[(ch, k % 2)] = s
+        content[s] = (ch, k) if issue else None
+        fills += issue
+
+    fc, pp = divmod(beg, p)
+    for w in table[pp, srp_fused.STAGED_WORDS:]:
+        if w >= 0:
+            break
+        ch, off, dist, _ = _word(w)
+        take(None, ch, fc + off, beg + dist < end)
+    for i in range(beg, end):
+        fc, pp = divmod(i, p)
+        a, b = (int(v) for v in pairs[pp])
+        pw = int(table[pp, srp_fused.PAIR_WORD])
+        assert (pw & 255, pw >> 8 & 255) == (a, b)
+        sa, sb = where[(a, fc % 2)], where[(b, fc % 2)]
+        assert content[sa] == (a, fc) and content[sb] == (b, fc)
+        if pw >> 16 & 1:
+            free.add(sa)
+        if pw >> 17 & 1:
+            free.add(sb)
+        for w in table[pp, :srp_fused.FILLS]:
+            if w >= 0:
+                break
+            ch, off, dist, victim = _word(w)
+            s = None if victim is None else \
+                where[(victim[0], (fc + victim[1]) % 2)]
+            take(s, ch, fc + off, i + dist < end)
+    return fills
+
+
+# The fills a chunk of the plan's sorted pairs, as the staging table makes
+# them (33 chunks at F = 513: 4059 and 6072 fills over the 11 runs of M =
+# 12 288, 4216 and 6193 over the 44 of M = 24), and the least the given
+# order's fills over the sorted's reads (2.62 at C = 26, M = 24).
+SORTED_FILLS_A_CHUNK = {26: 123, 32: 184}
+GIVEN_OVER_SORTED = 2.6
 
 
 @pytest.mark.parametrize("c", [26, 32])
 @pytest.mark.parametrize("m", [24, 12288])
 def test_fused_grouped_staging_reads_the_pairs_channels(c, m):
-    """The grouped layout's two halves hold each slice's two channels,
-    across chunks and split runs; the plan's pairs (``pair_order``: sorted
-    by group pair) restage a half once per group pair and chunk or split
-    start, against ~4x that for the pairs in the order given."""
+    """Past ``MAX_CHANNELS`` the shared slots hold each slice's two
+    channels, filled before it, across chunks and split runs (every run of
+    the plan replayed); the plan's pairs (``pair_order``: by group pair,
+    then the second channel) fill no more slots than the table's reading, a
+    chunk's fills and at most ``SLOTS`` more a run, and ``GIVEN_OVER_SORTED``
+    times fewer than the pairs in the order given."""
     f, g = 513, 360
-    h = srp_fused.GROUP
     pairs = t_geo.all_pairs(c)
     order = srp_fused.pair_order(pairs, c)
     assert sorted(order.tolist()) == list(range(len(pairs)))
-    key = (pairs[order] // h).tolist()
+    key = (pairs[order] // srp_fused.GROUP).tolist()
     assert key == sorted(key)
     p = len(pairs)
     nfc = -(-f // srp_fused.KB)
     slices = nfc * p
-    s, per = srp_fused.split_plan(m, f, p, g, c, SMS)
-    sorted_loads = _grouped_staging(pairs[order], c, h, per, slices)
-    groups = -(-c // h)
-    per_chunk = groups + groups * (groups - 1) // 2
-    assert sorted_loads <= nfc * per_chunk + 2 * s
-    given = _grouped_staging(pairs, c, h, per, slices)
-    assert given >= 3 * sorted_loads
+    s, per = srp_fused.split_plan(m, f, p, g, SMS)
+    fills = {}
+    for name, pr in (("sorted", pairs[order]), ("given", pairs)):
+        table = srp_fused.staging_table(pr, c)
+        fills[name] = sum(_replay_staging(table, pr, c, beg,
+                                          min(beg + per, slices))
+                          for beg in range(0, slices, per))
+    assert fills["sorted"] <= (nfc * SORTED_FILLS_A_CHUNK[c]
+                               + srp_fused.SLOTS * s)
+    assert fills["given"] >= GIVEN_OVER_SORTED * fills["sorted"]
+
+
+@pytest.mark.parametrize("c,shards", [(2, 1), (3, 1), (4, 1), (6, 1),
+                                      (8, 1), (8, 2), (16, 2), (32, 4)])
+def test_fused_staging_table_at_any_start(c, shards):
+    """The staging table of every pair shard (``algos.srp.pair_shard``'s
+    padding with pairs (0, 0) included) keeps each slice's channels in its
+    slots from any slice a run starts at; up to ``MAX_CHANNELS`` channels
+    each used channel is filled once a chunk."""
+    geom = t_geo.ArrayGeometry(positions=t_geo.circular_positions(c, 0.05),
+                               sample_rate=48000)
+    plan = t_srp.make_plan(geom, 64, 36)
+    dplan = t_srp.device_plan(plan, geom.pairs, CPU)
+    nfc = 3
+    for index in range(shards):
+        shard = t_srp.pair_shard(dplan, plan, "fused", shards, index)
+        pairs = shard.pairs.numpy()
+        p = len(pairs)
+        table = shard.staging.numpy()
+        assert table.shape == (p, srp_fused.TABLE_WORDS)
+        assert (table == srp_fused.staging_table(pairs, c)).all()
+        for beg in range(0, nfc * p):
+            _replay_staging(table, pairs, c, beg, nfc * p)
+        if c <= srp_fused.MAX_CHANNELS:
+            used = len(set(pairs.ravel().tolist()))
+            assert _replay_staging(table, pairs, c, 0, nfc * p) \
+                == nfc * used
 
 
 @pytest.mark.parametrize("c,f,m", [(26, 33, 20), (32, 17, 9)])
 def test_fused_grouped_plan_matches_plain(c, f, m):
-    """Past 25 channels the plan takes its pairs and TDOAs in
+    """Past ``MAX_CHANNELS`` the plan takes its pairs and TDOAs in
     ``pair_order``: the kernel's arithmetic on them (chunk outermost, the
     plan's pairs within) gives the surface of the pairs in the given order
     within 3e-5 of the largest power, and a pair shard keeps each pair's
@@ -709,6 +832,33 @@ def test_fused_3xtf32_matches_plain(c, f, m, ref, monkeypatch):
             geom.pairs, plan.tau_pg, plan.omega, 360, 1e-12))
         np.testing.assert_allclose(got.numpy() / float(scale),
                                    mcax / float(scale), atol=3e-5)
+
+
+@pytest.mark.parametrize("name,c,f,m", [
+    ("config4", 8, 513, 8),
+    ("config5", 16, 257, 8),
+    ("em32", 32, 513, 4),
+])
+def test_fused_wgmma_order_matches_plain_at_the_cells_k(name, c, f, m):
+    """The warpgroup-MMA order (3xTF32 a step of 8, each 32-deep slice
+    summed from zero and added in IEEE fp32, the plan's split runs added in
+    order) over the bulk cells' whole K (config4 28 pairs x 513 bins, config5
+    120 x 257, em32 496 x 513), the plan's pair order: within 1e-4 of the
+    largest power of the plain version, the argmax losing at most 1e-4 of
+    the peak."""
+    geom, plan, spec = _fused_case(c, f, m, seed=c,
+                                   fs=16000 if f == 257 else 48000)
+    dplan = t_srp.device_plan(plan, geom.pairs, CPU)
+    assert dplan.pairs.shape[0] == c * (c - 1) // 2
+    spec = torch.from_numpy(spec)
+    args = (spec, dplan.pairs, dplan.tau_pg, dplan.omega, 1e-12, dplan.valid)
+    got, _ = _fused_emulation(*args, dplan.omega_step)
+    want = srp_fused.srp_power_fused_plain(*args)
+    scale = want.abs().max()
+    torch.testing.assert_close(got / scale, want / scale, atol=1e-4, rtol=0)
+    rows = torch.arange(m)
+    loss = (want[rows, want.argmax(-1)] - want[rows, got.argmax(-1)]).max()
+    assert loss <= 1e-4 * scale
 
 
 def test_fused_invalid_pairs_and_nan_past_f_add_exactly_zero():
@@ -783,4 +933,5 @@ def test_plan_carries_the_uniform_omega_step():
     spec = torch.zeros((8, 3, 513), dtype=torch.complex64)
     with pytest.raises(ValueError, match="uniform step"):
         srp_fused.srp_power_fused(spec, dplan.pairs, dplan.tau_pg,
-                                  dplan.omega, 1e-12, dplan.valid, 0.0)
+                                  dplan.omega, 1e-12, dplan.valid, 0.0,
+                                  dplan.staging)
