@@ -415,7 +415,7 @@ def check_kernels(pipe, carry0, blocks, peaks):
     t = block_len // hop
     m = b * t
     f = cfg.stft.num_bins
-    plan = pipe.plan
+    plan = pipe.plans.plan
     p, g = plan.tau_pg.shape
     recs = {}
 
@@ -423,10 +423,10 @@ def check_kernels(pipe, carry0, blocks, peaks):
     # the FFT route (config4's frame is a power of two) and, on the same
     # inputs, the GEMM route that frames of other lengths take
     spec, new_carry = stft_fused.stft_fused_from_blocks(
-        blocks, carry0, pipe._w2, pipe._fft_op, hop)
-    want = stft_fused.stft_fused_from_blocks_plain(blocks, carry0, pipe._w2,
-                                                   hop)
-    spec_g = stft_fused._launch_gemm(blocks, carry0, pipe._w2, hop)
+        blocks, carry0, pipe.plans.w2, pipe.plans.fft_op, hop)
+    want = stft_fused.stft_fused_from_blocks_plain(blocks, carry0,
+                                                   pipe.plans.w2, hop)
+    spec_g = stft_fused._launch_gemm(blocks, carry0, pipe.plans.w2, hop)
     torch.cuda.synchronize()
     scale = torch.view_as_real(want).abs().max().item()
     err = torch.view_as_real(spec - want).abs().max().item()
@@ -443,8 +443,8 @@ def check_kernels(pipe, carry0, blocks, peaks):
     # 1 x 1 analysis' shape) against kernel 1's FFT on the same frames: one
     # packing and one FFT, so expected bit-equal; held to 1e-6 of max
     def planes_of_stream():
-        return stft_fused.stft_fused_planes(stream, pipe._w2, pipe._fft_op,
-                                            hop)
+        return stft_fused.stft_fused_planes(stream, pipe.plans.w2,
+                                            pipe.plans.fft_op, hop)
 
     cross = torch.view_as_real(planes_of_stream() - spec).abs().max().item()
     if not cross <= 1e-6 * scale:
@@ -454,20 +454,20 @@ def check_kernels(pipe, carry0, blocks, peaks):
           f"(stft_from_blocks, FFT) on config4's [carry | blocks] "
           f"{list(stream.shape)}: max abs difference {cross:.3e} (scale "
           f"{scale:.3e}); kernel 5 there {time_ms(planes_of_stream):.4f} ms")
-    win = torch.from_numpy(pipe.win_a).to(blocks.device)
+    win = torch.from_numpy(pipe.plans.win_a).to(blocks.device)
     lib_ms = time_ms(lambda: torch.stft(
         stream, n_fft=n, hop_length=hop, window=win, center=False,
         return_complex=True))
     bound, design = stft_bounds(c * m, n, f, blocks.numel() + carry0.numel(),
                                 peaks)
     plain_ms = time_ms(lambda: stft_fused.stft_fused_from_blocks_plain(
-        blocks, carry0, pipe._w2, hop))
+        blocks, carry0, pipe.plans.w2, hop))
     recs["stft_from_blocks"] = dict(
         route="cuda", source="mcax_torch/csrc/stft_fused.cu",
         replaces="mcax/kernels/stft_fused.py:222", max_abs_err=err,
         scaled_err=err / scale,
         ms=time_ms(lambda: stft_fused.stft_fused_from_blocks(
-            blocks, carry0, pipe._w2, pipe._fft_op, hop)),
+            blocks, carry0, pipe.plans.w2, pipe.plans.fft_op, hop)),
         plain_ms=plain_ms, library_ms=lib_ms, library_call="torch.stft",
         bound=bound, design_bound=design,
         design="design_bound is the GEMM route's (at_gemm_route)",
@@ -477,7 +477,7 @@ def check_kernels(pipe, carry0, blocks, peaks):
         at_gemm_route=dict(
             shape=[b, c, block_len, hop], max_abs_err=err_g,
             ms=time_ms(lambda: stft_fused._launch_gemm(
-                blocks, carry0, pipe._w2, hop)),
+                blocks, carry0, pipe.plans.w2, hop)),
             plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound[0],
             bound_by=bound[1]))
 
@@ -612,8 +612,8 @@ def check_cov_prefix_cases(spec4, cov0, lam, t, pipe5, blocks5, rec, peaks):
     hop5, t5 = cfg5.stft.hop, cfg5.frames_per_block
     b5, c5, _ = blocks5.shape
     spec5, _ = stft_fused.stft_fused_from_blocks(
-        blocks5, torch.zeros((c5, hop5), device=blocks5.device), pipe5._w2,
-        pipe5._fft_op, hop5)
+        blocks5, torch.zeros((c5, hop5), device=blocks5.device),
+        pipe5.plans.w2, pipe5.plans.fft_op, hop5)
     cov05 = cov_mod.from_planes(pipe5.init_state().cov)
     lam5 = cfg5.algo.cov_forget
     f5 = spec5.shape[-1]
@@ -676,7 +676,7 @@ def check_new_kernels(pipe4, x_streams, peaks):
     x = torch.cat([x_streams[:, :, bl - hop:bl], x_streams[:, :, bl:2 * bl]],
                   dim=-1).transpose(0, 1).contiguous()     # [C, S, N]
     c, s_, nn = x.shape
-    w2, op = pipe4._w2, pipe4._fft_op
+    w2, op = pipe4.plans.w2, pipe4.plans.fft_op
     spec = stft_fused.stft_fused_planes(x, w2, op, hop)
     want = stft_fused.stft_fused_planes_plain(x, w2, hop)
     spec_g = stft_fused._launch_planes_gemm(x, w2, hop)
@@ -689,7 +689,7 @@ def check_new_kernels(pipe4, x_streams, peaks):
         if not e / scale <= 3e-6:
             raise AssertionError(f"stft_planes ({route} route): scaled error "
                                  f"{e / scale:.3e} > 3e-6")
-    win = torch.from_numpy(pipe4.win_a).to(x.device)
+    win = torch.from_numpy(pipe4.plans.win_a).to(x.device)
     x2 = x.view(-1, nn)
     t = spec.shape[-2]
     bound, design = stft_bounds(c * s_ * t, n, f, x.numel(), peaks)
@@ -715,8 +715,8 @@ def check_new_kernels(pipe4, x_streams, peaks):
 
     # -- kernel 6: MVDR solve from complex covariances, S = 64 streams -----
     spectra = spec.transpose(0, 1)                         # [S, C, T, F]
-    power = pipe4._srp_power(spec).view(s_, t, -1)
-    steer = srp.steering_vector(pipe4.plan,
+    power = pipe4.plans.srp_power(spec).view(s_, t, -1)
+    steer = srp.steering_vector(pipe4.plans.plan,
                                 torch.argmax(power.mean(dim=1), dim=-1))
     cov0 = cov_mod.from_planes(pipe4.init_states(s_).cov)
     covs = cov_mod.update(cov0, spectra, cfg.algo.cov_forget).contiguous()
@@ -788,7 +788,7 @@ def check_cps_kernels(pipe_m, spec4, pipe1, blocks1, peaks):
     hop1 = pipe1.cfg.stft.hop
     spec1, _ = stft_fused.stft_fused_from_blocks(
         blocks1, torch.zeros((blocks1.shape[1], hop1), device=blocks1.device),
-        pipe1._w2, pipe1._fft_op, hop1)
+        pipe1.plans.w2, pipe1.plans.fft_op, hop1)
 
     def measure(what, spec, pairs, eps, frames_major):
         c, m, f = spec.shape
@@ -825,9 +825,9 @@ def check_cps_kernels(pipe_m, spec4, pipe1, blocks1, peaks):
             design=f"{what}: {-(-m // nf)} x {-(-f // ft)} CTAs of {nf} "
                    f"frames x {ft} bins")
 
-    rec = measure("config4 srp=matmul B = 512", spec4, pipe_m.plan.pairs,
+    rec = measure("config4 srp=matmul B = 512", spec4, pipe_m.plans.plan.pairs,
                   pipe_m.cfg.algo.phat_eps, True)
-    one = measure("config1 B = 512", spec1, pipe1.gplan.pairs,
+    one = measure("config1 B = 512", spec1, pipe1.plans.gplan.pairs,
                   pipe1.cfg.algo.phat_eps, False)
     rec.update(
         route="cuda", source="mcax_torch/csrc/cps.cu",
@@ -838,8 +838,8 @@ def check_cps_kernels(pipe_m, spec4, pipe1, blocks1, peaks):
                     if k not in ("bound", "design")}
         | dict(bound_ms=one["bound"][0], bound_by=one["bound"][1]))
     # the gathered-pairs entry (the reference's public cps_phat_pairs)
-    xi = torch.index_select(spec1, 0, pipe1.gplan.pairs[:, 0])
-    xj = torch.index_select(spec1, 0, pipe1.gplan.pairs[:, 1])
+    xi = torch.index_select(spec1, 0, pipe1.plans.gplan.pairs[:, 0])
+    xj = torch.index_select(spec1, 0, pipe1.plans.gplan.pairs[:, 1])
     eps = pipe1.cfg.algo.phat_eps
     g = cps.cps_phat_pairs(xi, xj, eps)
     want = cps.cps_phat_pairs_plain(xi, xj, eps)
@@ -875,8 +875,8 @@ def check_dft_kernels(pipe4, spec4, y_mvdr, pipe3h, blocks3h, peaks):
     # each beside the GEMM route that other frames and GCC's lags take and
     # torch.fft.irfft with the window
     n, f = pipe4.cfg.stft.frame_len, pipe4.cfg.stft.num_bins
-    a2, op = pipe4._a2, pipe4._ifft_op
-    win_s = torch.from_numpy(pipe4.win_s).to(spec4.device)
+    a2, op = pipe4.plans.a2, pipe4.plans.ifft_op
+    win_s = torch.from_numpy(pipe4.plans.win_s).to(spec4.device)
     if not y_mvdr[:, -1].imag.abs().max() > 0:
         raise AssertionError("the MVDR output's Nyquist bin is real: not "
                              "the case this input is for")
@@ -935,7 +935,7 @@ def check_dft_kernels(pipe4, spec4, y_mvdr, pipe3h, blocks3h, peaks):
     b, c, _ = blocks3h.shape
     x = torch.cat([torch.zeros((c, n - hop), device=blocks3h.device),
                    blocks3h.permute(1, 0, 2).reshape(c, -1)], dim=-1)
-    w2, op = pipe3h._w2, pipe3h._fft_op
+    w2, op = pipe3h.plans.w2, pipe3h.plans.fft_op
     spec = kfft.rdft_rows(x, w2, op, hop)                  # [C, B*T, F]
     want = kfft.rdft_rows_plain(x, w2, hop)
     spec_g = kfft._launch_gemm(x, w2, hop)
@@ -948,7 +948,7 @@ def check_dft_kernels(pipe4, spec4, y_mvdr, pipe3h, blocks3h, peaks):
         if not e / scale <= 3e-6:
             raise AssertionError(f"rdft_rows ({route} route): scaled error "
                                  f"{e / scale:.3e} > 3e-6")
-    win_a = torch.from_numpy(pipe3h.win_a).to(x.device)
+    win_a = torch.from_numpy(pipe3h.plans.win_a).to(x.device)
     bound, design = stft_bounds(c * spec.shape[1], n, f, x.numel(), peaks)
     plain_ms = time_ms(lambda: kfft.rdft_rows_plain(x, w2, hop))
     lib_ms = time_ms(lambda: torch.stft(
@@ -983,8 +983,8 @@ def fused_srp_cases(pipe4, pipe_m, spec4, pipe5, blocks5, pipe3h, blocks3):
     from mcax_torch.kernels import stft_fused
 
     def matmul_plan(pipe):
-        return srp.device_plan(pipe.srp_plan, pipe.pairs, pipe.device,
-                               "matmul")
+        return srp.device_plan(pipe.plans.srp_plan, pipe.plans.pairs,
+                               pipe.device, "matmul")
 
     cfg4, cfg5, cfg3h = pipe4.cfg, pipe5.cfg, pipe3h.cfg
     eps4 = cfg4.algo.phat_eps
@@ -992,23 +992,23 @@ def fused_srp_cases(pipe4, pipe_m, spec4, pipe5, blocks5, pipe3h, blocks3):
     spec5, _ = stft_fused.stft_fused_from_blocks(
         blocks5[:1], torch.zeros((blocks5.shape[1], hop5),
                                  device=blocks5.device),
-        pipe5._w2, pipe5._fft_op, hop5)
+        pipe5.plans.w2, pipe5.plans.fft_op, hop5)
     n3, hop3 = cfg3h.stft.frame_len, cfg3h.stft.hop
     b3 = blocks3[:BLOCKS]
     x3 = torch.cat([torch.zeros((b3.shape[1], n3 - hop3), device=b3.device),
                     b3.permute(1, 0, 2).reshape(b3.shape[1], -1)], dim=-1)
-    spec3h = kfft.rdft_rows(x3, pipe3h._w2, pipe3h._fft_op, hop3)
+    spec3h = kfft.rdft_rows(x3, pipe3h.plans.w2, pipe3h.plans.fft_op, hop3)
     del x3
     return [
-        ("m12288", spec4, pipe4.plan, pipe_m.plan, eps4),
-        ("m24", spec4[:, :cfg4.frames_per_block].contiguous(), pipe4.plan,
-         pipe_m.plan, eps4),
+        ("m12288", spec4, pipe4.plans.plan, pipe_m.plans.plan, eps4),
+        ("m24", spec4[:, :cfg4.frames_per_block].contiguous(),
+         pipe4.plans.plan, pipe_m.plans.plan, eps4),
         ("m1536", spec4[:, :STREAMS * cfg4.frames_per_block].contiguous(),
-         pipe4.plan, pipe_m.plan, eps4),
-        ("m16_config5", spec5, pipe5.plan, matmul_plan(pipe5),
+         pipe4.plans.plan, pipe_m.plans.plan, eps4),
+        ("m16_config5", spec5, pipe5.plans.plan, matmul_plan(pipe5),
          cfg5.algo.phat_eps),
-        ("m16384_config3_hop128", spec3h, pipe3h.plan, matmul_plan(pipe3h),
-         cfg3h.algo.phat_eps)]
+        ("m16384_config3_hop128", spec3h, pipe3h.plans.plan,
+         matmul_plan(pipe3h), cfg3h.algo.phat_eps)]
 
 
 def check_fused_srp(rec, cases, peaks):
@@ -1109,7 +1109,7 @@ def check_steer_kernel(pipe_m, spec4, peaks):
     ``at_m24``."""
     import torch
     from mcax_torch.kernels import cps, steer
-    plan = pipe_m.plan
+    plan = pipe_m.plans.plan
     g = cps.cps_phat_gather(spec4, plan.pairs, pipe_m.cfg.algo.phat_eps,
                             frames_major=True)             # [M, P, F]
     cps_all = g.view(g.shape[0], -1)                       # [M, K]
@@ -1198,7 +1198,7 @@ def check_mvdr_wide(pipe, blocks, x_streams, sources_deg, recs, peaks):
     at = f"at_c{c}"
     lam, delta = cfg.algo.cov_forget, cfg.algo.diag_load
     grid = torch.tensor([int(np.argmin(np.abs(
-        (np.rad2deg(pipe.srp_plan.azimuths_rad) - a + 180.0) % 360.0
+        (np.rad2deg(pipe.plans.srp_plan.azimuths_rad) - a + 180.0) % 360.0
         - 180.0))) for a in sources_deg], device=blocks.device)
 
     def record(name, fn, plain, args, nb, steer, library=None):
@@ -1219,12 +1219,12 @@ def check_mvdr_wide(pipe, blocks, x_streams, sources_deg, recs, peaks):
             bound_ms=bound[0], bound_by=bound[1])
 
     spec, _ = stft_fused.stft_fused_from_blocks(
-        blocks, torch.zeros((c, hop), device=blocks.device), pipe._w2,
-        pipe._fft_op, hop)
+        blocks, torch.zeros((c, hop), device=blocks.device), pipe.plans.w2,
+        pipe.plans.fft_op, hop)
     cov0 = cov_mod.from_planes(pipe.init_state().cov)
     rows = covprefix.block_prefixes_rows(spec, cov0, lam, t)
     del spec
-    steer = srp.steering_vector(pipe.plan, grid.expand(b, 2))
+    steer = srp.steering_vector(pipe.plans.plan, grid.expand(b, 2))
     loaded = cov_mod.loaded(covprefix.rows_to_complex(rows), delta)
     d = steer.permute(0, 3, 2, 1)                          # [B, F, C, 2]
     record("mvdr_solve_rows", mvdrsolve.weights_blocks_fused_rows,
@@ -1239,11 +1239,11 @@ def check_mvdr_wide(pipe, blocks, x_streams, sources_deg, recs, peaks):
     s_ = x_streams.shape[0]
     x = torch.cat([x_streams[:, :, bl - hop:bl], x_streams[:, :, bl:2 * bl]],
                   dim=-1).transpose(0, 1).contiguous()    # [C, S, N]
-    spectra = stft_fused.stft_fused_planes(x, pipe._w2, pipe._fft_op,
+    spectra = stft_fused.stft_fused_planes(x, pipe.plans.w2, pipe.plans.fft_op,
                                            hop).transpose(0, 1)
     covs = cov_mod.update(cov_mod.from_planes(pipe.init_states(s_).cov),
                           spectra, lam).contiguous()
-    steer = srp.steering_vector(pipe.plan, grid.expand(s_, 2))
+    steer = srp.steering_vector(pipe.plans.plan, grid.expand(s_, 2))
     loaded = cov_mod.loaded(covs, delta)
     d = steer.permute(0, 3, 2, 1)                          # [S, F, C, 2]
     record("mvdr_solve_complex", mvdrsolve.weights_blocks_fused,
@@ -1354,9 +1354,9 @@ def config5_surfaces(pipe5, blocks5):
     cfg = pipe5.cfg
     b, t = blocks5.shape[0], cfg.frames_per_block
     spectra, _ = stft_fused.stft_fused_from_blocks(
-        blocks5, pipe5.init_state().carry, pipe5._w2, pipe5._fft_op,
+        blocks5, pipe5.init_state().carry, pipe5.plans.w2, pipe5.plans.fft_op,
         cfg.stft.hop)
-    return pipe5._srp_power(spectra).view(b, t, -1).mean(dim=1)
+    return pipe5.plans.srp_power(spectra).view(b, t, -1).mean(dim=1)
 
 
 def particle_step_deviation(pipe, state, surf, noise, u, got):
@@ -1370,16 +1370,16 @@ def particle_step_deviation(pipe, state, surf, noise, u, got):
     from mcax_torch.algos import particle
     from mcax_torch.kernels import track
     a = pipe.cfg.algo
-    az = pipe.plan.azimuths_rad
+    az = pipe.plans.plan.azimuths_rad
     n = state.angles.shape[-1]
     pa, pw, _, _, _ = track.particle_scan_plain(
-        state.angles, state.weights, surf[:, None], az, pipe.suppress_bins,
-        a.particle_step_std_rad, a.particle_resample_threshold,
-        noise[:, None], u[:, None])
+        state.angles, state.weights, surf[:, None], az,
+        pipe.plans.suppress_bins, a.particle_step_std_rad,
+        a.particle_resample_threshold, noise[:, None], u[:, None])
     st = particle.ParticleState(state.angles, state.weights, None)
-    idx, _ = track.extract_peaks(surf, pa.shape[-2], pipe.suppress_bins)
+    idx, _ = track.extract_peaks(surf, pa.shape[-2], pipe.plans.suppress_bins)
     masked = track.rival_masked(particle.estimate(st)[0], surf, idx, az,
-                                pipe.suppress_bins)
+                                pipe.plans.suppress_bins)
     st = particle.update(particle.predict(st, a.particle_step_std_rad, noise),
                          masked, az)
     cum = torch.cumsum(st.weights.double(), -1).float()
@@ -1422,8 +1422,8 @@ def check_track_kernels(pipe5, blocks5, peaks):
     from mcax_torch.pipeline import Pipeline
     cfg = pipe5.cfg
     surf = config5_surfaces(pipe5, blocks5)                # [B, G]
-    az = pipe5.plan.azimuths_rad
-    sup = pipe5.suppress_bins
+    az = pipe5.plans.plan.azimuths_rad
+    sup = pipe5.plans.suppress_bins
     b, g = surf.shape
     recs = {}
 
@@ -1997,7 +1997,7 @@ def sharded_path(cfg, stream_blocks, lat_blocks, outs_m, outs_k, counters,
                              {k: om[k] for k in ("audio", "doa")}, 5e-4,
                              exact=("doa",))
             frame_off, moved = frame_doas_within_a_step(
-                "sharded 1x1 vs Pipeline", outs, outs_m, sp._pipe.plan)
+                "sharded 1x1 vs Pipeline", outs, outs_m, sp.plans.plan)
             one = torch.ones(1, device=sp.device)
             dist.all_reduce(one)
             if one.item() != 1.0:
@@ -2872,9 +2872,9 @@ def check_em32_kernels(pipe, blocks, x_streams, recs, peaks):
     m = b * t
     dev = blocks.device
     spec, _ = stft_fused.stft_fused_from_blocks(
-        blocks, torch.zeros((c, hop), device=dev), pipe._w2, pipe._fft_op,
-        hop)
-    plan = pipe.plan
+        blocks, torch.zeros((c, hop), device=dev), pipe.plans.w2,
+        pipe.plans.fft_op, hop)
+    plan = pipe.plans.plan
     p, g = plan.tau_pg.shape
     eps = cfg.algo.phat_eps
     args = (spec, plan.pairs, plan.tau_pg, plan.omega, eps, plan.valid)
@@ -3294,7 +3294,7 @@ def main() -> int:
     # -- phase 3: kernels against their plain versions ---------------------
     recs, y_mvdr = check_kernels(pipe, carry0, stream_blocks[:BLOCKS], PEAKS)
     spec4, _ = stft_fused.stft_fused_from_blocks(
-        stream_blocks[:BLOCKS], carry0, pipe._w2, pipe._fft_op, hop)
+        stream_blocks[:BLOCKS], carry0, pipe.plans.w2, pipe.plans.fft_op, hop)
     check_cov_prefix_cases(
         spec4, torch.view_as_complex(pipe.init_state().cov),
         cfg.algo.cov_forget, cfg.frames_per_block, pipe5, blocks5[:BLOCKS],
@@ -3763,7 +3763,7 @@ def main() -> int:
                      {k: of[k] for k in ("audio", "doa")}, 5e-4,
                      exact=("doa",))
     frame_off, frames_moved = frame_doas_within_a_step(
-        "srp=matmul vs fused", outs_m, outs4a, pipe.plan)
+        "srp=matmul vs fused", outs_m, outs4a, pipe.plans.plan)
     fused_rate = BLOCKS * block_len * len(ms) / (window_ms * 1e-3)
     print(rate_line(f"config4 srp=matmul process_blocks, B = {BLOCKS}", msm,
                     winm, BLOCKS * block_len)

@@ -7,26 +7,26 @@ associated to the existing tracks by circular angular distance (strongest
 peak first, each claiming its nearest unclaimed track; uninitialised tracks
 snap to their first peak), and the tracks are exponentially smoothed.
 
-Every function here takes any leading axes (streams, blocks) on its
-tensors and treats them independently.  ``track_blocks`` runs B consecutive
-blocks of one stream and ``track_block`` one block of any number of streams,
-both through ``kernels.track.track_scan``: one kernel launch a call on the
-card (peaks, the association and update over the blocks in order, the
-nearest grid points), the plain PyTorch loop on the CPU.  Nothing
-synchronises with the host: no ``.item()``, no Python branch on a tensor's
-value.
+Every function here takes any leading axes (streams) on its tensors and
+treats them independently.  ``track_blocks`` runs B consecutive blocks
+(B = 1 for a block step) through ``kernels.track.track_scan``: one kernel
+launch a call on the card (peaks, the association and update over the
+blocks in order, the nearest grid points), the plain PyTorch loop on the
+CPU.  Nothing synchronises with the host: no ``.item()``, no Python branch
+on a tensor's value.
 
-The particle smoother (``particle_track_block``, ``particle_track_blocks``)
-replaces the EMA update with one particle cloud a source
-(``algos/particle.py``): every draw of the call in one ``particle_draws``
-launch, then ``kernels.track.particle_scan`` (one launch) for the peaks,
-the association, the masked surface and the filter's update, resample and
-estimate over the blocks in order.
+The particle smoother (``particle_track_blocks``) replaces the EMA update
+with one particle cloud a source (``algos/particle.py``): every draw of the
+call in one ``particle_draws`` launch, then ``kernels.track.particle_scan``
+(one launch) for the peaks, the association, the masked surface and the
+filter's update, resample and estimate over the blocks in order.  Both
+trackers return (new state, grid_idx, angles, confidence), the last three
+[..., B, S].
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple
 
 import torch
 
@@ -38,8 +38,7 @@ from mcax_torch.kernels.track import (circular_distance, extract_peaks,
 
 __all__ = ["TrackState", "init_tracks", "wrap_angle", "circular_distance",
            "extract_peaks", "associate_and_update", "nearest_grid",
-           "track_block", "track_blocks", "particle_track_block",
-           "particle_track_blocks"]
+           "track_blocks", "particle_track_blocks"]
 
 
 class TrackState(NamedTuple):
@@ -68,64 +67,37 @@ def associate_and_update(state: TrackState, peak_angles: torch.Tensor,
         *state, peak_angles, peak_values, smooth, conf_smooth))
 
 
-def track_block(state: TrackState, power_mean: torch.Tensor,
-                azimuths_rad: torch.Tensor, suppress_bins: int,
-                smooth: float) -> Tuple[TrackState, torch.Tensor]:
-    """One block of tracking: surfaces [..., G] -> (new tracks, grid_idx
-    [..., S]), the grid points nearest the smoothed track angles (for the
-    steering-vector gather)."""
-    new, gidx, _, _ = track.track_scan(*state, power_mean[..., None, :],
-                                       azimuths_rad, suppress_bins, smooth)
-    return TrackState(*new), gidx[..., 0, :]
-
-
 def track_blocks(state: TrackState, power_mean: torch.Tensor,
                  azimuths_rad: torch.Tensor, suppress_bins: int,
                  smooth: float):
-    """B consecutive blocks of one stream: surfaces [B, G], tracks [S].
+    """B consecutive blocks: surfaces [..., B, G], tracks [..., S].
 
-    Returns (new tracks [S], grid_idx [B, S], angles [B, S], confidence
-    [B, S]): block b's values after its update, equal to B calls of
-    ``track_block``."""
+    Returns (new tracks [..., S], grid_idx [..., B, S], angles [..., B, S],
+    confidence [..., B, S]): block b's values after its update (the grid
+    points nearest the smoothed track angles, for the steering-vector
+    gather), equal to B calls at B = 1."""
     new, gidx, angles, conf = track.track_scan(
         *state, power_mean, azimuths_rad, suppress_bins, smooth)
     return TrackState(*new), gidx, angles, conf
-
-
-def particle_track_block(pstate: particle.ParticleState,
-                         power_mean: torch.Tensor, azimuths_rad: torch.Tensor,
-                         suppress_bins: int, step_std_rad: float,
-                         resample_threshold: float):
-    """One block of particle-filter tracking (the particle smoother).
-
-    The block's S strongest SRP peaks are greedily associated to the S
-    particle clouds (the strongest peak claims the nearest cloud estimate
-    first); each cloud then runs one predict -> reweight -> resample cycle
-    on the surface with its RIVALS' peak neighbourhoods suppressed, so two
-    clouds cannot collapse onto one loud source.  Surfaces [..., G], clouds
-    [..., S, N]; the block's draws come from one ``particle_draws`` call.
-
-    Returns (new_pstate, doa_rad [..., S], confidence [..., S], grid_idx
-    [..., S]).
-    """
-    s, n = pstate.angles.shape[-2:]
-    noise, u, key = threefry.particle_draws(pstate.key, 1, s, n)
-    angles, weights, gidx, doa, conf = track.particle_scan(
-        pstate.angles, pstate.weights, power_mean[..., None, :], azimuths_rad,
-        suppress_bins, step_std_rad, resample_threshold, noise, u)
-    return (particle.ParticleState(angles, weights, key), doa[..., 0, :],
-            conf[..., 0, :], gidx[..., 0, :])
 
 
 def particle_track_blocks(pstate: particle.ParticleState,
                           power_mean: torch.Tensor,
                           azimuths_rad: torch.Tensor, suppress_bins: int,
                           step_std_rad: float, resample_threshold: float):
-    """B consecutive blocks of one stream: surfaces [B, G], clouds [S, N].
+    """B consecutive blocks of particle-filter tracking (the particle
+    smoother): surfaces [..., B, G], clouds [..., S, N].
 
-    Returns (new_pstate, grid_idx [B, S], doa [B, S], confidence [B, S]),
-    equal to B calls of ``particle_track_block``."""
-    b = power_mean.shape[0]
+    Each block's S strongest SRP peaks are greedily associated to the S
+    particle clouds (the strongest peak claims the nearest cloud estimate
+    first); each cloud then runs one predict -> reweight -> resample cycle
+    on the surface with its RIVALS' peak neighbourhoods suppressed, so two
+    clouds cannot collapse onto one loud source.  The call's draws come
+    from one ``particle_draws`` call.
+
+    Returns (new_pstate, grid_idx [..., B, S], doa [..., B, S], confidence
+    [..., B, S]), equal to B calls at B = 1."""
+    b = power_mean.shape[-2]
     s, n = pstate.angles.shape[-2:]
     noise, u, key = threefry.particle_draws(pstate.key, b, s, n)
     angles, weights, gidx, doa, conf = track.particle_scan(

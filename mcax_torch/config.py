@@ -61,9 +61,28 @@ class StftConfig:
         return self.frame_len // 2 + 1
 
 
+# The eight algos and what each needs besides the analysis: the one table of
+# facts about them (``AlgoConfig.needs``; ``mcax_torch/chain.py`` orders the
+# stages).  "gcc", "srp": the GCC or SRP plan; "fixed": the steering vector
+# at ``steer_azimuth_rad``; "mask": the mask's expected phases; "tracker":
+# config5's tracker and its state; "covariance": the covariance state (the
+# MVDR family); "synthesis": the synthesis window and the OLA tail (audio
+# out).
+ALGOS = {
+    "gcc": frozenset({"gcc"}),
+    "delaysum": frozenset({"fixed", "synthesis"}),
+    "srp": frozenset({"srp"}),
+    "srp_delaysum": frozenset({"srp", "synthesis"}),
+    "mvdr": frozenset({"fixed", "covariance", "synthesis"}),
+    "srp_mvdr": frozenset({"srp", "covariance", "synthesis"}),
+    "track_mvdr": frozenset({"srp", "tracker", "covariance", "synthesis"}),
+    "mask": frozenset({"mask", "synthesis"}),
+}
+
+
 @dataclasses.dataclass(frozen=True)
 class AlgoConfig:
-    name: str = "gcc"                 # gcc|delaysum|srp|mvdr|srp_mvdr|track_mvdr|mask
+    name: str = "gcc"                 # one of ALGOS
     phat_eps: float = 1e-12
     gcc_weighting: str = "phat"       # phat|scot|roth|cc (Knapp-Carter family)
     interpolate: bool = True          # parabolic fractional-lag peak
@@ -100,6 +119,11 @@ class AlgoConfig:
     mask_threshold_rad: float = 0.5
     mask_sharpness: float = 8.0
 
+    @property
+    def needs(self) -> frozenset:
+        """What this algo needs besides the analysis (``ALGOS``)."""
+        return ALGOS[self.name]
+
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
@@ -131,8 +155,10 @@ class PipelineConfig:
         """Cross-field checks, run when a pipeline consumes the config (not
         in __post_init__: --set overrides apply one at a time, so
         intermediate states may be transiently inconsistent)."""
-        from mcax_torch.pipeline import _SYNTH_ALGOS
-        if self.algo.name in _SYNTH_ALGOS and not self.stft.synthesis:
+        if self.algo.name not in ALGOS:
+            raise ValueError(f"unknown algo {self.algo.name!r} ({self.name}): "
+                             f"expected one of {'|'.join(ALGOS)}")
+        if "synthesis" in self.algo.needs and not self.stft.synthesis:
             raise ValueError(
                 f"algo {self.algo.name!r} produces audio and needs a "
                 "synthesis window: set stft.synthesis=true (the srp/gcc "

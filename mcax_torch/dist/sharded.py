@@ -43,26 +43,21 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from mcax_torch import chain
 from mcax_torch import config as cfg_mod
 from mcax_torch.algos import covariance as cov_mod
-from mcax_torch.algos import delaysum
-from mcax_torch.algos import masking
 from mcax_torch.algos import mvdr
 from mcax_torch.algos import srp as srp_mod
-from mcax_torch.algos import tracking
 from mcax_torch.dist import collectives as coll
 from mcax_torch.dist import halo as halo_mod
 from mcax_torch.dist import halo_rdma
 from mcax_torch.dist import multihost
 from mcax_torch.dist import scan as dscan
 from mcax_torch.dist.mesh import CHANNEL_AXIS, TIME_AXIS, Mesh
-from mcax_torch.frames import stft as stft_mod
 from mcax_torch.frames.ola import overlap_add
 from mcax_torch.kernels import dispatch
-from mcax_torch.pipeline import Pipeline, check_scan_mode
+from mcax_torch.pipeline import check_scan_mode
 from mcax_torch.state import PipelineState
-
-_MVDR_FAMILY = ("mvdr", "srp_mvdr", "track_mvdr")
 
 
 class Shards(dict):
@@ -106,12 +101,11 @@ class ShardedPipeline:
         self.mesh = mesh
         self.st, self.sc = mesh.time_shards, mesh.channel_shards
         self.device = rank_device(device, mesh.rank)
-        # the single-device plans (windows, DFT operands, GCC and SRP plans,
-        # fixed steering) and the tracker's kind; the SRP plan in the
-        # method's pair order (the fused kernel's sorted past its channel
-        # slots, the matmul operand's as given), which pair_shard slices
-        self._pipe = Pipeline(cfg, device=self.device, srp=self.srp)
-        self.geom = self._pipe.geom
+        # the single-device plans; the SRP plan in the method's pair order
+        # (the fused kernel's sorted past its channel slots, the matmul
+        # operand's as given), which pair_shard slices
+        self.plans = chain.Plans(cfg, self.device, self.srp)
+        self.geom = self.plans.geom
         c = self.geom.num_mics
         if c % self.sc:
             raise ValueError(f"{c} mics not divisible by {self.sc} channel "
@@ -125,9 +119,9 @@ class ShardedPipeline:
             raise ValueError("time shards too fine: OLA spill crosses >1 "
                              "shard")
         # this channel shard's slice of the (padded) pair axis
-        self.plan_local = (None if self._pipe.plan is None else
-                           srp_mod.pair_shard(self._pipe.plan,
-                                              self._pipe.srp_plan, self.srp,
+        p = self.plans
+        self.plan_local = (None if p.plan is None else
+                           srp_mod.pair_shard(p.plan, p.srp_plan, self.srp,
                                               self.sc, mesh.ci))
 
     @property
@@ -135,7 +129,7 @@ class ShardedPipeline:
         return self.cfg.frames_per_block
 
     def init_state(self) -> PipelineState:
-        return self._pipe.init_state()
+        return self.plans.init_state()
 
     # ------------------------------------------------------------------
     # Entry points: every rank passes the same global input.
@@ -155,7 +149,7 @@ class ShardedPipeline:
         ti, ci = self.mesh.ti, self.mesh.ci
         local = samples[ci * cl:(ci + 1) * cl,
                         ti * nl:(ti + 1) * nl].contiguous()
-        return self._local_step(state, local)
+        return chain.step(self.plans, _StepLayout(self, state, local), state)
 
     def process_blocks(self, state: PipelineState, samples
                        ) -> Tuple[PipelineState, Shards]:
@@ -188,7 +182,8 @@ class ShardedPipeline:
         ti, ci = self.mesh.ti, self.mesh.ci
         local = samples[ti * bl:(ti + 1) * bl,
                         ci * cl:(ci + 1) * cl].contiguous()
-        return self._local_blocks(state, local)
+        return chain.step(self.plans, _BlocksLayout(self, state, local),
+                          state)
 
     def gather_outputs(self, out: Shards) -> Dict[str, torch.Tensor]:
         """The global outputs, on every rank (a collective: every rank
@@ -202,368 +197,257 @@ class ShardedPipeline:
             halo_rdma.check_errors(self.mesh, self.device)
         return got
 
-    # ------------------------------------------------------------------
-    # Collective helpers.
-    # ------------------------------------------------------------------
+
+
+class _Sharded:
+    """What both sharded layouts share: this rank's shard of the input,
+    the halo'd analysis with the spectra gathered over 'channel', the
+    pair-sharded SRP summed over 'channel', and the overlap-add with its
+    spill pushed to the right time shard."""
+
+    def __init__(self, sp: ShardedPipeline, state: PipelineState,
+                 local: torch.Tensor):
+        self.sp, self.plans, self.mesh = sp, sp.plans, sp.mesh
+        self.state, self.local = state, local
+        self.hop = sp.cfg.stft.hop
+        self.lh = sp.cfg.stft.frame_len - self.hop
+
     def _replicate_carry(self, carry_local: torch.Tensor) -> torch.Tensor:
         last = halo_mod.collect_last(carry_local.contiguous(), self.mesh)
         return coll.gather(last, self.mesh, CHANNEL_AXIS, dim=0)
 
-    def _spectra(self, flat: torch.Tensor, carry_local: torch.Tensor
-                 ) -> torch.Tensor:
+    def _spectra(self, flat: torch.Tensor) -> torch.Tensor:
         """Local samples [cl, N] -> spectra of every channel [C, T, F]."""
-        hop = self.cfg.stft.hop
-        lh = self.cfg.stft.frame_len - hop
-        local = halo_mod.stft_left_halo(flat, lh, carry_local, self._pipe._w2,
-                                        self._pipe._fft_op, hop, self.mesh,
-                                        impl=self.halo)
+        cl, ci = flat.shape[0], self.mesh.ci
+        local = halo_mod.stft_left_halo(
+            flat, self.lh, self.state.carry[ci * cl:(ci + 1) * cl],
+            self.plans.w2, self.plans.fft_op, self.hop, self.mesh,
+            impl=self.sp.halo)
         return coll.gather(local, self.mesh, CHANNEL_AXIS, dim=0)
 
-    def _srp_power(self, spectra: torch.Tensor) -> torch.Tensor:
-        """Pair-sharded steered power [M, G]: this shard's pair slice under
-        the chosen kernel, summed over 'channel'."""
-        partial = srp_mod.srp_surface(spectra, self.plan_local,
-                                      eps=self.cfg.algo.phat_eps,
-                                      method=self.srp)
+    def srp(self) -> torch.Tensor:
+        """This shard's pair slice under the chosen kernel, summed over
+        'channel': [M, G]."""
+        partial = self.plans.srp_power(self.spectra, self.sp.plan_local)
         return coll.psum(partial, self.mesh, CHANNEL_AXIS)
 
-    def _resynth(self, y: torch.Tensor, tail: torch.Tensor):
-        """Spectra [..., Tl, F] -> (audio [..., Tl*hop], new OLA tail)."""
-        hop = self.cfg.stft.hop
-        frames = stft_mod.istft_frames(y, self._pipe._a2,
-                                       self._pipe._ifft_op)   # [..., Tl, L]
-        return halo_mod.ola_tail_exchange(overlap_add(frames, hop),
-                                          frames.shape[-2] * hop, tail,
-                                          self.mesh, impl=self.halo)
+    def _exchange(self, frames: torch.Tensor, out_len: int):
+        return halo_mod.ola_tail_exchange(
+            overlap_add(frames, self.hop), out_len, self.state.ola_tail,
+            self.mesh, impl=self.sp.halo)
 
-    def _cov_update(self, cov: torch.Tensor, spectra: torch.Tensor
-                    ) -> torch.Tensor:
-        decay, partial = cov_mod.block_stats(spectra, self.cfg.algo.cov_forget)
+
+class _StepLayout(_Sharded, chain.OneBlock):
+    """The sharded block step's layout (the reference's ``_local_step``):
+    this rank's [cl, L/st] of one block; per-frame outputs cut over 'time'
+    along their last axis, a block's one value replicated."""
+    lead = ()
+
+    def analysis(self):
+        self.carry = self._replicate_carry(self.local[:, -self.lh:])
+        self.spectra = self._spectra(self.local)            # [C, Tl, F]
+
+    def blocks(self) -> torch.Tensor:
+        return self.spectra
+
+    def block_mean(self, power: torch.Tensor) -> torch.Tensor:
+        """[G], replicated: every rank runs the tracker on the same surface
+        with the same key, so the ranks' states stay bit-identical."""
+        return dscan.psum_mean(power, self.mesh)
+
+    def weights(self, steer: torch.Tensor) -> torch.Tensor:
+        a = self.plans.cfg.algo
+        cov = cov_mod.from_planes(self.state.cov)
+        decay, partial = cov_mod.block_stats(self.spectra, a.cov_forget)
         decay, partial = dscan.combine_cov_partials(decay, partial, self.mesh)
-        return cov * decay + partial
+        cov = cov * decay + partial
+        w = mvdr.weights(cov, steer, a.diag_load)
+        self.cov = cov_mod.to_planes(cov)
+        return w
 
-    # ------------------------------------------------------------------
-    # The per-rank block step (the reference's ``_local_step``).
-    # ------------------------------------------------------------------
-    def _local_step(self, state: PipelineState, local: torch.Tensor):
-        cfg = self.cfg
-        a = cfg.algo
-        lh = cfg.stft.frame_len - cfg.stft.hop
-        cl = local.shape[0]
-        ci = self.mesh.ci
-        new_carry = self._replicate_carry(local[:, -lh:])
-        spectra = self._spectra(local, state.carry[ci * cl:(ci + 1) * cl])
-        plan = self._pipe.plan
-        new_tail, new_cov, new_tracks = state.ola_tail, state.cov, state.tracks
-        new_particles = state.particles
-        replicated = ()
-        algo = a.name
-        if algo == "gcc":
-            out = self._pipe._gcc(spectra, lambda v: v)    # [..., P, Tl]
-        elif algo == "delaysum":
-            y = delaysum.beamform(spectra, self._pipe.fixed_steer)
-            audio, new_tail = self._resynth(y, state.ola_tail)
-            out = {"audio": audio}
-        elif algo == "mask":
-            y = masking.mask_block(spectra, self._pipe.mask_phase,
-                                   a.mask_threshold_rad, a.mask_sharpness)
-            audio, new_tail = self._resynth(y, state.ola_tail)
-            out = {"audio": audio}
-        elif algo == "srp":
-            power = self._srp_power(spectra)               # [Tl, G]
-            az, pk = srp_mod.argmax_doa(power, plan,
-                                        interpolate=a.srp_interpolate)
-            out = {"doa": az, "power": pk}
-        elif algo == "srp_delaysum":
-            power = self._srp_power(spectra)
-            gidx = torch.argmax(dscan.psum_mean(power, self.mesh), dim=-1)
-            steer = srp_mod.steering_vector(plan, gidx)    # [C, F]
-            audio, new_tail = self._resynth(
-                delaysum.beamform(spectra, steer), state.ola_tail)
-            out = {"audio": audio, "doa": plan.azimuths_rad[gidx]}
-            replicated = ("doa",)
-        elif algo == "mvdr":
-            cov = self._cov_update(cov_mod.from_planes(state.cov), spectra)
-            w = mvdr.weights(cov, self._pipe.fixed_steer, a.diag_load)
-            audio, new_tail = self._resynth(mvdr.beamform(spectra, w),
-                                            state.ola_tail)
-            out = {"audio": audio}
-            new_cov = cov_mod.to_planes(cov)
-        elif algo == "srp_mvdr":
-            power = self._srp_power(spectra)
-            gidx = torch.argmax(dscan.psum_mean(power, self.mesh), dim=-1)
-            steer = srp_mod.steering_vector(plan, gidx)    # [C, F]
-            cov = self._cov_update(cov_mod.from_planes(state.cov), spectra)
-            w = mvdr.weights(cov, steer, a.diag_load)
-            audio, new_tail = self._resynth(mvdr.beamform(spectra, w),
-                                            state.ola_tail)
-            az_f, _ = srp_mod.argmax_doa(power, plan,
-                                         interpolate=a.srp_interpolate)
-            out = {"audio": audio, "doa": plan.azimuths_rad[gidx],
-                   "doa_frame": az_f}
-            replicated = ("doa",)
-            new_cov = cov_mod.to_planes(cov)
-        elif algo == "track_mvdr":
-            power = self._srp_power(spectra)
-            # every rank runs the tracker on the same replicated surface
-            # with the same key: the ranks' states stay bit-identical
-            pmean = dscan.psum_mean(power, self.mesh)      # [G]
-            if self._pipe.use_particle:
-                new_particles, doa, conf, gidx = (
-                    tracking.particle_track_block(
-                        state.particles, pmean, plan.azimuths_rad,
-                        self._pipe.suppress_bins, a.particle_step_std_rad,
-                        a.particle_resample_threshold))
-            else:
-                new_tracks, gidx = tracking.track_block(
-                    state.tracks, pmean, plan.azimuths_rad,
-                    self._pipe.suppress_bins, a.track_smooth)
-                doa, conf = new_tracks.angles_rad, new_tracks.confidence
-            steer = srp_mod.steering_vector(plan, gidx)    # [S, C, F]
-            cov = self._cov_update(cov_mod.from_planes(state.cov), spectra)
-            w = mvdr.weights(cov, steer, a.diag_load)
-            audio, new_tail = self._resynth(mvdr.beamform(spectra, w),
-                                            state.ola_tail)  # [S, Tl*hop]
-            out = {"audio": audio, "doa": doa, "confidence": conf}
-            replicated = ("doa", "confidence")
-            new_cov = cov_mod.to_planes(cov)
+    def stream(self, y: torch.Tensor) -> torch.Tensor:
+        return y
+
+    def overlap_add(self, frames: torch.Tensor):
+        return self._exchange(frames, frames.shape[-2] * self.hop)
+
+    def outputs(self, out, whole):
+        return Shards(out, {k: None if k in whole else -1 for k in out})
+
+
+class _BlocksLayout(_Sharded, chain.ManyBlocks):
+    """The sharded batched step's layout (the reference's
+    ``_local_blocks_batched``): this rank's [Bl, cl, L] of B blocks cut over
+    'time'; per-block outputs cut over 'time' along their leading axis.
+
+    With channel shards the MVDR family's covariance, solve and beamform
+    are frequency-sharded (each shard F/sc bins), and its cross-shard
+    pieces ride two merged gathers: one over 'time' (the carry's tail, the
+    covariance pack and, under a tracker, every block's mean surface, so
+    that the tracker runs replicated on all B blocks) and one over
+    'channel' (the beamformed bins, the final covariance's bins and the
+    carry)."""
+
+    def __init__(self, sp: ShardedPipeline, state: PipelineState,
+                 local: torch.Tensor):
+        super().__init__(sp, state, local)
+        self.n_blocks = local.shape[0]
+        self.lead = local.shape[:1]
+        self.frames_per_block = sp.cfg.frames_per_block
+        self.advance = self.n_blocks * sp.st
+        self.has_cov = "covariance" in sp.cfg.algo.needs
+        self.fshard = sp.sc > 1 and self.has_cov
+        self.gathered = False
+
+    def analysis(self):
+        bl, cl, block_len = self.local.shape
+        flat = self.local.transpose(0, 1).reshape(cl, bl * block_len)
+        # the next carry is the last time shard's tail; the MVDR family
+        # replicates it through its merged gathers
+        self.carry_tail = flat[:, -self.lh:].contiguous()
+        self.carry = (None if self.has_cov
+                      else self._replicate_carry(self.carry_tail))
+        self.spectra = self._spectra(flat)                  # [C, Bl*T, F]
+        if self.fshard:
+            f = self.spectra.shape[-1]
+            self.fsl = -(-f // self.sp.sc)
+            bins = self.mesh.ci * self.fsl + torch.arange(
+                self.fsl, device=self.spectra.device)
+            self.keep = (bins < f).to(torch.float32)        # 0 past F
+            self.bins = bins.clamp(max=f - 1)
+
+    def _fslice(self, x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+        """This shard's bins of ``x`` along ``axis``, zero past F (the
+        whole of ``x`` without frequency shards)."""
+        if not self.fshard:
+            return x
+        ax = axis % x.ndim
+        shape = [1] * x.ndim
+        shape[ax] = self.fsl
+        return torch.index_select(x, ax, self.bins) * self.keep.view(shape)
+
+    def blocks(self) -> torch.Tensor:
+        c, _, f = self.spectra.shape
+        return self._fslice(self.spectra.view(
+            c, self.n_blocks, self.frames_per_block, f).permute(1, 0, 2, 3))
+
+    def block_mean(self, power: torch.Tensor) -> torch.Tensor:
+        return power.view(self.n_blocks, self.frames_per_block,
+                          -1).mean(dim=1)
+
+    def before_look(self, surfaces=None):
+        """The covariance side up to the merged time gather, which also
+        carries ``surfaces`` [Bl, G] when given: returns every block's
+        [B, G]."""
+        cov0 = cov_mod.from_planes(self.state.cov)
+        spec = self._fslice(self.spectra)
+        cov0 = self._fslice(cov0, axis=0)
+        ploc, dloc, pack = self._cov_local(spec.contiguous())
+        parts = [self.carry_tail, pack]
+        if surfaces is not None:
+            parts.append(surfaces)
+        rows = self._time_merge(parts)
+        self.carry_last = rows[0][-1].reshape(*self.carry_tail.shape)
+        covs, self.ncov = self._cov_complete(ploc, dloc, rows[1], cov0)
+        if self.fshard:
+            # bins past F carry zero covariance: pin them to the identity
+            # so the Cholesky stays finite (their steering is zero, so the
+            # solve's output is discarded)
+            c = self.spectra.shape[0]
+            covs = covs + ((1.0 - self.keep)[None, :, None, None]
+                           * torch.eye(c, device=covs.device))
+        self.covs = covs
+        if surfaces is None:
+            return None
+        self.gathered = True
+        return rows[2].reshape(self.sp.st * self.n_blocks, -1)
+
+    def own(self, x: torch.Tensor) -> torch.Tensor:
+        ti, bl = self.mesh.ti, self.n_blocks
+        return x[ti * bl:(ti + 1) * bl]
+
+    def weights(self, steer: torch.Tensor) -> torch.Tensor:
+        return mvdr.weights_blocks(self.covs.contiguous(),
+                                   self._fslice(steer),
+                                   self.plans.cfg.algo.diag_load)
+
+    def stream(self, y: torch.Tensor) -> torch.Tensor:
+        if self.has_cov:
+            y, ncov, self.carry = self._channel_merge(y)
+            self.cov = cov_mod.to_planes(ncov)
+        return super().stream(y)
+
+    def overlap_add(self, frames: torch.Tensor):
+        """Local OLA, the spill pushed to the right time shard: (audio
+        [Bl, ..., T*hop], tail)."""
+        t = self.frames_per_block
+        o, tail = self._exchange(frames, self.n_blocks * t * self.hop)
+        return o.reshape(*o.shape[:-1], self.n_blocks,
+                         t * self.hop).movedim(-2, 0), tail
+
+    def outputs(self, out, whole):
+        replicated = whole if self.gathered else ()
+        return Shards(out, {k: None if k in replicated else 0 for k in out})
+
+    # the MVDR family's cross-shard pieces
+    def _cov_local(self, spec: torch.Tensor):
+        """Local monoid pieces and the packed shard aggregate."""
+        forget, t, bl = (self.plans.cfg.algo.cov_forget,
+                         self.frames_per_block, self.n_blocks)
+        ploc = cov_mod.block_prefixes(spec, None, forget, t)
+        dloc = torch.tensor(forget, dtype=torch.float32,
+                            device=spec.device) ** (
+            t * (torch.arange(bl, dtype=torch.float32,
+                              device=spec.device) + 1.0))
+        pack = torch.cat([ploc[-1].real.reshape(-1),
+                          ploc[-1].imag.reshape(-1), dloc[-1:]])
+        return ploc, dloc, pack
+
+    def _cov_complete(self, ploc, dloc, ag, cov0):
+        """Finish the exclusive-prefix composition from the gathered
+        [st, 2*F*C*C+1] aggregate rows: (covs, final cov)."""
+        fdim, cdim = ploc.shape[-3], ploc.shape[-1]
+        npk = fdim * cdim * cdim
+        pag = torch.complex(ag[:, :npk], ag[:, npk:2 * npk]).reshape(
+            -1, fdim, cdim, cdim)
+        dag = ag[:, -1]
+        # inclusive prefix over the time shards, in order
+        dpre, ppre = [dag[0]], [pag[0]]
+        for s_ in range(1, self.sp.st):
+            dpre.append(dpre[-1] * dag[s_])
+            ppre.append(dag[s_] * ppre[-1] + pag[s_])
+        ti = self.mesh.ti
+        if ti == 0:                                         # the identity
+            d_tot, p_tot = dloc, ploc
         else:
-            raise ValueError(f"unknown algo {algo!r}")
-        new_state = PipelineState(carry=new_carry,
-                                  block_idx=state.block_idx + 1,
-                                  ola_tail=new_tail, cov=new_cov,
-                                  tracks=new_tracks, particles=new_particles)
-        # per-frame outputs: the frame axis is the last
-        return new_state, Shards(out, {k: None if k in replicated else -1
-                                       for k in out})
+            d_tot = dpre[ti - 1] * dloc
+            p_tot = dloc[:, None, None, None] * ppre[ti - 1] + ploc
+        covs = d_tot[:, None, None, None] * cov0 + p_tot
+        return covs, dpre[-1] * cov0 + ppre[-1]
 
-    # ------------------------------------------------------------------
-    # The per-rank batched step (the reference's ``_local_blocks_batched``).
-    # ------------------------------------------------------------------
-    def _local_blocks(self, state: PipelineState, local: torch.Tensor):
-        cfg = self.cfg
-        a = cfg.algo
-        hop = cfg.stft.hop
-        lh = cfg.stft.frame_len - hop
-        mesh = self.mesh
-        c = self.geom.num_mics
-        bl, cl, block_len = local.shape
-        t = cfg.frames_per_block
-        bt = bl * t
-        ci, ti = mesh.ci, mesh.ti
-        algo = a.name
-        plan = self._pipe.plan
+    def _time_merge(self, parts):
+        """ONE gather over 'time' of the parts' concatenated floats: each
+        part's [st, size] rows."""
+        g = coll.gather(torch.cat([p.reshape(-1) for p in parts]), self.mesh,
+                        TIME_AXIS, tiled=False)             # [st, sum]
+        return list(torch.split(g, [p.numel() for p in parts], dim=1))
 
-        flat = local.transpose(0, 1).reshape(cl, bl * block_len)
-        # bt*hop == bl*block_len: the next carry is the last time shard's
-        # tail; the MVDR family replicates it through its merged gathers
-        carry_tail_local = flat[:, -lh:].contiguous()
-        mvdr_family = algo in _MVDR_FAMILY
-        new_carry = (None if mvdr_family
-                     else self._replicate_carry(carry_tail_local))
-        spectra = self._spectra(flat, state.carry[ci * cl:(ci + 1) * cl])
-        f = spectra.shape[-1]                              # [C, Bl*T, F]
-
-        def per_block(v):
-            """[..., Bl*T] -> [Bl, ..., T]."""
-            return v.reshape(*v.shape[:-1], bl, t).movedim(-2, 0)
-
-        def spectra_blocks():
-            return spectra.view(c, bl, t, f).permute(1, 0, 2, 3)
-
-        # Frequency-sharded MVDR chain: with channel shards, each takes
-        # F/sc bins of the covariance, solve and beamform.
-        fshard = self.sc > 1 and mvdr_family
-        if fshard:
-            fsl = -(-f // self.sc)
-            bins = ci * fsl + torch.arange(fsl, device=spectra.device)
-            keep = (bins < f).to(torch.float32)            # 0 past F
-            bins = bins.clamp(max=f - 1)
-
-            def fslice(x, axis=-1):
-                """This shard's bins of ``x`` along ``axis``, zero past F."""
-                ax = axis % x.ndim
-                shape = [1] * x.ndim
-                shape[ax] = fsl
-                return torch.index_select(x, ax, bins) * keep.view(shape)
-
-        def cov_local(spec):
-            """Local monoid pieces and the packed shard aggregate."""
-            ploc = cov_mod.block_prefixes(spec, None, a.cov_forget, t)
-            dloc = torch.tensor(a.cov_forget, dtype=torch.float32,
-                                device=spec.device) ** (
-                t * (torch.arange(bl, dtype=torch.float32,
-                                  device=spec.device) + 1.0))
-            pack = torch.cat([ploc[-1].real.reshape(-1),
-                              ploc[-1].imag.reshape(-1), dloc[-1:]])
-            return ploc, dloc, pack
-
-        def cov_complete(ploc, dloc, ag, cov0_):
-            """Finish the exclusive-prefix composition from the gathered
-            [st, 2*F*C*C+1] aggregate rows: (covs, final cov)."""
-            fdim, cdim = ploc.shape[-3], ploc.shape[-1]
-            npk = fdim * cdim * cdim
-            pag = torch.complex(ag[:, :npk], ag[:, npk:2 * npk]).reshape(
-                -1, fdim, cdim, cdim)
-            dag = ag[:, -1]
-            # inclusive prefix over the time shards, in order
-            dpre, ppre = [dag[0]], [pag[0]]
-            for s_ in range(1, self.st):
-                dpre.append(dpre[-1] * dag[s_])
-                ppre.append(dag[s_] * ppre[-1] + pag[s_])
-            if ti == 0:                                    # the identity
-                d_tot, p_tot = dloc, ploc
-            else:
-                d_tot = dpre[ti - 1] * dloc
-                p_tot = dloc[:, None, None, None] * ppre[ti - 1] + ploc
-            covs = d_tot[:, None, None, None] * cov0_ + p_tot
-            return covs, dpre[-1] * cov0_ + ppre[-1]
-
-        def time_merge(parts):
-            """ONE gather over 'time' of the parts' concatenated floats:
-            each part's [st, size] rows."""
-            g = coll.gather(torch.cat([p.reshape(-1) for p in parts]), mesh,
-                            TIME_AXIS, tiled=False)         # [st, sum]
-            return list(torch.split(g, [p.numel() for p in parts], dim=1))
-
-        def channel_merge(y_c, ncov_c, carry_last):
-            """ONE gather over 'channel' of the beamformed bin slice, the
-            final covariance's bin slice and the carry; full-F tensors."""
-            if not fshard:
-                return y_c, ncov_c, carry_last
-            parts = [y_c.real, y_c.imag, ncov_c.real, ncov_c.imag, carry_last]
-            g = coll.gather(torch.cat([p.reshape(-1) for p in parts]), mesh,
-                            CHANNEL_AXIS, tiled=False)      # [sc, sum]
-            yr, yi, nr, ni, cr = torch.split(g, [p.numel() for p in parts],
-                                             dim=1)
-            y_full = torch.complex(yr, yi).reshape(self.sc, *y_c.shape)
-            y_full = y_full.movedim(0, -2).reshape(
-                *y_c.shape[:-1], self.sc * fsl)[..., :f]
-            ncov_full = torch.complex(nr, ni).reshape(
-                self.sc * fsl, c, c)[:f]
-            return y_full, ncov_full, cr.reshape(self.sc * cl, lh)
-
-        def mvdr_chain(cov0, pmean=None):
-            """The covariance side with the merged time gather: (covs,
-            final cov, carry, every block's pmean or None)."""
-            spec_c = fslice(spectra) if fshard else spectra
-            cov0_c = fslice(cov0, axis=0) if fshard else cov0
-            ploc, dloc, pack = cov_local(spec_c.contiguous())
-            parts = [carry_tail_local, pack]
-            if pmean is not None:
-                parts.append(pmean)
-            rows = time_merge(parts)
-            carry_last = rows[0][-1].reshape(cl, lh)
-            pmean_all = (rows[2].reshape(self.st * bl, -1)
-                         if pmean is not None else None)
-            covs_c, ncov_c = cov_complete(ploc, dloc, rows[1], cov0_c)
-            if fshard:
-                # bins past F carry zero covariance: pin them to the
-                # identity so the Cholesky stays finite (their steering is
-                # zero, so the solve's output is discarded)
-                covs_c = covs_c + ((1.0 - keep)[None, :, None, None]
-                                   * torch.eye(c, device=covs_c.device))
-            return covs_c, ncov_c, carry_last, pmean_all
-
-        def mvdr_finish(covs_c, ncov_c, carry_last, steer_full):
-            w = mvdr.weights_blocks(
-                covs_c.contiguous(),
-                fslice(steer_full) if fshard else steer_full, a.diag_load)
-            y_c = mvdr.beamform(
-                fslice(spectra_blocks()) if fshard else spectra_blocks(), w)
-            return channel_merge(y_c, ncov_c, carry_last)
-
-        def resynth_stream(y):
-            """y [..., Bl*T, F] -> (audio [Bl, ..., T*hop], tail): local OLA,
-            the spill pushed to the right time shard."""
-            frames = stft_mod.istft_frames(y, self._pipe._a2,
-                                           self._pipe._ifft_op)
-            o, tail = halo_mod.ola_tail_exchange(
-                overlap_add(frames, hop), bt * hop, state.ola_tail, mesh,
-                impl=self.halo)
-            return o.reshape(*o.shape[:-1], bl, t * hop).movedim(-2, 0), tail
-
-        new_tail, new_cov, new_tracks = state.ola_tail, state.cov, state.tracks
-        new_particles = state.particles
-        replicated = ()
-        if algo == "gcc":
-            out = self._pipe._gcc(spectra, per_block)
-        elif algo == "delaysum":
-            audio, new_tail = resynth_stream(
-                delaysum.beamform(spectra, self._pipe.fixed_steer))
-            out = {"audio": audio}
-        elif algo == "mask":
-            audio, new_tail = resynth_stream(masking.mask_block(
-                spectra, self._pipe.mask_phase, a.mask_threshold_rad,
-                a.mask_sharpness))
-            out = {"audio": audio}
-        elif algo == "srp":
-            power = self._srp_power(spectra)               # [Bl*T, G]
-            az, pk = srp_mod.argmax_doa(power, plan,
-                                        interpolate=a.srp_interpolate)
-            out = {"doa": per_block(az), "power": per_block(pk)}
-        elif algo == "srp_delaysum":
-            power = self._srp_power(spectra)
-            gidx = torch.argmax(power.view(bl, t, -1).mean(dim=1), dim=-1)
-            y = delaysum.beamform(spectra_blocks(), srp_mod.steering_vector(
-                plan, gidx))                               # [Bl, T, F]
-            audio, new_tail = resynth_stream(y.reshape(bt, f))
-            out = {"audio": audio, "doa": plan.azimuths_rad[gidx]}
-        elif algo == "mvdr":
-            fixed = self._pipe.fixed_steer
-            covs_c, ncov_c, carry_last, _ = mvdr_chain(
-                cov_mod.from_planes(state.cov))
-            y, cov, new_carry = mvdr_finish(
-                covs_c, ncov_c, carry_last,
-                fixed.expand(bl, *fixed.shape))            # [Bl, T, F]
-            audio, new_tail = resynth_stream(y.reshape(bt, f))
-            out = {"audio": audio}
-            new_cov = cov_mod.to_planes(cov)
-        elif algo == "srp_mvdr":
-            power = self._srp_power(spectra)
-            gidx = torch.argmax(power.view(bl, t, -1).mean(dim=1), dim=-1)
-            covs_c, ncov_c, carry_last, _ = mvdr_chain(
-                cov_mod.from_planes(state.cov))
-            y, cov, new_carry = mvdr_finish(
-                covs_c, ncov_c, carry_last,
-                srp_mod.steering_vector(plan, gidx))       # [Bl, T, F]
-            audio, new_tail = resynth_stream(y.reshape(bt, f))
-            az_f, _ = srp_mod.argmax_doa(power, plan,
-                                         interpolate=a.srp_interpolate)
-            out = {"audio": audio, "doa": plan.azimuths_rad[gidx],
-                   "doa_frame": per_block(az_f)}
-            new_cov = cov_mod.to_planes(cov)
-        elif algo == "track_mvdr":
-            power = self._srp_power(spectra)
-            pmean = power.view(bl, t, -1).mean(dim=1)      # [Bl, G]
-            # the tracker is a sequential recursion over ALL blocks: every
-            # block's surface rides the merged time gather and the tracker
-            # runs replicated; each shard then steers its own blocks
-            covs_c, ncov_c, carry_last, pmean_all = mvdr_chain(
-                cov_mod.from_planes(state.cov), pmean)     # [B, G]
-            if self._pipe.use_particle:
-                new_particles, gidx_all, angles, conf = (
-                    tracking.particle_track_blocks(
-                        state.particles, pmean_all, plan.azimuths_rad,
-                        self._pipe.suppress_bins, a.particle_step_std_rad,
-                        a.particle_resample_threshold))    # [B, S] each
-            else:
-                new_tracks, gidx_all, angles, conf = tracking.track_blocks(
-                    state.tracks, pmean_all, plan.azimuths_rad,
-                    self._pipe.suppress_bins, a.track_smooth)  # [B, S] each
-            y, cov, new_carry = mvdr_finish(
-                covs_c, ncov_c, carry_last, srp_mod.steering_vector(
-                    plan, gidx_all[ti * bl:(ti + 1) * bl]))  # [Bl, S, T, F]
-            y_s = y.transpose(0, 1).reshape(y.shape[1], bt, f)
-            audio, new_tail = resynth_stream(y_s)          # [Bl, S, T*hop]
-            out = {"audio": audio, "doa": angles, "confidence": conf}
-            replicated = ("doa", "confidence")
-            new_cov = cov_mod.to_planes(cov)
-        else:
-            raise ValueError(f"unknown algo {algo!r}")
-        new_state = PipelineState(carry=new_carry,
-                                  block_idx=state.block_idx + bl * self.st,
-                                  ola_tail=new_tail, cov=new_cov,
-                                  tracks=new_tracks, particles=new_particles)
-        return new_state, Shards(out, {k: None if k in replicated else 0
-                                       for k in out})
+    def _channel_merge(self, y_c: torch.Tensor):
+        """ONE gather over 'channel' of the beamformed bin slice, the final
+        covariance's bin slice and the carry: (y, final cov, carry), full
+        F."""
+        if not self.fshard:
+            return y_c, self.ncov, self.carry_last
+        sc, fsl, f = self.sp.sc, self.fsl, self.spectra.shape[-1]
+        c = self.spectra.shape[0]
+        parts = [y_c.real, y_c.imag, self.ncov.real, self.ncov.imag,
+                 self.carry_last]
+        g = coll.gather(torch.cat([p.reshape(-1) for p in parts]), self.mesh,
+                        CHANNEL_AXIS, tiled=False)          # [sc, sum]
+        yr, yi, nr, ni, cr = torch.split(g, [p.numel() for p in parts], dim=1)
+        y_full = torch.complex(yr, yi).reshape(sc, *y_c.shape)
+        y_full = y_full.movedim(0, -2).reshape(
+            *y_c.shape[:-1], sc * fsl)[..., :f]
+        ncov_full = torch.complex(nr, ni).reshape(sc * fsl, c, c)[:f]
+        return y_full, ncov_full, cr.reshape(sc * self.carry_last.shape[0],
+                                             self.lh)

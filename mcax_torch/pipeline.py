@@ -22,6 +22,10 @@ materialised-CPS SRP, covariance prefixes, MVDR solve from rows and from
 complex covariances, PHAT cross-power, and the particle smoother's
 threefry draws) are hand-written CUDA on a CUDA device; on
 ``device="cpu"`` their plain PyTorch versions run.
+
+Both steps run the one chain, ``chain.step``, on a layout of their own:
+the block step (``_BlockLayout``, a leading stream axis) and the batched
+step (``_BatchedLayout``, B blocks folded into the frame axis).
 """
 
 from __future__ import annotations
@@ -32,30 +36,20 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from mcax_torch import chain
 from mcax_torch import config as cfg_mod
 from mcax_torch.algos import covariance as cov_mod
-from mcax_torch.algos import delaysum
-from mcax_torch.algos import gcc
-from mcax_torch.algos import masking
 from mcax_torch.algos import mvdr
 from mcax_torch.algos import particle
 from mcax_torch.algos import srp as srp_mod
 from mcax_torch.algos import tracking
 from mcax_torch.frames import stft as stft_mod
 from mcax_torch.frames.ola import streaming_overlap_add
-from mcax_torch.frames.window import make_windows
 from mcax_torch.kernels import dispatch
-from mcax_torch.kernels import fft as kfft
 from mcax_torch.kernels import stft_fused
 from mcax_torch.state import FIELDS, PipelineState
 from mcax_torch.utils.metrics import span
 
-_SYNTH_ALGOS = ("delaysum", "srp_delaysum", "mvdr", "srp_mvdr", "track_mvdr",
-                "mask")
-_COV_ALGOS = ("mvdr", "srp_mvdr", "track_mvdr")
-_SRP_ALGOS = ("srp", "srp_delaysum", "srp_mvdr", "track_mvdr")
-_PORTED_ALGOS = ("gcc", "delaysum", "srp", "srp_mvdr", "track_mvdr",
-                 "srp_delaysum", "mvdr", "mask")
 SCAN_MODES = ("batched", "scan")
 
 # block steps served by replaying a captured CUDA graph (process_block on
@@ -188,56 +182,10 @@ class Pipeline:
         self.srp = srp_mod.check_method(srp)
         self.scan_mode = check_scan_mode(scan_mode)
         self.cfg = cfg.validate()
-        algo = cfg.algo.name
-        if algo not in _PORTED_ALGOS:
-            raise NotImplementedError(
-                f"mcax_torch runs algo {'|'.join(_PORTED_ALGOS)} so far; "
-                f"{algo!r} ({cfg.name}) is queued in ROADMAP.md, Queue 1")
-        # config5's tracker: EMA tracks, or one particle cloud a source
-        self.use_particle = (algo == "track_mvdr"
-                             and cfg.algo.smoother == "particle")
         self.device = dispatch.resolve_device(device)
-        self.geom = cfg.geometry()
-        self.pairs = self.geom.pairs
-        s = cfg.stft
-        self.win_a, self.win_s = make_windows(s.frame_len, s.hop, s.synthesis)
-        self.gcc_plan = self.srp_plan = self.gplan = self.plan = None
-        if algo == "gcc":
-            self.gcc_plan = gcc.make_plan(self.geom, s.frame_len,
-                                          band_hz=cfg.algo.band_hz)
-            bands = (gcc.multiband_masks(s.frame_len, cfg.sample_rate,
-                                         cfg.algo.gcc_bands)
-                     if cfg.algo.gcc_bands else None)
-            self.gplan = gcc.device_plan(self.gcc_plan, self.pairs,
-                                         self.device, bands)
-        if algo in _SRP_ALGOS:
-            self.srp_plan = srp_mod.make_plan(self.geom, s.frame_len,
-                                              cfg.algo.grid_points,
-                                              band_hz=cfg.algo.band_hz)
-            self.plan = srp_mod.device_plan(self.srp_plan, self.pairs,
-                                            self.device, self.srp)
-            deg_per_bin = 360.0 / cfg.algo.grid_points
-            self.suppress_bins = max(1, int(round(
-                cfg.algo.peak_suppression_deg / deg_per_bin)))
-        self.fixed_steer = (torch.from_numpy(delaysum.steering_vector(
-            self.geom, cfg.algo.steer_azimuth_rad, s.frame_len)).to(
-                self.device) if algo in ("delaysum", "mvdr") else None)
-        self.mask_phase = (torch.from_numpy(masking.expected_phase(
-            self.geom, cfg.algo.steer_azimuth_rad, s.frame_len)).to(
-                self.device) if algo == "mask" else None)
-        # the DFT kernels read their matrices padded to whole tiles
-        self._w2 = stft_fused.analysis_matrix(s.frame_len, self.win_a,
-                                              self.device)
-        # the analysis kernels' FFT route reads the window and its twiddles
-        # instead (kernels/fft.py, frame_route)
-        self._fft_op = kfft.fft_operand(s.frame_len, self.win_a, self.device)
-        self._a2 = (kfft.synthesis_matrix(s.frame_len, self.win_s,
-                                          self.device)
-                    if algo in _SYNTH_ALGOS else None)
-        # and the inverse's FFT route the synthesis window and its twiddles
-        self._ifft_op = (kfft.fft_operand(s.frame_len, self.win_s,
-                                          self.device)
-                         if algo in _SYNTH_ALGOS else None)
+        # what the steps read besides their input and state
+        self.plans = chain.Plans(cfg, self.device, self.srp)
+        self.geom = self.plans.geom
         self._graph: Optional[_StepGraph] = None   # process_block's, on a card
 
     @property
@@ -245,30 +193,9 @@ class Pipeline:
         return self.cfg.frames_per_block
 
     def init_state(self) -> PipelineState:
-        """A fresh state holding only the fields this algo uses (the
-        particle smoother's clouds drawn as the reference draws them, from
-        ``particle_seed``)."""
-        cfg = self.cfg
-        c = self.geom.num_mics
-        lh = cfg.stft.frame_len - cfg.stft.hop
-        algo = cfg.algo.name
-        dev = self.device
-        tracked = algo == "track_mvdr"
-        # track_mvdr resynthesises one signal per source
-        tail = (cfg.algo.num_sources, lh) if tracked else (lh,)
-        return PipelineState(
-            carry=torch.zeros((c, lh), dtype=torch.float32, device=dev),
-            block_idx=torch.zeros((), dtype=torch.int32, device=dev),
-            ola_tail=(torch.zeros(tail, dtype=torch.float32, device=dev)
-                      if algo in _SYNTH_ALGOS else None),
-            cov=(cov_mod.init_planes(cfg.stft.num_bins, c, device=dev)
-                 if algo in _COV_ALGOS else None),
-            tracks=(tracking.init_tracks(cfg.algo.num_sources, dev)
-                    if tracked and not self.use_particle else None),
-            particles=(particle.init(cfg.algo.num_sources,
-                                     cfg.algo.num_particles,
-                                     cfg.algo.particle_seed, dev)
-                       if self.use_particle else None))
+        """A fresh state holding only the fields this algo uses
+        (``Plans.init_state``)."""
+        return self.plans.init_state()
 
     def init_states(self, num_streams: int) -> PipelineState:
         """States of ``num_streams`` independent streams: every leaf of
@@ -344,154 +271,9 @@ class Pipeline:
 
     def _block_step(self, state: PipelineState, samples: torch.Tensor):
         """The block step over a leading stream axis: state leaves [S, ...],
-        samples [S, C, L].  Each stage runs in a ``mcax_torch.<stage>``
-        span (README.md, Tracing)."""
-        cfg = self.cfg
-        hop = cfg.stft.hop
-        s_, c, _ = samples.shape
-        t = cfg.frames_per_block
-        with span("mcax_torch.analysis"):
-            # channel-major [C, S, N]: the concatenation is the one copy,
-            # and the spectra come out [C, S, T, F], which the SRP kernel
-            # reads as [C, S*T, F] without a transpose
-            x = torch.cat([state.carry.transpose(0, 1),
-                           samples.transpose(0, 1)], dim=-1)
-            new_carry = x[..., t * hop:].transpose(0, 1).contiguous()
-            spectra_cs = stft_mod.stft(x, self._w2, self._fft_op,
-                                       hop)                # [C, S, T, F]
-            spectra = spectra_cs.transpose(0, 1)           # [S, C, T, F]
-
-        algo = cfg.algo.name
-        a = cfg.algo
-        new_tail, new_cov, new_tracks = state.ola_tail, state.cov, state.tracks
-        new_particles = state.particles
-
-        def resynth(y):
-            """y [S, ..., T, F] -> (audio [S, ..., T*hop], new OLA tail)."""
-            with span("mcax_torch.synthesis"):
-                frames = stft_mod.istft_frames(y, self._a2,
-                                               self._ifft_op)  # [S, ..., T, L]
-                return streaming_overlap_add(frames, hop, state.ola_tail)
-
-        def weights(steer):
-            """(w [S, (Src,) C, F], the new covariance planes)."""
-            with span("mcax_torch.mvdr"):
-                cov = cov_mod.update(cov_mod.from_planes(state.cov), spectra,
-                                     a.cov_forget)         # [S, F, C, C]
-                w = mvdr.weights_blocks(cov, steer, a.diag_load)
-                return w, cov_mod.to_planes(cov)
-
-        if algo == "gcc":
-            out = self._gcc(spectra, lambda v: v)
-        elif algo == "delaysum":
-            with span("mcax_torch.beamform"):
-                y = delaysum.beamform(spectra, self.fixed_steer)  # [S, T, F]
-            audio, new_tail = resynth(y)
-            out = {"audio": audio}
-        elif algo == "mask":
-            with span("mcax_torch.beamform"):
-                y = masking.mask_block(spectra, self.mask_phase,
-                                       a.mask_threshold_rad,
-                                       a.mask_sharpness)
-            audio, new_tail = resynth(y)
-            out = {"audio": audio}
-        elif algo == "srp":
-            power = self._srp_power(spectra_cs).view(s_, t, -1)   # [S, T, G]
-            with span("mcax_torch.doa"):
-                az, pk = srp_mod.argmax_doa(power, self.plan,
-                                            interpolate=a.srp_interpolate)
-            out = {"doa": az, "power": pk}
-        elif algo == "srp_delaysum":
-            power = self._srp_power(spectra_cs).view(s_, t, -1)
-            with span("mcax_torch.doa"):
-                gidx = torch.argmax(power.mean(dim=1), dim=-1)    # [S]
-                steer = srp_mod.steering_vector(self.plan, gidx)  # [S, C, F]
-                doa = self.plan.azimuths_rad[gidx]
-            with span("mcax_torch.beamform"):
-                y = delaysum.beamform(spectra, steer)
-            audio, new_tail = resynth(y)
-            out = {"audio": audio, "doa": doa}
-        elif algo == "mvdr":
-            # mcax's weights per stream; the solve kernel with B = S
-            w, new_cov = weights(self.fixed_steer.expand(
-                s_, *self.fixed_steer.shape))                     # [S, C, F]
-            with span("mcax_torch.beamform"):
-                y = mvdr.beamform(spectra, w)
-            audio, new_tail = resynth(y)
-            out = {"audio": audio}
-        elif algo == "srp_mvdr":
-            power = self._srp_power(spectra_cs).view(s_, t, -1)
-            with span("mcax_torch.doa"):
-                gidx = torch.argmax(power.mean(dim=1), dim=-1)    # [S]
-                steer = srp_mod.steering_vector(self.plan, gidx)  # [S, C, F]
-                az_f, _ = srp_mod.argmax_doa(
-                    power, self.plan, interpolate=a.srp_interpolate)
-                doa = self.plan.azimuths_rad[gidx]
-            w, new_cov = weights(steer)
-            with span("mcax_torch.beamform"):
-                y = mvdr.beamform(spectra, w)                     # [S, T, F]
-            audio, new_tail = resynth(y)
-            out = {"audio": audio, "doa": doa, "doa_frame": az_f}
-        elif algo == "track_mvdr":
-            power = self._srp_power(spectra_cs).view(s_, t, -1)
-            with span("mcax_torch.track"):
-                if self.use_particle:
-                    new_particles, doa, conf, gidx = (
-                        tracking.particle_track_block(
-                            state.particles, power.mean(dim=1),
-                            self.plan.azimuths_rad, self.suppress_bins,
-                            a.particle_step_std_rad,
-                            a.particle_resample_threshold))  # [S, Src] each
-                else:
-                    new_tracks, gidx = tracking.track_block(
-                        state.tracks, power.mean(dim=1),
-                        self.plan.azimuths_rad, self.suppress_bins,
-                        a.track_smooth)                      # gidx [S, Src]
-                    doa, conf = new_tracks.angles_rad, new_tracks.confidence
-                steer = srp_mod.steering_vector(self.plan,
-                                                gidx)      # [S, Src, C, F]
-            w, new_cov = weights(steer)
-            with span("mcax_torch.beamform"):
-                # y [S, Src, T, F]: one signal per source
-                y = mvdr.beamform(spectra, w)
-            audio, new_tail = resynth(y)
-            out = {"audio": audio, "doa": doa, "confidence": conf}
-        else:
-            raise ValueError(f"unknown algo {algo!r}")
-        new_state = PipelineState(carry=new_carry,
-                                  block_idx=state.block_idx + 1,
-                                  ola_tail=new_tail, cov=new_cov,
-                                  tracks=new_tracks, particles=new_particles)
-        return new_state, out
-
-    def _srp_power(self, spectra_cs: torch.Tensor) -> torch.Tensor:
-        """[C, ..., F] channel-major spectra -> power [M, G] (M frames)."""
-        with span("mcax_torch.srp"):
-            c, f = spectra_cs.shape[0], spectra_cs.shape[-1]
-            return srp_mod.srp_surface(spectra_cs.reshape(c, -1, f),
-                                       self.plan, eps=self.cfg.algo.phat_eps,
-                                       method=self.srp)
-
-    def _gcc(self, spectra: torch.Tensor, per_block) -> Dict[str, torch.Tensor]:
-        """GCC outputs from spectra [..., C, M, F], each passed through
-        ``per_block`` ([..., M] -> the mode's layout): GCC's DOA stage."""
-        a = self.cfg.algo
-        with span("mcax_torch.doa"):
-            if a.gcc_bands:
-                res = gcc.gcc_phat_multiband(spectra, self.gplan,
-                                             eps=a.phat_eps,
-                                             interpolate=a.interpolate,
-                                             weighting=a.gcc_weighting)
-                # "peak" stays [..., P, T] like the full-band path's
-                return {"tdoa": per_block(res["tdoa_fused"]),
-                        "doa": per_block(res["doa_fused"]),
-                        "tdoa_band": per_block(res["tdoa"]),
-                        "peak_band": per_block(res["peak"]),
-                        "peak": per_block(res["peak"].amax(dim=-3))}
-            res = gcc.gcc_phat_block(spectra, self.gplan, eps=a.phat_eps,
-                                     interpolate=a.interpolate,
-                                     weighting=a.gcc_weighting)
-            return {k: per_block(res[k]) for k in ("tdoa", "doa", "peak")}
+        samples [S, C, L]."""
+        return chain.step(self.plans,
+                          _BlockLayout(self.plans, state, samples), state)
 
     # ------------------------------------------------------------------
     # Throughput mode: one batched step over B consecutive blocks.
@@ -531,142 +313,9 @@ class Pipeline:
                        if outs else {})
 
     def _blocks_batched(self, state: PipelineState, samples: torch.Tensor):
-        """One step over all B blocks, its stages in ``_block_step``'s
-        spans."""
-        cfg = self.cfg
-        hop = cfg.stft.hop
-        b, c, block_len = samples.shape
-        t = cfg.frames_per_block
-        bt = b * t
-
-        with span("mcax_torch.analysis"):
-            if cfg.stft.frame_len == 2 * hop and block_len % hop == 0:
-                # blocks-native analysis: the kernel reads the [B, C, L]
-                # input directly, carry and block seams included
-                spectra, new_carry = stft_fused.stft_fused_from_blocks(
-                    samples, state.carry, self._w2, self._fft_op,
-                    hop)                                   # [C, B*T, F]
-            else:
-                flat = samples.permute(1, 0, 2).reshape(c, b * block_len)
-                x = torch.cat([state.carry, flat], dim=-1)
-                new_carry = x[:, bt * hop:].clone()
-                spectra = stft_mod.stft(x, self._w2, self._fft_op,
-                                        hop)               # [C, B*T, F]
-        algo = cfg.algo.name
-        a = cfg.algo
-
-        def per_block(v):
-            """[..., B*T] -> [B, ..., T] (split the frame axis into blocks)."""
-            return v.reshape(*v.shape[:-1], b, t).movedim(-2, 0)
-
-        def resynth(y):
-            """y [..., B*T, F] -> (audio [B, ..., T*hop], new OLA tail):
-            OLA over the whole contiguous frame stream, split per block."""
-            with span("mcax_torch.synthesis"):
-                frames = stft_mod.istft_frames(y, self._a2,
-                                               self._ifft_op)  # [..., B*T, L]
-                full, tail = streaming_overlap_add(frames, hop,
-                                                   state.ola_tail)
-                return (full.view(*full.shape[:-1], b, t * hop).movedim(-2, 0),
-                        tail)
-
-        def blocks():
-            """[C, B*T, F] -> [B, C, T, F] (a view)."""
-            return spectra.view(c, b, t, -1).permute(1, 0, 2, 3)
-
-        def weights(steer):
-            """(w [B, (S,) C, F], the last block's covariance planes): the
-            covariance kernel's rows feed the solve kernel."""
-            with span("mcax_torch.mvdr"):
-                w, cov = mvdr.weights_and_cov_from_spectra(
-                    spectra, cov_mod.from_planes(state.cov), a.cov_forget, t,
-                    steer, a.diag_load)
-                return w, cov_mod.to_planes(cov)
-
-        new_tail, new_cov, new_tracks = state.ola_tail, state.cov, state.tracks
-        new_particles = state.particles
-        if algo == "gcc":
-            out = self._gcc(spectra, per_block)
-        elif algo == "delaysum":
-            with span("mcax_torch.beamform"):
-                y = delaysum.beamform(spectra, self.fixed_steer)  # [B*T, F]
-            audio, new_tail = resynth(y)
-            out = {"audio": audio}
-        elif algo == "mask":
-            with span("mcax_torch.beamform"):
-                y = masking.mask_block(spectra, self.mask_phase,
-                                       a.mask_threshold_rad,
-                                       a.mask_sharpness)  # [B*T, F]
-            audio, new_tail = resynth(y)
-            out = {"audio": audio}
-        elif algo == "srp":
-            power = self._srp_power(spectra)               # [B*T, G]
-            with span("mcax_torch.doa"):
-                az, pk = srp_mod.argmax_doa(power, self.plan,
-                                            interpolate=a.srp_interpolate)
-                out = {"doa": per_block(az), "power": per_block(pk)}
-        elif algo == "srp_delaysum":
-            power = self._srp_power(spectra)               # [B*T, G]
-            with span("mcax_torch.doa"):
-                gidx = torch.argmax(power.view(b, t, -1).mean(dim=1), dim=-1)
-                steer = srp_mod.steering_vector(self.plan, gidx)  # [B, C, F]
-                doa = self.plan.azimuths_rad[gidx]
-            with span("mcax_torch.beamform"):
-                y = delaysum.beamform(blocks(), steer)     # [B, T, F]
-                y = y.reshape(bt, -1)
-            audio, new_tail = resynth(y)
-            out = {"audio": audio, "doa": doa}
-        elif algo == "mvdr":
-            w, new_cov = weights(self.fixed_steer.expand(
-                b, *self.fixed_steer.shape))               # [B, C, F]
-            with span("mcax_torch.beamform"):
-                y = mvdr.beamform(blocks(), w).reshape(bt, -1)  # [B*T, F]
-            audio, new_tail = resynth(y)
-            out = {"audio": audio}
-        elif algo == "srp_mvdr":
-            power = self._srp_power(spectra)               # [B*T, G]
-            with span("mcax_torch.doa"):
-                pmean = power.view(b, t, -1).mean(dim=1)   # [B, G]
-                gidx = torch.argmax(pmean, dim=-1)         # [B]
-                steer = srp_mod.steering_vector(self.plan, gidx)  # [B, C, F]
-                az_f, _ = srp_mod.argmax_doa(
-                    power, self.plan, interpolate=a.srp_interpolate)
-                doa, doa_frame = self.plan.azimuths_rad[gidx], per_block(az_f)
-            w, new_cov = weights(steer)                    # [B, C, F]
-            with span("mcax_torch.beamform"):
-                y = mvdr.beamform(blocks(), w).reshape(bt, -1)  # [B*T, F]
-            audio, new_tail = resynth(y)
-            out = {"audio": audio, "doa": doa, "doa_frame": doa_frame}
-        elif algo == "track_mvdr":
-            power = self._srp_power(spectra)               # [B*T, G]
-            with span("mcax_torch.track"):
-                pmean = power.view(b, t, -1).mean(dim=1)   # [B, G]
-                if self.use_particle:
-                    new_particles, gidx, angles, conf = (
-                        tracking.particle_track_blocks(
-                            state.particles, pmean, self.plan.azimuths_rad,
-                            self.suppress_bins, a.particle_step_std_rad,
-                            a.particle_resample_threshold))  # [B, S] each
-                else:
-                    new_tracks, gidx, angles, conf = tracking.track_blocks(
-                        state.tracks, pmean, self.plan.azimuths_rad,
-                        self.suppress_bins, a.track_smooth)  # [B, S] each
-                steer = srp_mod.steering_vector(self.plan,
-                                                gidx)      # [B, S, C, F]
-            w, new_cov = weights(steer)                    # [B, S, C, F]
-            with span("mcax_torch.beamform"):
-                y = mvdr.beamform(blocks(), w)             # [B, S, T, F]
-                # per-source contiguous frame streams [S, B*T, F]
-                y = y.transpose(0, 1).reshape(y.shape[1], bt, -1)
-            audio, new_tail = resynth(y)                   # [B, S, T*hop]
-            out = {"audio": audio, "doa": angles, "confidence": conf}
-        else:
-            raise ValueError(f"unknown algo {algo!r}")
-        new_state = PipelineState(carry=new_carry,
-                                  block_idx=state.block_idx + b,
-                                  ola_tail=new_tail, cov=new_cov,
-                                  tracks=new_tracks, particles=new_particles)
-        return new_state, out
+        """One step over all B blocks [B, C, L]."""
+        return chain.step(self.plans,
+                          _BatchedLayout(self.plans, state, samples), state)
 
     # ------------------------------------------------------------------
     def run(self, samples, state: Optional[PipelineState] = None):
@@ -691,6 +340,119 @@ class Pipeline:
         state, outs = self._blocks_scan(
             state, padded.view(c, nblocks, b).transpose(0, 1))
         return state, {k: v.cpu().numpy() for k, v in outs.items()}
+
+
+class _BlockLayout(chain.OneBlock):
+    """The block step's layout: one block a stream, spectra [S, C, T, F].
+    The analysis is channel-major [C, S, N]: the concatenation is the one
+    copy, and the spectra come out [C, S, T, F], which the SRP kernel reads
+    as [C, S*T, F] without a transpose."""
+
+    def __init__(self, plans: chain.Plans, state: PipelineState,
+                 samples: torch.Tensor):
+        self.plans, self.state, self.samples = plans, state, samples
+        self.lead = samples.shape[:1]
+
+    def analysis(self):
+        hop, t = self.plans.cfg.stft.hop, self.plans.cfg.frames_per_block
+        x = torch.cat([self.state.carry.transpose(0, 1),
+                       self.samples.transpose(0, 1)], dim=-1)
+        self.carry = x[..., t * hop:].transpose(0, 1).contiguous()
+        self.spectra_cs = stft_mod.stft(x, self.plans.w2, self.plans.fft_op,
+                                        hop)                # [C, S, T, F]
+        self.spectra = self.spectra_cs.transpose(0, 1)      # [S, C, T, F]
+
+    def blocks(self) -> torch.Tensor:
+        return self.spectra
+
+    def srp(self) -> torch.Tensor:
+        """[S, T, G]."""
+        return self.plans.srp_power(self.spectra_cs).view(
+            *self.lead, self.plans.cfg.frames_per_block, -1)
+
+    def block_mean(self, power: torch.Tensor) -> torch.Tensor:
+        return power.mean(dim=1)
+
+    def weights(self, steer: torch.Tensor) -> torch.Tensor:
+        """mcax's weights a stream: the solve kernel with B = S."""
+        a = self.plans.cfg.algo
+        cov = cov_mod.update(cov_mod.from_planes(self.state.cov),
+                             self.spectra, a.cov_forget)    # [S, F, C, C]
+        w = mvdr.weights_blocks(cov, steer, a.diag_load)
+        self.cov = cov_mod.to_planes(cov)
+        return w
+
+    def stream(self, y: torch.Tensor) -> torch.Tensor:
+        return y
+
+    def overlap_add(self, frames: torch.Tensor):
+        return streaming_overlap_add(frames, self.plans.cfg.stft.hop,
+                                     self.state.ola_tail)
+
+    def outputs(self, out, whole):
+        return out
+
+
+class _BatchedLayout(chain.ManyBlocks):
+    """The batched step's layout: B blocks folded into the frame axis,
+    spectra [C, B*T, F]; the synthesis overlap-adds the whole contiguous
+    frame stream, then splits it per block."""
+
+    def __init__(self, plans: chain.Plans, state: PipelineState,
+                 samples: torch.Tensor):
+        self.plans, self.state, self.samples = plans, state, samples
+        self.n_blocks = self.advance = samples.shape[0]
+        self.lead = samples.shape[:1]
+        self.frames_per_block = plans.cfg.frames_per_block
+
+    def analysis(self):
+        p = self.plans
+        hop = p.cfg.stft.hop
+        b, c, block_len = self.samples.shape
+        if p.cfg.stft.frame_len == 2 * hop and block_len % hop == 0:
+            # blocks-native analysis: the kernel reads the [B, C, L] input
+            # directly, carry and block seams included
+            self.spectra, self.carry = stft_fused.stft_fused_from_blocks(
+                self.samples, self.state.carry, p.w2, p.fft_op, hop)
+        else:
+            flat = self.samples.permute(1, 0, 2).reshape(c, b * block_len)
+            x = torch.cat([self.state.carry, flat], dim=-1)
+            self.carry = x[:, b * self.frames_per_block * hop:].clone()
+            self.spectra = stft_mod.stft(x, p.w2, p.fft_op, hop)
+
+    def blocks(self) -> torch.Tensor:
+        """[C, B*T, F] -> [B, C, T, F] (a view)."""
+        c = self.spectra.shape[0]
+        return self.spectra.view(c, self.n_blocks, self.frames_per_block,
+                                 -1).permute(1, 0, 2, 3)
+
+    def srp(self) -> torch.Tensor:
+        """[B*T, G]."""
+        return self.plans.srp_power(self.spectra)
+
+    def block_mean(self, power: torch.Tensor) -> torch.Tensor:
+        return power.view(self.n_blocks, self.frames_per_block,
+                          -1).mean(dim=1)
+
+    def weights(self, steer: torch.Tensor) -> torch.Tensor:
+        """The covariance kernel's rows feed the solve kernel; the new
+        covariance is the last block's."""
+        a = self.plans.cfg.algo
+        w, cov = mvdr.weights_and_cov_from_spectra(
+            self.spectra, cov_mod.from_planes(self.state.cov), a.cov_forget,
+            self.frames_per_block, steer, a.diag_load)
+        self.cov = cov_mod.to_planes(cov)
+        return w
+
+    def overlap_add(self, frames: torch.Tensor):
+        """frames [..., B*T, L] -> (audio [B, ..., T*hop], new OLA tail)."""
+        hop = self.plans.cfg.stft.hop
+        full, tail = streaming_overlap_add(frames, hop, self.state.ola_tail)
+        return (full.view(*full.shape[:-1], self.n_blocks,
+                          self.frames_per_block * hop).movedim(-2, 0), tail)
+
+    def outputs(self, out, whole):
+        return out
 
 
 def get_pipeline(name: str, device=None) -> Pipeline:

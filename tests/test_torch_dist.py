@@ -25,6 +25,7 @@ bit-equal.  The in-process cases hold a 1 x 1 mesh to the port's
 
 import dataclasses
 import os
+import re
 import time
 
 import numpy as np
@@ -699,12 +700,27 @@ def test_mesh_and_pipeline_validation():
                           np.zeros((8, cfg.block_len), np.float32))
 
 
+def test_unknown_algo_raises_at_construction():
+    """An algo name outside ``config.ALGOS`` raises ValueError, naming the
+    eight, when either pipeline is built."""
+    from mcax_torch.pipeline import Pipeline
+    cfg = t_config.get_config("config3")
+    cfg = dataclasses.replace(cfg, algo=dataclasses.replace(cfg.algo,
+                                                            name="music"))
+    for build in (lambda: Pipeline(cfg, device="cpu"),
+                  lambda: ShardedPipeline(cfg, t_mesh.make_mesh(1, 1),
+                                          device="cpu")):
+        with pytest.raises(ValueError, match="unknown algo 'music'.*"
+                           + re.escape("|".join(t_config.ALGOS))):
+            build()
+
+
 @pytest.mark.parametrize("algo", ["srp_delaysum", "mvdr", "mask",
                                   "particle"])
-def test_unported_algos_raise(algo):
-    """Every chain is ported now, the particle smoother last: each builds,
-    and one block of each on a 1 x 1 mesh equals ``Pipeline``'s (the
-    particle clouds, their key included, too)."""
+def test_remaining_chains_on_one_by_one_mesh_equal_pipeline(algo):
+    """The chains test_one_by_one_mesh_equals_pipeline leaves out: one
+    block of each on a 1 x 1 mesh equals ``Pipeline``'s (the particle
+    clouds, their key included, too)."""
     from mcax_torch.pipeline import Pipeline
     cfg = _config(t_config, "config5-particle" if algo == "particle" else algo,
                   None)

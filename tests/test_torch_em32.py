@@ -102,13 +102,13 @@ def test_capsules_are_the_table_on_the_sphere():
 def test_plan_takes_the_grouped_pair_order():
     """At 32 capsules the fused SRP's plan holds the pairs sorted by group
     pair (``srp_fused.pair_order``), each with its own TDOAs."""
-    pipe = program.pipeline(_small(), CPU)
-    pairs = pipe.plan.pairs.numpy()
+    plans = program.pipeline(_small(), CPU).plans
+    pairs = plans.plan.pairs.numpy()
     assert 32 > srp_fused.MAX_CHANNELS
-    order = srp_fused.pair_order(pipe.pairs, 32)
-    np.testing.assert_array_equal(pairs, pipe.pairs[order])
-    np.testing.assert_array_equal(pipe.plan.tau_pg.numpy(),
-                                  pipe.srp_plan.tau_pg[order])
+    order = srp_fused.pair_order(plans.pairs, 32)
+    np.testing.assert_array_equal(pairs, plans.pairs[order])
+    np.testing.assert_array_equal(plans.plan.tau_pg.numpy(),
+                                  plans.srp_plan.tau_pg[order])
 
 
 @pytest.mark.parametrize("seed", SEEDS)

@@ -118,9 +118,9 @@ def test_config1_weightings_match_mcax(weighting):
     x = helpers.array_signals(cfg.geometry(), np.deg2rad(40.0),
                               cfg.block_len * NB, seed=11)
     x = torch.cat([torch.zeros((2, cfg.stft.hop)), torch.from_numpy(x)], -1)
-    spec = t_stft.stft(x, pipe._w2, pipe._fft_op,
+    spec = t_stft.stft(x, pipe.plans.w2, pipe.plans.fft_op,
                        cfg.stft.hop)                       # [C, M, F]
-    g = t_cps.cps_weighted(spec, pipe.pairs, weighting)   # [P, M, F]
+    g = t_cps.cps_weighted(spec, pipe.plans.pairs, weighting)  # [P, M, F]
     delta = 3e-6 * spec.abs().max()
     mag = spec.abs()
     w = 2.0 / cfg.stft.frame_len

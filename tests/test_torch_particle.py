@@ -13,8 +13,9 @@ same state: angles and weights within 1e-6.  Systematic resampling picks
 differ by a few ulp (another order of summation), so an index may differ
 where a position lies within an ulp or two of a boundary of the cumsum:
 every disagreement must lie within 4 ulp of one, and every other index is
-equal.  The trackers: ``particle_track_block`` against mcax's over several
-blocks, and ``particle_track_blocks`` against B calls of it (bit-equal).
+equal.  The trackers: ``particle_track_blocks`` at a one-block axis against
+mcax's ``particle_track_block`` over several blocks, and over B blocks
+against B calls at a one-block axis (bit-equal).
 
 End to end at config5's full width (16 mics, 360-point grid, N = 256) on
 ``helpers.moving_sources`` as tests/unit/test_process_blocks.py builds it
@@ -348,8 +349,10 @@ def test_particle_track_block_matches_mcax():
     ms = [m_particle.init(S, 256, 3) for _ in range(R)]
     az_m, az_t = jnp.asarray(AZ), torch.from_numpy(AZ)
     for b in range(blocks):
-        st, doa, conf, gidx = t_trk.particle_track_block(
-            st, torch.from_numpy(surf[:, b]), az_t, SUPPRESS, STEP, THRESHOLD)
+        st, gidx, doa, conf = t_trk.particle_track_blocks(
+            st, torch.from_numpy(surf[:, b, None]), az_t, SUPPRESS, STEP,
+            THRESHOLD)                                     # a one-block axis
+        gidx, doa, conf = gidx[:, 0], doa[:, 0], conf[:, 0]
         for r in range(R):
             ms[r], doa_m, conf_m, gidx_m = m_trk.particle_track_block(
                 ms[r], jnp.asarray(surf[r, b]), az_m, SUPPRESS, STEP,
@@ -374,10 +377,10 @@ def test_particle_track_blocks_equals_block_calls():
                                                       STEP, THRESHOLD)
     one = st0
     for b in range(blocks):
-        one, d, c, g = t_trk.particle_track_block(one, surf[b], az, SUPPRESS,
-                                                  STEP, THRESHOLD)
-        assert torch.equal(d, doa[b]) and torch.equal(c, conf[b])
-        assert torch.equal(g, gidx[b])
+        one, g, d, c = t_trk.particle_track_blocks(one, surf[b, None], az,
+                                                   SUPPRESS, STEP, THRESHOLD)
+        assert torch.equal(d[0], doa[b]) and torch.equal(c[0], conf[b])
+        assert torch.equal(g[0], gidx[b])
     for a, b in zip(st, one):
         assert torch.equal(a, b)
 

@@ -199,7 +199,7 @@ def test_pipeline_matmul_matches_mcax(name, mode):
     bl = cfg.block_len
     ref = MPipeline(cfg, donate=False)
     pipe = TPipeline(t_config.get_config(name), device="cpu", srp="matmul")
-    assert pipe.plan.b2 is not None
+    assert pipe.plans.plan.b2 is not None
     st_m, st_t = ref.init_state(), pipe.init_state()
     if mode == "process_blocks":
         blocks = np.ascontiguousarray(

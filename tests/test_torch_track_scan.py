@@ -371,8 +371,9 @@ def test_track_blocks_as_before(b):
     s3 = torch.from_numpy(_surfaces(40 + b, 3, 1)[:, 0])
     idx, val = track.extract_peaks(s3, S, SUPPRESS)
     new = t_trk.associate_and_update(st3, az[idx], val, SMOOTH)
-    _equal(t_trk.track_block(st3, s3, az, SUPPRESS, SMOOTH),
-           (new, track.nearest_grid(new.angles_rad, az)))
+    _equal(t_trk.track_blocks(st3, s3[:, None], az, SUPPRESS, SMOOTH),
+           (new, track.nearest_grid(new.angles_rad, az)[:, None],
+            new.angles_rad[:, None], new.confidence[:, None]))
 
 
 @pytest.mark.parametrize("b", [1, 7])
@@ -401,10 +402,11 @@ def test_particle_track_block_on_streams_as_before():
     a, wt, doa, conf = track.particle_step_plain(
         st.angles, st.weights, surf, idx, az, SUPPRESS, STEP, THRESHOLD,
         noise[:, 0], u[:, 0])
-    _equal(t_trk.particle_track_block(st, surf, az, SUPPRESS, STEP,
-                                      THRESHOLD),
-           (t_particle.ParticleState(a, wt, key), doa, conf,
-            track.nearest_grid(doa, az)))
+    _equal(t_trk.particle_track_blocks(st, surf[:, None], az, SUPPRESS, STEP,
+                                       THRESHOLD),
+           (t_particle.ParticleState(a, wt, key),
+            track.nearest_grid(doa, az)[:, None], doa[:, None],
+            conf[:, None]))
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,7 @@ Seeded surfaces over config5's 360-point grid, with peaks near +-pi (the
 wrap of the association distance), exact ties (which index wins an argmax
 or argmin), and tracks that are not initialised yet.  Grid indices must be
 equal and angles within 1e-6; ``track_blocks`` over B blocks must equal B
-calls of ``track_block``."""
+calls at a one-block axis (the block steps' call)."""
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +22,14 @@ G = 360
 SUPPRESS = 20                      # config5: 20 deg at 1 deg a bin
 SMOOTH = 0.7
 AZ = t_geo.azimuth_grid(G).astype(np.float32)
+
+
+def _one_block(st, surf, az):
+    """``track_blocks`` at a one-block axis, as a block step calls it:
+    surfaces [..., G] -> (tracks, grid_idx [..., S])."""
+    new, gidx, _, _ = t_trk.track_blocks(st, surf[..., None, :], az,
+                                         SUPPRESS, SMOOTH)
+    return new, gidx[..., 0, :]
 
 
 def _surfaces(seed, n, peaks_deg):
@@ -130,8 +138,7 @@ def test_track_block_matches_mcax(reference_run):
     st = t_trk.init_tracks(2)
     az = torch.from_numpy(AZ)
     for b in range(surf.shape[0]):
-        st, gi = t_trk.track_block(st, torch.from_numpy(surf[b]), az,
-                                   SUPPRESS, SMOOTH)
+        st, gi = _one_block(st, torch.from_numpy(surf[b]), az)
         np.testing.assert_array_equal(gi.numpy(), idx[b])
         _check_state(st, states[b])
 
@@ -144,8 +151,7 @@ def test_track_blocks_equals_block_calls(reference_run):
         st0, torch.from_numpy(surf), az, SUPPRESS, SMOOTH)
     one = st0
     for b in range(surf.shape[0]):
-        one, gi = t_trk.track_block(one, torch.from_numpy(surf[b]), az,
-                                    SUPPRESS, SMOOTH)
+        one, gi = _one_block(one, torch.from_numpy(surf[b]), az)
         torch.testing.assert_close(gidx[b], gi, atol=0, rtol=0)
         torch.testing.assert_close(angles[b], one.angles_rad, atol=0, rtol=0)
         torch.testing.assert_close(conf[b], one.confidence, atol=0, rtol=0)
@@ -163,12 +169,10 @@ def test_track_block_over_streams_equals_each_stream(reference_run):
                             for x in t_trk.init_tracks(2)))
     singles = [t_trk.init_tracks(2) for _ in range(s)]
     for b in range(0, surf.shape[0] - s + 1, s):
-        st, gi = t_trk.track_block(st, torch.from_numpy(surf[b:b + s]), az,
-                                   SUPPRESS, SMOOTH)
+        st, gi = _one_block(st, torch.from_numpy(surf[b:b + s]), az)
         for i in range(s):
-            singles[i], g1 = t_trk.track_block(
-                singles[i], torch.from_numpy(surf[b + i]), az, SUPPRESS,
-                SMOOTH)
+            singles[i], g1 = _one_block(singles[i],
+                                        torch.from_numpy(surf[b + i]), az)
             torch.testing.assert_close(gi[i], g1, atol=0, rtol=0)
             for a, b_ in zip(st, singles[i]):
                 torch.testing.assert_close(a[i], b_, atol=0, rtol=0)
