@@ -484,7 +484,7 @@ def check_kernels(pipe, carry0, blocks, peaks):
     # -- kernel 2: fused SRP -------------------------------------------------
     eps = cfg.algo.phat_eps
     args = (spec, plan.pairs, plan.tau_pg, plan.omega, eps, plan.valid)
-    power = srp_fused.srp_power_fused(*args, plan.omega_step, plan.staging)
+    power = srp_fused.srp_power_fused(*args, plan.staging, plan.steer_table)
     want = srp_fused.srp_power_fused_plain(*args)
     torch.cuda.synchronize()
     scale = want.abs().max().item()
@@ -502,7 +502,7 @@ def check_kernels(pipe, carry0, blocks, peaks):
         replaces="mcax/kernels/srp_fused.py:293", max_abs_err=err,
         scaled_err=err / scale,
         ms=time_ms(lambda: srp_fused.srp_power_fused(
-            *args, plan.omega_step, plan.staging)),
+            *args, plan.staging, plan.steer_table)),
         plain_ms=time_ms(lambda: srp_fused.srp_power_fused_plain(*args),
                          reps=3),
         library_ms=None,
@@ -1028,9 +1028,9 @@ def check_fused_srp(rec, cases, peaks):
         c, m, f = spec.shape
         p, g = plan.tau_pg.shape
         args = (spec, plan.pairs, plan.tau_pg, plan.omega, eps, plan.valid)
-        power = srp_fused.srp_power_fused(*args, plan.omega_step, plan.staging)
-        again = srp_fused.srp_power_fused(*args, plan.omega_step,
-                                         plan.staging)
+        power = srp_fused.srp_power_fused(*args, plan.staging, plan.steer_table)
+        again = srp_fused.srp_power_fused(*args, plan.staging,
+                                         plan.steer_table)
         want = srp_fused.srp_power_fused_plain(*args)
         splits, per = srp_fused.split_plan(
             m, f, p, g,
@@ -1055,7 +1055,7 @@ def check_fused_srp(rec, cases, peaks):
         q = dict(
             shape=[c, m, f, p, g], max_abs_err=err, scaled_err=err / scale,
             ms=time_ms(lambda: srp_fused.srp_power_fused(
-                *args, plan.omega_step, plan.staging)),
+                *args, plan.staging, plan.steer_table)),
             chain_ms=time_ms(lambda: srp.srp_surface(spec, plan_m, eps,
                                                      method="matmul")),
             plain_ms=time_ms(lambda: srp_fused.srp_power_fused_plain(*args),
@@ -2880,8 +2880,8 @@ def check_em32_kernels(pipe, blocks, x_streams, recs, peaks):
     args = (spec, plan.pairs, plan.tau_pg, plan.omega, eps, plan.valid)
 
     def fused():
-        return srp_fused.srp_power_fused(*args, plan.omega_step,
-                                         plan.staging)
+        return srp_fused.srp_power_fused(*args, plan.staging,
+                                         plan.steer_table)
 
     def plain():
         return torch.cat([srp_fused.srp_power_fused_plain(
@@ -3065,7 +3065,9 @@ def cli_path(repo, smi, counters, by_path):
         by_path["cli config4"] = launches
         groups, tail = divmod(CLI_BLOCKS, CLI_GROUP)
         cap = CAPTURE_LAUNCHES if tail else 0    # the tail's process_block
+        # the run builds its pipeline: the steering table once
         expect_launches("cli config4", launches, {
+            "steering_table": 1,
             "stft_fused_from_blocks": groups, "block_prefixes_rows": groups,
             "weights_blocks_fused_rows": groups,
             "srp_power_fused": groups + cap, "irdft_rows": groups + cap,

@@ -7,8 +7,10 @@ step reads, moved to the pipeline's device once, so that no host-to-device
 copy interrupts a dispatch.  ``srp_surface`` runs one of the reference's two
 SRP kernels, chosen by the caller (``mcax`` chooses by ``MCAX_SRP``):
 
-  * ``"fused"`` — ``kernels/srp_fused.py``: steering phases made on the fly
-    (on the plan's uniform omega ramp), no CPS tensor;
+  * ``"fused"`` — ``kernels/srp_fused.py``: the CPS made on chip (no CPS
+    tensor), the steering operand read from the plan's steering table
+    (``DevicePlan.steer_table``, made on the card once a plan from the
+    TDOAs on the plan's uniform omega ramp: config4 85 MB, config5 188 MB);
   * ``"matmul"`` — the materialised branch: the PHAT CPS written out in full
     (``kernels/cps.py``, the pair gather in its kernel) and one product with
     the stacked steering operand
@@ -29,6 +31,7 @@ import torch
 
 from mcax_torch import geometry as geo
 from mcax_torch.kernels import cps as kcps
+from mcax_torch.kernels import dispatch
 from mcax_torch.kernels import srp_fused
 from mcax_torch.kernels import steer as ksteer
 
@@ -101,6 +104,10 @@ class DevicePlan:
     # [P, TABLE_WORDS] int32, the fused kernel's staging of its pairs'
     # channels (kernels/srp_fused.py, staging_table); "fused" only
     staging: Optional[torch.Tensor] = None
+    # the fused kernel's steering operand, B' of every slice split for
+    # 3xTF32 (kernels/srp_fused.py, steering_table); "fused" on a card only
+    # (the CPU's plain version reads tau_pg and omega)
+    steer_table: Optional[torch.Tensor] = None
 
 
 METHODS = ("fused", "matmul")
@@ -115,9 +122,9 @@ def check_method(method: str) -> str:
 def uniform_step(omega: np.ndarray) -> float:
     """The step of omega when it is the uniform ramp f * step that
     ``make_plan`` builds (omega[1], within fp32 rounding of every bin),
-    else 0.0, which the fused SRP refuses: it makes its phasors on the
-    ramp (``srp_power_fused``'s ``omega_step``).  Found once, when the
-    plan is made."""
+    else 0.0, which the fused SRP refuses: its steering table's phasors
+    are made on the ramp (``srp_fused.steering_table``'s ``omega_step``).
+    Found once, when the plan is made."""
     om = np.asarray(omega, np.float64)
     if om.size < 2 or om[0] != 0.0 or not om[1] > 0.0:
         return 0.0
@@ -143,24 +150,39 @@ def device_plan(plan: SrpPlan, pairs: np.ndarray, device: torch.device,
     fused = check_method(method) == "fused"
     order = (srp_fused.pair_order(pairs, num_mics) if fused
              else np.arange(len(pairs)))
+    tau_pg = put(plan.tau_pg[order], torch.float32)
+    omega = put(plan.omega, torch.float32)
+    omega_step = uniform_step(plan.omega)
     return DevicePlan(
         pairs=put(pairs[order], torch.int32),
         valid=torch.ones(pairs.shape[0], dtype=torch.int32, device=device),
-        tau_pg=put(plan.tau_pg[order], torch.float32),
-        omega=put(plan.omega, torch.float32),
+        tau_pg=tau_pg,
+        omega=omega,
         steer=torch.complex(put(plan.steer_re, torch.float32),
                             put(plan.steer_im, torch.float32)),
         azimuths_rad=put(plan.azimuths_rad.astype(np.float32),
                          torch.float32),
         azimuth_step=float(np.float32(plan.azimuths_rad[1]
                                       - plan.azimuths_rad[0])),
-        omega_step=uniform_step(plan.omega),
+        omega_step=omega_step,
         band_mask=(None if plan.band_mask is None
                    else put(plan.band_mask, torch.float32)),
         b2=(None if fused else
             ksteer.stacked_steering(plan.e_re, plan.e_im, device)),
         staging=(put(srp_fused.staging_table(pairs[order], num_mics),
-                     torch.int32) if fused else None))
+                     torch.int32) if fused else None),
+        steer_table=(_steer_table(tau_pg, omega, omega_step) if fused
+                     else None))
+
+
+def _steer_table(tau_pg: torch.Tensor, omega: torch.Tensor,
+                 omega_step: float) -> Optional[torch.Tensor]:
+    """The fused kernel's steering table of these TDOAs, on a card (one
+    launch, once a plan; it raises for an omega that is no uniform ramp);
+    None on the CPU, whose plain version reads the TDOAs."""
+    if dispatch.use_kernel(tau_pg, omega):
+        return srp_fused.steering_table(tau_pg, omega, omega_step)
+    return None
 
 
 def pair_shard(dplan: DevicePlan, plan: SrpPlan, method: str, shards: int,
@@ -169,6 +191,8 @@ def pair_shard(dplan: DevicePlan, plan: SrpPlan, method: str, shards: int,
     plan's pairs, in its order): the pairs are padded to a multiple of
     ``shards`` with pairs (0, 0) that carry zero steering (``valid`` 0,
     zero TDOA and zero B' rows), so their power is 0 under either kernel.
+    The fused kernel's steering table is made for the shard's own pairs
+    (a pad pair's B' is that of tau = 0; its CPS stays 0 by ``valid``).
     One shard holds every pair, unpadded."""
     p, g = plan.tau_pg.shape
     f = plan.omega.shape[0]
@@ -188,14 +212,16 @@ def pair_shard(dplan: DevicePlan, plan: SrpPlan, method: str, shards: int,
         e_re = padded(plan.e_re.reshape(p, f, g)).reshape(pl * f, g)
         e_im = padded(plan.e_im.reshape(p, f, g)).reshape(pl * f, g)
         b2 = ksteer.stacked_steering(e_re, e_im, dev)
-    staging = None
+    tau_t = torch.from_numpy(tau_pg).to(dev)
+    staging = steer_table = None
     if check_method(method) == "fused":
         staging = torch.from_numpy(srp_fused.staging_table(
             pairs, plan.steer_re.shape[1])).to(dev)
+        steer_table = _steer_table(tau_t, dplan.omega, dplan.omega_step)
     return dataclasses.replace(
         dplan, pairs=torch.from_numpy(pairs).to(dev),
         valid=torch.from_numpy(padded(np.ones(p, np.int32))).to(dev),
-        tau_pg=torch.from_numpy(tau_pg).to(dev), b2=b2, staging=staging)
+        tau_pg=tau_t, b2=b2, staging=staging, steer_table=steer_table)
 
 
 def srp_surface(spectra: torch.Tensor, plan: DevicePlan,
@@ -219,7 +245,7 @@ def srp_surface(spectra: torch.Tensor, plan: DevicePlan,
         spectra = spectra * plan.band_mask                 # masked bins -> 0
     return srp_fused.srp_power_fused(spectra, plan.pairs, plan.tau_pg,
                                      plan.omega, eps, plan.valid,
-                                     plan.omega_step, plan.staging)
+                                     plan.staging, plan.steer_table)
 
 
 def argmax_doa(power: torch.Tensor, plan: DevicePlan,

@@ -1,5 +1,6 @@
 // Hopper's warpgroup MMA (wgmma) in TF32 with both operands in shared
-// memory, and the mbarriers of shared-memory rings: the product body of
+// memory, the mbarriers of shared-memory rings and the bulk copies (TMA)
+// that fill them: the product body of
 // kernel 2 (srp_fused.cu, the only source that includes this header;
 // kernel 10 keeps gemm_tc.cuh's mma.sync body).
 //
@@ -103,6 +104,44 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
                    smem_addr(bar))
                : "memory");
+}
+// An arrival that also tells the barrier to expect `bytes` more of
+// transactions (a bulk copy's) before its phase completes.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+// An L2 eviction policy for a copy's reads: its lines evicted first (data
+// read once, that should not push out what the next kernels read) or as
+// any other line.
+__device__ __forceinline__ uint64_t l2_policy(bool evict_first) {
+  uint64_t p;
+  if (evict_first)
+    asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+                 : "=l"(p));
+  else
+    asm volatile("createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;\n"
+                 : "=l"(p));
+  return p;
+}
+// One bulk copy (the TMA unit, no tensor map) of `bytes` from device memory
+// to shared memory, both 16-byte aligned and `bytes` a multiple of 16, its
+// reads under the L2 `policy`; its completion counts `bytes` of
+// transactions on `bar`.  Issued by one thread; the copy writes through the
+// async proxy, as wgmma reads.
+__device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src,
+                                              uint32_t bytes, uint64_t* bar,
+                                              uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar)),
+      "l"(policy)
+      : "memory");
 }
 // true once the phase of `parity` has completed (a bounded wait in the
 // hardware; the caller loops).

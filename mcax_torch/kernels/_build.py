@@ -54,14 +54,16 @@ SIGNATURES = {
     "mcax_stft_fft_from_blocks": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x, w2, out, R, N, hop, F, ldw, stream
     "mcax_stft_planes": (_P, _P, _P, _L, _I, _I, _I, _I, _P),
-    # spec, pairs, valid, staging table, tau, omega, scratch (or NULL), out,
-    # C, M, F, P, G, eps, domega, splits, per, stream
-    "mcax_srp_power_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                             _I, _F, _F, _I, _I, _P),
-    # layout (int[11]: BM, KB, B' ring bytes a column, A ring bytes, barrier
+    # spec, pairs, valid, staging table, steering table, scratch (or NULL),
+    # out, C, M, F, P, G, eps, splits, per, stream
+    "mcax_srp_power_fused": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _F, _I, _I, _P),
+    # tau, omega, steering table, F, P, G, domega, stream
+    "mcax_srp_steer_table": (_P, _P, _P, _I, _I, _I, _F, _P),
+    # layout (int[12]: BM, KB, B' ring bytes a column, A ring bytes, barrier
     # bytes, map bytes a channel, slot bytes, blocks an SM, the most slots a
     # producer group stages, the staging table's words a row, the column
-    # tile)
+    # tile, the steering table's bytes a slice and column tile)
     "mcax_srp_fused_layout": (_P,),
     # spec, cov0 (or NULL), out, carry (or NULL), C, B, T, F, lam, decay,
     # chunk_len, chunks, stream

@@ -5,18 +5,25 @@
 
   * ``srp_power_fused`` — the wrapper: on CUDA tensors it launches the
     hand-written kernel (``csrc/srp_fused.cu``: 3xTF32 on Hopper's
-    warpgroup MMA, ``csrc/wgmma.cuh``; producer warpgroups make the CPS and
-    the steering operands into shared-memory rings, consumer warpgroups run
-    the products, neither operand materialised), in column tiles of ``BN``
-    with the K of (bin chunk, pair) slices split as ``split_plan`` says; on
-    CPU tensors it runs the plain version.  A
-    thread's 8 bins' phasors come from two sincosf by complex products on
-    omega's uniform ramp (the plan's ``omega_step``).  The producers stage
-    the chunk's channels in min(C, ``SLOTS``) slots as the staging table
-    says (``staging_table``, the plan's ``staging``): up to
-    ``MAX_CHANNELS`` each channel has a slot of its own, past it the
-    channels share the slots, the pairs in ``pair_order``.  Its launches
-    count in ``srp_power_fused.LAUNCHES``.
+    warpgroup MMA, ``csrc/wgmma.cuh``; producer warpgroups make the CPS
+    into a shared-memory ring, one bulk copy a slice brings the steering
+    operand in from the plan's steering table, consumer warpgroups run the
+    products; the CPS never materialised), in column tiles of ``BN`` with
+    the K of (bin chunk, pair) slices split as ``split_plan`` says; on CPU
+    tensors it runs the plain version.  The producers stage the chunk's
+    channels in min(C, ``SLOTS``) slots as the staging table says
+    (``staging_table``, the plan's ``staging``): up to ``MAX_CHANNELS``
+    each channel has a slot of its own, past it the channels share the
+    slots, the pairs in ``pair_order``.  Its launches count in
+    ``srp_power_fused.LAUNCHES``.
+  * ``steering_table`` — the steering operand B' = (E_re, -E_im) of every
+    slice and column tile, split for 3xTF32 in the layout of the kernel's
+    ring (``steering_table_shape``: 85 MB at config4, 188 MB at config5),
+    built once a plan on the card (``algos.srp.device_plan``, the plan's
+    ``steer_table``): a thread's 8 bins' phasors from two sincosf by complex
+    products on omega's uniform ramp (the plan's ``omega_step``).  Its
+    launches count in ``steering_table.LAUNCHES``; ``steering_table_plain``
+    is the same table in plain PyTorch.
   * ``srp_power_fused_plain`` — the same function in plain PyTorch: the
     materialised CPS (``cps.cps_phat_pairs_plain``), the steering matrices made
     from the same fp32 phases with the same range reduction, and
@@ -28,6 +35,7 @@ from __future__ import annotations
 import bisect
 import ctypes
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -92,9 +100,11 @@ def srp_power_fused_plain(spectra: torch.Tensor, pairs: torch.Tensor,
 # barriers, of the producer warps' slot maps a channel and of one channel
 # slot (both producer groups'), the blocks an SM (512 threads at 128
 # registers), the most slots a producer group stages and the staging
-# table's words a row (below), and the column tile: wgmma's N, 120 makes the
-# presets' G = 360 three tiles with no padding.  The first launch checks
-# them against the built kernel's (_check_layout).
+# table's words a row (below), the column tile: wgmma's N, 120 makes the
+# presets' G = 360 three tiles with no padding, and the steering table's
+# bytes a slice and column tile (a ring stage's B': big and small planes of
+# 4 steps of 8 bins' 32 bytes a column).  The first launch checks them
+# against the built kernel's (_check_layout).
 BM, KB = 128, 16
 RING_BYTES_PER_COLUMN = 2 * 2 * 2 * KB * 4
 A_RING_BYTES = 2 * 2 * 2 * KB * BM * 4
@@ -103,14 +113,16 @@ MAP_BYTES = 16
 CHANNEL_BYTES = BM * KB * 8
 BLOCKS_PER_SM = 1
 BN = 120
+STEER_BYTES = 2 * 4 * 32 * BN
 # H100 shared memory: a block's most (227 KB).
 BLOCK_SMEM = 232448
 # The planner's model of the card doing slices, each block slot one at a
 # time: slices (of a 128 x 120 tile) a second over the whole card.  The
-# kernel did 6.1e7-6.5e7 on an H100 SXM at config4's, config5's and em32's
-# B = 512 (4.35, 6.35 and 72.3 ms), and this model picks the fastest split
-# of tests/test_torch_cuda.py's sweep at M = 16, 24, 1536, 12 288, 16 384.
-CARD_SLICES_PER_S = 6.2e7
+# kernel did 7.4e7-7.6e7 on an H100 SXM at config4's, config5's and em32's
+# B = 512 (3.60, 5.18 and 64.7 ms of device time), and this model picks the
+# fastest split of tests/test_torch_cuda.py's sweep at M = 16, 24, 1536,
+# 12 288, 16 384 (the same splits as at the 6.2e7 of B' made on chip).
+CARD_SLICES_PER_S = 7.4e7
 
 
 def smem_bytes(slots: int, c: int) -> int:
@@ -281,10 +293,96 @@ def split_plan(m: int, f: int, p: int, g: int,
                               slots / CARD_SLICES_PER_S)
 
 
+def steering_table_shape(f: int, p: int, g: int) -> tuple[int, int, int]:
+    """The steering table's shape (float32) at F bins, P pairs and G grid
+    points: ceil(F / KB) * P (bin chunk, pair) slices, chunk outermost,
+    ceil(G / BN) column tiles, ``STEER_BYTES`` a slice and tile."""
+    return -(-f // KB) * p, -(-g // BN), STEER_BYTES // 4
+
+
+def _tf32_split(x: torch.Tensor):
+    """(big, small): big = cvt.rna.tf32(x) (half a TF32 ulp added to the
+    magnitude's bits, the 13 bits below cleared: ``wgmma.cuh``'s
+    ``tf32_rna``), small = x - big."""
+    big = ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(
+        torch.float32)
+    return big, x - big
+
+
+def steering_table_plain(tau: torch.Tensor, omega: torch.Tensor,
+                         omega_step: float) -> torch.Tensor:
+    """The steering table in plain PyTorch: float32 [ceil(F / KB) * P
+    slices (chunk outermost), ceil(G / BN) column tiles, STEER_BYTES / 4].
+    A slice and tile is B' = (E_re, -E_im) of its 16 bins and BN grid
+    points as the kernel's ring stage holds it: the big plane, then the
+    small, each 4 steps (4 bins each) of [BN / 8 point groups][E_re of the
+    4 bins, -E_im of the same][8 points][4 bins].  Each run of 8 bins (from
+    bin 8 h of a chunk) starts at the range-reduced phasor of its first
+    bin's omega (0 past F) and goes on by products with the step's
+    (``steering_planes`` of ``omega_step``); grid points past G take tau =
+    0."""
+    p, g = tau.shape
+    f = omega.shape[0]
+    nfc, tiles = -(-f // KB), -(-g // BN)
+    taup = torch.zeros((p, tiles * BN), dtype=torch.float32)
+    taup[:, :g] = tau
+    first = torch.arange(0, nfc * KB, 8)
+    om = torch.where(first < f, omega[first.clamp(max=f - 1)],
+                     torch.zeros(()))
+    step_r, step_i = steering_planes(
+        taup, torch.tensor([omega_step], dtype=torch.float32))
+    er, ei = steering_planes(taup, om)                    # [P, nfc * 2, G']
+    re, im = [], []
+    for _ in range(8):
+        re.append(er)
+        im.append(-ei)
+        er, ei = er * step_r - ei * step_i, er * step_i + ei * step_r
+    # [half (E_re, -E_im), P, chunk, step, bin, tile, group, point]
+    b = torch.stack([torch.stack(re, 2), torch.stack(im, 2)]).reshape(
+        2, p, nfc, 4, 4, tiles, BN // 8, 8)
+    b = b.permute(2, 1, 5, 3, 6, 0, 7, 4)
+    return torch.stack(_tf32_split(b), 3).reshape(
+        steering_table_shape(f, p, g))
+
+
+def steering_table(tau: torch.Tensor, omega: torch.Tensor,
+                   omega_step: float) -> torch.Tensor:
+    """The fused kernel's steering operand of a plan, made once a plan:
+    float32 [ceil(F / KB) * P, ceil(G / BN), STEER_BYTES / 4]
+    (``steering_table_plain`` says the layout) for TDOAs tau [P, G] in the
+    plan's pair order and omega [F] = f * ``omega_step``.  On CUDA tensors
+    one launch (``srp_steer_table_kernel``, counted in
+    ``steering_table.LAUNCHES``) makes it with the code the kernel's
+    producers once made B' with; on CPU tensors the plain version."""
+    p, g = tau.shape
+    f = omega.shape[0]
+    if not omega_step > 0:
+        raise ValueError(f"the fused SRP makes its phasors from omega's "
+                         f"uniform step (DevicePlan.omega_step), got "
+                         f"{omega_step}: omega must be a ramp f * step "
+                         "(srp='matmul' takes any omega)")
+    if not dispatch.use_kernel(tau, omega):
+        return steering_table_plain(tau, omega, omega_step)
+    _build.check_tensor("tau", tau, torch.float32, (p, g))
+    _build.check_tensor("omega", omega, torch.float32, (f,))
+    _check_layout()
+    out = torch.empty(steering_table_shape(f, p, g), dtype=torch.float32,
+                      device=tau.device)
+    lib = _build.library()
+    _build.check_launch("srp_steer_table", lib.mcax_srp_steer_table(
+        tau.data_ptr(), omega.data_ptr(), out.data_ptr(), f, p, g,
+        float(omega_step), _build.stream_of(tau)))
+    steering_table.LAUNCHES += 1
+    return out
+
+
+steering_table.LAUNCHES = 0
+
+
 def srp_power_fused(spectra: torch.Tensor, pairs: torch.Tensor,
                     tau: torch.Tensor, omega: torch.Tensor, eps: float,
-                    valid: torch.Tensor, omega_step: float,
-                    staging: torch.Tensor) -> torch.Tensor:
+                    valid: torch.Tensor, staging: torch.Tensor,
+                    steer_table: Optional[torch.Tensor]) -> torch.Tensor:
     """Steered power from channel-major spectra.
 
     Args:
@@ -295,42 +393,46 @@ def srp_power_fused(spectra: torch.Tensor, pairs: torch.Tensor,
       eps: PHAT epsilon.
       valid: int32 [P]; 0 kills a pair's contribution (pair-axis padding of
         a sharded slice), all ones on the single-card path.
-      omega_step: omega's uniform step, > 0: omega[f] = f * omega_step, as
-        ``algos.srp.make_plan`` builds it (``DevicePlan.omega_step``).  The
-        kernel makes each thread's 8 bins' phasors from two by complex
-        products; the plain version reads omega alone.
       staging: int32 [P, TABLE_WORDS], ``staging_table(pairs, C)`` on the
         spectra's device, as ``algos.srp.device_plan`` holds it (made on
         the host once a plan, never a call).  The kernel checks each row's
         pair against ``pairs`` (NaN where they differ); the plain version
         does not read it.
+      steer_table: ``steering_table(tau, omega, omega_step)`` on the
+        spectra's device, as ``algos.srp.device_plan`` holds it on a card
+        (made once a plan, never a call): the kernel reads B' from it and
+        not from tau and omega.  The plain version reads tau and omega and
+        not this (None on the CPU).
     Returns:
       float32 [M, G] steered response power.
     """
     c, m, f, p, g = _shape(spectra, pairs, tau, omega, valid)
-    if not omega_step > 0:
-        raise ValueError(f"the fused SRP makes its phasors from omega's "
-                         f"uniform step (DevicePlan.omega_step), got "
-                         f"{omega_step}: omega must be a ramp f * step "
-                         "(srp='matmul' takes any omega)")
     if not dispatch.use_kernel(spectra, pairs, tau, omega, valid):
         return srp_power_fused_plain(spectra, pairs, tau, omega, eps, valid)
     splits, per = split_plan(m, f, p, g, ksteer._sm_count(spectra.device))
-    return _launch(spectra, pairs, tau, omega, eps, valid, omega_step,
-                   staging, splits, per)
+    return _launch(spectra, pairs, tau, omega, eps, valid, staging,
+                   steer_table, splits, per)
 
 
-def _launch(spectra, pairs, tau, omega, eps, valid, omega_step: float,
-            staging: torch.Tensor, splits: int, per: int) -> torch.Tensor:
+def _launch(spectra, pairs, tau, omega, eps, valid, staging: torch.Tensor,
+            steer_table: torch.Tensor, splits: int, per: int) -> torch.Tensor:
     """The kernel on CUDA tensors with its K slices split into ``splits``
-    runs of ``per`` (``split_plan``), staged as ``staging`` says."""
+    runs of ``per`` (``split_plan``), staged as ``staging`` says, B' read
+    from ``steer_table``."""
     c, m, f, p, g = _shape(spectra, pairs, tau, omega, valid)
     _build.check_tensor("spectra", spectra, torch.complex64, (c, m, f))
     _build.check_tensor("pairs", pairs, torch.int32, (p, 2))
     _build.check_tensor("valid", valid, torch.int32, (p,))
-    _build.check_tensor("tau", tau, torch.float32, (p, g))
-    _build.check_tensor("omega", omega, torch.float32, (f,))
     _build.check_tensor("staging", staging, torch.int32, (p, TABLE_WORDS))
+    if steer_table is None:
+        raise ValueError("the fused SRP on the card reads its steering "
+                         "operand from the plan's steer_table "
+                         "(steering_table(tau, omega, omega_step))")
+    if steer_table.device != spectra.device:
+        raise ValueError(f"steer_table lies on {steer_table.device}, the "
+                         f"spectra on {spectra.device}")
+    _build.check_tensor("steer_table", steer_table, torch.float32,
+                        steering_table_shape(f, p, g))
     _check_layout()
     out = torch.empty((m, g), dtype=torch.float32, device=spectra.device)
     if m == 0 or g == 0:
@@ -339,10 +441,10 @@ def _launch(spectra, pairs, tau, omega, eps, valid, omega_step: float,
                            device=spectra.device) if splits > 1 else None)
     lib = _build.library()
     args = (spectra.data_ptr(), pairs.data_ptr(), valid.data_ptr(),
-            staging.data_ptr(), tau.data_ptr(), omega.data_ptr(),
+            staging.data_ptr(), steer_table.data_ptr(),
             scratch.data_ptr() if scratch is not None else None,
-            out.data_ptr(), c, m, f, p, g, float(eps), float(omega_step),
-            splits, per, _build.stream_of(spectra))
+            out.data_ptr(), c, m, f, p, g, float(eps), splits, per,
+            _build.stream_of(spectra))
     _build.check_launch("srp_fused", lib.mcax_srp_power_fused(*args))
     srp_power_fused.LAUNCHES += 1
     return out
@@ -354,10 +456,11 @@ srp_power_fused.LAUNCHES = 0
 @functools.lru_cache(maxsize=None)
 def _check_layout() -> None:
     """Raise unless the built kernel's layout is the planner's."""
-    got = (ctypes.c_int * 11)()
+    got = (ctypes.c_int * 12)()
     _build.library().mcax_srp_fused_layout(got)
     want = (BM, KB, RING_BYTES_PER_COLUMN, A_RING_BYTES, BARRIER_BYTES,
-            MAP_BYTES, CHANNEL_BYTES, BLOCKS_PER_SM, SLOTS, TABLE_WORDS, BN)
+            MAP_BYTES, CHANNEL_BYTES, BLOCKS_PER_SM, SLOTS, TABLE_WORDS, BN,
+            STEER_BYTES)
     if tuple(got) != want:
         raise RuntimeError(f"csrc/srp_fused.cu's layout {tuple(got)} is not "
                            f"kernels/srp_fused.py's {want}")

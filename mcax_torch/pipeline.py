@@ -171,8 +171,8 @@ class Pipeline:
     def __init__(self, cfg: cfg_mod.PipelineConfig, device=None,
                  srp: str = "fused", scan_mode: str = "batched"):
         """``srp`` picks the SRP kernel of every SRP algorithm on all four
-        entry points: ``"fused"`` (steering made on the fly, no CPS tensor)
-        or ``"matmul"`` (the CPS materialised, then one product with the
+        entry points: ``"fused"`` (the CPS made on chip, no CPS tensor;
+        the steering operand from a table built once a plan) or ``"matmul"`` (the CPS materialised, then one product with the
         stacked steering matrices) — the two the reference selects with
         ``MCAX_SRP``.  There is no choice by shape and no fallback.
         ``scan_mode`` is ``process_blocks``'s mode, as in the reference:

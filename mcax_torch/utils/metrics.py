@@ -96,5 +96,6 @@ def launch_counters() -> dict:
                 cps.cps_phat_pairs, steer.srp_power_cps,
                 halo_rdma.ring_push_right, threefry.particle_draws,
                 threefry.split, threefry.uniform, threefry.normal,
-                track.track_scan, track.particle_scan)
+                track.track_scan, track.particle_scan,
+                srp_fused.steering_table)
     return {fn.__name__: (fn, "LAUNCHES") for fn in wrappers}

@@ -29,7 +29,8 @@ padded pairs, leading signals, a strided view and three bin tiles, in both
 layouts, and config4's srp="matmul" bulk through it equal to the fused
 SRP; kernel 2 on warpgroup MMA from 4 to 32 channels (past 6 the channels
 share its slots; em32's 32 capsules too) against its plain version, one
-launch counted a call; kernel 4
+launch counted a call; its steering table against the plain table, made
+once a plan (pipelines and pair shards) and never a call; kernel 4
 on the group body with the rows loader bit-equal at config5 B = 512, at
 runs cut short by the last system, at C = 8 and at em32's C = 32 (B = 512),
 kernel 6 at C = 32; the particle
@@ -158,7 +159,7 @@ def test_srp_fused(dev, c, f, g_pts, m, invalid):
     valid = plan.valid.clone()
     valid[list(invalid)] = 0
     args = (spec, plan.pairs, plan.tau_pg, plan.omega, 1e-12, valid)
-    got = srp_fused.srp_power_fused(*args, plan.omega_step, plan.staging)
+    got = srp_fused.srp_power_fused(*args, plan.staging, plan.steer_table)
     want = srp_fused.srp_power_fused_plain(*args)
     scale = want.abs().max()
     torch.testing.assert_close(got / scale, want / scale, atol=1e-4, rtol=0)
@@ -197,10 +198,10 @@ def test_srp_fused_grouped(dev, c, f, m):
     spec = _rng_complex(np.random.default_rng(c + m), (c, m, f), dev)
     args = (spec, plan.pairs, plan.tau_pg, plan.omega, 1e-12, plan.valid)
     before = srp_fused.srp_power_fused.LAUNCHES
-    got = srp_fused.srp_power_fused(*args, plan.omega_step, plan.staging)
+    got = srp_fused.srp_power_fused(*args, plan.staging, plan.steer_table)
     assert srp_fused.srp_power_fused.LAUNCHES == before + 1
-    assert torch.equal(got, srp_fused.srp_power_fused(*args, plan.omega_step,
-                                                      plan.staging))
+    assert torch.equal(got, srp_fused.srp_power_fused(*args, plan.staging,
+                                                      plan.steer_table))
     want = srp_fused.srp_power_fused_plain(*args)
     scale = want.abs().max()
     torch.testing.assert_close(got / scale, want / scale, atol=1e-4, rtol=0)
@@ -208,11 +209,12 @@ def test_srp_fused_grouped(dev, c, f, m):
     loss = (want[rows, want.argmax(-1)] - want[rows, got.argmax(-1)]).max()
     assert loss <= 1e-4 * scale
     given = t_srp.make_plan(geom, (f - 1) * 2, 360)
+    tau_given = torch.from_numpy(given.tau_pg).to(dev)
     lex = srp_fused.srp_power_fused(
-        spec, torch.from_numpy(geom.pairs).to(dev),
-        torch.from_numpy(given.tau_pg).to(dev), plan.omega, 1e-12,
-        plan.valid, plan.omega_step,
-        torch.from_numpy(srp_fused.staging_table(geom.pairs, c)).to(dev))
+        spec, torch.from_numpy(geom.pairs).to(dev), tau_given, plan.omega,
+        1e-12, plan.valid,
+        torch.from_numpy(srp_fused.staging_table(geom.pairs, c)).to(dev),
+        srp_fused.steering_table(tau_given, plan.omega, plan.omega_step))
     torch.testing.assert_close(lex / scale, want / scale, atol=1e-4, rtol=0)
 
 
@@ -234,13 +236,86 @@ def test_srp_fused_layout_by_channels(dev, c):
     scale = want.abs().max()
     rows = torch.arange(m, device=dev)
     before = srp_fused.srp_power_fused.LAUNCHES
-    one = srp_fused.srp_power_fused(*args, plan.omega_step, plan.staging)
-    two = srp_fused.srp_power_fused(*args, plan.omega_step, plan.staging)
+    one = srp_fused.srp_power_fused(*args, plan.staging, plan.steer_table)
+    two = srp_fused.srp_power_fused(*args, plan.staging, plan.steer_table)
     assert srp_fused.srp_power_fused.LAUNCHES == before + 2
     assert torch.equal(one, two)
     torch.testing.assert_close(one / scale, want / scale, atol=1e-4, rtol=0)
     loss = (want[rows, want.argmax(-1)] - want[rows, one.argmax(-1)]).max()
     assert loss <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("c,f,g_pts", [
+    (8, 513, 360),      # config4's plan
+    (16, 257, 360),     # config5's
+    (4, 129, 100),      # ragged bins and grid: one column tile, padded
+])
+def test_steering_table_kernel_against_plain(dev, c, f, g_pts):
+    """The steering table made on the card (``srp_steer_table_kernel``,
+    one launch counted) against ``steering_table_plain``: big + small
+    within 1e-5 of the plain phasors (each fp32 ramp is within 1e-5 of
+    float64's phasors, ``test_ramp_phasors_phase_error``; the card's
+    sincosf and FMA-contracted ramp products differ from the CPU's in the
+    last bits), big's low 13 bits zero and small = x - big exactly;
+    two builds bit-equal; the plan's own table is this table."""
+    geom = t_geo.ArrayGeometry(positions=t_geo.circular_positions(
+        c, 0.1 if c == 16 else 0.05), sample_rate=48000)
+    before = srp_fused.steering_table.LAUNCHES
+    plan = t_srp.device_plan(t_srp.make_plan(geom, (f - 1) * 2, g_pts),
+                             geom.pairs, dev)
+    assert srp_fused.steering_table.LAUNCHES == before + 1
+    table = srp_fused.steering_table(plan.tau_pg, plan.omega,
+                                     plan.omega_step)
+    assert srp_fused.steering_table.LAUNCHES == before + 2
+    assert torch.equal(table, plan.steer_table)
+    p = plan.tau_pg.shape[0]
+    assert table.shape == srp_fused.steering_table_shape(f, p, g_pts)
+    want = srp_fused.steering_table_plain(plan.tau_pg.cpu(), plan.omega.cpu(),
+                                          plan.omega_step)
+    got = table.cpu()
+    half = srp_fused.STEER_BYTES // 8
+    big, small = got[..., :half], got[..., half:]
+    assert (big.view(torch.int32) & 0x1fff == 0).all()
+    assert torch.equal(small, (big + small) - big)
+    torch.testing.assert_close(big + small,
+                               want[..., :half] + want[..., half:],
+                               atol=1e-5, rtol=0)
+
+
+def test_steering_table_built_once_a_plan(dev):
+    """The steering table is made once a plan and never a call: a
+    pipeline's build launches it once (config4, config5), a 2-shard pair
+    split once a shard (each its own pairs' table, pad pairs at tau 0), and
+    process_blocks, process_block (capture and replays), process_streams
+    and run launch it never."""
+    from mcax_torch.config import get_config
+    from mcax_torch.pipeline import Pipeline
+    for name in ("config4", "config5"):
+        cfg = get_config(name)
+        before = srp_fused.steering_table.LAUNCHES
+        pipe = Pipeline(cfg, device=dev)
+        assert srp_fused.steering_table.LAUNCHES == before + 1
+        plan = pipe.plans.plan
+        assert plan.steer_table is not None
+        x = torch.from_numpy(_plane_wave(cfg.geometry(), 0.6,
+                                         4 * cfg.block_len, 3)).to(dev)
+        blocks = x.reshape(x.shape[0], 4, -1).permute(1, 0, 2).contiguous()
+        before = srp_fused.steering_table.LAUNCHES
+        st, _ = pipe.process_blocks(pipe.init_state(), blocks)
+        st = pipe.init_state()
+        for b in range(4):
+            st, _ = pipe.process_block(st, blocks[b])
+        pipe.process_streams(pipe.init_states(2), blocks[:2])
+        pipe.run(x)
+        torch.cuda.synchronize()
+        assert srp_fused.steering_table.LAUNCHES == before
+        before = srp_fused.steering_table.LAUNCHES
+        shards = [t_srp.pair_shard(plan, pipe.plans.srp_plan, "fused", 2, k)
+                  for k in range(2)]
+        assert srp_fused.steering_table.LAUNCHES == before + 2
+        for sh in shards:
+            assert torch.equal(sh.steer_table, srp_fused.steering_table(
+                sh.tau_pg, sh.omega, sh.omega_step))
 
 
 TF32_PROBE = r"""
@@ -337,10 +412,10 @@ def test_srp_fused_at_pipeline_frames(dev, c, f, m, r):
     peak, two calls bit-equal, one launch counted a call."""
     plan, args = _fused_case(dev, c, f, m, r)
     before = srp_fused.srp_power_fused.LAUNCHES
-    got = srp_fused.srp_power_fused(*args, plan.omega_step, plan.staging)
+    got = srp_fused.srp_power_fused(*args, plan.staging, plan.steer_table)
     assert srp_fused.srp_power_fused.LAUNCHES == before + 1
-    assert torch.equal(got, srp_fused.srp_power_fused(*args, plan.omega_step,
-                                                      plan.staging))
+    assert torch.equal(got, srp_fused.srp_power_fused(*args, plan.staging,
+                                                      plan.steer_table))
     want = srp_fused.srp_power_fused_plain(*args)
     scale = want.abs().max()
     torch.testing.assert_close(got / scale, want / scale, atol=1e-4, rtol=0)
@@ -362,12 +437,12 @@ def test_srp_fused_split_plan_against_a_sweep(dev, c, f, m, r):
     chosen = srp_fused.split_plan(m, f, p, g, sms)
 
     def time_ms(splits, per):
-        srp_fused._launch(*args, plan.omega_step, plan.staging, splits, per)
+        srp_fused._launch(*args, plan.staging, plan.steer_table, splits, per)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(10):
-            srp_fused._launch(*args, plan.omega_step, plan.staging, splits,
+            srp_fused._launch(*args, plan.staging, plan.steer_table, splits,
                               per)
         end.record()
         torch.cuda.synchronize()

@@ -157,9 +157,9 @@ def test_every_kernel_has_a_counter_and_its_sources():
     from mcax_torch.kernels import _build
     from mcax_torch.utils.metrics import launch_counters
     counters = launch_counters()
-    # 18 kernel wrappers' LAUNCHES
-    assert len(set(counters.values())) == len(counters) == 18
-    assert len({fn for fn, _ in counters.values()}) == 18
+    # 19 kernel wrappers' LAUNCHES
+    assert len(set(counters.values())) == len(counters) == 19
+    assert len({fn for fn, _ in counters.values()}) == 19
     for name, (fn, attr) in counters.items():
         assert isinstance(getattr(fn, attr), int), name
         assert name == fn.__name__ or attr != "LAUNCHES", name

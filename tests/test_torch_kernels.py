@@ -115,8 +115,9 @@ def test_srp_fused_matches_mcax(c, radius, f, g_pts, m, invalid):
     got = t_srp_fused.srp_power_fused(
         torch.from_numpy(spec), torch.from_numpy(geom.pairs),
         torch.from_numpy(plan.tau_pg), torch.from_numpy(plan.omega), 1e-12,
-        torch.from_numpy(valid), t_srp.uniform_step(plan.omega),
-        torch.from_numpy(t_srp_fused.staging_table(geom.pairs, c))).numpy()
+        torch.from_numpy(valid),
+        torch.from_numpy(t_srp_fused.staging_table(geom.pairs, c)),
+        None).numpy()
     assert got.shape == want.shape == (m, g_pts)
     scale = np.abs(want).max()
     # the reference's default dot tier (bf16x3) carries ~1.5e-5 relative

@@ -40,7 +40,12 @@ kernel's own bound:
     the column tile from G, the layout from C); the staging table (each
     slice's channels in their slots from any start, pair shards included;
     the plan's pairs sorted by group pair filling far fewer slots) and the
-    plan's pair order, which leaves the surface within 3e-5.
+    plan's pair order, which leaves the surface within 3e-5; the steering
+    table the plan builds once (``steering_table_plain``: every slice,
+    column tile, step, grid point and bin at the offset the producers'
+    ring stage gave it, big + small exactly the ramp's phasor, big a TF32
+    value; its bytes at the bulk cells' shapes; pair shards' own tables,
+    pad pairs at tau = 0).
 """
 
 import numpy as np
@@ -930,8 +935,146 @@ def test_plan_carries_the_uniform_omega_step():
     assert t_srp.uniform_step(bent) == 0.0
     assert t_srp.uniform_step(plan.omega[:1]) == 0.0
     assert t_srp.uniform_step(plan.omega + 1.0) == 0.0
-    spec = torch.zeros((8, 3, 513), dtype=torch.complex64)
     with pytest.raises(ValueError, match="uniform step"):
-        srp_fused.srp_power_fused(spec, dplan.pairs, dplan.tau_pg,
-                                  dplan.omega, 1e-12, dplan.valid, 0.0,
-                                  dplan.staging)
+        srp_fused.steering_table(dplan.tau_pg, dplan.omega, 0.0)
+
+
+# -- kernel 2's steering table ----------------------------------------------
+
+B_STEP = 32 * srp_fused.BN           # csrc/srp_fused.cu: a step of a plane
+B_PLANE = 4 * B_STEP
+
+
+def _table_case(c, f, g, radius=0.05):
+    geom = t_geo.ArrayGeometry(positions=t_geo.circular_positions(c, radius),
+                               sample_rate=48000)
+    plan = t_srp.make_plan(geom, (f - 1) * 2, g)
+    return geom, plan, t_srp.device_plan(plan, geom.pairs, CPU)
+
+
+def _table_offsets(nfc, p, tiles):
+    """The byte offset in the table of every (slice, column tile, step,
+    grid point, bin of the step) of E_re's big plane, as the producers'
+    ring stage had it (csrc/srp_fused.cu, b_offset: grid point n's bins 8 h
+    .. at (n >> 3) * 256 + (n & 7) * 16 + 2 h B_STEP, a step B_STEP on)
+    and as one bulk copy of STEER_BYTES a slice and tile brings it:
+    int64 [nfc * p, tiles, 4, BN, 4]."""
+    i = torch.arange(nfc * p)[:, None, None, None, None]
+    ct = torch.arange(tiles)[None, :, None, None, None]
+    st = torch.arange(4)[None, None, :, None, None]
+    n = torch.arange(srp_fused.BN)[None, None, None, :, None]
+    b = torch.arange(4)[None, None, None, None, :]
+    stage = (i * tiles + ct) * srp_fused.STEER_BYTES
+    return stage + (n >> 3) * 256 + (n & 7) * 16 + st * B_STEP + b * 4
+
+
+@pytest.mark.parametrize("c,f,g", [(4, 129, 100), (3, 33, 360), (5, 17, 8)])
+def test_steering_table_layout_and_split(c, f, g):
+    """The steering table (``steering_table_plain``, what the kernel's
+    ``srp_steer_table_kernel`` writes): every (slice, column tile, step,
+    grid point, bin) at the offset the producers' ``b_offset`` gave it in a
+    ring stage, E_re in the first half of a step's group and -E_im 128
+    bytes on, big + small exactly the phasor the producers made (a run of 8
+    bins on omega's ramp from its first bin's phasor, 0 past F; tau 0 past
+    G), big's low 13 bits zero and small = x - big, the small plane
+    B_PLANE bytes after the big."""
+    import re
+    from pathlib import Path
+    src = (Path(srp_fused.__file__).resolve().parents[1] / "csrc"
+           / "srp_fused.cu").read_text()
+    assert "return (n >> 3) * 256 + (n & 7) * 16 + 2 * h * B_STEP;" in src
+    assert re.search(r"constexpr int B_STEP = 32 \* BN;", src)
+    assert srp_fused.STEER_BYTES == 2 * B_PLANE == 30720
+    _, _, dplan = _table_case(c, f, g)
+    p = dplan.tau_pg.shape[0]
+    nfc, tiles = -(-f // srp_fused.KB), -(-g // srp_fused.BN)
+    table = srp_fused.steering_table(dplan.tau_pg, dplan.omega,
+                                     dplan.omega_step)
+    assert table.shape == (nfc * p, tiles, srp_fused.STEER_BYTES // 4)
+    assert table.shape == srp_fused.steering_table_shape(f, p, g)
+    flat = table.reshape(-1)
+    bits = flat.view(torch.int32)
+    off = _table_offsets(nfc, p, tiles) // 4
+    # what the producers made: [P, KB, G'] a chunk, points past G at tau 0
+    taup = torch.zeros((p, tiles * srp_fused.BN))
+    taup[:, :g] = dplan.tau_pg
+    want_r = torch.stack([_phasor_tiles(dplan.omega, taup, fc * 16, f,
+                                        dplan.omega_step)[0]
+                          for fc in range(nfc)])         # [nfc, P, KB, G']
+    want_i = torch.stack([_phasor_tiles(dplan.omega, taup, fc * 16, f,
+                                        dplan.omega_step)[1]
+                          for fc in range(nfc)])
+
+    def at(x):
+        # [nfc, P, KB, tiles * BN] -> [slice, tile, step, point, bin]
+        return x.reshape(nfc * p, 4, 4, tiles, srp_fused.BN).permute(
+            0, 3, 1, 4, 2)
+
+    seen = torch.zeros(flat.numel(), dtype=torch.int32)
+    for half, want in ((0, at(want_r)), (128 // 4, at(-want_i))):
+        big, small = off + half, off + half + B_PLANE // 4
+        assert torch.equal(flat[big] + flat[small], want)
+        assert (bits[big] & 0x1fff == 0).all()
+        assert torch.equal(flat[small], want - flat[big])
+        assert torch.equal(bits[big], (want.view(torch.int32) + 0x1000)
+                           & -0x2000)
+        seen[big.reshape(-1)] += 1
+        seen[small.reshape(-1)] += 1
+    assert (seen == 1).all()                  # every word written once
+    past_g = torch.arange(tiles * srp_fused.BN) >= g
+    assert (flat[off][:, -1, :, past_g[-srp_fused.BN:]] == 1.0).all()
+
+
+def test_steering_table_bytes_at_the_cells():
+    """ceil(F / 16) * P * ceil(G / 120) * 30 720 bytes, from the shapes
+    alone: config4 (F = 513, P = 28) 85.2 MB, config5 (257, 120) 188.0 MB,
+    LOCATA's em32 (513, 496) 1.509 GB, all at G = 360."""
+    import math
+
+    def nbytes(f, p, g):
+        return 4 * math.prod(srp_fused.steering_table_shape(f, p, g))
+
+    assert nbytes(513, 28, 360) == 85_155_840
+    assert nbytes(257, 120, 360) == 188_006_400
+    assert nbytes(513, 496, 360) == 1_508_474_880
+    assert nbytes(16, 1, 120) == srp_fused.STEER_BYTES
+    assert nbytes(17, 1, 121) == 4 * srp_fused.STEER_BYTES
+
+
+@pytest.mark.parametrize("c,shards", [(5, 3), (4, 4), (8, 2)])
+def test_steering_table_of_pair_shards(c, shards):
+    """A pair shard's steering table (made for its own pairs, as
+    ``pair_shard`` makes it on a card): each real pair's slices are the
+    whole plan's for that pair and chunk, bit for bit; a pad pair (0, 0)
+    carries tau = 0's B' (E_re 1 in the big plane, -E_im -0, small 0).  On
+    the CPU the plan holds no table (the plain version reads the TDOAs)."""
+    f, g = 40, 130
+    geom, plan, dplan = _table_case(c, f, g)
+    assert dplan.steer_table is None
+    p = dplan.tau_pg.shape[0]
+    nfc = -(-f // srp_fused.KB)
+    whole = srp_fused.steering_table(dplan.tau_pg, dplan.omega,
+                                     dplan.omega_step)
+    whole = whole.reshape(nfc, p, *whole.shape[1:])
+    pl = -(-p // shards)
+    pads = 0
+    for index in range(shards):
+        shard = t_srp.pair_shard(dplan, plan, "fused", shards, index)
+        assert shard.steer_table is None
+        table = srp_fused.steering_table(shard.tau_pg, shard.omega,
+                                         shard.omega_step)
+        table = table.reshape(nfc, pl, *table.shape[1:])
+        for j in range(pl):
+            q = index * pl + j
+            if q < p:
+                assert torch.equal(table[:, j], whole[:, q])
+                continue
+            pads += 1
+            assert not shard.valid[j] and shard.tau_pg[j].abs().max() == 0
+            planes = table[:, j].reshape(nfc, -1, 2, 4, srp_fused.BN // 8,
+                                         2, 32)
+            assert (planes[:, :, 0, :, :, 0] == 1.0).all()
+            im = planes[:, :, 0, :, :, 1]
+            assert (im == 0).all() and torch.signbit(im).all()
+            assert (planes[:, :, 1] == 0).all()
+    assert pads == shards * pl - p
