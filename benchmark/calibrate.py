@@ -7,7 +7,10 @@ set-up in one process.
 
 Prints one line per seed (its result object, ``compared`` holding each
 number beside the current limit) and last a summary: each number's largest
-reading over the seeds.  The benchmark's own runs never run this.
+and smallest reading over the seeds, and the process's start on the wall
+clock (a seed's window starts ``setup_s`` after it).  A cell on several
+cards runs on as many ranks, launched as ``run.py`` launches them.  The
+benchmark's own runs never run this.
 """
 
 import time
@@ -22,7 +25,7 @@ from pathlib import Path  # noqa: E402
 BENCH = Path(__file__).resolve().parent
 sys.path[:0] = [str(BENCH), str(BENCH.parent)]
 
-from harness import runner  # noqa: E402
+from harness import cells, ranks, runner  # noqa: E402
 
 # seeds far apart and above 32 signed bits, as the checks draw them
 STRIDE = 2_654_435_761
@@ -42,7 +45,12 @@ def main() -> int:
            "seconds": args.seconds, "trace": False, "t_start": T_START,
            "device": "cuda", "overrides": {}, "inject": None,
            "control": args.control}
-    res = runner.run_job(job)
+    chips = cells.workload(cells.spec(), args.workload)["chips"]
+    if chips == 1:
+        res = runner.run_job(job)
+    else:
+        res = ranks.launch(job, chips, limit_s=120.0 + len(seeds) * (
+            args.seconds + 40.0))
     lines = []
     for seed, r in zip(seeds, res):
         lines.append({"seed": seed, "correct": r["correct"],
@@ -53,7 +61,8 @@ def main() -> int:
     least = {k: min(ln["compared"][k]["value"] for ln in lines)
              for k in lines[0]["compared"]}
     summary = {"workload": args.workload, "control": args.control,
-               "seeds": len(seeds), "largest": worst, "smallest": least}
+               "seeds": len(seeds), "largest": worst, "smallest": least,
+               "t_start": T_START}
     print(json.dumps(summary))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -1,7 +1,8 @@
 """The system under test, ``mcax_torch``, built from a configuration file.
 
 The harness reaches the program only here and in the drivers
-(``benchmark/drivers/``), whose adapters wrap the ``Pipeline`` built here.
+(``benchmark/drivers/``), whose adapters wrap the ``Pipeline`` or the
+``ShardedPipeline`` built here.
 ``snapshot`` copies a program state into the reference's plain form.
 """
 
@@ -32,6 +33,21 @@ def pipeline(cfg: dict, device):
     run = cfg["run"]
     return Pipeline(pipeline_config(cfg), device=device, srp=run["srp"],
                     scan_mode=run["scan_mode"])
+
+
+def sharded(cfg: dict, device):
+    """The configuration's ``ShardedPipeline`` on this rank's ``device``,
+    over the ('time', 'channel') mesh its ``config.mesh`` states, as its
+    ``run`` block asks (``srp``, ``scan_mode``, ``halo``).  Every rank of
+    the default process group calls it."""
+    from mcax_torch.dist.mesh import make_mesh
+    from mcax_torch.dist.sharded import ShardedPipeline
+    run, mesh = cfg["run"], cfg["config"]["mesh"]
+    return ShardedPipeline(pipeline_config(cfg),
+                           make_mesh(mesh["time_shards"],
+                                     mesh["channel_shards"]),
+                           device=device, srp=run["srp"],
+                           scan_mode=run["scan_mode"], halo=run["halo"])
 
 
 def load_kernels() -> None:

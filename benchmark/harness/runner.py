@@ -5,7 +5,9 @@ its driver (``benchmark/drivers/<name>.py``): the adapter of the entry
 point and the closed loop, which this module runs the same way for every
 cell: warm-up, the window (``--trace 0``), or, with ``--trace 1``,
 ``traced_calls`` calls by the host clock alone and as many again under the
-profiler.  A cell runs in this one process, on one card.
+profiler.  A cell on one card runs in this one process; a cell on several
+runs in one rank process a card (``harness.ranks``), each running the same
+code with a ``ranks.Team`` and rank 0 judging and reporting.
 """
 
 from __future__ import annotations
@@ -40,7 +42,8 @@ class Run:
     window_s: float
     setup_s: float
     series: dict                   # the driver's per-call timings
-    traces: Optional[list] = None  # one harness.trace.Trace
+    traces: Optional[list] = None  # a harness.trace.Trace a card
+    cards: int = 1
 
 
 def job_for(args, t_start: float) -> dict:
@@ -50,16 +53,18 @@ def job_for(args, t_start: float) -> dict:
             "inject": None}
 
 
-def run_job(job: dict) -> list:
+def run_job(job: dict, team=None) -> list:
     """Run a cell in this process, once for each of ``job["seeds"]`` after
-    one set-up, and return the result lines' objects.  ``job["control"]``
-    puts the reference's control in the program's place, for as many calls
-    as a run checks; ``job["inject"]`` (``module:function``) wraps the
-    program's adapter."""
+    one set-up, and return the result lines' objects (None on a rank other
+    than 0 of ``team``, a ``ranks.Team``).  ``job["control"]`` puts the
+    reference's control in the program's place, for as many calls as a run
+    checks; ``job["inject"]`` (``module:function``) wraps the program's
+    adapter; ``job["spec"]``, where given, stands for ``BENCHMARK.json``."""
     import torch
-    from harness import program
+    from harness import program, ranks
+    team = team or ranks.Team()
 
-    bench = cells.spec()
+    bench = job.get("spec") or cells.spec()
     cell = cells.workload(bench, job["workload"])
     cfg = cells.config(cell["config"])
     traffic = {**cells.traffic(cell["traffic"]), **job["overrides"]}
@@ -76,11 +81,11 @@ def run_job(job: dict) -> list:
         mod, fn = job["inject"].split(":")
         prog = getattr(importlib.import_module(mod), fn)(prog)
     return [one_seed(job, seed, bench, cell, cfg, traffic, driver, prog,
-                     dev) for seed in job["seeds"]]
+                     dev, team) for seed in job["seeds"]]
 
 
-def one_seed(job, seed, bench, cell, cfg, traffic, driver, prog, dev
-             ) -> dict:
+def one_seed(job, seed, bench, cell, cfg, traffic, driver, prog, dev, team
+             ) -> Optional[dict]:
     import torch
     import scenes
     from harness import drive, trace as tr_mod
@@ -89,6 +94,9 @@ def one_seed(job, seed, bench, cell, cfg, traffic, driver, prog, dev
     c, length = cfg["config"]["array"]["num_mics"], cfg["config"]["block_len"]
     inputs = scenes.make(cfg, traffic, b * d, seed, dev).view(d, b, c,
                                                               length)
+    if team.world > 1:
+        # each rank made the scene on its own card: the same one
+        team.same("scenes", scenes.digest(inputs))
     if dev.type == "cuda":
         # the peak read is the program's: its inputs resident, not the
         # scene's making
@@ -122,10 +130,20 @@ def one_seed(job, seed, bench, cell, cfg, traffic, driver, prog, dev
     setup_s = loop.t0_wall - job["t_start"]
     peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
             else 0)
-    numbers, failed = judge(cfg, limits, sampler.records(), inputs, dev)
+    # the fullest card's peak, every card's trace and the calls to judge
+    # (a driver of several ranks gathers their outputs) on rank 0
+    peak = max(team.gather(int(peak)))
+    if traces is not None:
+        traces = team.gather(traces[0])
+    records = (driver.records(prog, sampler, team)
+               if hasattr(driver, "records") else sampler.records())
+    if team.rank != 0:
+        return None
+    numbers, failed = judge(cfg, limits, records, inputs, dev)
     run = Run(cell=cell, config=cfg, traffic=traffic, calls=loop.calls,
               samples=loop.calls * b * length, window_s=loop.window_s,
-              setup_s=setup_s, series=series, traces=traces)
+              setup_s=setup_s, series=series, traces=traces,
+              cards=team.world)
     return result(bench, run, numbers, limits, failed, peak, dev)
 
 
@@ -138,6 +156,7 @@ def judge(cfg, limits, records, inputs, dev):
     worst, failed = {}, 0
     for rec in records:
         got = ref.judge(chain, {"x": inputs[rec["index"]], **rec})
+        got.update(rec.get("numbers", {}))     # the driver's own, if any
         failed += any(v > limits[k] for k, v in got.items())
         for k, v in got.items():
             worst[k] = max(worst.get(k, v), v)
@@ -155,7 +174,7 @@ def result(bench, run: Run, numbers, limits, failed, peak, dev):
     device = {"platform": "gpu" if dev.type == "cuda" else "cpu",
               "kind": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                        else "cpu"),
-              "count": 1, "memory_peak_bytes": int(peak)}
+              "count": run.cards, "memory_peak_bytes": int(peak)}
     out = {"correct": failed == 0 and all(
                v <= limits[k] for k, v in numbers.items()),
            "attempted": run.calls, "failed": failed, "metrics": metrics,
@@ -197,11 +216,15 @@ def main(argv, t_start: float) -> int:
               f"available: {torch.cuda.is_available()}, count "
               f"{torch.cuda.device_count()}", file=sys.stderr)
         return 2
-    if cell["chips"] != 1:
-        print(f"{args.workload} asks for {cell['chips']} cards; this "
-              f"harness runs a cell on one", file=sys.stderr)
-        return 2
-    res = run_job(job_for(args, t_start))[0]
+    if cell["chips"] == 1:
+        res = run_job(job_for(args, t_start))[0]
+    else:
+        from harness import ranks
+        try:
+            res = ranks.launch(job_for(args, t_start), cell["chips"])[0]
+        except ranks.RanksFailed as e:
+            print(f"{args.workload}: {e}", file=sys.stderr)
+            return 1
     bad = forbidden_modules()
     if bad:
         print(f"loaded after the window: {bad}", file=sys.stderr)

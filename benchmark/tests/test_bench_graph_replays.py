@@ -53,4 +53,5 @@ def test_in_benchmark_json():
         "graph_replays.stream"]
     assert (m["unit"], m["better"], m["source"], m["moves"],
             m["workloads"]) == ("%", "higher", "device_trace",
-                                "block_p95_ms", ["config4.stream"])
+                                "block_p95_ms",
+                                ["config4.stream", "config5.stream"])

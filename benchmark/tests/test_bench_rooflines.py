@@ -13,7 +13,8 @@ MVDR = cells.reader("mvdr_roofline.bulk")
 COV = cells.reader("covprefix_roofline.bulk")
 NS = "(anonymous namespace)::"
 # the kernels of a bulk call beside the ones each reader counts
-OTHERS = [(NS + "srp_fused_kernel_grouped(float2 const*)", 0.0, 900.0),
+OTHERS = [(NS + "srp_fused_kernel(float2 const*, int const*)", 0.0,
+           900.0),
           ("mcax::tc::sum_partials_kernel(float const*)", 900.0, 950.0),
           (NS + "stft_fft_blocks_kernel(float const*)", 950.0, 990.0),
           (NS + "track_scan_kernel(float const*)", 990.0, 995.0)]
