@@ -19,7 +19,8 @@ The particle smoother (``particle_track_blocks``) replaces the EMA update
 with one particle cloud a source (``algos/particle.py``): every draw of the
 call in one ``particle_draws`` launch, then ``kernels.track.particle_scan``
 (one launch) for the peaks, the association, the masked surface and the
-filter's update, resample and estimate over the blocks in order.  Both
+filter's update, resample and estimate over the blocks in order, both in
+a ``mcax_torch.particles`` span (``utils.metrics.span``).  Both
 trackers return (new state, grid_idx, angles, confidence), the last three
 [..., B, S].
 """
@@ -97,10 +98,13 @@ def particle_track_blocks(pstate: particle.ParticleState,
 
     Returns (new_pstate, grid_idx [..., B, S], doa [..., B, S], confidence
     [..., B, S]), equal to B calls at B = 1."""
+    # imported here: mcax_torch.utils imports this module (checkpoint.py)
+    from mcax_torch.utils.metrics import span
     b = power_mean.shape[-2]
     s, n = pstate.angles.shape[-2:]
-    noise, u, key = threefry.particle_draws(pstate.key, b, s, n)
-    angles, weights, gidx, doa, conf = track.particle_scan(
-        pstate.angles, pstate.weights, power_mean, azimuths_rad,
-        suppress_bins, step_std_rad, resample_threshold, noise, u)
+    with span("mcax_torch.particles"):
+        noise, u, key = threefry.particle_draws(pstate.key, b, s, n)
+        angles, weights, gidx, doa, conf = track.particle_scan(
+            pstate.angles, pstate.weights, power_mean, azimuths_rad,
+            suppress_bins, step_std_rad, resample_threshold, noise, u)
     return particle.ParticleState(angles, weights, key), gidx, doa, conf
