@@ -254,13 +254,15 @@ PASS1_CLOCK_CALLS = 4000
 # microbenchmark here): track_scan's association and update of one peak
 # (the distance's wrap, the argmin, the error's wrap, the EMA, the new
 # angle's wrap: 14 float operations, fmodf counted as one, 4 cycles each);
-# particle_scan's 7 dependent warp reductions (min, the masked surface's
-# sum and squares, the weights' sum and squares, the cumsum, the estimate)
-# of 5 shuffle rounds and a broadcast each, 30 cycles a shuffle; the calls
-# timed while the SM clock is read
+# particle_scan's cloud warps' 5 dependent warp reductions (the max of the
+# gathered surface, the weights' sum and squares, the cumsum, the
+# estimate) of 5 shuffle rounds and a broadcast each, 30 cycles a shuffle
+# (the surface's floor and the masked surface's sum and squares are the
+# producer warps', off the chain); the calls timed while the SM clock is
+# read
 TRACK_CHAIN_OPS = 14
 FLOAT_LATENCY_CYCLES = 4
-PARTICLE_CHAIN_SHUFFLES = 42
+PARTICLE_CHAIN_SHUFFLES = 30
 SHUFFLE_LATENCY_CYCLES = 30
 TRACK_CLOCK_CALLS = 2000
 
@@ -1492,6 +1494,7 @@ def check_track_kernels(pipe5, blocks5, peaks):
         args = (st.angles, st.weights, p, az, sup, a.particle_step_std_rad,
                 a.particle_resample_threshold, noise, u)
         got = track.particle_scan(*args)
+        waits = track.particle_scan.ring_waits()
         want = track.particle_scan_plain(*args)
         for name, x, y in (("doa", got[3], want[3]),
                            ("confidence", got[4], want[4])):
@@ -1538,7 +1541,8 @@ def check_track_kernels(pipe5, blocks5, peaks):
             ms=time_ms(lambda: track.particle_scan(*args)),
             plain_ms=time_ms(lambda: track.particle_scan_plain(*args),
                              reps=2),
-            library_ms=None, bound_ms=bound[0], bound_by=bound[1])
+            library_ms=None, bound_ms=bound[0], bound_by=bound[1],
+            ring_waits=waits)
         if r == 1:
             bulk_args = args
     fl, mhz = floor_ms(lambda: track.particle_scan(*bulk_args),
@@ -1553,13 +1557,14 @@ def check_track_kernels(pipe5, blocks5, peaks):
         "recursion", bound=(part[1]["bound_ms"], part[1]["bound_by"]),
         shape=part[1]["shape"],
         design=f"serial chain floor {fl:.4f} ms ({b} blocks x "
-        f"{PARTICLE_CHAIN_SHUFFLES} dependent warp shuffles (7 reductions "
-        f"of 5 rounds and a broadcast) x {SHUFFLE_LATENCY_CYCLES} cycles, an "
+        f"{PARTICLE_CHAIN_SHUFFLES} dependent warp shuffles (the cloud "
+        f"warps' 5 reductions of 5 rounds and a broadcast) x "
+        f"{SHUFFLE_LATENCY_CYCLES} cycles, an "
         f"assumed latency, not measured, at {mhz:.0f} MHz, the SM clock "
         f"nvidia-smi read while it ran); kernel "
         f"{part[1]['ms'] / fl:.2f}x the floor",
         design_bound=(fl, "latency of the filter's reductions"),
-        at_r16=part[16])
+        ring_waits=part[1]["ring_waits"], at_r16=part[16])
     print(f"kernel particle_scan: within the rule of its plain version on "
           f"config5's surfaces at R = 1, B = {b} and R = 16, B = 1: over "
           f"the dispatch doa {worst['doa']:.3e}, confidence "
@@ -1568,6 +1573,10 @@ def check_track_kernels(pipe5, blocks5, peaks):
           f"{worst['step']:.3e} (bound 1e-6), {worst['picks']} resample "
           "picks differing within 4 ulp of a cumsum boundary; B block calls "
           "bit-equal to the batched call")
+    print(f"kernel particle_scan: {part[1]['ms']:.4f} ms at R = 1, B = {b} "
+          f"(ring waits {part[1]['ring_waits']} of {b} blocks), "
+          f"{part[16]['ms']:.4f} ms at R = 16, B = 1 (ring waits "
+          f"{part[16]['ring_waits']})")
     return recs
 
 

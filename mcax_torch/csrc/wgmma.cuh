@@ -1,8 +1,9 @@
 // Hopper's warpgroup MMA (wgmma) in TF32 with both operands in shared
 // memory, the mbarriers of shared-memory rings and the bulk copies (TMA)
 // that fill them: the product body of
-// kernel 2 (srp_fused.cu, the only source that includes this header;
-// kernel 10 keeps gemm_tc.cuh's mma.sync body).
+// kernel 2 (srp_fused.cu; kernel 10 keeps gemm_tc.cuh's mma.sync body).
+// track.cu's particle_scan takes only the mbarriers, for its ring of
+// blocks.
 //
 // wgmma.mma_async.m64nNk8.f32.tf32.tf32 is issued by a warpgroup (4 warps,
 // 128 threads) and runs asynchronously on the SM's tensor cores:

@@ -102,11 +102,12 @@ SIGNATURES = {
     # conf_b, R, B, S, G, sup, pi, two_pi, keep, cs, cs1, stream
     "mcax_track_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                         _I, _I, _I, _F, _F, _F, _F, _F, _P),
-    # ang0, w0, power, az, noise, u, ang1, w1, grid, doa_b, conf_b, R, B, S,
-    # N, G, sup, pi, two_pi, step, thr, eps, inv_n, w_reset, stream
-    "mcax_particle_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                           _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F,
-                           _P),
+    # ang0, w0, power, az, noise, u, ang1, w1, grid, doa_b, conf_b,
+    # ring_waits, R, B, S, N, G, sup, pi, two_pi, step, thr, eps, inv_n,
+    # w_reset, stream
+    "mcax_particle_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F,
+                           _F, _P),
     # tiles (int[4]: BM, BN, BK, blocks an SM of gemm_tc.cuh)
     "mcax_gemm_tc_tiles": (_P,),
     # the ring's host entry points (dist/halo_rdma.py): slot_bytes, &buf,

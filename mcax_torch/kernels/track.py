@@ -9,12 +9,16 @@ program.  Here the scan is one kernel launch a call (``csrc/track.cu``):
   * ``track_scan`` — the S peaks of each of the B surfaces, the greedy
     peak -> track association and EMA update over the blocks in order, and
     the grid point nearest each smoothed track;
-  * ``particle_scan`` — the peaks, then per block the association of the
-    peaks to the clouds' estimates, the rival-masked surface, predict with
-    the given noise, update, ESS, systematic resample where the ESS falls
+  * ``particle_scan`` — per block the association of the block's peaks to
+    the clouds' estimates, predict with the given noise, update on the
+    rival-masked surface, ESS, systematic resample where the ESS falls
     under the threshold, and the estimate; then the nearest grid points.
-    The draws are ``threefry.particle_draws``' (one launch a dispatch):
-    this kernel consumes them and never touches the key.
+    Producer warps make what does not depend on the clouds (each block's
+    peaks, its surface and floor, and the masked surface's scale for each
+    peak a cloud may own) ahead of the clouds, into a ring of slots in
+    shared memory (``particle_smem``, ``particle_depth``).  The draws are
+    ``threefry.particle_draws``' (one launch a dispatch): this kernel
+    consumes them and never touches the key.
 
 The plain versions (``*_plain``) are the port's arithmetic as it was before
 the kernel: ``extract_peaks`` over all blocks, then the per-block update
@@ -237,14 +241,25 @@ def _check_surfaces(power_mean, azimuths_rad, lead, min_grid):
 # (particle_smem) beside 2 x MAX_SOURCES static float32 estimates.
 MAX_SOURCES = 8
 MAX_PARTICLES = 1024
-_CHUNK = 512                  # blocks whose peaks are staged at once
 
 
-def particle_smem(s: int, n: int, g: int) -> int:
-    """particle_scan's dynamic shared memory at S = s, N = n, G = g
-    (bytes): angles and cumsum [S, N], the masked surfaces [S, G] and a
-    chunk's peaks [512, S], 32-bit words each."""
-    return 4 * (2 * s * n + s * g + _CHUNK * s)
+def particle_smem(s: int, n: int, g: int, depth: int = 1) -> int:
+    """particle_scan's dynamic shared memory at S = s, N = n, G = g with a
+    ring of ``depth`` slots (bytes): a full and an empty barrier a slot (8
+    bytes each), then 32-bit words: the count of blocks published, angles,
+    cumsum and a block's noise [S, N] and u [S], and each slot's S peaks
+    (grid index, angle), S scales, the floor, the surface [G] and a byte a
+    bin of the peaks near it."""
+    return 16 * depth + 4 * (1 + 3 * s * n + s
+                             + depth * (3 * s + 1 + g + (g + 3) // 4))
+
+
+def particle_depth(b: int, s: int, n: int, g: int, limit: int) -> int:
+    """The ring's slots at B = b: as many as ``limit`` bytes hold beside the
+    clouds, at most b (csrc/track.cu's particle_depth, with
+    ``particle_smem_limit``); 0 where not one fits."""
+    per = particle_smem(s, n, g, 1) - particle_smem(s, n, g, 0)
+    return max(0, min(b, (limit - particle_smem(s, n, g, 0)) // per))
 
 
 def particle_smem_limit(device: torch.device) -> int:
@@ -359,20 +374,49 @@ def particle_scan(angles: torch.Tensor, weights: torch.Tensor,
     grid = torch.empty((r, b, s), dtype=torch.int64, device=dev)
     doa = torch.empty((r, b, s), dtype=torch.float32, device=dev)
     conf = torch.empty_like(doa)
+    waits = _ring_waits_buffer(dev, r)
     code = _build.library().mcax_particle_scan(
         a0.data_ptr(), w0.data_ptr(), p.data_ptr(), az.data_ptr(),
         nz.data_ptr(), uu.data_ptr(), a1.data_ptr(), w1.data_ptr(),
-        grid.data_ptr(), doa.data_ptr(), conf.data_ptr(), r, b, s, n, g,
+        grid.data_ptr(), doa.data_ptr(), conf.data_ptr(), waits.data_ptr(),
+        r, b, s, n, g,
         int(suppress_bins), float(np.float32(_PI)), float(np.float32(_TWO_PI)),
         float(np.float32(step_std_rad)), float(np.float32(resample_threshold)),
         float(np.float32(1e-12)), float(np.float32(1.0) / np.float32(n)),
         float(np.float32(1.0 / n)), _build.stream_of(p))
     _build.check_launch("particle_scan", code)
     particle_scan.LAUNCHES += 1
+    _LAST_WAITS[:] = [waits, r]
     return (a1.view(*lead, s, n), w1.view(*lead, s, n),
             grid.view(*lead, b, s), doa.view(*lead, b, s),
             conf.view(*lead, b, s))
 
 
+# The kernel's count of ring waits a stream, stored by every launch into a
+# buffer kept for good (a captured graph's launch keeps its pointer), one
+# per card, grown where a call has more streams
+_WAITS: dict = {}
+_LAST_WAITS: list = []
+
+
+def _ring_waits_buffer(dev: torch.device, r: int) -> torch.Tensor:
+    kept = _WAITS.setdefault(dev, [])
+    if not kept or kept[-1].numel() < r:
+        kept.append(torch.empty(max(r, 16), dtype=torch.int32, device=dev))
+    return kept[-1]
+
+
+def _ring_waits():
+    """The blocks at which the last ``particle_scan`` launch's cloud warps
+    found their ring slot not yet filled (its producer warps behind), a
+    stream each (a list; a synchronising read), or None before any launch.
+    For measurement: no path reads it."""
+    if not _LAST_WAITS:
+        return None
+    waits, r = _LAST_WAITS
+    return waits[:r].tolist()
+
+
 track_scan.LAUNCHES = 0
 particle_scan.LAUNCHES = 0
+particle_scan.ring_waits = _ring_waits

@@ -1117,14 +1117,14 @@ def _ulps(x, y):
             - y.contiguous().view(torch.int32).long()).abs()
 
 
-def _particle_case(dev, r, b, seed):
+def _particle_case(dev, r, b, seed, s=2, n=256):
     rng = np.random.default_rng(seed)
-    angles = rng.uniform(-np.pi, np.pi, (r, 2, 256)).astype(np.float32)
-    w = rng.uniform(0.0, 1.0, (r, 2, 256)) ** 4
+    angles = rng.uniform(-np.pi, np.pi, (r, s, n)).astype(np.float32)
+    w = rng.uniform(0.0, 1.0, (r, s, n)) ** 4
     w = (w / w.sum(-1, keepdims=True)).astype(np.float32)
     keys = torch.from_numpy(rng.integers(0, 2 ** 32, (r, 2)).astype(
         np.int64)).to(dev)
-    noise, u, _ = threefry.particle_draws(keys, b, 2, 256)
+    noise, u, _ = threefry.particle_draws(keys, b, s, n)
     az = torch.from_numpy(t_geo.azimuth_grid(360).astype(np.float32)).to(dev)
     return [torch.from_numpy(angles).to(dev), torch.from_numpy(w).to(dev),
             torch.from_numpy(_track_surfaces(seed, r, b)).to(dev), az, 20,
@@ -1143,12 +1143,43 @@ def test_particle_scan_within_the_rule(dev, r, b):
     a block until the two chains part, which they may only at such a pick
     (the sums' last bits decide it; the chains then follow different
     particles, as tests/test_torch_track_scan.py's free run against mcax).
-    B = 1100 crosses two of the kernel's chunks of 512 blocks."""
+    B = 512 and 1100 wrap the ring of slots (122 at these shapes on an
+    H100) several times, not at a multiple of it."""
+    _check_particle_scan(_particle_case(dev, r, b, 40 + r + b))
+
+
+@pytest.mark.parametrize("r,s,n,rings,b", [
+    (1, 2, 256, 1, -1), (1, 2, 256, 1, 0), (3, 2, 256, 2, 5),
+    (1, 8, 1024, 1, 0), (3, 8, 1024, 0, 1100)])
+def test_particle_scan_ring_hand_over(dev, r, s, n, rings, b):
+    """The ring's hand-over between particle_scan's producer and cloud
+    warps: B below, equal to and past the ring's depth (the slots the
+    card's shared memory holds beside the clouds at these shapes), wrapping
+    it several times and not at a multiple of it, on R = 3 streams, up to
+    S = 8 clouds of N = 1024 particles (the widest the wrapper admits):
+    the batched call bit-equal to B block calls and within the rule of the
+    plain version (``test_particle_scan_within_the_rule``'s checks), and
+    the ring waits counted a stream, at most B.  B is ``rings`` times the
+    ring's depth plus ``b``."""
     from mcax_torch.kernels import track
-    args = _particle_case(dev, r, b, 40 + r + b)
+    ring = track.particle_depth(1 << 30, s, n, 360,
+                                track.particle_smem_limit(torch.device(dev)))
+    b += rings * ring
+    waits = _check_particle_scan(_particle_case(dev, r, b, 60 + r + b, s, n))
+    assert len(waits) == r and all(0 <= x <= b for x in waits)
+    print(f"particle_scan R = {r}, S = {s}, N = {n}, B = {b}: ring of "
+          f"{min(b, ring)} slots, ring waits {waits}")
+
+
+def _check_particle_scan(args):
+    """test_particle_scan_within_the_rule's checks of one batched call;
+    returns the call's ring waits."""
+    from mcax_torch.kernels import track
+    r, b = args[2].shape[:2]
     before = track.particle_scan.LAUNCHES
     got = track.particle_scan(*args)
     assert track.particle_scan.LAUNCHES == before + 1
+    waits = track.particle_scan.ring_waits()
     angles, weights, surf, az, sup, step, thr, noise, u = args
     one = free = (angles, weights)
     parted, worst = None, 0.0
@@ -1184,6 +1215,7 @@ def test_particle_scan_within_the_rule(dev, r, b):
           f"boundary at block {parted}")
     for x, y in zip(one, got[:2]):
         assert torch.equal(x, y)
+    return waits
 
 
 def test_track_scans_reject_shapes_past_their_limits(dev):
@@ -1199,6 +1231,7 @@ def test_track_scans_reject_shapes_past_their_limits(dev):
     ptrs = (0,) * 11
     assert lib.mcax_track_scan(*ptrs, 1, 1, track.MAX_SOURCES + 1, 360, 20,
                                *(1.0,) * 5, stream) == 1
+    ptrs = (0,) * 12          # particle_scan's, with the ring waits
     assert lib.mcax_particle_scan(*ptrs, 1, 1, track.MAX_SOURCES + 1, 256,
                                   360, 20, *(1.0,) * 7, stream) == 1
     assert lib.mcax_particle_scan(*ptrs, 1, 1, 2, track.MAX_PARTICLES + 1,

@@ -229,20 +229,93 @@ def test_particle_scan_plain_matches_mcax_scan(r, b):
             np.testing.assert_array_equal(x, y[i].numpy())
 
 
+@pytest.mark.parametrize("s", [1, 2, 3, 8])
+def test_rival_masked_is_a_table_of_peak_variants(s):
+    """What particle_scan's producer warps rest on: a cloud's rival-masked
+    surface depends on the clouds only through which of the block's peaks
+    the greedy association gives it.  For random surfaces and clouds (one
+    stream peaked at -pi and +pi, one flat, one whose clouds' estimates
+    tie, one with estimates at +-pi), ``rival_masked`` equals, row by row,
+    a table of S variants built from the peaks alone (variant k: every
+    peak's neighbourhood but peak k's at the surface's floor) indexed by
+    the peak a plain greedy association gives each cloud."""
+    rng = np.random.default_rng(s)
+    r = 6
+    surf = rng.uniform(0.0, 1.0, (r, G)).astype(np.float32)
+    surf[0, 0], surf[0, G - 1] = 3.0, 2.0 + 1.0 * (s == 1)   # -pi, +pi
+    surf[1] = 0.5                                          # every bin ties
+    est = rng.uniform(-np.pi, np.pi, (r, s)).astype(np.float32)
+    est[2] = est[2, 0]                                     # tied estimates
+    est[3, ::2], est[3, 1::2] = np.float32(np.pi), np.float32(-np.pi)
+    angles = torch.from_numpy(est)
+    power = torch.from_numpy(surf)
+    az = torch.from_numpy(AZ)
+    idx, _ = track.extract_peaks(power, s, SUPPRESS)            # [r, s]
+    got = track.rival_masked(angles, power, idx, az, SUPPRESS)  # [r, s, G]
+    # the table: variant k floors every peak's neighbourhood but k's
+    pk = idx.numpy()
+    offs = np.arange(G)
+    dist = np.abs((offs[None, None] - pk[..., None] + G // 2) % G - G // 2)
+    near = dist <= SUPPRESS                                     # [r, s, G]
+    floor = surf.min(-1)[:, None, None]
+    table = np.where(near.any(1, keepdims=True) & ~near, floor,
+                     surf[:, None])                             # [r, s, G]
+    # the plain association: the strongest peak first claims the nearest
+    # unclaimed cloud, a tie to the lowest cloud
+    pa = az[idx]
+    for i in range(r):
+        claimed = torch.zeros(s, dtype=torch.bool)
+        for k in range(s):
+            d = track.circular_distance(angles[i], pa[i, k])
+            d = torch.where(claimed, torch.inf, d)
+            j = int(torch.argmin(d))
+            claimed[j] = True
+            np.testing.assert_array_equal(got[i, j].numpy(), table[i, k])
+        assert bool(claimed.all())
+
+
 # ---------------------------------------------------------------------------
 # The wrappers on the CPU
 # ---------------------------------------------------------------------------
 def test_limits_restate_the_kernels_constants():
-    """MAX_SOURCES, MAX_PARTICLES and particle_smem's chunk of blocks are
-    csrc/track.cu's constants (tests/test_torch_cuda.py holds them to the
-    built library on the card)."""
+    """MAX_SOURCES, MAX_PARTICLES and particle_smem's layout (a count, the
+    clouds' 3 S N + S words, then ring slots of two 8-byte barriers and
+    3 S + 1 + G + ceil(G / 4) words) are csrc/track.cu's constants
+    (tests/test_torch_cuda.py holds them to the built library on the
+    card)."""
     src = (_build.CSRC / "track.cu").read_text()
     const = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);",
                                               src)}
     assert const["MAX_SOURCES"] == track.MAX_SOURCES
     assert const["WARP"] * 32 == track.MAX_PARTICLES
     assert "N > WARP * 32" in src
-    assert track.particle_smem(1, 0, 0) == 4 * const["CHUNK"]
+    assert "return 3 * (size_t)S + 1 + G + (G + 3) / 4;" in src
+    assert "return 2 * sizeof(uint64_t) * D + sizeof(int) +" in src
+    assert "(3 * (size_t)S * N + S + D * slot_words(S, G));" in src
+    assert track.particle_smem(1, 0, 0, 0) == 8
+    assert track.particle_smem(2, 256, 360, 3) == (
+        3 * 16 + 4 * (1 + 3 * 2 * 256 + 2 + 3 * (3 * 2 + 1 + 360 + 90)))
+
+
+# H100's opt-in shared memory a block less particle_scan's static estimates
+_H100_LIMIT = 232448 - 4 * 2 * track.MAX_SOURCES
+
+
+@pytest.mark.parametrize("b,s,n,g,depth", [
+    (1, 2, 256, 360, 1),          # a block step: one slot
+    (100, 2, 256, 360, 100),      # B below what fits
+    (512, 2, 256, 360, 122),      # config5 in bulk
+    (1100, 8, 1024, 360, 69),     # the widest clouds
+    (4, 8, 1024, 26785, 1),       # one slot just fits
+    (4, 8, 1024, 26786, 0)])      # not even one
+def test_particle_depth_fills_the_shared_memory(b, s, n, g, depth):
+    """The ring holds min(B, what the card's shared memory leaves beside
+    the clouds) slots, and that many fit the limit (one more would not)."""
+    got = track.particle_depth(b, s, n, g, _H100_LIMIT)
+    assert got == depth
+    assert track.particle_smem(s, n, g, got) <= _H100_LIMIT
+    if got < b:
+        assert track.particle_smem(s, n, g, got + 1) > _H100_LIMIT
 
 
 def _track_args(r=2, b=3):

@@ -16,7 +16,9 @@ smoother:
   * ``bulk``: ``process_blocks`` at B = 512, one warm-up dispatch and
     ``DISPATCHES`` (3) timed ones with the state carried (the same blocks
     again), CUDA events around each: samples a channel per second over
-    the timed window, and each dispatch's ms;
+    the timed window, and each dispatch's ms; ``ring_waits``, the last
+    dispatch's ``track.particle_scan.ring_waits()`` (None for the EMA
+    tracker, or where the checkout's kernel has no ring);
   * ``bulk_profile``: one dispatch under ``torch.profiler``: device
     kernels, device busy ms and its share of the median timed dispatch;
   * ``block``: ``process_block`` over 16 consecutive blocks with the state
@@ -101,6 +103,9 @@ def measure(pipe, blocks) -> dict:
     torch.cuda.synchronize()
     ms = [ev[d].elapsed_time(ev[d + 1]) for d in range(DISPATCHES)]
     out["bulk_ms"] = ms
+    from mcax_torch.kernels import track
+    waits = getattr(track.particle_scan, "ring_waits", None)
+    out["ring_waits"] = waits() if waits else None
     out["bulk_samples_per_s"] = (BLOCKS * bl * DISPATCHES
                                  / (ev[0].elapsed_time(ev[-1]) * 1e-3))
     n, dms = profile(lambda: pipe.process_blocks(pipe.init_state(), blocks))
